@@ -1,0 +1,471 @@
+// Joint (non-causal) flash attention forward for FLUX MMDiT blocks, sm_90a.
+//
+// Replaces reptext_tpu/ops/flash_attention.py::_attn_kernel_rope (K1, RoPE
+// fused, half-split channel layout) and ::_attn_kernel (K2, no rotation): one
+// template, instantiated with ROPE = true / false and with the clamped
+// max-free softmax (default) or the running-max online softmax.
+//
+// What it computes, per (b, h) and query row i, exactly as the Pallas kernels:
+//   q' = bf16(rot(q_i) * 1/sqrt(D)),  k'_j = bf16(rot(k_j))
+//        rot(x) = x * cos + (-x_hi ++ x_lo) * sin, with bf16-rounded tables
+//        (rot = identity when ROPE is false)
+//   s_j = fp32(q' . k'_j); clamped: s_j = clip(s_j, -43, 43); s_j = -inf for j >= S
+//   e_j = exp(s_j - m)    (m = 0 clamped, running row max online)
+//   out = (sum_j bf16(e_j) v_j, fp32 accumulation) / sum_j e_j
+//   lse = m + log(sum_j e_j)
+//
+// What bounds it on an H100: at (1, 24, 4608, 128) one call is 4*S^2*D*H =
+// 2.6e11 FLOP against ~0.11 GB of q/k/v/out traffic, i.e. far above the
+// card's ~295 FLOP/byte ridge: it is bound by tensor-core math and by how
+// well the math is fed from L2 and shared memory, not by device memory.
+//
+// What the design does about it: both products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate), and nothing of size S^2
+// leaves the chip. One CTA of 4 warps owns 64 query rows of one (b, h); each
+// warp keeps its 16 rows of q' as mma A-fragments in registers for the whole
+// kernel. K and V stream through a two-stage shared-memory ring in 64-key
+// tiles with cp.async, so the next tile's copy overlaps this tile's math;
+// their mma B-fragments come from ldmatrix (V transposed by ldmatrix.trans).
+// The probabilities go from the QK accumulators straight into the PV
+// A-fragments, and the division by the row sum waits until after PV (D
+// divides per row instead of S). Rows and keys past S are zero-filled by the
+// copies and masked to -inf, so no padded tensors are made.
+//
+// RoPE: q is rotated while it is staged, once per CTA. k is rotated once per
+// call by rope_rotate_kernel into a bf16 scratch copy (k' as above), which the
+// main kernel then streams like an unrotated k. Rotating k inside every CTA
+// instead (the Pallas kernel's choice) re-reads the [S, D] fp32 tables for
+// every 64-query tile -- 72x per head at S = 4608 -- and measured 4.24 ms
+// against 2.55 ms without RoPE on the H100; the copy costs one S x D bf16
+// write and read per head. The TPU tiling (block_q caps, _pick_chunks,
+// _SINGLE_PASS_MAX_SEQ) followed from VMEM limits and is not carried over.
+// wgmma and TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockQ = 16 * kWarps;  // query rows per CTA (16 per warp)
+constexpr int kBlockK = 64;           // keys per shared-memory tile
+constexpr int kPad = 8;               // bf16 pad per smem row: conflict-free ldmatrix
+constexpr float kLogitClamp = 43.0f;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;   // the rotated copy when ROPE
+  const __nv_bfloat16* v;
+  const float* cos;         // [S, D] fp32, rounded to bf16 on read (ROPE only)
+  const float* sin;
+  __nv_bfloat16* out;
+  float* lse;               // [B, H, S] contiguous
+  long long q_sb, q_sh, q_ss;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  int heads;
+  int seq;
+  float scale;
+};
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 u;
+  u.x = pack_bf16(f[0], f[1]);
+  u.y = pack_bf16(f[2], f[3]);
+  u.z = pack_bf16(f[4], f[5]);
+  u.w = pack_bf16(f[6], f[7]);
+  return u;
+}
+
+__device__ __forceinline__ void load8_rounded(const float* p, float (&f)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = bf16_round(a.x); f[1] = bf16_round(a.y); f[2] = bf16_round(a.z); f[3] = bf16_round(a.w);
+  f[4] = bf16_round(b.x); f[5] = bf16_round(b.y); f[6] = bf16_round(b.z); f[7] = bf16_round(b.w);
+}
+
+// Rotate one 8-channel chunk of the low half (lo, channels d0..d0+7) and its
+// partner of the high half (hi, d0 + D/2 ...) of position `row`, then
+// multiply by `mul`. fp32 products and sums are rounded one at a time (no FMA
+// contraction), as the plain PyTorch version computes them.
+template <int D, bool ROPE>
+__device__ __forceinline__ void rotate_chunk(float (&lo)[8], float (&hi)[8], const float* cos_t,
+                                             const float* sin_t, int row, int d0, float mul) {
+  constexpr int kHalf = D / 2;
+  if (ROPE) {
+    float c_lo[8], c_hi[8], s_lo[8], s_hi[8];
+    const long long base = (long long)row * D + d0;
+    load8_rounded(cos_t + base, c_lo);
+    load8_rounded(cos_t + base + kHalf, c_hi);
+    load8_rounded(sin_t + base, s_lo);
+    load8_rounded(sin_t + base + kHalf, s_hi);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float x_lo = lo[i], x_hi = hi[i];
+      lo[i] = __fadd_rn(__fmul_rn(x_lo, c_lo[i]), __fmul_rn(-x_hi, s_lo[i]));
+      hi[i] = __fadd_rn(__fmul_rn(x_hi, c_hi[i]), __fmul_rn(x_lo, s_hi[i]));
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lo[i] = __fmul_rn(lo[i], mul);
+    hi[i] = __fmul_rn(hi[i], mul);
+  }
+}
+
+// k' = bf16(rot(k)) for every row, into a contiguous [B, H, S, D] scratch.
+template <int D>
+__global__ void __launch_bounds__(256) rope_rotate_kernel(const Params p, __nv_bfloat16* k_rot) {
+  constexpr int kHalf = D / 2;
+  constexpr int kChunks = kHalf / 8;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = idx / kChunks;
+  const int d0 = (idx % kChunks) * 8;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (row >= p.seq) return;
+  const __nv_bfloat16* src = p.k + b * p.k_sb + h * p.k_sh + (long long)row * p.k_ss;
+  float lo[8], hi[8];
+  unpack8(*reinterpret_cast<const uint4*>(src + d0), lo);
+  unpack8(*reinterpret_cast<const uint4*>(src + d0 + kHalf), hi);
+  rotate_chunk<D, true>(lo, hi, p.cos, p.sin, row, d0, 1.0f);
+  __nv_bfloat16* dst = k_rot + (((long long)b * p.heads + h) * p.seq + row) * D;
+  *reinterpret_cast<uint4*>(dst + d0) = pack8(lo);
+  *reinterpret_cast<uint4*>(dst + d0 + kHalf) = pack8(hi);
+}
+
+// D = C + A * B for one 16x8x16 tile; A row-major, B column-major.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// 16-byte global -> shared copy; `valid` false zero-fills the destination.
+__device__ __forceinline__ void cp_async16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// Issue the copies of rows [row0, row0 + 64) of src into dst[64][D + kPad].
+template <int D>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                long long ss, int row0, int seq) {
+  constexpr int kChunks = D / 8;
+  constexpr int kLd = D + kPad;
+  for (int idx = threadIdx.x; idx < kBlockK * kChunks; idx += kThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx % kChunks) * 8;
+    const int row = row0 + r;
+    const bool valid = row < seq;
+    cp_async16(dst + r * kLd + c, src + (long long)(valid ? row : 0) * ss + c, valid);
+  }
+}
+
+template <int D, bool ROPE, bool ONLINE>
+__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
+  constexpr int kLd = D + kPad;
+  constexpr int kTile = kBlockK * kLd;    // elements per K or V stage
+  constexpr int kKSteps = D / 16;         // mma k-steps over the head dim (QK)
+  constexpr int kNTilesS = kBlockK / 8;   // 8-key column tiles of the logits
+  constexpr int kNTilesO = D / 8;         // 8-channel column tiles of the output
+  constexpr int kHalf = D / 2;
+  static_assert(kBlockQ <= 2 * kBlockK, "q' is staged in the two K stages");
+
+  extern __shared__ __align__(16) __nv_bfloat16 smem[];
+  __nv_bfloat16* k_s = smem;              // [2][kBlockK][kLd]
+  __nv_bfloat16* v_s = smem + 2 * kTile;  // [2][kBlockK][kLd]
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int seq = p.seq;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // row within the 8-row group of an mma fragment
+  const int t = lane & 3;   // column pair within the fragment
+  const int q0 = blockIdx.x * kBlockQ;
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+
+  // q' for this CTA's rows, staged through the K stages, -> A fragments.
+  for (int idx = threadIdx.x; idx < kBlockQ * (kHalf / 8); idx += kThreads) {
+    const int r = idx / (kHalf / 8);
+    const int d0 = (idx % (kHalf / 8)) * 8;
+    const int row = q0 + r;
+    float lo[8], hi[8];
+    if (row < seq) {
+      const __nv_bfloat16* src = qb + (long long)row * p.q_ss;
+      unpack8(*reinterpret_cast<const uint4*>(src + d0), lo);
+      unpack8(*reinterpret_cast<const uint4*>(src + d0 + kHalf), hi);
+      rotate_chunk<D, ROPE>(lo, hi, p.cos, p.sin, row, d0, p.scale);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lo[i] = hi[i] = 0.0f;
+    }
+    *reinterpret_cast<uint4*>(k_s + r * kLd + d0) = pack8(lo);
+    *reinterpret_cast<uint4*>(k_s + r * kLd + d0 + kHalf) = pack8(hi);
+  }
+  __syncthreads();
+  uint32_t qf[kKSteps][4];
+  {
+    const __nv_bfloat16* r_a = k_s + (warp * 16 + g) * kLd + 2 * t;
+    const __nv_bfloat16* r_b = r_a + 8 * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(r_a + kk * 16);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(r_b + kk * 16);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(r_a + kk * 16 + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(r_b + kk * 16 + 8);
+    }
+  }
+  __syncthreads();
+
+  float o[kNTilesO][4];
+#pragma unroll
+  for (int n = 0; n < kNTilesO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  // Per-thread partial row sums for rows g and g + 8 (reduced over the quad at
+  // the end) and, online, the running row maxima (kept equal across the quad).
+  float l_part[2] = {0.0f, 0.0f};
+  float m_run[2] = {-INFINITY, -INFINITY};
+
+  // ldmatrix lane addressing: lane -> (matrix lane / 8, row lane % 8)
+  const int lm = lane >> 3, lr = lane & 7;
+  const int n_tiles = (seq + kBlockK - 1) / kBlockK;
+
+  load_tile_async<D>(k_s, kb, p.k_ss, 0, seq);
+  load_tile_async<D>(v_s, vb, p.v_ss, 0, seq);
+  cp_async_commit();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const int k0 = it * kBlockK;
+    if (it + 1 < n_tiles) {
+      load_tile_async<D>(k_s + (stage ^ 1) * kTile, kb, p.k_ss, k0 + kBlockK, seq);
+      load_tile_async<D>(v_s + (stage ^ 1) * kTile, vb, p.v_ss, k0 + kBlockK, seq);
+    }
+    cp_async_commit();
+    cp_async_wait_1();  // this tile's group has landed; the next may be in flight
+    __syncthreads();
+    const __nv_bfloat16* ks = k_s + stage * kTile;
+    const __nv_bfloat16* vs = v_s + stage * kTile;
+
+    // s = q' k'^T for 16 rows x 64 keys per warp. One ldmatrix.x4 gives the
+    // B fragments (b0, b1) of two k-steps for one 8-key tile.
+    float s[kNTilesS][4];
+#pragma unroll
+    for (int n = 0; n < kNTilesS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; kk += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ks + (n * 8 + lr) * kLd + kk * 16 + lm * 8);
+        mma_bf16_16816(s[n], qf[kk], bf[0], bf[1]);
+        mma_bf16_16816(s[n], qf[kk + 1], bf[2], bf[3]);
+      }
+    }
+
+    // Clamp (max-free mode), then mask keys past the end: exp(-inf) == 0.
+#pragma unroll
+    for (int n = 0; n < kNTilesS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e];
+        if (!ONLINE) x = fminf(fmaxf(x, -kLogitClamp), kLogitClamp);
+        const int col = k0 + n * 8 + 2 * t + (e & 1);
+        s[n][e] = col < seq ? x : -INFINITY;
+      }
+    }
+
+    if (ONLINE) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < kNTilesS; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // The first tile always holds key 0, so m_new is finite from here on.
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        const float alpha = expf(m_run[r] - m_new);
+        l_part[r] *= alpha;
+#pragma unroll
+        for (int n = 0; n < kNTilesO; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
+        }
+        m_run[r] = m_new;
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < kNTilesS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = ONLINE ? expf(s[n][e] - m_run[e >> 1]) : expf(s[n][e]);
+        s[n][e] = x;
+        l_part[e >> 1] += x;
+      }
+    }
+
+    // o += bf16(p) v: the logits accumulators of two neighbouring 8-key tiles
+    // are exactly the A fragment of one 16-key k-step; one ldmatrix.x4.trans
+    // of V gives the B fragments of two 8-channel output tiles.
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const __nv_bfloat16* vrow = vs + (kk * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < kNTilesO; n += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vrow + n * 8);
+        mma_bf16_16816(o[n], pa, bf[0], bf[1]);
+        mma_bf16_16816(o[n + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= seq) continue;
+    __nv_bfloat16* orow = p.out + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
+#pragma unroll
+    for (int n = 0; n < kNTilesO; ++n) {
+      const float lo = __fdiv_rn(o[n][2 * r], l_part[r]);
+      const float hi = __fdiv_rn(o[n][2 * r + 1], l_part[r]);
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_bf16(lo, hi);
+    }
+    if (t == 0) {
+      const float m = ONLINE ? m_run[r] : 0.0f;
+      p.lse[((long long)b * p.heads + h) * seq + row] = m + logf(l_part[r]);
+    }
+  }
+}
+
+template <int D, bool ROPE, bool ONLINE>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  constexpr int kSmem = 4 * kBlockK * (D + kPad) * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
+  attn_fwd_kernel<D, ROPE, ONLINE><<<grid, kThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(Params p, int batch, int rope, int online, __nv_bfloat16* k_rot,
+                     cudaStream_t stream) {
+  if (rope) {
+    constexpr int kChunks = D / 16;
+    dim3 grid((p.seq * kChunks + 255) / 256, p.heads, batch);
+    rope_rotate_kernel<D><<<grid, 256, 0, stream>>>(p, k_rot);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    p.k = k_rot;
+    p.k_ss = D;
+    p.k_sh = (long long)p.seq * D;
+    p.k_sb = (long long)p.heads * p.seq * D;
+    return online ? launch<D, true, true>(p, batch, stream) : launch<D, true, false>(p, batch, stream);
+  }
+  return online ? launch<D, false, true>(p, batch, stream) : launch<D, false, false>(p, batch, stream);
+}
+
+}  // namespace
+
+// C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
+// Strides are in elements; the head dim must be contiguous. With rope, k_rot
+// is a contiguous [B, H, S, D] bf16 scratch the caller allocates. Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int reptext_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
+    void* k_rot, void* out, void* lse, int batch, int heads, int seq, int head_dim,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    float scale, int rope, int online, void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.cos = static_cast<const float*>(cos_t);
+  p.sin = static_cast<const float*>(sin_t);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.heads = heads;
+  p.seq = seq;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seq < 1 || batch < 1 || heads < 1 || (rope && k_rot == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  __nv_bfloat16* kr = static_cast<__nv_bfloat16*>(k_rot);
+  cudaError_t err;
+  // FLUX's head dim; other widths get their instantiation when a model needs one
+  if (head_dim == 128) err = dispatch<128>(p, batch, rope, online, kr, s);
+  else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}

@@ -1,0 +1,85 @@
+"""Carry Flax parameter trees (numpy) into the port's modules.
+
+The port names its parameters after the Flax tree, so the mapping is
+mechanical:
+
+- ``{"params": ...}`` is unwrapped;
+- a Dense ``kernel`` [in, out] becomes ``Linear.weight`` [out, in];
+- a Conv ``kernel`` HWIO becomes ``Conv2d.weight`` OIHW;
+- LayerNorm/GroupNorm ``scale`` and Embed ``embedding`` become ``weight``;
+- ``nn.scan`` stacks under ``double_blocks``/``single_blocks`` are sliced
+  along their leading layer axis into the matching ``ModuleList`` entries.
+
+Any module parameter without a leaf, any leaf without a parameter, and any
+shape mismatch raises. This is also the real-checkpoint route: diffusers
+safetensors -> ``reptext_tpu.io.convert.convert_*`` -> :func:`load_jax_params`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_STACKED = ("double_blocks", "single_blocks")
+_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return arr.T
+        if arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"unexpected kernel rank {arr.ndim}")
+    return arr
+
+
+def flatten_jax_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Flax variables tree -> {torch parameter name: array in torch layout}."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, np.ndarray] = {}
+    for path, arr in _leaves(tree):
+        leaf = path[-1]
+        name = list(path[:-1]) + [_RENAME.get(leaf, leaf)]
+        if path[0] in _STACKED:
+            for i in range(arr.shape[0]):
+                full = ".".join([path[0], str(i)] + name[1:])
+                out[full] = _to_torch_layout(leaf, arr[i])
+        else:
+            out[".".join(name)] = _to_torch_layout(leaf, arr)
+    return out
+
+
+@torch.no_grad()
+def load_jax_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
+    """Fill ``module``'s parameters from a Flax tree of numpy arrays, in place.
+
+    Values are cast to each parameter's dtype and copied to its device.
+    """
+    flat = flatten_jax_params(tree)
+    params = dict(module.named_parameters())
+    missing = sorted(set(params) - set(flat))
+    unused = sorted(set(flat) - set(params))
+    if missing or unused:
+        raise KeyError(f"parameter mismatch: missing from the tree {missing[:8]}"
+                       f"{'...' if len(missing) > 8 else ''}; unused leaves {unused[:8]}"
+                       f"{'...' if len(unused) > 8 else ''}")
+    for name, p in params.items():
+        arr = flat[name]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: tree shape {tuple(arr.shape)} != parameter "
+                             f"shape {tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(p.dtype))
+    return module

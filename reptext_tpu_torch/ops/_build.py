@@ -1,0 +1,96 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+The kernels live in ``reptext_tpu_torch/csrc/*.cu`` behind a plain C
+interface. At first use they are compiled for Hopper (``sm_90a``) into one
+shared library under ``reptext_tpu_torch/_build/`` (listed in .gitignore),
+which is rebuilt whenever a source is newer than it. Nothing here imports
+torch or touches a GPU, so the module is safe to import anywhere; building
+needs ``nvcc`` and raises with its output when the compile fails.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import List, Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libreptext_torch_kernels.so")
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_log = {"seconds": None, "ptxas": ""}
+
+
+def sources() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+        cand = os.path.join(home, "bin", "nvcc")
+        if os.path.exists(cand):
+            nvcc = cand
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
+    return nvcc
+
+
+def nvcc_command(nvcc: str, srcs: List[str], out: str) -> List[str]:
+    """The compile line: Hopper sm_90a, C++17, -O3, one shared library."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, *srcs]
+
+
+def _stale(srcs: List[str]) -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in srcs)
+
+
+def build(force: bool = False) -> str:
+    """Compile the .cu sources into LIB_PATH if it is missing or stale."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    if not force and not _stale(srcs):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = nvcc_command(find_nvcc(), srcs, tmp)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees half a file
+    build_log["seconds"] = time.perf_counter() - t0
+    build_log["ptxas"] = proc.stderr
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            c_p, c_i, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn = lib.reptext_flash_attention_fwd
+            fn.argtypes = ([c_p] * 8 + [c_i] * 4 + [c_ll] * 12
+                           + [ctypes.c_float, c_i, c_i, c_p])
+            fn.restype = c_i
+            _lib = lib
+        return _lib

@@ -1,0 +1,167 @@
+"""Joint flash attention forward: the hand-written Hopper kernel and its plain twin.
+
+Counterpart of ``reptext_tpu/ops/flash_attention.py``. The CUDA kernel in
+``csrc/flash_attention.cu`` replaces the Pallas kernels ``_attn_kernel_rope``
+(K1, RoPE fused) and ``_attn_kernel`` (K2) with one template. Its semantics
+are the Pallas kernels' (see the source note): half-split RoPE with
+bf16-rounded tables, 1/sqrt(D) folded into q before the bf16 rounding, fp32
+logits clipped to +/-43 with no running max (``REPTEXT_SOFTMAX=online``
+selects the running-max form), probabilities rounded to the value dtype for
+PV, fp32 accumulation, and division after PV. Both entries return
+``(out, lse)``.
+
+A CUDA tensor goes to the kernel or the call raises. Only a CPU tensor takes
+the plain PyTorch version beside it, which computes the same thing with the
+same rounding points; ``chip_smoke.py`` holds the kernel against it on the
+card. Each entry counts its kernel launches in ``<entry>.launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from reptext_tpu_torch.ops.rope import apply_rope_half
+
+LOGIT_CLAMP = 43.0
+_SUPPORTED_HEAD_DIMS = (128,)   # FLUX's; the kernel is instantiated for these only
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_mode() -> str:
+    """``REPTEXT_SOFTMAX`` (clamped|online), read once per process."""
+    mode = os.environ.get("REPTEXT_SOFTMAX", "clamped")
+    if mode not in ("clamped", "online"):
+        raise ValueError(f"REPTEXT_SOFTMAX must be clamped|online, got {mode}")
+    return mode
+
+
+def _online(online: Optional[bool]) -> bool:
+    return softmax_mode() == "online" if online is None else online
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _softmax_pv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                online: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q already scaled and rounded; the Pallas chunk loop over all keys."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if online:
+        m = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - m)
+    else:
+        m = torch.zeros((), dtype=torch.float32, device=q.device)
+        e = torch.exp(logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP))
+    denom = e.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(e.to(v.dtype).float(), v.float())
+    out = (acc / denom).to(q.dtype)
+    lse = (m + torch.log(denom)).squeeze(-1)
+    return out, lse
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 in plain PyTorch: [B, H, S, D] x3 -> (out [B, H, S, D], lse [B, H, S])."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q.float() * scale).to(q.dtype)
+    return _softmax_pv(qs, k, v, _online(online))
+
+
+def flash_attention_rope_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                               online: Optional[bool] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 in plain PyTorch: q/k unrotated in half-split order, [S, D] tables."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    cos_b = rope_cos.to(torch.bfloat16).float()
+    sin_b = rope_sin.to(torch.bfloat16).float()
+    qs = (apply_rope_half(q.float(), cos_b, sin_b) * scale).to(q.dtype)
+    ks = apply_rope_half(k, cos_b, sin_b)
+    return _softmax_pv(qs, ks, v, _online(online))
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def _check(name: str, x: torch.Tensor, shape) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype == torch.float16:
+        raise TypeError(
+            f"{name}: float16 is rejected (exp(+/-{LOGIT_CLAMP}) overflows it "
+            "in the max-free softmax); use bfloat16")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        raise ValueError(
+            f"{name} needs a contiguous head dim, 8-element-aligned strides and a "
+            f"16-byte-aligned base (strides {x.stride()})")
+
+
+def _launch(q, k, v, rope_cos, rope_sin, online: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    from reptext_tpu_torch.ops import _build
+
+    b, h, s, d = q.shape
+    if d not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(name, x, (b, h, s, d))
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    rope = rope_cos is not None
+    if rope:
+        for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
+            if (t.device != q.device or t.dtype != torch.float32
+                    or tuple(t.shape) != (s, d) or not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(f"{name} must be a contiguous, 16-byte-aligned float32 "
+                                 f"[{s}, {d}] tensor on {q.device}")
+    lib = _build.load()
+    # the kernel rotates k once per call into this scratch (see the source note)
+    k_rot = torch.empty((b, h, s, d), dtype=k.dtype, device=k.device) if rope else None
+    # out is laid out [B, S, H, D] and returned as a [B, H, S, D] view, so the
+    # caller's head merge is a free reshape.
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.reptext_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        rope_cos.data_ptr() if rope else None, rope_sin.data_ptr() if rope else None,
+        k_rot.data_ptr() if rope else None, out.data_ptr(), lse.data_ptr(), b, h, s, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        1.0 / math.sqrt(d), int(rope), int(online), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+    return out, lse
+
+
+def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                         online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1: RoPE-fused attention, q/k unrotated (half-split). Returns (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
+    result = _launch(q, k, v, rope_cos, rope_sin, _online(online))
+    flash_attention_rope.launches += 1
+    return result
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: attention without rotation. Returns (out, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, online)
+    result = _launch(q, k, v, None, None, _online(online))
+    flash_attention.launches += 1
+    return result
+
+
+flash_attention_rope.launches = 0
+flash_attention.launches = 0

@@ -1,0 +1,264 @@
+"""RepText text-to-image pipeline (FLUX + ControlNet), PyTorch.
+
+Counterpart of ``reptext_tpu/pipelines/txt2img.py::FluxRepTextPipeline`` on
+the path the slice runs: per-line canny / position / region conditioning
+encoded through the VAE, CLIP + T5 prompt encoding, the glyph-latent init,
+the step-gated, regionally masked ControlNet loop (``sampling/sampler.py``),
+and the VAE decode. Randomness comes from ``torch.Generator``s derived from
+``seed``; there is no global RNG. The JAX package's residency and fp8
+staging code exists for a 16 GB chip and has no counterpart here. img2img,
+callbacks, custom timesteps/sigmas and ``generate_batch`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from reptext_tpu.configs import (
+    CLIPConfig,
+    ControlNetConfig,
+    FluxConfig,
+    PipelineConfig,
+    T5Config,
+    VAEConfig,
+)
+from reptext_tpu.utils.image import postprocess_images, preprocess_images
+from reptext_tpu_torch.io.from_jax import load_jax_params
+from reptext_tpu_torch.models.controlnet import RepTextControlNet
+from reptext_tpu_torch.models.flux import FluxTransformer2D
+from reptext_tpu_torch.nn.clip import CLIPTextEncoder
+from reptext_tpu_torch.nn.init import random_init_
+from reptext_tpu_torch.nn.t5 import T5Encoder
+from reptext_tpu_torch.nn.vae import AutoencoderKL
+from reptext_tpu_torch.ops.latents import (
+    downsample_region_mask,
+    glyph_ink_mask_to_latent,
+    pack_latents,
+    prepare_latent_image_ids,
+    unpack_latents,
+)
+from reptext_tpu_torch.sampling.flow_match import build_schedule
+from reptext_tpu_torch.sampling.sampler import make_txt2img_sampler
+
+
+def _as_ids(ids, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(ids), dtype=torch.long).to(device)
+
+
+class FluxRepTextPipeline:
+    """Holds the modules and exposes the generation entry point."""
+
+    def __init__(self, flux: FluxTransformer2D, controlnet: RepTextControlNet,
+                 vae: AutoencoderKL, pipe_cfg: PipelineConfig,
+                 clip: Optional[CLIPTextEncoder] = None, t5: Optional[T5Encoder] = None,
+                 compute_dtype: torch.dtype = torch.float32):
+        self.flux, self.controlnet, self.vae = flux, controlnet, vae
+        self.clip, self.t5 = clip, t5
+        self.pipe_cfg = pipe_cfg
+        self.compute_dtype = compute_dtype
+        self.device = next(flux.parameters()).device
+
+    # ---------------------------------------------------------------- build
+
+    @classmethod
+    def create(cls, flux_cfg: FluxConfig, cn_cfg: ControlNetConfig, vae_cfg: VAEConfig,
+               pipe_cfg: PipelineConfig, params: Optional[Dict[str, Any]] = None,
+               clip_cfg: Optional[CLIPConfig] = None, t5_cfg: Optional[T5Config] = None,
+               seed: int = 0, device="cpu", dtype: torch.dtype = torch.float32
+               ) -> "FluxRepTextPipeline":
+        """Build the modules on ``device`` in ``dtype``.
+
+        With ``params`` (Flax trees of numpy arrays keyed flux / controlnet /
+        vae / clip / t5) the weights are carried over by ``load_jax_params``;
+        without, they are drawn on the device from one generator seeded with
+        ``seed``. Modules are first built on the meta device, so no host copy
+        of the weights is ever made.
+        """
+        device = torch.device(device)
+        specs = {"flux": (FluxTransformer2D, flux_cfg), "controlnet": (RepTextControlNet, cn_cfg),
+                 "vae": (AutoencoderKL, vae_cfg), "clip": (CLIPTextEncoder, clip_cfg),
+                 "t5": (T5Encoder, t5_cfg)}
+        generator = torch.Generator(device=device).manual_seed(seed) if params is None else None
+        built: Dict[str, Optional[torch.nn.Module]] = {}
+        for name, (ctor, cfg) in specs.items():
+            if cfg is None:
+                built[name] = None
+                continue
+            module = ctor(cfg, device="meta", dtype=dtype).to_empty(device=device)
+            if params is None:
+                random_init_(module, generator)
+            else:
+                load_jax_params(module, params[name])
+            built[name] = module.eval().requires_grad_(False)
+        return cls(built["flux"], built["controlnet"], built["vae"], pipe_cfg,
+                   clip=built["clip"], t5=built["t5"], compute_dtype=dtype)
+
+    def generators(self, seed: int) -> Tuple[torch.Generator, torch.Generator, torch.Generator]:
+        """(latent noise, condition posterior, glyph posterior) generators for ``seed``."""
+        seeds = np.random.SeedSequence(seed).generate_state(3)
+        return tuple(torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds)
+
+    # ------------------------------------------------------------- encoders
+
+    @torch.inference_mode()
+    def encode_prompt(self, clip_ids, t5_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(clip ids [B, <=77], t5 ids [B, <=512]) -> (prompt_embeds, pooled)."""
+        if self.clip is None or self.t5 is None:
+            raise ValueError("pipeline built without text encoders; pass embeddings directly")
+        t5_ids = _as_ids(t5_ids, self.device)
+        if t5_ids.shape[1] > self.pipe_cfg.max_sequence_length:
+            raise ValueError(f"T5 sequence {t5_ids.shape[1]} exceeds max "
+                             f"{self.pipe_cfg.max_sequence_length}")
+        _, pooled = self.clip(_as_ids(clip_ids, self.device))
+        return self.t5(t5_ids), pooled
+
+    def _encode_scaled(self, images_nchw: torch.Tensor,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+        """VAE-encode and apply (x - shift) * scale, in the compute dtype."""
+        vcfg = self.vae.config
+        lat = self.vae.encode(images_nchw.to(self.compute_dtype), generator)
+        return (lat - vcfg.shift_factor) * vcfg.scaling_factor
+
+    def _images(self, nhwc: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(preprocess_images(nhwc)).to(self.device).permute(0, 3, 1, 2)
+
+    @torch.inference_mode()
+    def prepare_control_tokens(self, conditions, generator: Optional[torch.Generator]
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Conditions -> (cond_tokens [N, S, 2*4*C], token_masks [N, S, 1]).
+
+        Canny and position images of all lines ride one VAE encode; the
+        latents are channel-concatenated and 2x2-packed. Region masks are
+        resized to the token grid.
+        """
+        cfg = self.pipe_cfg
+        n = conditions.num_lines
+        canny = np.stack([lc.canny_image for lc in conditions.lines])
+        pos = np.stack([np.repeat(lc.position_mask[:, :, None], 3, axis=2)
+                        for lc in conditions.lines])
+        both = self._encode_scaled(self._images(np.concatenate([canny, pos])), generator)
+        cond_tokens = pack_latents(torch.cat([both[:n], both[n:]], dim=1))
+        masks = torch.from_numpy(
+            np.stack([lc.region_mask for lc in conditions.lines]).astype(np.float32) / 255.0
+        ).to(self.device)
+        token_masks = torch.stack([downsample_region_mask(m, cfg.latent_height, cfg.latent_width)
+                                   for m in masks])
+        return cond_tokens, token_masks
+
+    @torch.inference_mode()
+    def prepare_latents(self, generator: Optional[torch.Generator], batch_size: int,
+                        glyph_canvas: Optional[np.ndarray] = None,
+                        glyph_generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Initial packed latents [B, S, 4*C] with the optional glyph-latent init.
+
+        Inside the glyph ink mask: scale * VAE(glyph canvas) + noise.
+        ``noise`` [B, C, h, w] replaces the generator's draw.
+        """
+        cfg = self.pipe_cfg
+        c, h, w = self.vae.config.latent_channels, cfg.latent_height, cfg.latent_width
+        if noise is None:
+            noise = torch.randn((batch_size, c, h, w), generator=generator,
+                                device=self.device, dtype=torch.float32)
+        noise = noise.to(self.device, torch.float32)
+        if glyph_canvas is not None and cfg.glyph_latent_init:
+            glyph_lat = self._encode_scaled(self._images(glyph_canvas), glyph_generator)
+            mask = torch.from_numpy(glyph_ink_mask_to_latent(glyph_canvas, h, w)).to(self.device)
+            blended = cfg.glyph_latent_scale * glyph_lat.expand(noise.shape) + noise
+            noise = torch.where(mask[None, None] > 0.5, blended, noise)
+        return pack_latents(noise)
+
+    @torch.inference_mode()
+    def decode(self, packed_latents: torch.Tensor) -> np.ndarray:
+        """Packed latents -> uint8 images [B, H, W, 3]."""
+        cfg, vcfg = self.pipe_cfg, self.vae.config
+        lat = unpack_latents(packed_latents.to(self.compute_dtype),
+                             cfg.latent_height, cfg.latent_width)
+        pixels = self.vae.decode(lat / vcfg.scaling_factor + vcfg.shift_factor)
+        return postprocess_images(pixels.permute(0, 2, 3, 1).float().cpu().numpy())
+
+    # --------------------------------------------------------------- call
+
+    @torch.inference_mode()
+    def __call__(self, conditions, prompt_embeds: Optional[torch.Tensor] = None,
+                 pooled_embeds: Optional[torch.Tensor] = None, clip_ids=None, t5_ids=None,
+                 seed: int = 42, num_images: int = 1, guidance_scale: Optional[float] = None,
+                 num_inference_steps: Optional[int] = None, output_type: str = "np",
+                 latents: Optional[torch.Tensor] = None,
+                 timings: Optional[Dict[str, float]] = None):
+        """Generate images; either embeddings or token ids must be given.
+
+        ``output_type``: "np" (uint8 [B, H, W, 3]), "pil" (list of PIL
+        images) or "latent" (packed float32 latents). ``latents``: packed
+        noise [num_images, S, 4*C] that replaces the seeded noise and the
+        glyph-latent init. ``timings``, when given, receives the seconds of
+        each stage (the device is synchronised at stage boundaries).
+        """
+        cfg = self.pipe_cfg
+        steps = num_inference_steps or cfg.num_inference_steps
+        gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        clock = _StageClock(timings, self.device)
+
+        if prompt_embeds is None:
+            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+        prompt_embeds = prompt_embeds.to(self.device)
+        pooled_embeds = pooled_embeds.to(self.device)
+        if num_images > 1 and prompt_embeds.shape[0] == 1:
+            prompt_embeds = prompt_embeds.repeat_interleave(num_images, dim=0)
+            pooled_embeds = pooled_embeds.repeat_interleave(num_images, dim=0)
+        clock.mark("encode_prompt")
+
+        g_lat, g_cond, g_glyph = self.generators(seed)
+        cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
+        if latents is not None:
+            expect = (num_images, cfg.image_seq_len, 4 * self.vae.config.latent_channels)
+            if tuple(latents.shape) != expect:
+                raise ValueError(f"latents must be PACKED noise of shape {expect}; "
+                                 f"got {tuple(latents.shape)}")
+            latents = latents.to(self.device, torch.float32)
+        else:
+            latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
+        clock.mark("prepare")
+
+        schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
+                                  cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
+                                  cfg.use_dynamic_shifting)
+        sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
+                                       self.compute_dtype)
+        img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
+        txt_ids = torch.zeros((prompt_embeds.shape[1], 3), device=self.device)
+        guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)
+                    if self.flux.config.guidance_embeds else None)
+        latents = sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
+                          txt_ids, img_ids, guidance)
+        clock.mark("sample")
+        if output_type == "latent":
+            return latents
+        images = self.decode(latents)
+        clock.mark("decode")
+        if output_type == "pil":
+            from PIL import Image
+
+            return [Image.fromarray(im) for im in images]
+        return images
+
+
+class _StageClock:
+    """Seconds per pipeline stage into ``timings`` (no-op when it is None)."""
+
+    def __init__(self, timings: Optional[Dict[str, float]], device: torch.device):
+        self.timings, self.device = timings, device
+        self.t = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[stage] = now - self.t
+        self.t = now
