@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch + CUDA port (reptext_tpu_torch).
 
-    python3 chip_smoke.py                 # 4 steps, ControlNet on for the first 2
+    python3 chip_smoke.py                 # 4 steps, ControlNet on for the first 2; 3 train steps
     python3 chip_smoke.py --steps 30 --controlnet-step 30   # the reference op-point
-    python3 chip_smoke.py --profile       # adds a device profile of two ControlNet steps
+    python3 chip_smoke.py --profile       # adds device profiles of two ControlNet steps
+                                          # and of one train step
 
-Needs one CUDA device (an H100; the kernel is built for sm_90a) and exits
+Needs one CUDA device (an H100; the kernels are built for sm_90a) and exits
 non-zero without one. Phases, one line each, and any failure ends the run:
 
 1. device: the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the kernels from reptext_tpu_torch/csrc;
-3. kernels: the flash-attention kernel (K1 RoPE-fused, K2 plain) against its
-   plain PyTorch version on the card, at the main path's shape
-   (1, 24, 4608, 128) with RoPE tables from the real text/image ids, at an
-   unaligned length (2, 24, 4106, 128), and beyond the logit clamp; errors
-   and median times (kernel and plain version), and K1's clamped against
-   its online softmax;
-4. reference: a small FLUX + ControlNet forward on the card (bf16, kernel)
+3. kernels: the flash-attention forward kernel (K1 RoPE-fused, K2 plain) and
+   the backward kernel (K4, dq and dk/dv) against their plain PyTorch versions
+   on the card, at the main path's shape (1, 24, 4608, 128) with RoPE tables
+   from the real text/image ids, at an unaligned length (2, 24, 4106, 128),
+   and beyond the logit clamp; errors and median times (kernel and plain
+   version), and K1's clamped against its online softmax;
+4. reference: a small FLUX + ControlNet forward, and one ControlNet train
+   step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
 5. end to end: two 1024x1024 txt2img requests (an Arabic line, then a Latin
    line) through the port's CLI path (reptext_tpu_torch.cli.build_pipeline /
@@ -24,7 +26,13 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    bf16, seeded random weights; checks the image shape, finite latents and
    that K1 ran steps * 57 + controlnet_steps * 14 times per image and K2 none;
 6. with --profile: torch.profiler over two ControlNet steps of the sampler,
-   device (kernel) time by class, the device's idle share and the top kernels.
+   device (kernel) time by class, the device's idle share and the top kernels;
+7. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
+   train: warm start, AdamW at the CLI defaults, ElasticTrainer +
+   PrefetchLoader) for 3 steps at batch 2, 1024^2, with remat; checks finite
+   losses, nonzero heads and exactly-zero block gradients after step 1, a
+   bit-identical base, and K1 = 141, K4 = 70, K2 = 0 launches per step; with
+   --profile, then torch.profiler over one more train step.
 
 Then a JSON line of kernel results, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. The text lines come from
@@ -60,10 +68,23 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "conditions_1024.npz")
 # lse is the fp32 log of a sum over S keys: ordering error ~1e-6.
 OUT_RTOL = 2.0 ** -6
 LSE_ATOL = 1e-3
+# Backward kernel vs its plain version on the same bf16 inputs: both round p
+# and ds to bf16 at the same points but sum thousands of products in another
+# order; max-abs within 2^-5 of max|plain| and mean-abs within 2^-7 of
+# mean|plain|, per gradient.
+GRAD_MAX_RTOL = 2.0 ** -5
+GRAD_MEAN_RTOL = 2.0 ** -7
 # Small-model reference: bf16 activations on the card vs float32 on the CPU
-# with the same (bf16-valued) weights, 4 blocks deep: relative to max|ref|.
+# with the same (bf16-valued) weights, 4 blocks deep: relative to max|ref|
+# (the forward output, the loss, and each ControlNet gradient tensor).
 REF_RTOL = 5e-2
 DOUBLE_CALLS, SINGLE_CALLS = 19 + 38, 4 + 10
+# One train step with remat: the forward runs every block once (57 + 14); the
+# backward recomputes and differentiates every block but the base's first
+# double block, whose inputs carry no gradient (the residuals join after it).
+FWD_CALLS = DOUBLE_CALLS + SINGLE_CALLS
+TRAIN_K4 = FWD_CALLS - 1
+TRAIN_K1 = FWD_CALLS + TRAIN_K4
 
 
 def phase(name, msg):
@@ -84,6 +105,19 @@ def cuda_time_ms(fn, repeats=20, warmup=3):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times), min(times), max(times)
+
+
+def alternated_ms(kernel, plain):
+    """Medians of 20 (kernel, plain), run plain, kernel, kernel, plain: compare
+    only within one call."""
+    p1 = cuda_time_ms(plain)
+    k1 = cuda_time_ms(kernel)
+    k2 = cuda_time_ms(kernel)
+    p2 = cuda_time_ms(plain)
+    return (min(k1, k2, key=lambda t: t[0]), min(p1, p2, key=lambda t: t[0]),
+            f"kernel median {k1[0]:.4f} / {k2[0]:.4f} ms (min {min(k1[1], k2[1]):.4f}, max "
+            f"{max(k1[2], k2[2]):.4f}); plain median {p1[0]:.4f} / {p2[0]:.4f} ms (min "
+            f"{min(p1[1], p2[1]):.4f}, max {max(p1[2], p2[2]):.4f}); 20 repeats each")
 
 
 def rope_tables(txt_len, grid_h, grid_w, device):
@@ -138,18 +172,9 @@ def kernel_phase(dev):
             ("K1", lambda: fa.flash_attention_rope(q, k, v, cos, sin),
              lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin)),
             ("K2", lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v))):
-        # plain, kernel, kernel, plain: compare only within this one call
-        p1 = cuda_time_ms(plain)
-        k1 = cuda_time_ms(run)
-        k2 = cuda_time_ms(run)
-        p2 = cuda_time_ms(plain)
-        kern = min(k1, k2, key=lambda t: t[0])
-        pln = min(p1, p2, key=lambda t: t[0])
+        kern, pln, line = alternated_ms(run, plain)
         results[key] = {"ms": kern[0], "plain_ms": pln[0]}
-        phase("kernels", f"{key} (1,24,4608,128) time: kernel median {k1[0]:.4f} / {k2[0]:.4f} ms "
-                         f"(min {min(k1[1], k2[1]):.4f}, max {max(k1[2], k2[2]):.4f}); plain median "
-                         f"{p1[0]:.4f} / {p2[0]:.4f} ms (min {min(p1[1], p2[1]):.4f}, "
-                         f"max {max(p1[2], p2[2]):.4f}); 20 repeats each")
+        phase("kernels", f"{key} (1,24,4608,128) time: {line}")
     # clamped (the default) against online softmax, alternated within this call
     ab = {False: [], True: []}
     for online in (False, True, True, False, False, True):
@@ -192,6 +217,87 @@ def kernel_phase(dev):
         results[key]["max_abs_err"] = errs[key]
     torch.cuda.empty_cache()
     return results
+
+
+def compare_grads(name, got, want):
+    worst = 0.0
+    parts = []
+    ok = True
+    for tag, x, y in zip(("dq", "dk", "dv"), got, want):
+        err = (x.float() - y.float()).abs()
+        ref = y.float().abs()
+        mx, mn = err.max().item(), err.mean().item()
+        lim_mx, lim_mn = GRAD_MAX_RTOL * ref.max().item(), GRAD_MEAN_RTOL * ref.mean().item()
+        ok = ok and mx <= lim_mx and mn <= lim_mn and bool(torch.isfinite(x.float()).all())
+        worst = max(worst, mx)
+        parts.append(f"{tag} max_abs {mx:.3e} (limit {lim_mx:.3e}) mean_abs {mn:.3e} "
+                     f"(limit {lim_mn:.3e})")
+    phase("kernels", f"{name}: {'; '.join(parts)} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"backward kernel disagrees with its plain version: {name}")
+    return worst
+
+
+def backward_kernel_phase(dev):
+    """K4 (dq and dk/dv kernels) against flash_attention_backward_plain."""
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(q, k, v, cos, sin, online):
+        """Rotated q/k, v, K1's out and lse, and dO laid out as merge_heads'
+        gradient arrives ([B, S, H, D] memory viewed [B, H, S, D])."""
+        out, lse = fa.flash_attention_rope(q, k, v, cos, sin, online)
+        b, h, s, d = q.shape
+        do = torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+        return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v, out, lse, do
+
+    def qkv(b, h, s, d=128):
+        return [torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(3)]
+
+    err = 0.0
+    q, k, v = qkv(1, 24, 4608)
+    cos, sin = rope_tables(512, 64, 64, dev)
+    for online in (False, True):
+        args = inputs(q, k, v, cos, sin, online)
+        err = max(err, compare_grads(
+            f"K4 (1,24,4608,128) {'online' if online else 'clamped'}",
+            fa.flash_attention_backward(*args, online=online),
+            fa.flash_attention_backward_plain(*args, online=online)))
+        if not online:
+            timed = args
+    kern, plain, line = alternated_ms(lambda: fa.flash_attention_backward(*timed),
+                                      lambda: fa.flash_attention_backward_plain(*timed))
+    phase("kernels", f"K4 (1,24,4608,128) time (dq + dkv kernels and the delta reduction): {line}")
+    del q, k, v, args, timed
+    torch.cuda.empty_cache()
+
+    q, k, v = qkv(2, 24, 4106)
+    cos, sin = rope_tables(10, 64, 64, dev)
+    args = inputs(q, k, v, cos, sin, None)
+    err = max(err, compare_grads("K4 (2,24,4106,128)", fa.flash_attention_backward(*args),
+                                 fa.flash_attention_backward_plain(*args)))
+    del q, k, v, args
+    torch.cuda.empty_cache()
+
+    # beyond the clamp (the forward case's planted logits, peak 80): clamped,
+    # the gradient passes straight through the clip in both versions
+    s, d = 1000, 128
+    q = torch.zeros(1, 2, s, d, device=dev)
+    k = torch.zeros(1, 2, s, d, device=dev)
+    q[..., 0] = 80.0 * d ** 0.5
+    k[..., 0] = torch.linspace(-1.0, 1.0, s, device=dev)
+    v = torch.randn(1, 2, s, d, generator=gen, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    cos, sin = rope_tables(s, 0, 0, dev)
+    args = inputs(q, k, v, cos, sin, False)
+    err = max(err, compare_grads("K4 beyond clamp (1,2,1000,128)",
+                                 fa.flash_attention_backward(*args, online=False),
+                                 fa.flash_attention_backward_plain(*args, online=False)))
+    torch.cuda.empty_cache()
+    return {"ms": kern[0], "plain_ms": plain[0], "max_abs_err": err}
 
 
 def reference_phase(dev):
@@ -249,6 +355,51 @@ def reference_phase(dev):
                        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the port on the card disagrees with its CPU reference")
+
+    # one ControlNet train step: the same weights (nonzero heads), the same
+    # explicit t and noise, K1 + K4 on the card against autograd on the CPU
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.sampling.train_controlnet import controlnet_flow_match_loss
+
+    mask = torch.zeros(1, hw * hw, 1)
+    mask[:, : hw * hw // 2] = 1.0
+    batch = {"x0": x, "cond_tokens": cond, "token_mask": mask, "prompt_embeds": ctx,
+             "pooled": pooled, "img_ids": img_ids, "txt_ids": txt_ids, "guidance": gd}
+    t_train = torch.full((1,), 0.6)
+    noise = torch.randn(x.shape, generator=g)
+
+    def train_grads(models, device):
+        flux, cn = models
+        flux.requires_grad_(False)
+        cn.requires_grad_(True)
+        cn.zero_grad(set_to_none=True)
+        loss = controlnet_flow_match_loss(
+            flux, cn, {k: v.to(device) for k, v in batch.items()},
+            t=t_train.to(device), noise=noise.to(device))
+        loss.backward()
+        return loss.item(), {n: p.grad.float().cpu() for n, p in cn.named_parameters()}
+
+    loss_ref, grads_ref = train_grads(cpu, "cpu")
+    n4 = fa.flash_attention_backward.launches
+    loss_card, grads_card = train_grads(card, dev)
+    n4 = fa.flash_attention_backward.launches - n4
+    loss_err = abs(loss_card - loss_ref) / abs(loss_ref)
+    ratios = {n: (grads_card[n] - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+              for n, r in grads_ref.items()}
+    worst = max(ratios, key=ratios.get)
+    # every block but the base's first double block: 2 + 2 + 1 + 1 - 1
+    ok = (loss_err <= REF_RTOL and ratios[worst] <= REF_RTOL and n4 == 5
+          and all(bool(torch.isfinite(v).all()) for v in grads_card.values()))
+    phase("reference", f"one ControlNet train step on the same model, t = 0.6, explicit noise: "
+                       f"loss card {loss_card:.6f} vs CPU {loss_ref:.6f} (rel {loss_err:.3e}); "
+                       f"{len(ratios)} ControlNet gradients, max_abs/max|ref grad| worst "
+                       f"{ratios[worst]:.3e} ({worst}), median "
+                       f"{statistics.median(ratios.values()):.3e} (tol {REF_RTOL}); K4 launches "
+                       f"{n4} (expected 5) -> {'ok' if ok else 'FAIL'}")
+    phase("reference", "per tensor, max_abs/max|ref grad|: "
+                       + ", ".join(f"{n} {r:.2e}" for n, r in ratios.items()))
+    if not ok:
+        raise SystemExit("the port's train step on the card disagrees with its CPU reference")
 
 
 def load_requests():
@@ -331,20 +482,163 @@ def e2e_phase(dev, steps, cn_steps, seed):
     return launches, pipe, cond
 
 
+def train_phase(dev, pipe, seed, profile=False):
+    """The CLI's train path on the full-geometry pipeline: 3 steps, batch 2;
+    with ``profile``, then a device profile of one more step."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.data import GlyphTextDataset
+    from reptext_tpu_torch.ops import flash_attention as fa
+
+    data, size, font_size, reqs = load_requests()
+    args = cli.build_parser().parse_args(
+        ["--mode", "train", "--random-weights", "--size", str(size), "--train-steps", "3",
+         "--batch-size", "2", "--seed", str(seed)])
+    pipe.flux.remat = pipe.controlnet.remat = True
+    dataset = GlyphTextDataset(pipe, batch_size=args.batch_size, seed=args.seed)
+    conds = [conditions_for(data, name, text, pos, size, font_size) for name, text, pos in reqs]
+    # the texts drawn per sample are rendered by the fixture's two conditions
+    dataset.conditions = lambda spec, step, index: conds[(step + index) % len(conds)][0]
+
+    def checksums(module):
+        sums = []
+        for p in module.parameters():
+            bits = p.detach().view(torch.int16).long()
+            sums.append(torch.stack([bits.sum(), (bits * bits).sum()]))
+        return torch.stack(sums).tolist()
+
+    base_before = checksums(pipe.flux)
+    counters = (fa.flash_attention_rope, fa.flash_attention, fa.flash_attention_backward)
+    per_step, fails = [], []
+    clock = {"t": None}
+
+    def on_event(kind, info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if kind == "step":
+            counts = [c.launches for c in counters]
+            for c in counters:
+                c.launches = 0
+            per_step.append((info["step"], info["loss"], now - clock["t"], counts))
+            if info["step"] == 1:
+                cn = pipe.controlnet
+                layers = list(cn.double_blocks) + list(cn.single_blocks)
+                heads = all(bool(layer.proj.weight.abs().max() > 0) for layer in layers)
+                zero = all(p.grad is not None and not bool(p.grad.any())
+                           for layer in layers for p in layer.block.parameters())
+                phase("train", f"after step 1: every proj head nonzero {heads}; every gradient "
+                               f"inside the {len(layers)} ControlNet blocks exactly 0 {zero}")
+                if not (heads and zero):
+                    fails.append("warm-start structure after step 1")
+        else:
+            phase("train", f"[{kind}] {info} ({now - (clock['t'] or now):.3f} s)")
+        clock["t"] = now
+
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.train(args, pipe, dataset=dataset, on_event=on_event)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for step, loss, sec, (n1, n2, n4) in per_step:
+        phase("train", f"step {step}: loss {loss:.6f}, {sec:.3f} s ({'cold' if step == 1 else 'warm'}"
+                       f"), launches K1 {n1} (expected {TRAIN_K1}) K4 {n4} (expected {TRAIN_K4}) "
+                       f"K2 {n2} (expected 0)")
+        if not (np.isfinite(loss) and (n1, n2, n4) == (TRAIN_K1, 0, TRAIN_K4)):
+            fails.append(f"step {step}")
+    same = checksums(pipe.flux) == base_before
+    phase("train", f"3 steps at batch {args.batch_size}, {size}^2, lr {args.learning_rate}, "
+                   f"weight decay {args.weight_decay}: {wall:.3f} s in all (restore points "
+                   f"included); faults {len(trainer.faults)}; base parameters bit-identical "
+                   f"{same} ({len(base_before)} tensors, int16 sum and sum-of-squares "
+                   f"checksums); peak device memory {peak:.2f} GiB")
+    if len(per_step) != 3 or trainer.faults or not same or fails:
+        raise SystemExit(f"the training run failed its checks: {fails}")
+    if profile:
+        from reptext_tpu_torch.sampling.train_controlnet import (
+            bind_frozen_base, make_controlnet_train_step,
+        )
+
+        step = bind_frozen_base(make_controlnet_train_step(
+            pipe.controlnet, trainer.state["optimizer"], args.text_loss_weight), pipe.flux)
+        batch = dataset.batch(len(per_step))
+
+        def run():
+            step(batch, torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+
+        device_profile(f"one train step at batch {args.batch_size} (its batch built before)",
+                       run, {fa.flash_attention_rope: TRAIN_K1,
+                             fa.flash_attention_backward: TRAIN_K4, fa.flash_attention: 0})
+    return {"K1": sum(s[3][0] for s in per_step), "K4": sum(s[3][2] for s in per_step)}
+
+
 def kernel_class(name):
     if "attn_fwd_kernel" in name or "rope_rotate_kernel" in name:
         return "attention kernel (attn_fwd_kernel + rope_rotate_kernel)"
+    if "attn_bwd_" in name:
+        return "attention backward kernel (attn_bwd_dq_kernel + attn_bwd_dkv_kernel)"
     if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMMs (cuBLAS kernels behind nn.Linear)"
+    if "multi_tensor_apply" in name:
+        return "optimizer (AdamW's multi-tensor kernels)"
     return "elementwise, reductions, copies (norms, modulation, casts, cat, gelu)"
+
+
+def device_profile(label, run, expect_launches):
+    """torch.profiler over one ``run()``: device busy and idle share, device
+    time by kernel class and the top kernels; ``expect_launches`` maps each
+    counted kernel entry to its expected launches in the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    for entry in expect_launches:
+        entry.launches = 0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    wall_prof = time.perf_counter() - t0
+    # device events only: host-side aten:: and runtime events are not device time
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise SystemExit("the profiler recorded no device kernels")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
+    for start, end in spans[1:]:    # union of kernel intervals, in us
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start = start
+        cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = spans[-1][1] - spans[0][0]
+    by_class, by_name = {}, {}
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start
+        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + dur
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + dur)
+    total = sum(by_class.values())
+    counts = "; ".join(f"{entry.__name__} launches {entry.launches} (expected {n})"
+                       for entry, n in expect_launches.items())
+    phase("profile", f"{label}: {1e3 * wall:.1f} ms unprofiled, {1e3 * wall_prof:.1f} ms "
+                     f"profiled; {len(kernels)} device events, busy {busy / 1e3:.1f} ms of a "
+                     f"{window / 1e3:.1f} ms window (idle {100 * (1 - busy / window):.1f} %); "
+                     f"{counts}")
+    for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        phase("profile", f"{cls}: {t / 1e3:.1f} ms, {100 * t / total:.1f} %")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        phase("profile", f"  {t / 1e3:.1f} ms in {n} calls [{kernel_class(name).split(' (')[0]}] "
+                         f"{name[:110]}")
 
 
 def profile_phase(dev, pipe, cond, seed):
     """Device time by kernel class over two ControlNet steps of the sampler."""
     import dataclasses
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from reptext_tpu_torch import cli
     from reptext_tpu_torch.ops import flash_attention as fa
@@ -375,45 +669,8 @@ def profile_phase(dev, pipe, cond, seed):
             sampler(lat0, cond_tokens, token_masks, emb, pooled, txt_ids, img_ids, guidance)
         torch.cuda.synchronize()
 
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall = time.perf_counter() - t0
-    fa.flash_attention_rope.launches = 0
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-    wall_prof = time.perf_counter() - t0
-    # device events only: host-side aten:: and runtime events are not device time
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        raise SystemExit("the profiler recorded no device kernels")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_start, cur_end = 0.0, spans[0][0], spans[0][1]
-    for start, end in spans[1:]:    # union of kernel intervals, in us
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start = start
-        cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    window = spans[-1][1] - spans[0][0]
-    by_class, by_name = {}, {}
-    for e in kernels:
-        dur = e.time_range.end - e.time_range.start
-        by_class[kernel_class(e.name)] = by_class.get(kernel_class(e.name), 0.0) + dur
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + dur)
-    total = sum(by_class.values())
-    phase("profile", f"{steps} ControlNet steps at the op-point: {1e3 * wall:.1f} ms unprofiled, "
-                     f"{1e3 * wall_prof:.1f} ms profiled; {len(kernels)} device events, busy "
-                     f"{busy / 1e3:.1f} ms of a {window / 1e3:.1f} ms window (idle "
-                     f"{100 * (1 - busy / window):.1f} %); K1 launches "
-                     f"{fa.flash_attention_rope.launches} (expected {steps * (DOUBLE_CALLS + SINGLE_CALLS)})")
-    for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        phase("profile", f"{cls}: {t / 1e3:.1f} ms, {100 * t / total:.1f} %")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        phase("profile", f"  {t / 1e3:.1f} ms in {n} calls [{kernel_class(name).split(' (')[0]}] "
-                         f"{name[:110]}")
+    device_profile(f"{steps} ControlNet steps at the op-point", run,
+                   {fa.flash_attention_rope: steps * (DOUBLE_CALLS + SINGLE_CALLS)})
 
 
 def main(argv=None):
@@ -422,7 +679,8 @@ def main(argv=None):
     ap.add_argument("--controlnet-step", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two ControlNet steps (device time by kernel class)")
+                    help="also profile two ControlNet steps and one train step "
+                         "(device time by kernel class)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -444,25 +702,35 @@ def main(argv=None):
     _build.load()
 
     results = kernel_phase(dev)
+    results["K4"] = backward_kernel_phase(dev)
     reference_phase(dev)
     launches, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
+    train_launches = train_phase(dev, pipe, args.seed, args.profile)
     del pipe
 
     src = "reptext_tpu_torch/csrc/flash_attention.cu"
     entry = {
         "K1": {"name": "flash_attention_rope", "route": "cuda", "source": src,
-               "replaces": "reptext_tpu/ops/flash_attention.py:191", "launches": launches["K1"]},
+               "replaces": "reptext_tpu/ops/flash_attention.py:191",
+               "launches": launches["K1"] + train_launches["K1"],
+               "launches_by_path": {"txt2img": launches["K1"], "train": train_launches["K1"]}},
         "K2": {"name": "flash_attention", "route": "cuda", "source": src,
                "replaces": "reptext_tpu/ops/flash_attention.py:166", "launches": launches["K2"]},
+        "K4": {"name": "flash_attention_backward", "route": "cuda",
+               "source": "reptext_tpu_torch/csrc/flash_attention_bwd.cu",
+               "replaces": "reptext_tpu/ops/flash_attention.py:577",
+               "also_replaces": "reptext_tpu/ops/flash_attention.py:621",
+               "launches": train_launches["K4"]},
     }
     for key in entry:
         entry[key].update(results[key])
-    # K2 is the same template without the rotation; the 1024^2 path never
-    # calls attention without RoPE tables (the e2e phase checks that K2 ran 0
-    # times there), so it is checked and timed above but listed apart.
-    print(json.dumps({"kernels": [entry["K1"]], "off_main_path": [entry["K2"]]}), flush=True)
+    # K2 is the same template without the rotation; the 1024^2 paths never
+    # call attention without RoPE tables (the e2e and train phases check that
+    # K2 ran 0 times there), so it is checked and timed above but listed apart.
+    print(json.dumps({"kernels": [entry["K1"], entry["K4"]], "off_main_path": [entry["K2"]]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,229 @@
+"""Training data: step-indexed glyph/text batches through the real conditioning
+and VAE path (PyTorch).
+
+Counterpart of ``reptext_tpu/data.py``. Deterministic random text lines are
+rendered by the shared conditioning frontend (``reptext_tpu.conditioning``:
+shape, render, canny + position + region masks), encoded and packed by the
+pipeline exactly as at inference (``prepare_control_tokens``), and the target
+is the glyph composite over a flat background, VAE-encoded to packed latents.
+Prompts become the CLI's demo token ids, with T5 ids padded to the pipeline's
+512-token budget, so the joint sequence is as long as in serving.
+
+Batches are addressed by step and every draw comes from ``(seed, step,
+index)``, so ``ElasticTrainer``'s rollback replays exactly. The conditions of
+a sample come from :meth:`GlyphTextDataset.conditions`, which a caller may
+replace (as ``_target_image`` is replaced for a photo corpus). The OCR box and
+label fields wait for the OCR perceptual term's port.
+"""
+
+from __future__ import annotations
+
+import queue
+import random
+import threading
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from reptext_tpu.conditioning import TextLine, build_conditions
+from reptext_tpu.utils.image import preprocess_images
+from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids
+
+# Arabic-first defaults, with Latin mixed in (the JAX package's pools)
+DEFAULT_WORDS: Tuple[str, ...] = (
+    "مرحبا", "سلام", "نور", "قهوة", "مدينة", "كتاب", "بحر", "شمس",
+    "OPEN", "CAFE", "HELLO", "STOP", "2026", "سوق", "مطعم", "فندق",
+)
+DEFAULT_PROMPT_TEMPLATES: Tuple[str, ...] = (
+    "a street sign in a city",
+    "a neon sign on a night street",
+    "a shop banner above a storefront",
+    "a billboard by the road",
+)
+
+
+class GlyphTextDataset:
+    """Deterministic step-indexed (image, glyph-condition) training batches.
+
+    Args:
+        pipeline: a ``FluxRepTextPipeline``; its condition builder, VAE and
+            text encoders are the ones inference uses.
+        batch_size: samples per batch.
+        words / prompt_templates: text pools to draw from.
+        tokenize: ``prompt -> (clip_ids [1, L], t5_ids [1, L])``; defaults to
+            the CLI's demo ids with T5 padded to ``max_sequence_length``.
+        font_path: TTF font for the glyph renderer.
+        seed: dataset-level seed, combined with the step and sample index.
+    """
+
+    def __init__(self, pipeline, batch_size: int = 2, words: Sequence[str] = DEFAULT_WORDS,
+                 prompt_templates: Sequence[str] = DEFAULT_PROMPT_TEMPLATES,
+                 tokenize: Optional[Callable] = None, font_path: Optional[str] = None,
+                 seed: int = 0):
+        self.pipe = pipeline
+        self.batch_size = batch_size
+        self.words = list(words)
+        self.prompt_templates = list(prompt_templates)
+        self.font_path = font_path
+        self.seed = seed
+        if tokenize is None:
+            from reptext_tpu_torch.cli import demo_token_ids
+
+            tokenize = lambda p: demo_token_ids(  # noqa: E731
+                p, pipeline.clip.config, pipeline.t5.config,
+                pipeline.pipe_cfg.max_sequence_length)
+        self.tokenize = tokenize
+
+    # ----------------------------------------------------------- host-side
+
+    def sample_spec(self, step: int, index: int) -> Dict:
+        """Deterministic (text, position, font_size, colors, prompt) draw."""
+        rnd = random.Random((self.seed << 24) ^ (step << 4) ^ index)
+        cfg = self.pipe.pipe_cfg
+        w, h = cfg.width, cfg.height
+        text = rnd.choice(self.words)
+        font_size = rnd.randint(max(12, h // 10), max(16, h // 5))
+        # keep the line inside the canvas (rough width bound: 0.7*fs per char)
+        max_x = max(1, int(w - 0.7 * font_size * max(len(text), 2)))
+        max_y = max(1, h - int(1.4 * font_size))
+        position = (rnd.randint(0, max_x), rnd.randint(0, max_y))
+        color = tuple(rnd.randint(140, 255) for _ in range(3))
+        bg = tuple(rnd.randint(0, 110) for _ in range(3))
+        prompt = f"{rnd.choice(self.prompt_templates)}, '{text}'"
+        return {"text": text, "position": position, "font_size": font_size,
+                "color": color, "bg": bg, "prompt": prompt}
+
+    def conditions(self, spec: Dict, step: int, index: int):
+        """The rendered conditions of one sample (one text line)."""
+        cfg = self.pipe.pipe_cfg
+        return build_conditions(
+            [TextLine(spec["text"], spec["position"], spec["color"],
+                      font_size=spec["font_size"])],
+            cfg.width, cfg.height, font_path=self.font_path, font_size=spec["font_size"])
+
+    def _target_image(self, conds, spec: Dict) -> np.ndarray:
+        """Training target [H, W, 3] uint8: the glyph composite over a flat background."""
+        canvas = conds.glyph_canvas
+        img = np.empty_like(canvas)
+        img[:] = np.asarray(spec["bg"], np.uint8)
+        ink = (canvas > 0).any(axis=-1)
+        img[ink] = canvas[ink]
+        return img
+
+    def generators(self, step: int, index: int) -> Tuple[torch.Generator, torch.Generator]:
+        """(condition posterior, target posterior) generators of one sample."""
+        seeds = np.random.SeedSequence([self.seed, step, index]).generate_state(2)
+        return tuple(torch.Generator(device=self.pipe.device).manual_seed(int(s))
+                     for s in seeds)
+
+    # -------------------------------------------------------------- batches
+
+    @torch.no_grad()
+    def batch(self, step: int) -> Dict[str, Optional[torch.Tensor]]:
+        """The training batch of ``step`` (replay-deterministic), on the
+        pipeline's device. The encoders' outputs are made in inference mode;
+        stacking or cloning them outside it gives tensors autograd may save."""
+        pipe, cfg = self.pipe, self.pipe.pipe_cfg
+        cond_l, mask_l, target_l, clip_l, t5_l = [], [], [], [], []
+        for i in range(self.batch_size):
+            spec = self.sample_spec(step, i)
+            conds = self.conditions(spec, step, i)
+            g_cond, g_img = self.generators(step, i)
+            ct, tm = pipe.prepare_control_tokens(conds, g_cond)
+            cond_l.append(ct[0])            # one line per sample
+            mask_l.append(tm[0])
+            img = pipe._images(self._target_image(conds, spec)[None])
+            target_l.append(pack_latents(pipe._encode_scaled(img, g_img))[0])
+            cids, tids = self.tokenize(spec["prompt"])
+            clip_l.append(np.asarray(cids)[0])
+            t5_l.append(np.asarray(tids)[0])
+
+        def pad_stack(rows):
+            out = np.zeros((len(rows), max(r.shape[0] for r in rows)), np.int64)
+            for j, r in enumerate(rows):
+                out[j, : r.shape[0]] = r
+            return out
+
+        prompt_embeds, pooled = pipe.encode_prompt(pad_stack(clip_l), pad_stack(t5_l))
+        dev = pipe.device
+        guidance = (torch.full((self.batch_size,), cfg.guidance_scale, dtype=torch.float32,
+                               device=dev) if pipe.flux.config.guidance_embeds else None)
+        return {
+            "x0": torch.stack(target_l),
+            "cond_tokens": torch.stack(cond_l),
+            "token_mask": torch.stack(mask_l),
+            "prompt_embeds": prompt_embeds.clone(),
+            "pooled": pooled.clone(),
+            "img_ids": prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, dev),
+            "txt_ids": torch.zeros((prompt_embeds.shape[1], 3), device=dev),
+            "guidance": guidance,
+        }
+
+    __call__ = batch
+
+
+class PrefetchLoader:
+    """Step-indexed prefetch: build batches ``s+1 .. s+depth`` on a host thread
+    while the device runs step ``s``.
+
+    ``loader(step)`` still returns the batch for exactly ``step``. A request
+    behind the prefetch position (a rollback) restarts prefetching from there;
+    prefetched steps that were skipped are dropped; a build error is raised
+    when its step is requested.
+    """
+
+    def __init__(self, batch_fn: Callable[[int], Dict], depth: int = 2):
+        self.batch_fn = batch_fn
+        self.depth = max(1, depth)
+        self._q: "queue.Queue" = queue.Queue(self.depth)
+        self._thread: Optional[threading.Thread] = None
+        self._next_to_build = 0
+        self._stop = threading.Event()
+
+    def _worker(self, start: int, q: "queue.Queue", stop: threading.Event):
+        # q and stop belong to this generation: a restart swaps self._q and
+        # self._stop, and a stale worker must never feed the new queue
+        step = start
+        while not stop.is_set():
+            try:
+                item = (step, self.batch_fn(step))
+            except Exception as e:  # noqa: BLE001 - raised when the step is requested
+                item = (step, e)
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+            step += 1
+
+    def _restart(self, start: int):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+        self._q = queue.Queue(self.depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._worker, args=(start, self._q, self._stop), daemon=True)
+        self._next_to_build = start
+        self._thread.start()
+
+    def __call__(self, step: int) -> Dict:
+        if self._thread is None or step < self._next_to_build:
+            self._restart(step)  # cold start or rollback replay
+        while True:
+            got_step, item = self._q.get()
+            self._next_to_build = got_step + 1
+            if got_step == step:
+                if isinstance(item, Exception):
+                    raise item
+                return item
+            if got_step > step:  # not reached by the restart logic; build directly
+                return self.batch_fn(step)
+            # got_step < step: a stale prefetch (the caller skipped ahead); drop it
+
+    def close(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)

@@ -13,6 +13,10 @@ mechanical:
 Any module parameter without a leaf, any leaf without a parameter, and any
 shape mismatch raises. This is also the real-checkpoint route: diffusers
 safetensors -> ``reptext_tpu.io.convert.convert_*`` -> :func:`load_jax_params`.
+
+Since ``kernel`` and ``scale`` both become ``weight``, the name alone cannot
+say which Flax leaf a parameter was; :func:`flax_leaf_kinds` tells it from
+the owning module's type.
 """
 
 from __future__ import annotations
@@ -43,6 +47,28 @@ def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
             return arr.transpose(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     return arr
+
+
+def flax_leaf_kinds(module: torch.nn.Module) -> Dict[str, str]:
+    """{parameter name: the Flax leaf it carries: kernel, scale, bias or embedding}.
+
+    Linear and Conv2d weights are ``kernel``s, Embedding weights
+    ``embedding``s, other weights (LayerNorm, GroupNorm, and the RMS norms,
+    whose Flax leaf is named ``weight``) ``scale``s, and biases ``bias``.
+    """
+    kinds: Dict[str, str] = {}
+    for mod_name, mod in module.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            if leaf == "bias":
+                kind = "bias"
+            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+                kind = "kernel"
+            elif isinstance(mod, torch.nn.Embedding):
+                kind = "embedding"
+            else:
+                kind = "scale"
+            kinds[f"{mod_name}.{leaf}" if mod_name else leaf] = kind
+    return kinds
 
 
 def flatten_jax_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:

@@ -4,8 +4,10 @@ Counterpart of ``reptext_tpu/models/controlnet.py::RepTextControlNet``: packed
 latents plus a packed conditioning tensor (canny + position latents) through
 a zero-initialised ``controlnet_x_embedder``, trimmed double/single stacks,
 and one zero-initialised ``proj`` head per block whose output is the
-residual for the base model, multiplied by ``conditioning_scale``. Union mode
-and ``params_from_transformer`` are not ported yet.
+residual for the base model, multiplied by ``conditioning_scale``.
+``remat`` checkpoints each block as in ``models/flux.py``;
+:func:`params_from_transformer` is the warm-start weight surgery. Union mode
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch import nn
 
 from reptext_tpu.configs import ControlNetConfig
+from reptext_tpu_torch.models.flux import FluxTransformer2D, run_block
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
 from reptext_tpu_torch.ops.rope import rope_cos_sin_half
@@ -45,13 +48,14 @@ class RepTextControlNet(nn.Module):
     # parameters that start at zero (the fresh ControlNet is a no-op)
     zero_init = ("controlnet_x_embedder.weight", ".proj.weight")
 
-    def __init__(self, config: ControlNetConfig, device=None, dtype=None):
+    def __init__(self, config: ControlNetConfig, device=None, dtype=None, remat: bool = False):
         super().__init__()
         if config.union:
             raise NotImplementedError("union-mode ControlNet is not ported yet")
         cfg = config
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
+        self.remat = remat
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.controlnet_x_embedder = nn.Linear(
             cfg.in_channels + cfg.extra_condition_channels, cfg.inner_dim, **kw)
@@ -81,15 +85,51 @@ class RepTextControlNet(nn.Module):
 
         block_samples = []
         for layer in self.double_blocks:
-            ctx, x = layer.block(x, ctx, temb, cos, sin)
+            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin)
             block_samples.append(layer.proj(x))
 
         txt_len = ctx.shape[1]
         joint = torch.cat([ctx, x], dim=1)
         single_samples = []
         for layer in self.single_blocks:
-            joint = layer.block(joint, temb, cos, sin)
+            joint = run_block(layer.block, self.remat, joint, temb, cos, sin)
             single_samples.append(layer.proj(joint[:, txt_len:]))
 
         scale = torch.tensor(conditioning_scale, dtype=dtype, device=x.device)
         return torch.stack(block_samples) * scale, torch.stack(single_samples) * scale
+
+
+@torch.no_grad()
+def params_from_transformer(flux: FluxTransformer2D, controlnet: RepTextControlNet,
+                            num_layers: int, num_single_layers: int) -> RepTextControlNet:
+    """Warm-start ``controlnet`` from the base transformer, in place.
+
+    Counterpart of the JAX ``params_from_transformer`` (reference
+    ``FluxControlNetModel.from_transformer``): copies ``x_embedder``,
+    ``context_embedder``, ``time_text_embed`` and the first ``num_layers``
+    double / ``num_single_layers`` single blocks from ``flux``; the zero
+    ``proj`` heads and ``controlnet_x_embedder`` stay as they are, so the
+    ControlNet stays a no-op until trained. Raises when the depth exceeds the
+    base's or differs from the ControlNet's own.
+    """
+    base = (len(flux.double_blocks), len(flux.single_blocks))
+    if num_layers > base[0] or num_single_layers > base[1]:
+        raise ValueError(f"ControlNet depth ({num_layers} double, {num_single_layers} single) "
+                         f"exceeds base transformer depth {base}")
+    own = (len(controlnet.double_blocks), len(controlnet.single_blocks))
+    if (num_layers, num_single_layers) != own:
+        raise ValueError(f"depth ({num_layers}, {num_single_layers}) differs from the "
+                         f"ControlNet's {own}")
+    pairs = [(getattr(controlnet, n), getattr(flux, n))
+             for n in ("x_embedder", "context_embedder", "time_text_embed")]
+    pairs += [(controlnet.double_blocks[i].block, flux.double_blocks[i].block)
+              for i in range(num_layers)]
+    pairs += [(controlnet.single_blocks[i].block, flux.single_blocks[i].block)
+              for i in range(num_single_layers)]
+    for dst, src in pairs:
+        for (name, p), (src_name, q) in zip(dst.named_parameters(), src.named_parameters()):
+            if name != src_name or p.shape != q.shape:
+                raise ValueError(f"cannot copy {src_name} {tuple(q.shape)} into "
+                                 f"{name} {tuple(p.shape)}")
+            p.copy_(q)
+    return controlnet

@@ -9,8 +9,13 @@ ControlNet residuals are injected after each block, index-on-read: base layer
 i adds ``stack[min(i // ceil(L / n), n - 1)]`` of every [n, B, S_img, D]
 residual stack passed (one stack, or a tuple of differently deep stacks).
 Double-block residuals go to the image stream, single-block residuals to the
-image-token slice of the joint sequence. ``weight_quant``, ``remat`` and the
-IP-Adapter are not ported yet.
+image-token slice of the joint sequence.
+
+``remat=True`` runs each block under ``torch.utils.checkpoint`` (non-reentrant)
+when autograd records, the counterpart of ``nn.remat`` on the JAX layer
+stacks: a block keeps only its inputs, and its activations are recomputed
+(attention forward included) when the backward reaches it. ``weight_quant``
+and the IP-Adapter are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from reptext_tpu.configs import FluxConfig
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
@@ -44,6 +50,14 @@ class _SingleLayer(nn.Module):
         self.block = SingleTransformerBlock(cfg.inner_dim, cfg.num_attention_heads,
                                             cfg.attention_head_dim, cfg.mlp_ratio,
                                             device=device, dtype=dtype)
+
+
+def run_block(block: nn.Module, remat: bool, *args):
+    """``block(*args)``, under activation checkpointing when ``remat`` is set
+    and autograd is recording."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 def as_stack_tuple(samples: Stacks) -> Optional[Tuple[torch.Tensor, ...]]:
@@ -72,11 +86,12 @@ def read_inject(stacks: Tuple[torch.Tensor, ...], idx: Sequence[int]) -> torch.T
 class FluxTransformer2D(nn.Module):
     """The base FLUX diffusion transformer."""
 
-    def __init__(self, config: FluxConfig, device=None, dtype=None):
+    def __init__(self, config: FluxConfig, device=None, dtype=None, remat: bool = False):
         super().__init__()
         cfg = config
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
+        self.remat = remat
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.time_text_embed = CombinedTimestepTextEmbed(
             cfg.inner_dim, cfg.pooled_projection_dim, cfg.time_embed_dim,
@@ -106,7 +121,7 @@ class FluxTransformer2D(nn.Module):
         double_idx = None if double_stacks is None else [
             inject_index(s.shape[0], cfg.num_layers) for s in double_stacks]
         for i, layer in enumerate(self.double_blocks):
-            ctx, x = layer.block(x, ctx, temb, cos, sin)
+            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin)
             if double_stacks is not None:
                 x = x + read_inject(double_stacks, [ix[i] for ix in double_idx]).to(x.dtype)
 
@@ -116,9 +131,11 @@ class FluxTransformer2D(nn.Module):
         single_idx = None if single_stacks is None else [
             inject_index(s.shape[0], cfg.num_single_layers) for s in single_stacks]
         for i, layer in enumerate(self.single_blocks):
-            joint = layer.block(joint, temb, cos, sin)
+            joint = run_block(layer.block, self.remat, joint, temb, cos, sin)
             if single_stacks is not None:
-                # in place on the block's fresh output tensor
+                # in place on the block's fresh output tensor: no op saves that
+                # tensor for backward (it comes from an add), and a recomputed
+                # block makes a new one, so autograd and remat are unaffected
                 joint[:, txt_len:] += read_inject(
                     single_stacks, [ix[i] for ix in single_idx]).to(joint.dtype)
 

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The kernels live in ``reptext_tpu_torch/csrc/*.cu`` behind a plain C
-interface. At first use they are compiled for Hopper (``sm_90a``) into one
+interface. At first use each source is compiled for Hopper (``sm_90a``) by its
+own ``nvcc``, all started together, and the objects are linked into one
 shared library under ``reptext_tpu_torch/_build/`` (listed in .gitignore),
-which is rebuilt whenever a source is newer than it. Nothing here imports
-torch or touches a GPU, so the module is safe to import anywhere; building
-needs ``nvcc`` and raises with its output when the compile fails.
+which is rebuilt whenever a source or header is newer than it. Nothing here
+imports torch or touches a GPU, so the module is safe to import anywhere;
+building needs ``nvcc`` and raises with its output when a compile fails.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ def sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
+def headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
@@ -47,17 +52,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str, srcs: List[str], out: str) -> List[str]:
-    """The compile line: Hopper sm_90a, C++17, -O3, one shared library."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", out, *srcs]
+def nvcc_command(nvcc: str, src: str, out: str) -> List[str]:
+    """The compile line of one source: Hopper sm_90a, C++17, -O3, a
+    position-independent object."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", out, src]
 
 
-def _stale(srcs: List[str]) -> bool:
+def link_command(nvcc: str, objs: List[str], out: str) -> List[str]:
+    """The link line: the objects into one shared library."""
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs]
+
+
+def _stale(inputs: List[str]) -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in srcs)
+    return any(os.path.getmtime(s) > built for s in inputs)
 
 
 def build(force: bool = False) -> str:
@@ -65,19 +76,38 @@ def build(force: bool = False) -> str:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    if not force and not _stale(srcs):
+    if not force and not _stale(srcs + headers()):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = nvcc_command(find_nvcc(), srcs, tmp)
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees half a file
+    procs = [(nvcc_command(nvcc, s, o), subprocess.Popen(
+        nvcc_command(nvcc, s, o), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for s, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        link = link_command(nvcc, objs, tmp)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_log["seconds"] = time.perf_counter() - t0
-    build_log["ptxas"] = proc.stderr
+    build_log["ptxas"] = "".join(logs)
     return LIB_PATH
 
 
@@ -91,6 +121,9 @@ def load() -> ctypes.CDLL:
             fn = lib.reptext_flash_attention_fwd
             fn.argtypes = ([c_p] * 8 + [c_i] * 4 + [c_ll] * 12
                            + [ctypes.c_float, c_i, c_i, c_p])
+            fn.restype = c_i
+            fn = lib.reptext_flash_attention_bwd
+            fn.argtypes = ([c_p] * 9 + [c_i] * 4 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
             fn.restype = c_i
             _lib = lib
         return _lib

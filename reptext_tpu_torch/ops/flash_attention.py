@@ -1,4 +1,4 @@
-"""Joint flash attention forward: the hand-written Hopper kernel and its plain twin.
+"""Joint flash attention, forward and backward: hand-written Hopper kernels and plain twins.
 
 Counterpart of ``reptext_tpu/ops/flash_attention.py``. The CUDA kernel in
 ``csrc/flash_attention.cu`` replaces the Pallas kernels ``_attn_kernel_rope``
@@ -10,10 +10,16 @@ selects the running-max form), probabilities rounded to the value dtype for
 PV, fp32 accumulation, and division after PV. Both entries return
 ``(out, lse)``.
 
-A CUDA tensor goes to the kernel or the call raises. Only a CPU tensor takes
-the plain PyTorch version beside it, which computes the same thing with the
-same rounding points; ``chip_smoke.py`` holds the kernel against it on the
-card. Each entry counts its kernel launches in ``<entry>.launches``.
+Both entries are ``torch.autograd.Function``s, the counterparts of the two
+``jax.custom_vjp``s. Their backward is K4 (``_dq_kernel``/``_dkv_kernel``,
+``csrc/flash_attention_bwd.cu``): it recomputes p from the saved lse, as
+``_flash_backward_pallas`` does; the RoPE entry rotates q and k with the
+fp32 tables first and un-rotates dq and dk after, as ``_rope_bwd`` does.
+
+A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
+the plain PyTorch versions beside them, which compute the same things with
+the same rounding points; ``chip_smoke.py`` holds the kernels against them on
+the card. Each kernel entry counts its launches in ``<entry>.launches``.
 """
 
 from __future__ import annotations
@@ -85,7 +91,55 @@ def flash_attention_rope_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return _softmax_pv(qs, ks, v, _online(online))
 
 
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                   online: Optional[bool] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 in plain PyTorch: (dq, dk, dv) from q, k (rotated), v, the forward's
+    out and lse, and dO, all [B, H, S, D] (lse [B, H, S]).
+
+    Recomputes p = exp(clip(q k^T / sqrt(D)) - lse) (no clip online; beyond
+    the clip the gradient passes straight through, as in the Pallas kernels),
+    delta = sum_d dO O in fp32, and rounds p and ds to the value dtype before
+    their products, as the kernel does. Holds several fp32 [B, H, S, S] tensors.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if not _online(online):
+        logits = logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
+    p = torch.exp(logits - lse[..., None])
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), dof)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).to(q.dtype).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    do: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fp32 oracle: the exact softmax-attention backward (no clip), the
+    twin of ``_flash_backward_einsum``."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale, dim=-1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------ kernel wrappers
+
+
+def _kernel_strides(x: torch.Tensor) -> bool:
+    """The layout the kernels take: a contiguous head dim, 8-element-aligned
+    strides and a 16-byte-aligned base."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0
 
 
 def _check(name: str, x: torch.Tensor, shape) -> None:
@@ -99,7 +153,7 @@ def _check(name: str, x: torch.Tensor, shape) -> None:
         raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+    if not _kernel_strides(x):
         raise ValueError(
             f"{name} needs a contiguous head dim, 8-element-aligned strides and a "
             f"16-byte-aligned base (strides {x.stride()})")
@@ -142,26 +196,113 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool) -> Tuple[torch.Tensor, to
     return out, lse
 
 
+def _launch_backward(q, k, v, out, lse, do, online: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    from reptext_tpu_torch.ops import _build
+
+    b, h, s, d = q.shape
+    if d not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
+        _check(name, x, (b, h, s, d))
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 [{b}, {h}, {s}] tensor on {q.device}")
+    lib = _build.load()
+    delta = (do.float() * out.float()).sum(dim=-1)      # [B, H, S] fp32, contiguous
+    dq, dk, dv = (torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.reptext_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        1.0 / math.sqrt(d), int(online), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward kernel launch failed: cudaError {err}")
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                             online: Optional[bool] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: (dq, dk, dv) for q, k (rotated), v, out, lse and dO; see
+    :func:`flash_attention_backward_plain` for what it computes."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, out, lse, do, online)
+    # dO arrives strided (merge_heads' gradient, [B, S, H, D] memory), which
+    # the kernels take; any other layout (an expanded sum() gradient) is copied
+    do = do if _kernel_strides(do) else do.contiguous()
+    result = _launch_backward(q, k, v, out, lse, do, _online(online))
+    flash_attention_backward.launches += 1
+    return result
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward, K4 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, online: bool):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, online)
+        else:
+            out, lse = _launch(q, k, v, None, None, online)
+            flash_attention.launches += 1
+        ctx.online = online
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.online), None)
+
+
+class _FlashAttentionRope(torch.autograd.Function):
+    """K1 forward; backward as ``_rope_bwd``: rotate q and k with the fp32
+    tables, K4, then rotate dq and dk back by -theta (the rotation is
+    orthogonal per channel pair). The tables get no (zero) gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rope_cos, rope_sin, online: bool):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
+        else:
+            out, lse = _launch(q, k, v, rope_cos, rope_sin, online)
+            flash_attention_rope.launches += 1
+        ctx.online = online
+        ctx.save_for_backward(q, k, v, rope_cos, rope_sin, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, cos, sin, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v, out, lse, g,
+            ctx.online)
+        return (apply_rope_half(dq, cos, -sin), apply_rope_half(dk, cos, -sin), dv,
+                None, None, None)
+
+
 def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                          online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: RoPE-fused attention, q/k unrotated (half-split). Returns (out, lse)."""
-    if q.device.type == "cpu":
-        return flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
-    result = _launch(q, k, v, rope_cos, rope_sin, _online(online))
-    flash_attention_rope.launches += 1
-    return result
+    """K1: RoPE-fused attention, q/k unrotated (half-split). Returns (out, lse);
+    gradients flow to q, k and v through K4."""
+    return _FlashAttentionRope.apply(q, k, v, rope_cos, rope_sin, _online(online))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: attention without rotation. Returns (out, lse)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, online)
-    result = _launch(q, k, v, None, None, _online(online))
-    flash_attention.launches += 1
-    return result
+    """K2: attention without rotation. Returns (out, lse); gradients through K4."""
+    return _FlashAttention.apply(q, k, v, _online(online))
 
 
 flash_attention_rope.launches = 0
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

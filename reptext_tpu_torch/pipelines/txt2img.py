@@ -4,8 +4,9 @@ Counterpart of ``reptext_tpu/pipelines/txt2img.py::FluxRepTextPipeline`` on
 the path the slice runs: per-line canny / position / region conditioning
 encoded through the VAE, CLIP + T5 prompt encoding, the glyph-latent init,
 the step-gated, regionally masked ControlNet loop (``sampling/sampler.py``),
-and the VAE decode. Randomness comes from ``torch.Generator``s derived from
-``seed``; there is no global RNG. The JAX package's residency and fp8
+and the VAE decode; its encoders also feed the training data path
+(``reptext_tpu_torch/data.py``). Randomness comes from ``torch.Generator``s
+derived from ``seed``; there is no global RNG. The JAX package's residency and fp8
 staging code exists for a 16 GB chip and has no counterpart here. img2img,
 callbacks, custom timesteps/sigmas and ``generate_batch`` are not ported yet.
 """
@@ -68,15 +69,17 @@ class FluxRepTextPipeline:
     def create(cls, flux_cfg: FluxConfig, cn_cfg: ControlNetConfig, vae_cfg: VAEConfig,
                pipe_cfg: PipelineConfig, params: Optional[Dict[str, Any]] = None,
                clip_cfg: Optional[CLIPConfig] = None, t5_cfg: Optional[T5Config] = None,
-               seed: int = 0, device="cpu", dtype: torch.dtype = torch.float32
-               ) -> "FluxRepTextPipeline":
-        """Build the modules on ``device`` in ``dtype``.
+               seed: int = 0, device="cpu", dtype: torch.dtype = torch.float32,
+               remat: bool = False) -> "FluxRepTextPipeline":
+        """Build the modules on ``device`` in ``dtype``, every one frozen.
 
         With ``params`` (Flax trees of numpy arrays keyed flux / controlnet /
         vae / clip / t5) the weights are carried over by ``load_jax_params``;
         without, they are drawn on the device from one generator seeded with
         ``seed``. Modules are first built on the meta device, so no host copy
-        of the weights is ever made.
+        of the weights is ever made. ``remat`` checkpoints the blocks of FLUX
+        and the ControlNet for training; a training caller makes the
+        ControlNet trainable (``init_controlnet_training``).
         """
         device = torch.device(device)
         specs = {"flux": (FluxTransformer2D, flux_cfg), "controlnet": (RepTextControlNet, cn_cfg),
@@ -88,7 +91,8 @@ class FluxRepTextPipeline:
             if cfg is None:
                 built[name] = None
                 continue
-            module = ctor(cfg, device="meta", dtype=dtype).to_empty(device=device)
+            kw = {"remat": remat} if name in ("flux", "controlnet") else {}
+            module = ctor(cfg, device="meta", dtype=dtype, **kw).to_empty(device=device)
             if params is None:
                 random_init_(module, generator)
             else:

@@ -10,6 +10,7 @@ pass); lse 5e-5; bf16 inputs one bf16 ulp of the output (1e-2 at |out| < 2).
 """
 
 import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,12 +185,16 @@ def test_wrapper_rejects_non_cuda_tensors():
 
 
 def test_build_line_targets_sm90a():
-    cmd = _build.nvcc_command("nvcc", ["a.cu"], "out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+    cmd = _build.nvcc_command("nvcc", "a.cu", "a.o")
+    link = _build.link_command("nvcc", ["a.o", "b.o"], "out.so")
+    for line in (cmd, link):
+        assert "arch=compute_90a,code=sm_90a" in line
+        assert line[line.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
+    for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
         assert flag in cmd
-    assert [s for s in _build.sources() if s.endswith("flash_attention.cu")]
+    assert "-shared" in link and link[-2:] == ["a.o", "b.o"]
+    names = [os.path.basename(s) for s in _build.sources()]
+    assert "flash_attention.cu" in names and "flash_attention_bwd.cu" in names
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,12 +1,16 @@
-"""The port's CUDA flash-attention kernel against its plain PyTorch version,
-on the card. Everything here needs a CUDA device and skips without one.
+"""The port's CUDA flash-attention kernels (forward K1/K2, backward K4)
+against their plain PyTorch versions, on the card, and gradients through a
+transformer block. Everything here needs a CUDA device and skips without one.
 
 Run on the card (this file imports neither jax nor the tests' conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Tolerances as chip_smoke.py states them: out within 2^-6 of max|plain out|
 (two bf16 ulps at the top of the output's range; the sums are reordered, so an
-element may land one ulp away), lse 1e-3.
+element may land one ulp away), lse 1e-3; dq, dk, dv within 2^-5 of
+max|plain| (max-abs) and 2^-7 of mean|plain| (mean-abs): the kernel and its
+plain version round p and ds to bf16 at the same points but sum thousands of
+products in another order.
 """
 
 import numpy as np
@@ -14,8 +18,8 @@ import pytest
 import torch
 
 from reptext_tpu_torch.ops import flash_attention as fa
-from reptext_tpu_torch.ops.attention import attention
-from reptext_tpu_torch.ops.rope import rope_cos_sin_half
+from reptext_tpu_torch.ops.attention import attention, plain_attention
+from reptext_tpu_torch.ops.rope import apply_rope_half, rope_cos_sin_half
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +85,80 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(ValueError, match="rope_cos"):
         fa.flash_attention_rope(q, k, v, cos.to(torch.bfloat16), sin)
+
+
+def _bwd_inputs(dev, b, h, s, online, seed=0):
+    """Rotated q/k, v, K1's out and lse, and dO in the layout merge_heads'
+    gradient arrives in (a [B, S, H, D] buffer viewed [B, H, S, D])."""
+    q, k, v, cos, sin = _inputs(dev, b, h, s, seed)
+    out, lse = fa.flash_attention_rope(q, k, v, cos, sin, online)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn(b, s, h, 128, generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v, out, lse, do
+
+
+def _grad_ok(got, want):
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    return (err.max().item() <= 2.0 ** -5 * ref.max().item()
+            and err.mean().item() <= 2.0 ** -7 * ref.mean().item())
+
+
+@pytest.mark.parametrize("b,h,s", [(1, 2, 1000), (2, 24, 4106)])
+@pytest.mark.parametrize("online", [False, True])
+def test_backward_kernel_matches_plain(dev, b, h, s, online):
+    args = _bwd_inputs(dev, b, h, s, online)
+    n = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(*args, online=online)
+    want = fa.flash_attention_backward_plain(*args, online=online)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n + 1
+    for x, y in zip(got, want):
+        assert x.shape == (b, h, s, 128) and x.dtype == torch.bfloat16
+        assert bool(torch.isfinite(x.float()).all())
+        assert _grad_ok(x, y)
+
+
+def test_gradients_flow_through_the_kernels(dev, monkeypatch):
+    """A loss through one JointTransformerBlock on the card reaches the q
+    projection through K1 and K4, and agrees with the same block run with plain
+    attention (autograd through the softmax) within 5e-2 of max|plain grad|."""
+    from reptext_tpu_torch.nn import blocks
+    from reptext_tpu_torch.nn.init import random_init_
+
+    gen = torch.Generator().manual_seed(0)
+    block = random_init_(blocks.JointTransformerBlock(256, 2, 128), gen)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    block = block.to(dev, torch.bfloat16)
+    s_txt, s_img = 56, 200
+    img = torch.randn(1, s_img, 256, generator=gen).to(dev, torch.bfloat16)
+    txt = torch.randn(1, s_txt, 256, generator=gen).to(dev, torch.bfloat16)
+    temb = torch.randn(1, 256, generator=gen).to(dev, torch.bfloat16)
+    w_img = torch.randn(1, s_img, 256, generator=gen).to(dev)
+    w_txt = torch.randn(1, s_txt, 256, generator=gen).to(dev)
+    _, _, _, cos, sin = _inputs(dev, 1, 1, s_txt + s_img, seed=3)
+
+    def q_grad():
+        block.zero_grad(set_to_none=True)
+        ctx, x = block(img, txt, temb, cos, sin)
+        ((x.float() * w_img).sum() + (ctx.float() * w_txt).sum()).backward()
+        return block.to_q.weight.grad.float().clone()
+
+    n1, n4 = fa.flash_attention_rope.launches, fa.flash_attention_backward.launches
+    got = q_grad()
+    assert (fa.flash_attention_rope.launches, fa.flash_attention_backward.launches) == (n1 + 1, n4 + 1)
+    monkeypatch.setattr(blocks, "attention", lambda q, k, v, c, s: plain_attention(
+        apply_rope_half(q, c, s), apply_rope_half(k, c, s), v))
+    want = q_grad()
+    assert got.abs().max().item() > 0
+    assert (got - want).abs().max().item() <= 5e-2 * want.abs().max().item()
+
+
+def test_backward_rejects_what_it_does_not_take(dev):
+    args = _bwd_inputs(dev, 1, 2, 64, online=False, seed=4)
+    with pytest.raises(TypeError, match="float16"):
+        fa.flash_attention_backward(*(x.half() if x.dtype == torch.bfloat16 else x for x in args))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_backward(*(x[..., :64] if x.dim() == 4 else x for x in args))

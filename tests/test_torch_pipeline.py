@@ -189,7 +189,9 @@ def _env_without_jax_platforms():
 
 def test_port_never_imports_jax():
     code = ("import sys, reptext_tpu_torch, reptext_tpu_torch.cli, "
-            "reptext_tpu_torch.pipelines.txt2img, reptext_tpu_torch.ops.flash_attention; "
+            "reptext_tpu_torch.pipelines.txt2img, reptext_tpu_torch.ops.flash_attention, "
+            "reptext_tpu_torch.data, reptext_tpu_torch.sampling.elastic, "
+            "reptext_tpu_torch.sampling.train_controlnet; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env_without_jax_platforms(),
                    check=True, timeout=120)
