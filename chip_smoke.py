@@ -3,20 +3,24 @@
 
     python3 chip_smoke.py                 # 4 steps, ControlNet on for the first 2; 3 train steps
     python3 chip_smoke.py --steps 30 --controlnet-step 30   # the reference op-point
-    python3 chip_smoke.py --profile       # adds device profiles of two ControlNet steps
-                                          # and of one train step
+    python3 chip_smoke.py --profile       # adds device profiles of two inpaint steps at
+                                          # 1536x1152, two ControlNet steps at 1024^2
+                                          # and one train step
 
 Needs one CUDA device (an H100; the kernels are built for sm_90a) and exits
 non-zero without one. Phases, one line each, and any failure ends the run:
 
 1. device: the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the kernels from reptext_tpu_torch/csrc;
-3. kernels: the flash-attention forward kernel (K1 RoPE-fused, K2 plain) and
-   the backward kernel (K4, dq and dk/dv) against their plain PyTorch versions
-   on the card, at the main path's shape (1, 24, 4608, 128) with RoPE tables
-   from the real text/image ids, at an unaligned length (2, 24, 4106, 128),
-   and beyond the logit clamp; errors and median times (kernel and plain
-   version), and K1's clamped against its online softmax;
+3. kernels: the flash-attention forward kernel (K1 RoPE-fused, K2 plain), the
+   streaming forward kernel (K3, past 6144 tokens, on q and k rotated with
+   the fp32 tables) and the backward kernel (K4, dq and dk/dv) against their
+   plain PyTorch versions on the card: K1/K2/K4 at the 1024^2 shape (1, 24,
+   4608, 128), K3 at the 1536x1152 inpaint shape (2, 24, 7424, 128) and the
+   1536^2 shape (1, 24, 9728, 128), all with RoPE tables from the real
+   text/image ids, at unaligned lengths ((2, 24, 4106, 128); K3 (1, 24, 6500,
+   128)), and beyond the logit clamp; errors and median times (kernel and
+   plain version), and K1's and K3's clamped against their online softmax;
 4. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
@@ -24,20 +28,33 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    line) through the port's CLI path (reptext_tpu_torch.cli.build_pipeline /
    generate) at full FLUX.1-dev + RepText + T5-XXL + CLIP-L + VAE geometry,
    bf16, seeded random weights; checks the image shape, finite latents and
-   that K1 ran steps * 57 + controlnet_steps * 14 times per image and K2 none;
-6. with --profile: torch.profiler over two ControlNet steps of the sampler,
+   that K1 ran steps * 57 + controlnet_steps * 14 times per image and K2 and
+   K3 none;
+6. large: on the same modules, one 1536x1536 txt2img request through
+   cli.generate (joint S = 9728: K3 = steps * 57 + controlnet_steps * 14, K1 =
+   K2 = 0), then text inpainting through cli.generate_inpaint with one added
+   inpaint ControlNet (seeded random weights): a 1280x960 request (S = 5312,
+   the reference's op-point: K1 only) and a 1536x1152 one (S = 7424: K3
+   only), each at true-CFG scale 3.5 with the default negative prompt, a
+   seeded numpy source image and a box mask over the text line; per image
+   steps * (57 + 14) + controlnet_steps * 14 launches of its kernel. Checks
+   image shapes, uint8 and finite latents; prints s/image, stage seconds,
+   sampler ms/step and peak memory; then frees the inpaint ControlNet;
+7. with --profile: torch.profiler over two inpaint steps at 1536x1152 (in the
+   large phase) and over two ControlNet steps of the txt2img sampler at 1024^2,
    device (kernel) time by class, the device's idle share and the top kernels;
-7. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
+8. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
    train: warm start, AdamW at the CLI defaults, ElasticTrainer +
    PrefetchLoader) for 3 steps at batch 2, 1024^2, with remat; checks finite
    losses, nonzero heads and exactly-zero block gradients after step 1, a
-   bit-identical base, and K1 = 141, K4 = 70, K2 = 0 launches per step; with
-   --profile, then torch.profiler over one more train step.
+   bit-identical base, and K1 = 141, K4 = 70, K2 = K3 = 0 launches per step;
+   with --profile, then torch.profiler over one more train step.
 
-Then a JSON line of kernel results, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. The text lines come from
-tests/fixtures/conditions_1024.npz, whose condition arrays are used only where
-Pillow or a font is missing.
+Then a JSON line of kernel results (launches per path, each path's counts set
+to 0 just before it and read just after), the nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}. The text lines come from
+tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
+arrays are used only where Pillow or a font is missing.
 """
 
 import os
@@ -58,6 +75,8 @@ import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "conditions_1024.npz")
+LARGE_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "conditions_large.npz")
+TRUE_GUIDANCE = 3.5
 
 # Stated tolerances, kernel vs its plain version on the same bf16 inputs.
 # Both sides round q', k' and p to bf16 at the same points but sum in another
@@ -89,6 +108,22 @@ TRAIN_K1 = FWD_CALLS + TRAIN_K4
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def forward_counters():
+    from reptext_tpu_torch.ops import flash_attention as fa
+
+    return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
+            "K3": fa.flash_attention_streaming}
+
+
+def reset_launches():
+    for entry in forward_counters().values():
+        entry.launches = 0
+
+
+def read_launches():
+    return {key: entry.launches for key, entry in forward_counters().items()}
 
 
 def cuda_time_ms(fn, repeats=20, warmup=3):
@@ -217,6 +252,71 @@ def kernel_phase(dev):
         results[key]["max_abs_err"] = errs[key]
     torch.cuda.empty_cache()
     return results
+
+
+def streaming_kernel_phase(dev):
+    """K3 against flash_attention_streaming_plain on q and k rotated with the
+    fp32 tables, as the RoPE entry's route rotates them past 6144 tokens."""
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(b, txt_len, grid_h, grid_w):
+        s = txt_len + grid_h * grid_w
+        q, k, v = (torch.randn(b, 24, s, 128, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        cos, sin = rope_tables(txt_len, grid_h, grid_w, dev)
+        return apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin), v
+
+    err, ms = 0.0, {}
+    # the 1536x1152 inpaint request: 512 T5 tokens + a 72 x 96 grid, CFG batch 2
+    # the 1536^2 txt2img request: 512 + 96 x 96
+    for b, txt, gh, gw, modes in ((2, 512, 72, 96, (False, True)), (1, 512, 96, 96, (False,))):
+        q, k, v = inputs(b, txt, gh, gw)
+        shape = f"({b},24,{q.shape[2]},128)"
+        for online in modes:
+            err = max(err, compare(f"K3 {shape} {'online' if online else 'clamped'}",
+                                   fa.flash_attention_streaming(q, k, v, online),
+                                   fa.flash_attention_streaming_plain(q, k, v, online)))
+        kern, pln, line = alternated_ms(lambda: fa.flash_attention_streaming(q, k, v),
+                                        lambda: fa.flash_attention_streaming_plain(q, k, v))
+        ms[shape] = {"ms": kern[0], "plain_ms": pln[0]}
+        phase("kernels", f"K3 {shape} time: {line}")
+        if b == 2:
+            ab = {False: [], True: []}
+            for online in (False, True, True, False, False, True):
+                ab[online].append(cuda_time_ms(
+                    lambda: fa.flash_attention_streaming(q, k, v, online))[0])
+            phase("kernels", f"K3 {shape} softmax A/B, medians of 20 in the order c o o c c o: "
+                             f"clamped {' / '.join(f'{t:.4f}' for t in ab[False])} ms, "
+                             f"online {' / '.join(f'{t:.4f}' for t in ab[True])} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # unaligned: 100 text tokens + an 80 x 80 grid = 6500 keys (6500 % 64 = 36)
+    q, k, v = inputs(1, 100, 80, 80)
+    for online in (False, True):
+        err = max(err, compare(f"K3 (1,24,6500,128) {'online' if online else 'clamped'}",
+                               fa.flash_attention_streaming(q, k, v, online),
+                               fa.flash_attention_streaming_plain(q, k, v, online)))
+    del q, k, v
+    # beyond the clamp: planted logits up to 80, which K3 scales on the fp32 logits
+    s, d = 1000, 128
+    q = torch.zeros(1, 2, s, d, device=dev)
+    k = torch.zeros(1, 2, s, d, device=dev)
+    q[..., 0] = 80.0 * d ** 0.5
+    k[..., 0] = torch.linspace(-1.0, 1.0, s, device=dev)
+    v = torch.randn(1, 2, s, d, generator=gen, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lmax = fa.flash_attention_streaming_plain(q, k, v, online=True)[1].max().item()
+    phase("kernels", f"K3 beyond-clamp case: unclamped lse max {lmax:.2f} (> {fa.LOGIT_CLAMP})")
+    err = max(err, compare("K3 beyond clamp (1,2,1000,128)", fa.flash_attention_streaming(q, k, v),
+                           fa.flash_attention_streaming_plain(q, k, v)))
+    torch.cuda.empty_cache()
+    main = ms["(2,24,7424,128)"]
+    return {"ms": main["ms"], "plain_ms": main["plain_ms"], "ms_by_shape": ms,
+            "max_abs_err": err}
 
 
 def compare_grads(name, got, want):
@@ -414,8 +514,10 @@ def load_requests():
     return data, size, font_size, reqs
 
 
-def conditions_for(data, name, text, pos, size, font_size):
-    """build_conditions when Pillow and a font are there, else the fixture arrays."""
+def conditions_for(data, name, text, pos, size, font_size, path=FIXTURE):
+    """build_conditions when Pillow and a font are there, else the fixture
+    arrays; ``size`` is square or (width, height)."""
+    width, height = (size, size) if isinstance(size, int) else size
     try:
         from reptext_tpu.conditioning import TextLine, build_conditions, default_font_path
 
@@ -425,15 +527,14 @@ def conditions_for(data, name, text, pos, size, font_size):
                                         ("canny_image", "position_mask", "region_mask")})
         cond = types.SimpleNamespace(lines=[line], glyph_canvas=data[f"{name}.glyph_canvas"],
                                      num_lines=1)
-        return cond, f"fixture {os.path.relpath(FIXTURE, ROOT)} ({type(e).__name__}: {e})"
-    cond = build_conditions([TextLine(text, pos, font_size=font_size)], size, size,
+        return cond, f"fixture {os.path.relpath(path, ROOT)} ({type(e).__name__}: {e})"
+    cond = build_conditions([TextLine(text, pos, font_size=font_size)], width, height,
                             font_size=font_size)
     return cond, "build_conditions"
 
 
 def e2e_phase(dev, steps, cn_steps, seed):
     from reptext_tpu_torch import cli
-    from reptext_tpu_torch.ops import flash_attention as fa
 
     data, size, font_size, reqs = load_requests()
     base = ["--size", str(size), "--steps", str(steps), "--controlnet-step", str(cn_steps),
@@ -450,36 +551,148 @@ def e2e_phase(dev, steps, cn_steps, seed):
                  f"parameters, bf16, seeded random weights, device {dev}")
 
     gate = min(cn_steps, steps)
-    expect = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
-    launches = {"K1": 0, "K2": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0}
     for i, (name, text, pos) in enumerate(reqs):
         args = cli.build_parser().parse_args(["--text", text, "--position", *map(str, pos), *base])
         cond, source = conditions_for(data, name, text, pos, size, font_size)
         timings = {}
-        fa.flash_attention_rope.launches = 0
-        fa.flash_attention.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         lat = cli.generate(args, pipe, cond, timings=timings, output_type="latent")
         images = pipe.decode(lat)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_k1, n_k2 = fa.flash_attention_rope.launches, fa.flash_attention.launches
-        launches["K1"] += n_k1
-        launches["K2"] += n_k2
+        got = read_launches()
+        for key in launches:
+            launches[key] += got[key]
         finite = bool(torch.isfinite(lat).all())
         shape_ok = images.shape == (1, size, size, 3) and images.dtype == np.uint8
         phase("e2e", f"request {i + 1} ({name}, {text!r}, conditions: {source}): "
                      f"{'cold' if i == 0 else 'warm'} {wall:.3f} s/image; stages "
                      + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
                      + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; "
-                     f"kernel launches K1 {n_k1} (expected {expect}) K2 {n_k2} (expected 0: "
-                     f"every block passes RoPE tables); image {images.shape} {images.dtype}, "
+                     f"kernel launches K1 {got['K1']} (expected {expect['K1']}) K2 {got['K2']} "
+                     f"K3 {got['K3']} (expected 0 and 0: every block passes RoPE tables, "
+                     f"S = 4608); image {images.shape} {images.dtype}, "
                      f"mean {images.mean():.2f}; latents finite {finite}")
-        if not (finite and shape_ok and n_k1 == expect and n_k2 == 0):
+        if not (finite and shape_ok and got == expect):
             raise SystemExit(f"end-to-end request {i + 1} failed its checks")
     phase("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
                  f"(torch.cuda.max_memory_allocated)")
     return launches, pipe, cond
+
+
+def source_image(seed, height, width):
+    """A photo stand-in from the seed: smooth colour gradients plus noise, uint8."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, height), np.linspace(0, 1, width), indexing="ij")
+    base = np.stack([yy, xx, 0.5 * (yy + xx)], axis=-1) * r.uniform(80, 200, 3)
+    return np.clip(base + r.normal(0, 12, (height, width, 3)) + 30, 0, 255).astype(np.uint8)
+
+
+def box_mask(cond, margin=24):
+    """uint8 mask: 255 on the text line's region box grown by ``margin`` pixels."""
+    region = np.asarray(cond.lines[0].region_mask) > 0
+    ys, xs = np.nonzero(region)
+    mask = np.zeros(region.shape, np.uint8)
+    mask[max(ys.min() - margin, 0):ys.max() + margin + 1,
+         max(xs.min() - margin, 0):xs.max() + margin + 1] = 255
+    return mask
+
+
+def run_request(label, call, pipe, expect, shape, steps):
+    """One request (``call(timings)`` -> latents) with its launch counts set
+    to 0 just before and read just after; checks and prints it."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    lat = call(timings)
+    images = pipe.decode(lat)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(lat).all())
+    shape_ok = images.shape == shape and images.dtype == np.uint8
+    phase("large", f"{label}: {wall:.3f} s/image (cold for its size); stages "
+                   + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                   + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; kernel launches "
+                   + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                   + f"; image {images.shape} {images.dtype}, mean {images.mean():.2f}; latents "
+                   f"finite {finite}; peak device memory {peak:.2f} GiB")
+    if not (finite and shape_ok and got == expect):
+        raise SystemExit(f"the {label} request failed its checks")
+    return got
+
+
+def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
+    """txt2img at 1536^2, then inpainting at 1280x960 and 1536x1152, on the
+    e2e phase's modules plus one inpaint ControlNet; with ``profile``, a
+    device profile of two inpaint steps at 1536x1152."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
+
+    data = np.load(LARGE_FIXTURE)
+    font_size = int(data["font_size"])
+    gate = min(cn_steps, steps)
+    launches = {}
+
+    def request(name, mode_flags):
+        text = str(data[f"{name}.text"])
+        pos = tuple(int(v) for v in data[f"{name}.position"])
+        width, height = (int(v) for v in data[f"{name}.size"])
+        args = cli.build_parser().parse_args(
+            [*mode_flags, "--text", text, "--position", *map(str, pos), "--size", str(width),
+             "--steps", str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed),
+             "--font-size", str(font_size), "--random-weights"])
+        cond, source = conditions_for(data, name, text, pos, (width, height), font_size,
+                                      LARGE_FIXTURE)
+        return args, cond, source, width, height
+
+    name = "txt2img_1536"
+    args, cond, source, width, height = request(name, [])
+    big = pipe.with_config(cli.pipeline_config(args, height, width))
+    s = big.pipe_cfg.image_seq_len + big.pipe_cfg.max_sequence_length
+    expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS}
+    launches[name] = run_request(
+        f"txt2img {width}x{height} (S = {s}, conditions: {source})",
+        lambda timings: cli.generate(args, big, cond, timings=timings, output_type="latent"),
+        big, expect, (1, height, width, 3), steps)
+
+    inp = None
+    for name in ("inpaint_1280x960", "inpaint_1536x1152"):
+        args, cond, source, width, height = request(
+            name, ["--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE)])
+        cfg = cli.pipeline_config(args, height, width)
+        if inp is None:
+            t0 = time.perf_counter()
+            inp = FluxRepTextInpaintPipeline.from_pipeline(pipe, seed=args.seed + 7, pipe_cfg=cfg)
+            torch.cuda.synchronize()
+            n = sum(p.numel() for p in inp.inpaint_controlnet.parameters())
+            phase("large", f"inpaint ControlNet built in {time.perf_counter() - t0:.1f} s: "
+                           f"{n / 1e9:.2f}B parameters, 68 condition features, seeded random "
+                           f"weights; FLUX, the RepText ControlNet, the VAE, CLIP and T5 shared")
+        else:
+            inp = inp.with_config(cfg)
+        image, mask = source_image(seed, height, width), box_mask(cond)
+        s = cfg.image_seq_len + cfg.max_sequence_length
+        kernel = "K3" if fa.streams(s) else "K1"
+        expect = {"K1": 0, "K2": 0, "K3": 0}
+        expect[kernel] = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
+        launches[name] = run_request(
+            f"inpaint {width}x{height} (S = {s}, CFG batch 2, true-CFG {TRUE_GUIDANCE}, "
+            f"mask {int((mask > 0).sum())} px, conditions: {source})",
+            lambda timings: cli.generate_inpaint(args, inp, cond, image, mask, timings=timings,
+                                                 output_type="latent"),
+            inp, expect, (1, height, width, 3), steps)
+        if profile and kernel == "K3":
+            inpaint_profile(dev, inp, cond, image, mask, seed)
+    del inp
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_phase(dev, pipe, seed, profile=False):
@@ -507,7 +720,8 @@ def train_phase(dev, pipe, seed, profile=False):
         return torch.stack(sums).tolist()
 
     base_before = checksums(pipe.flux)
-    counters = (fa.flash_attention_rope, fa.flash_attention, fa.flash_attention_backward)
+    counters = (fa.flash_attention_rope, fa.flash_attention, fa.flash_attention_backward,
+                fa.flash_attention_streaming)
     per_step, fails = [], []
     clock = {"t": None}
 
@@ -541,11 +755,11 @@ def train_phase(dev, pipe, seed, profile=False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for step, loss, sec, (n1, n2, n4) in per_step:
+    for step, loss, sec, (n1, n2, n4, n3) in per_step:
         phase("train", f"step {step}: loss {loss:.6f}, {sec:.3f} s ({'cold' if step == 1 else 'warm'}"
                        f"), launches K1 {n1} (expected {TRAIN_K1}) K4 {n4} (expected {TRAIN_K4}) "
-                       f"K2 {n2} (expected 0)")
-        if not (np.isfinite(loss) and (n1, n2, n4) == (TRAIN_K1, 0, TRAIN_K4)):
+                       f"K2 {n2} K3 {n3} (expected 0 and 0)")
+        if not (np.isfinite(loss) and (n1, n2, n4, n3) == (TRAIN_K1, 0, TRAIN_K4, 0)):
             fails.append(f"step {step}")
     same = checksums(pipe.flux) == base_before
     phase("train", f"3 steps at batch {args.batch_size}, {size}^2, lr {args.learning_rate}, "
@@ -571,12 +785,12 @@ def train_phase(dev, pipe, seed, profile=False):
         device_profile(f"one train step at batch {args.batch_size} (its batch built before)",
                        run, {fa.flash_attention_rope: TRAIN_K1,
                              fa.flash_attention_backward: TRAIN_K4, fa.flash_attention: 0})
-    return {"K1": sum(s[3][0] for s in per_step), "K4": sum(s[3][2] for s in per_step)}
+    return {key: sum(s[3][i] for s in per_step) for i, key in enumerate(("K1", "K2", "K4", "K3"))}
 
 
 def kernel_class(name):
     if "attn_fwd_kernel" in name or "rope_rotate_kernel" in name:
-        return "attention kernel (attn_fwd_kernel + rope_rotate_kernel)"
+        return "attention kernel (attn_fwd_kernel + rope_rotate_kernel; K1, K2, K3)"
     if "attn_bwd_" in name:
         return "attention backward kernel (attn_bwd_dq_kernel + attn_bwd_dkv_kernel)"
     if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
@@ -652,7 +866,7 @@ def profile_phase(dev, pipe, cond, seed):
                                           pipe.t5.config, cfg.max_sequence_length)
     with torch.inference_mode():
         emb, pooled = pipe.encode_prompt(clip_ids, t5_ids)
-        g_lat, g_cond, g_glyph = pipe.generators(seed)
+        g_lat, g_cond, g_glyph, _ = pipe.generators(seed)
         cond_tokens, token_masks = pipe.prepare_control_tokens(cond, g_cond)
         lat0 = pipe.prepare_latents(g_lat, 1, cond.glyph_canvas, g_glyph)
     schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
@@ -673,13 +887,59 @@ def profile_phase(dev, pipe, cond, seed):
                    {fa.flash_attention_rope: steps * (DOUBLE_CALLS + SINGLE_CALLS)})
 
 
+def inpaint_profile(dev, inp, cond, image, mask, seed):
+    """Device time by kernel class over two inpaint steps with both ControlNets."""
+    import dataclasses
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.latents import prepare_latent_image_ids
+    from reptext_tpu_torch.pipelines.inpaint import DEFAULT_NEGATIVE_PROMPT
+    from reptext_tpu_torch.sampling.flow_match import build_schedule
+    from reptext_tpu_torch.sampling.sampler_inpaint import make_inpaint_sampler
+
+    steps = 2
+    cfg = dataclasses.replace(inp.pipe_cfg, controlnet_conditioning_step=steps,
+                              true_guidance_scale=TRUE_GUIDANCE)
+    with torch.inference_mode():
+        neg, pos = (inp.encode_prompt(*cli.demo_token_ids(
+            p, inp.clip.config, inp.t5.config, cfg.max_sequence_length))
+            for p in (DEFAULT_NEGATIVE_PROMPT, "a street sign in city"))
+        g_lat, g_cond, g_glyph, g_inp = inp.generators(seed)
+        cond_tokens, token_masks = inp.prepare_control_tokens(cond, g_cond)
+        inpaint_cond = inp.prepare_inpaint_cond(image, mask, g_inp)
+        lat0 = inp.prepare_latents(g_lat, 1, cond.glyph_canvas, g_glyph)
+    schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
+                              cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
+                              cfg.use_dynamic_shifting)
+    sampler = make_inpaint_sampler(inp.flux, inp.controlnet, inp.inpaint_controlnet, schedule,
+                                   cfg, inp.inpaint_conditioning_scale, inp.compute_dtype)
+    img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, dev)
+    txt_ids = torch.zeros((pos[0].shape[1], 3), device=dev)
+    guidance = (torch.full((1,), cfg.guidance_scale, dtype=torch.float32, device=dev)
+                if inp.flux.config.guidance_embeds else None)
+    ctx, pooled = torch.cat([neg[0], pos[0]]), torch.cat([neg[1], pos[1]])
+
+    def run():
+        with torch.inference_mode():
+            sampler(lat0, cond_tokens, token_masks, inpaint_cond, ctx, pooled, txt_ids, img_ids,
+                    guidance)
+        torch.cuda.synchronize()
+
+    device_profile(f"{steps} inpaint steps at {cfg.width}x{cfg.height} (CFG batch 2, both "
+                   f"ControlNets)", run,
+                   {fa.flash_attention_streaming: steps * (DOUBLE_CALLS + 2 * SINGLE_CALLS),
+                    fa.flash_attention_rope: 0, fa.flash_attention: 0})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--controlnet-step", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile two ControlNet steps and one train step "
+                    help="also profile two inpaint steps at 1536x1152, two ControlNet "
+                         "steps at 1024^2 and one train step "
                          "(device time by kernel class)")
     args = ap.parse_args(argv)
 
@@ -702,35 +962,41 @@ def main(argv=None):
     _build.load()
 
     results = kernel_phase(dev)
+    results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
     reference_phase(dev)
-    launches, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
+    txt2img, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
+    by_path = {"txt2img": txt2img}
+    by_path.update(large_phase(dev, pipe, args.steps, args.controlnet_step, args.seed,
+                               args.profile))
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
-    train_launches = train_phase(dev, pipe, args.seed, args.profile)
+    by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)
     del pipe
 
     src = "reptext_tpu_torch/csrc/flash_attention.cu"
     entry = {
         "K1": {"name": "flash_attention_rope", "route": "cuda", "source": src,
-               "replaces": "reptext_tpu/ops/flash_attention.py:191",
-               "launches": launches["K1"] + train_launches["K1"],
-               "launches_by_path": {"txt2img": launches["K1"], "train": train_launches["K1"]}},
+               "replaces": "reptext_tpu/ops/flash_attention.py:191"},
         "K2": {"name": "flash_attention", "route": "cuda", "source": src,
-               "replaces": "reptext_tpu/ops/flash_attention.py:166", "launches": launches["K2"]},
+               "replaces": "reptext_tpu/ops/flash_attention.py:166"},
+        "K3": {"name": "flash_attention_streaming", "route": "cuda", "source": src,
+               "replaces": "reptext_tpu/ops/flash_attention.py:224"},
         "K4": {"name": "flash_attention_backward", "route": "cuda",
                "source": "reptext_tpu_torch/csrc/flash_attention_bwd.cu",
                "replaces": "reptext_tpu/ops/flash_attention.py:577",
-               "also_replaces": "reptext_tpu/ops/flash_attention.py:621",
-               "launches": train_launches["K4"]},
+               "also_replaces": "reptext_tpu/ops/flash_attention.py:621"},
     }
     for key in entry:
+        paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
+        entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})
         entry[key].update(results[key])
-    # K2 is the same template without the rotation; the 1024^2 paths never
-    # call attention without RoPE tables (the e2e and train phases check that
-    # K2 ran 0 times there), so it is checked and timed above but listed apart.
-    print(json.dumps({"kernels": [entry["K1"], entry["K4"]], "off_main_path": [entry["K2"]]}),
-          flush=True)
+    # K2 is the same template without the rotation and with the scale folded
+    # into q; every path here passes RoPE tables at lengths where the route
+    # fuses (K1) or streams (K3), and each path checks that K2 ran 0 times, so
+    # it is checked and timed above but listed apart.
+    print(json.dumps({"kernels": [entry["K1"], entry["K3"], entry["K4"]],
+                      "off_main_path": [entry["K2"]]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -4,18 +4,20 @@ A second package beside the JAX reference ``reptext_tpu``, with the same
 sub-package names:
 
 - ``ops``: latents, RoPE, the attention entry point, and the hand-written
-  CUDA flash-attention kernels, forward (``csrc/flash_attention.cu``) and
-  backward (``csrc/flash_attention_bwd.cu``), with their build
+  CUDA flash-attention kernels, forward (``csrc/flash_attention.cu``: K1,
+  K2 and the streaming K3) and backward (``csrc/flash_attention_bwd.cu``),
+  with their build
   (``ops/_build.py``), autograd wiring and plain PyTorch twins;
 - ``nn``: layers, embeddings, MMDiT blocks, VAE, CLIP and T5 encoders;
 - ``models``: the FLUX transformer and the RepText ControlNet (with remat and
   the warm-start weight surgery);
-- ``sampling``: the FlowMatch Euler schedule, the txt2img loop, the
-  ControlNet training recipe and the elastic training loop;
-- ``pipelines``: the txt2img pipeline;
+- ``sampling``: the FlowMatch Euler schedule, the txt2img loop with the
+  velocity cache, the dual-ControlNet true-CFG inpaint loop, the ControlNet
+  training recipe and the elastic training loop;
+- ``pipelines``: the txt2img and text-inpainting pipelines;
 - ``data``: step-indexed synthetic glyph training batches and their prefetcher;
 - ``io``: Flax-tree -> module weight carry (``load_jax_params``);
-- ``cli``: the txt2img and train command line.
+- ``cli``: the txt2img, inpaint and train command line.
 
 Host-only code is shared with the JAX package (``reptext_tpu.configs``,
 ``conditioning``, ``text``, ``utils.image``, ``io.convert``); none of it

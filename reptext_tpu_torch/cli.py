@@ -1,9 +1,12 @@
-"""Command line of the PyTorch port: txt2img and ControlNet training.
+"""Command line of the PyTorch port: txt2img, text inpainting and ControlNet training.
 
 Usage (random weights; no checkpoints exist in the repository):
     python -m reptext_tpu_torch.cli --text "مرحبا" --position 370 200 \
         --prompt "a street sign in city" --size 1024 --steps 30 \
         --random-weights --output results/result.png
+    python -m reptext_tpu_torch.cli --mode inpaint --image photo.jpg --mask mask.png \
+        --text "مرحبا" --position 370 200 --true-guidance-scale 3.5 \
+        --random-weights --output results/edited.png
     python -m reptext_tpu_torch.cli --mode train --random-weights --tiny \
         --size 64 --train-steps 3 --batch-size 2
 
@@ -12,10 +15,13 @@ full geometry runs in bf16 and needs a CUDA device. The flags keep the JAX
 CLI's names and defaults (``reptext_tpu/cli.py``). Prompts become
 deterministic demo token ids (a stable CRC32 hash per word; T5 ids padded to
 the 512-token budget), since no tokenizer files are in the repository.
-:func:`build_pipeline`, :func:`generate` and :func:`train` are the parts of
-:func:`main`, for in-process callers. Training checkpoints every block
-(``remat``), which the JAX CLI does not: the full geometry needs it to fit
-one card.
+Inpainting resizes the image so that its long side is at most 1536 and both
+sides are multiples of 64 (``reptext_tpu.utils.image.resize_to_multiple``)
+and the mask to match; the negative prompt defaults to the reference's.
+:func:`build_pipeline`, :func:`generate`, :func:`generate_inpaint` and
+:func:`train` are the parts of :func:`main`, for in-process callers.
+Training checkpoints every block (``remat``), which the JAX CLI does not: the
+full geometry needs it to fit one card.
 """
 
 from __future__ import annotations
@@ -33,21 +39,48 @@ PROMPT_SUFFIX = ", filmfotos, film grain, reversal film photography"
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="RepText txt2img and training, PyTorch + CUDA port")
+    p = argparse.ArgumentParser(
+        description="RepText txt2img, inpainting and training, PyTorch + CUDA port")
     p.add_argument("--mode", choices=["txt2img", "inpaint", "serve", "train"],
-                   default="txt2img", help="inpaint and serve are not ported yet")
+                   default="txt2img", help="serve is not ported yet")
     p.add_argument("--text", action="append",
-                   help="txt2img: text line to render (repeatable, required)")
+                   help="txt2img/inpaint: text line to render (repeatable, required)")
     p.add_argument("--position", action="append", nargs=2, type=int,
-                   metavar=("X", "Y"), help="txt2img: top-left position per text line")
+                   metavar=("X", "Y"), help="txt2img/inpaint: top-left position per text line")
     p.add_argument("--prompt", default="a street sign in city")
-    p.add_argument("--size", type=int, default=1024, help="square image size")
+    p.add_argument("--size", type=int, default=1024,
+                   help="square image size (inpaint: the image's own, resized)")
     p.add_argument("--steps", type=int, default=30)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--guidance-scale", type=float, default=3.5)
     p.add_argument("--controlnet-scale", type=float, default=1.0)
     p.add_argument("--controlnet-step", type=int, default=30,
                    help="ControlNet active for the first N steps")
+    p.add_argument("--velocity-cache-interval", type=int, default=1,
+                   help="run the transformer every k-th step after warmup, "
+                        "reusing the last velocity between (1 = off)")
+    p.add_argument("--velocity-cache-warmup", type=int, default=8,
+                   help="full model steps before velocity caching kicks in")
+    p.add_argument("--velocity-cache-mode",
+                   choices=["reuse", "linear", "adaptive", "adaptive-linear"], default="reuse",
+                   help="skipped-step velocity: repeat the last computed, or first-order "
+                        "extrapolation over sigma; adaptive* replaces the fixed interval "
+                        "with the latent-drift trigger")
+    p.add_argument("--velocity-cache-threshold", type=float, default=0.05,
+                   help="adaptive modes: skip while the latents' relative L1 drift since "
+                        "the last computed step is below this")
+    p.add_argument("--velocity-cache-max-skip", type=int, default=3,
+                   help="adaptive modes: max consecutive skipped steps")
+    p.add_argument("--num-images", type=int, default=1,
+                   help="images per prompt, txt2img and inpaint (one batched sampler call; "
+                        "siblings saved as <output>_K.png)")
+    p.add_argument("--image", default=None,
+                   help="inpaint: input image path (resized to x64 dims)")
+    p.add_argument("--mask", default=None, help="inpaint: white-on-black mask image path")
+    p.add_argument("--negative-prompt", default=None,
+                   help="inpaint: CFG negative prompt (default: the reference's)")
+    p.add_argument("--true-guidance-scale", type=float, default=1.0,
+                   help="inpaint: true CFG scale over the negative prompt")
     p.add_argument("--font", default=None, help="TTF font path")
     p.add_argument("--font-size", type=int, default=80)
     p.add_argument("--random-weights", action="store_true",
@@ -69,34 +102,60 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train: directory for restore points and controlnet_final.pt "
                         "(omit for in-memory restore points)")
     p.add_argument("--corpus-dir", default=None, help="train on a photo corpus (not ported yet)")
-    p.add_argument("--shard", default=None, help="sharded training (not ported yet)")
+    p.add_argument("--shard", default=None, help="sharding over devices (not ported yet)")
     return p
 
 
-def make_configs(args):
-    """(flux, controlnet, vae, clip, t5, pipeline) configs for the flags."""
-    from reptext_tpu.configs import (
-        CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
+def pipeline_config(args, height=None, width=None):
+    """The ``PipelineConfig`` of the flags at ``height`` x ``width`` (default
+    ``--size`` square)."""
+    from reptext_tpu.configs import PipelineConfig
+
+    return PipelineConfig(
+        height=height or args.size, width=width or args.size, num_inference_steps=args.steps,
+        guidance_scale=args.guidance_scale,
+        controlnet_conditioning_scale=args.controlnet_scale,
+        controlnet_conditioning_step=args.controlnet_step,
+        true_guidance_scale=args.true_guidance_scale,
+        velocity_cache_interval=args.velocity_cache_interval,
+        velocity_cache_warmup=args.velocity_cache_warmup,
+        velocity_cache_mode=args.velocity_cache_mode,
+        velocity_cache_threshold=args.velocity_cache_threshold,
+        velocity_cache_max_skip=args.velocity_cache_max_skip,
     )
+
+
+def make_configs(args, height=None, width=None):
+    """(flux, controlnet, vae, clip, t5, pipeline) configs for the flags."""
+    from reptext_tpu.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
 
     cfgs = [FluxConfig(), ControlNetConfig(), VAEConfig(), CLIPConfig(), T5Config()]
     if args.tiny:
         cfgs = [c.tiny() for c in cfgs]
-    pipe_cfg = PipelineConfig(
-        height=args.size, width=args.size, num_inference_steps=args.steps,
-        guidance_scale=args.guidance_scale,
-        controlnet_conditioning_scale=args.controlnet_scale,
-        controlnet_conditioning_step=args.controlnet_step,
-    )
-    return (*cfgs, pipe_cfg)
+    return (*cfgs, pipeline_config(args, height, width))
 
 
-def build_pipeline(args):
+def load_inpaint_inputs(image_path: str, mask_path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(image uint8 [H, W, 3], mask uint8 [H, W]): the image resized to x64
+    sides (long side at most 1536), the mask resized to match."""
+    from PIL import Image
+
+    from reptext_tpu.utils.image import resize_to_multiple
+
+    image = resize_to_multiple(np.asarray(Image.open(image_path).convert("RGB"), np.uint8))
+    h, w = image.shape[:2]
+    mask = np.asarray(Image.open(mask_path).convert("L").resize((w, h)), np.uint8)
+    return image, mask
+
+
+def build_pipeline(args, height=None, width=None):
     """The pipeline the flags describe, with seeded random weights: the full
     geometry in bf16 on the CUDA device, or ``--tiny`` in float32 on the CPU
-    (its head dim of 32 is not one the attention kernel takes)."""
+    (its head dim of 32 is not one the attention kernel takes). ``--mode
+    inpaint`` adds the inpaint ControlNet to the same modules."""
     import torch
 
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
     from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 
     if not args.random_weights:
@@ -105,11 +164,14 @@ def build_pipeline(args):
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("the full geometry needs a CUDA device; torch.cuda.is_available() "
                          "is False (use --tiny on the CPU)")
-    flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args)
+    flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args, height, width)
     dtype = torch.float32 if args.tiny else torch.bfloat16
-    return FluxRepTextPipeline.create(
+    pipeline = FluxRepTextPipeline.create(
         flux_cfg, cn_cfg, vae_cfg, pipe_cfg, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
         seed=args.seed, device=device, dtype=dtype, remat=args.mode == "train")
+    if args.mode == "inpaint":
+        return FluxRepTextInpaintPipeline.from_pipeline(pipeline, seed=args.seed + 7)
+    return pipeline
 
 
 def demo_token_ids(prompt: str, clip_cfg, t5_cfg, t5_length: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -125,16 +187,43 @@ def demo_token_ids(prompt: str, clip_cfg, t5_cfg, t5_length: int) -> Tuple[np.nd
     return np.asarray([clip], np.int64), np.asarray([t5], np.int64)
 
 
+def _prompt_ids(args, pipeline, prompt: str) -> Tuple[np.ndarray, np.ndarray]:
+    return demo_token_ids(prompt, pipeline.clip.config, pipeline.t5.config,
+                          pipeline.pipe_cfg.max_sequence_length)
+
+
 def generate(args, pipeline, conditions, timings=None, output_type: str = "np"):
-    """One txt2img request: uint8 images [1, H, W, 3] (or ``output_type``)."""
+    """One txt2img request: uint8 images [num_images, H, W, 3] (or ``output_type``)."""
     from reptext_tpu.cli import build_prompt
 
-    prompt = build_prompt(args.prompt, args.text, PROMPT_SUFFIX)
-    clip_ids, t5_ids = demo_token_ids(prompt, pipeline.clip.config, pipeline.t5.config,
-                                      pipeline.pipe_cfg.max_sequence_length)
+    clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
+                                                                PROMPT_SUFFIX))
     return pipeline(conditions, clip_ids=clip_ids, t5_ids=t5_ids, seed=args.seed,
-                    num_inference_steps=args.steps, guidance_scale=args.guidance_scale,
-                    output_type=output_type, timings=timings)
+                    num_images=args.num_images, num_inference_steps=args.steps,
+                    guidance_scale=args.guidance_scale, output_type=output_type,
+                    timings=timings)
+
+
+def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.ndarray,
+                     timings=None, output_type: str = "np"):
+    """One inpaint request on ``image`` (uint8 [H, W, 3] at the pipeline's
+    size) under ``mask``: uint8 images [num_images, H, W, 3] (or ``output_type``)."""
+    from reptext_tpu.cli import build_prompt
+    from reptext_tpu.text import pad_to_common_length
+    from reptext_tpu_torch.pipelines.inpaint import DEFAULT_NEGATIVE_PROMPT
+
+    clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
+                                                                PROMPT_SUFFIX))
+    neg_clip, neg_t5 = _prompt_ids(args, pipeline, args.negative_prompt or DEFAULT_NEGATIVE_PROMPT)
+    # true CFG concatenates [negative; positive] embeds: one sequence length
+    t5_ids, neg_t5 = pad_to_common_length(t5_ids, neg_t5)
+    clip_ids, neg_clip = pad_to_common_length(clip_ids, neg_clip)
+    return pipeline(conditions, image=image, mask=mask, clip_ids=clip_ids, t5_ids=t5_ids,
+                    negative_clip_ids=neg_clip, negative_t5_ids=neg_t5, seed=args.seed,
+                    num_images=args.num_images, num_inference_steps=args.steps,
+                    guidance_scale=args.guidance_scale,
+                    true_guidance_scale=args.true_guidance_scale, output_type=output_type,
+                    timings=timings)
 
 
 def train(args, pipeline, dataset=None, on_event=None):
@@ -181,34 +270,49 @@ def train(args, pipeline, dataset=None, on_event=None):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mode in ("inpaint", "serve"):
-        raise SystemExit(f"--mode {args.mode} is not ported yet")
+    if args.mode == "serve":
+        raise SystemExit("--mode serve is not ported yet")
+    if args.shard:
+        raise SystemExit("--shard is not ported yet")
     if args.mode == "train":
-        for flag, unported in (("--corpus-dir", args.corpus_dir), ("--shard", args.shard),
+        for flag, unported in (("--corpus-dir", args.corpus_dir),
                                ("--ocr-loss-weight > 0", args.ocr_loss_weight > 0.0)):
             if unported:
                 raise SystemExit(f"{flag} is not ported yet")
         train(args, build_pipeline(args))
         return 0
     if not args.text or not args.position:
-        parser.error("txt2img needs --text and --position")
+        parser.error(f"{args.mode} needs --text and --position")
     if len(args.text) != len(args.position):
         parser.error("--text and --position counts must match")
+    inpaint = args.mode == "inpaint"
+    if inpaint and (args.image is None or args.mask is None):
+        parser.error("--mode inpaint requires --image and --mask")
 
     from reptext_tpu.conditioning import TextLine, build_conditions
 
-    pipeline = build_pipeline(args)
+    height = width = args.size
+    if inpaint:
+        image, mask = load_inpaint_inputs(args.image, args.mask)
+        height, width = image.shape[:2]
+    pipeline = build_pipeline(args, height, width)
     lines = [TextLine(t, tuple(p), font_size=args.font_size)
              for t, p in zip(args.text, args.position)]
-    conditions = build_conditions(lines, args.size, args.size, font_path=args.font,
+    conditions = build_conditions(lines, width, height, font_path=args.font,
                                   font_size=args.font_size)
-    images = generate(args, pipeline, conditions)
+    if inpaint:
+        images = generate_inpaint(args, pipeline, conditions, image, mask)
+    else:
+        images = generate(args, pipeline, conditions)
 
     from PIL import Image
 
     os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
-    Image.fromarray(images[0]).save(args.output)
-    print(f"saved {args.output}")
+    root, ext = os.path.splitext(args.output)
+    for k, im in enumerate(images):
+        path = args.output if k == 0 else f"{root}_{k}{ext or '.png'}"
+        Image.fromarray(im).save(path)
+        print(f"saved {path}")
     return 0
 
 

@@ -1,15 +1,20 @@
 // Joint (non-causal) flash attention forward for FLUX MMDiT blocks, sm_90a.
 //
 // Replaces reptext_tpu/ops/flash_attention.py::_attn_kernel_rope (K1, RoPE
-// fused, half-split channel layout) and ::_attn_kernel (K2, no rotation): one
-// template, instantiated with ROPE = true / false and with the clamped
-// max-free softmax (default) or the running-max online softmax.
+// fused, half-split channel layout), ::_attn_kernel (K2, no rotation) and
+// ::_streaming_kernel (K3, the streaming kernel for S > 6144 on pre-rotated
+// q and k): one template, instantiated with ROPE = true / false, with the
+// scale folded into q (K1, K2) or applied to the fp32 logits (SCALE_LOGITS,
+// K3), and with the clamped max-free softmax (default) or the running-max
+// online softmax.
 //
 // What it computes, per (b, h) and query row i, exactly as the Pallas kernels:
 //   q' = bf16(rot(q_i) * 1/sqrt(D)),  k'_j = bf16(rot(k_j))
 //        rot(x) = x * cos + (-x_hi ++ x_lo) * sin, with bf16-rounded tables
 //        (rot = identity when ROPE is false)
-//   s_j = fp32(q' . k'_j); clamped: s_j = clip(s_j, -43, 43); s_j = -inf for j >= S
+//   s_j = fp32(q' . k'_j)
+//        K3: q' = q_i, and s_j = fp32(q_i . k_j) * 1/sqrt(D) (fp32 multiply)
+//   clamped: s_j = clip(s_j, -43, 43); then s_j = -inf for j >= S
 //   e_j = exp(s_j - m)    (m = 0 clamped, running row max online)
 //   out = (sum_j bf16(e_j) v_j, fp32 accumulation) / sum_j e_j
 //   lse = m + log(sum_j e_j)
@@ -18,6 +23,8 @@
 // 2.6e11 FLOP against ~0.11 GB of q/k/v/out traffic, i.e. far above the
 // card's ~295 FLOP/byte ridge: it is bound by tensor-core math and by how
 // well the math is fed from L2 and shared memory, not by device memory.
+// K3 at (2, 24, 7424, 128), the inpaint request at 1536x1152, is 1.35e12 FLOP
+// against ~0.37 GB: the same bound, more so.
 //
 // What the design does about it: both products run on the tensor cores
 // (mma.sync m16n8k16, bf16 in, fp32 accumulate), and nothing of size S^2
@@ -38,7 +45,13 @@
 // every 64-query tile -- 72x per head at S = 4608 -- and measured 4.24 ms
 // against 2.55 ms without RoPE on the H100; the copy costs one S x D bf16
 // write and read per head. The TPU tiling (block_q caps, _pick_chunks,
-// _SINGLE_PASS_MAX_SEQ) followed from VMEM limits and is not carried over.
+// _SINGLE_PASS_MAX_SEQ, K3's 256 x 512 blocks and VMEM scratch) followed from
+// VMEM limits and is not carried over: K/V already stream through the ring
+// here, so K3 is this template with the scale moved onto the logits, and the
+// running max, row sums and accumulator that the Pallas kernel keeps in
+// scratch across its kv grid axis stay in registers across the key loop.
+// The wrapper still routes by _SINGLE_PASS_MAX_SEQ, for the reference's
+// rounding (fp32 rotation outside the kernel, scale after the product).
 // wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
@@ -136,7 +149,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   load_rows_async<D, kBlockK, D + kPad, kThreads>(dst, src, ss, row0, seq);
 }
 
-template <int D, bool ROPE, bool ONLINE>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   constexpr int kLd = D + kPad;
   constexpr int kTile = kBlockK * kLd;    // elements per K or V stage
@@ -145,6 +158,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   constexpr int kNTilesO = D / 8;         // 8-channel column tiles of the output
   constexpr int kHalf = D / 2;
   static_assert(kBlockQ <= 2 * kBlockK, "q' is staged in the two K stages");
+  static_assert(!(ROPE && SCALE_LOGITS), "K3 takes pre-rotated q and k");
 
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* k_s = smem;              // [2][kBlockK][kLd]
@@ -173,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
       const __nv_bfloat16* src = qb + (long long)row * p.q_ss;
       unpack8(*reinterpret_cast<const uint4*>(src + d0), lo);
       unpack8(*reinterpret_cast<const uint4*>(src + d0 + kHalf), hi);
-      rotate_chunk<D, ROPE>(lo, hi, p.cos, p.sin, row, d0, p.scale);
+      rotate_chunk<D, ROPE>(lo, hi, p.cos, p.sin, row, d0, SCALE_LOGITS ? 1.0f : p.scale);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) lo[i] = hi[i] = 0.0f;
@@ -240,12 +254,13 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
       }
     }
 
-    // Clamp (max-free mode), then mask keys past the end: exp(-inf) == 0.
+    // K3: scale the fp32 logits. Clamp (max-free mode), then mask keys past
+    // the end: exp(-inf) == 0.
 #pragma unroll
     for (int n = 0; n < kNTilesS; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = s[n][e];
+        float x = SCALE_LOGITS ? __fmul_rn(s[n][e], p.scale) : s[n][e];
         if (!ONLINE) x = fminf(fmaxf(x, -kLogitClamp), kLogitClamp);
         const int col = k0 + n * 8 + 2 * t + (e & 1);
         s[n][e] = col < seq ? x : -INFINITY;
@@ -332,14 +347,14 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   }
 }
 
-template <int D, bool ROPE, bool ONLINE>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBlockK * (D + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  attn_fwd_kernel<D, ROPE, ONLINE><<<grid, kThreads, kSmem, stream>>>(p);
+  attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -361,6 +376,29 @@ cudaError_t dispatch(Params p, int batch, int rope, int online, __nv_bfloat16* k
   return online ? launch<D, false, true>(p, batch, stream) : launch<D, false, false>(p, batch, stream);
 }
 
+Params make_params(const void* q, const void* k, const void* v, void* out, void* lse,
+                   int heads, int seq, long long q_sb, long long q_sh, long long q_ss,
+                   long long k_sb, long long k_sh, long long k_ss,
+                   long long v_sb, long long v_sh, long long v_ss,
+                   long long o_sb, long long o_sh, long long o_ss, float scale) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.cos = nullptr;
+  p.sin = nullptr;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.heads = heads;
+  p.seq = seq;
+  p.scale = scale;
+  return p;
+}
+
 }  // namespace
 
 // C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
@@ -375,21 +413,10 @@ extern "C" int reptext_flash_attention_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int rope, int online, void* stream) {
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  Params p = make_params(q, k, v, out, lse, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                         v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
   p.cos = static_cast<const float*>(cos_t);
   p.sin = static_cast<const float*>(sin_t);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.heads = heads;
-  p.seq = seq;
-  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq < 1 || batch < 1 || heads < 1 || (rope && k_rot == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -399,5 +426,26 @@ extern "C" int reptext_flash_attention_fwd(
   // FLUX's head dim; other widths get their instantiation when a model needs one
   if (head_dim == 128) err = dispatch<128>(p, batch, rope, online, kr, s);
   else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// K3: the streaming forward on pre-rotated q and k, with the scale applied to
+// the fp32 logits. Strides in elements, as above; returns the cudaError_t.
+extern "C" int reptext_flash_attention_streaming_fwd(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int batch, int heads, int seq, int head_dim,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    float scale, int online, void* stream) {
+  if (seq < 1 || batch < 1 || heads < 1 || head_dim != 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = make_params(q, k, v, out, lse, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh,
+                               k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = online ? launch<128, false, true, true>(p, batch, s)
+                                 : launch<128, false, false, true>(p, batch, s);
   return static_cast<int>(err);
 }

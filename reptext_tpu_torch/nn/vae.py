@@ -58,6 +58,8 @@ class ResnetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Single-head self-attention over spatial tokens (plain PyTorch)."""
 
+    query_chunk = 4096
+
     def __init__(self, channels: int, groups: int, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -71,9 +73,14 @@ class AttnBlock(nn.Module):
         b, c, h, w = x.shape
         tokens = self.group_norm(x).reshape(b, c, h * w).transpose(1, 2)
         q, k, v = self.to_q(tokens), self.to_k(tokens), self.to_v(tokens)
-        logits = torch.matmul(q.float(), k.float().transpose(1, 2))
-        probs = torch.softmax(logits / (c ** 0.5), dim=-1).to(v.dtype)
-        out = self.to_out(torch.matmul(probs, v))
+        kt = k.float().transpose(1, 2)
+        # query chunks bound the fp32 [B, chunk, HW] logits (36864 keys at
+        # 1536^2: 5.4 GB a sample unchunked); each row's math is unchanged
+        out = torch.cat([
+            torch.matmul(torch.softmax(torch.matmul(qc.float(), kt) / (c ** 0.5),
+                                       dim=-1).to(v.dtype), v)
+            for qc in q.split(self.query_chunk, dim=1)], dim=1)
+        out = self.to_out(out)
         return x + out.transpose(1, 2).reshape(b, c, h, w)
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``reptext_tpu/ops/attention.py::attention``, with the device
 taking the place of the JAX backend switch: the JAX package runs its Pallas
-kernel on the TPU and ``xla_attention`` elsewhere; here a CUDA tensor always
-goes to the hand-written kernels (``ops/flash_attention.py``, which raises if
-they cannot launch; the forward kernel with the backward kernel behind it, so
+kernels on the TPU and ``xla_attention`` elsewhere; here a CUDA tensor always
+goes to the hand-written kernels (``ops/flash_attention.py``, which routes
+between K1, K2 and the streaming K3 as the JAX package does and raises if they
+cannot launch; the forward kernel with the backward kernel behind it, so
 gradients reach q, k and v) and a CPU tensor to :func:`plain_attention`, the
 twin of ``xla_attention``, differentiated by autograd. Tensors are
 [B, H, S, D]; with RoPE tables, q/k arrive unrotated in half-split channel order.

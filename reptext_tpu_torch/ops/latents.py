@@ -9,7 +9,10 @@ mask resize, is antialiased when it shrinks: each output sample is a
 normalised triangle filter whose width grows with the shrink factor. That is
 not ``F.interpolate(align_corners=False)`` without antialiasing. The port
 computes the same triangle weights on the host (:func:`linear_resize_matrix`)
-and applies them as two small matrix products.
+and applies them as two small matrix products. Its "nearest" method samples
+at half-pixel centres, ``floor((i + 0.5) * in / out)`` in float32, where
+``F.interpolate(mode="nearest")`` takes ``floor(i * in / out)``:
+:func:`resize_nearest` gathers the JAX package's indices.
 """
 
 from __future__ import annotations
@@ -70,6 +73,27 @@ def resize_linear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     wh = torch.from_numpy(linear_resize_matrix(h, out_h).astype(np.float32)).to(img.device)
     ww = torch.from_numpy(linear_resize_matrix(w, out_w).astype(np.float32)).to(img.device)
     return torch.matmul(torch.matmul(wh, img.float()), ww.T)
+
+
+@functools.lru_cache(maxsize=32)
+def nearest_indices(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each output sample of jax.image.resize's 'nearest'
+    method, computed in float32 as it does. (XLA on the CPU divides through a
+    reciprocal, so where (i + 0.5) * in / out is an exact integer, which a
+    whole shrink factor such as the VAE's 8 never gives, it may take the
+    index below.)"""
+    offsets = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * np.float32(n_in)
+    idx = np.floor(offsets / np.float32(n_out)).astype(np.int64)
+    idx.setflags(write=False)
+    return idx
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Resize [..., H, W] like ``jax.image.resize(img, ..., "nearest")``."""
+    h, w = img.shape[-2:]
+    rows = torch.from_numpy(nearest_indices(h, out_h).copy()).to(img.device)
+    cols = torch.from_numpy(nearest_indices(w, out_w).copy()).to(img.device)
+    return img.index_select(-2, rows).index_select(-1, cols)
 
 
 def downsample_region_mask(mask: torch.Tensor, latent_height: int,

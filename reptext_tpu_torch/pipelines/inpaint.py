@@ -1,0 +1,182 @@
+"""RepText text inpainting pipeline: dual ControlNet + true CFG, PyTorch.
+
+Counterpart of ``reptext_tpu/pipelines/inpaint.py::FluxRepTextInpaintPipeline``:
+edits text into an existing image with the RepText ControlNet (glyph
+conditions, step-gated, regionally masked) plus an inpainting ControlNet
+(masked image + mask, every step), under true classifier-free guidance over a
+negative prompt (``sampling/sampler_inpaint.py``). As in the JAX package:
+
+- the masked image sets the pixels under the mask to -1 before the VAE encode;
+- the inpaint conditioning is the 16-channel masked-image latent concatenated
+  with (1 - mask) nearest-resized to the latent grid: 17 channels, packed to
+  68 features a token;
+- the embeds are [negative; positive]; the glyph-latent init is on.
+
+:meth:`FluxRepTextInpaintPipeline.from_pipeline` shares FLUX, the RepText
+ControlNet, the VAE, CLIP and T5 of a built pipeline and adds only the inpaint
+ControlNet (the JAX CLI's tree sharing), so one card holds one FLUX.
+``generate_batch``, ``return_dict`` and custom ``timesteps``/``sigmas`` are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from reptext_tpu.configs import ControlNetConfig, PipelineConfig
+from reptext_tpu.utils.image import preprocess_images
+from reptext_tpu_torch.models.controlnet import RepTextControlNet
+from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids, resize_nearest
+from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline, _StageClock, build_module
+from reptext_tpu_torch.sampling.flow_match import build_schedule
+from reptext_tpu_torch.sampling.sampler_inpaint import make_inpaint_sampler
+
+# the reference's default negative prompt (reptext_tpu/pipelines/inpaint.py)
+DEFAULT_NEGATIVE_PROMPT = (
+    "bad quality, worst quality, text, signature, watermark, extra words"
+)
+
+
+def default_inpaint_controlnet_config(base: Optional[ControlNetConfig] = None) -> ControlNetConfig:
+    """The FLUX inpainting ControlNet's geometry: ``base`` (default the
+    RepText ControlNet's) with 17-channel conditioning, 68 packed features =
+    in_channels + 4 extra."""
+    return dataclasses.replace(base or ControlNetConfig(), extra_condition_channels=4)
+
+
+class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
+    """Text inpainting with the RepText and inpaint ControlNets."""
+
+    def __init__(self, *args, inpaint_controlnet: Optional[RepTextControlNet] = None,
+                 inpaint_conditioning_scale: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.inpaint_controlnet = inpaint_controlnet
+        self.inpaint_conditioning_scale = inpaint_conditioning_scale
+
+    # ---------------------------------------------------------------- build
+
+    @classmethod
+    def from_pipeline(cls, base: FluxRepTextPipeline,
+                      inpaint_cn_cfg: Optional[ControlNetConfig] = None,
+                      params: Optional[Dict[str, Any]] = None, seed: int = 7,
+                      pipe_cfg: Optional[PipelineConfig] = None) -> "FluxRepTextInpaintPipeline":
+        """An inpaint pipeline on ``base``'s modules (shared, not copied) plus
+        a new inpaint ControlNet: ``params`` (its Flax tree) or weights drawn
+        on the device from a generator seeded with ``seed``."""
+        cfg = inpaint_cn_cfg or default_inpaint_controlnet_config(base.controlnet.config)
+        generator = None if params is not None else torch.Generator(
+            device=base.device).manual_seed(seed)
+        inpaint_cn = build_module(RepTextControlNet, cfg, base.device, base.compute_dtype,
+                                  params, generator)
+        return cls(base.flux, base.controlnet, base.vae, pipe_cfg or base.pipe_cfg,
+                   clip=base.clip, t5=base.t5, compute_dtype=base.compute_dtype,
+                   inpaint_controlnet=inpaint_cn)
+
+    @classmethod
+    def create_inpaint(cls, inpaint_cn_cfg: Optional[ControlNetConfig] = None,
+                       **kwargs) -> "FluxRepTextInpaintPipeline":
+        """``FluxRepTextPipeline.create(**kwargs)`` plus the inpaint ControlNet
+        (``params["inpaint_controlnet"]`` when the trees are given)."""
+        base = FluxRepTextPipeline.create(**kwargs)
+        params = kwargs.get("params") or {}
+        return cls.from_pipeline(base, inpaint_cn_cfg, params.get("inpaint_controlnet"),
+                                 seed=kwargs.get("seed", 0) + 7)
+
+    # ------------------------------------------------------------ cond prep
+
+    @torch.inference_mode()
+    def prepare_inpaint_cond(self, image: np.ndarray, mask: np.ndarray,
+                             generator: Optional[torch.Generator]) -> torch.Tensor:
+        """(image uint8 [H, W, 3], mask uint8/float [H, W]) -> packed [1, S, 68]."""
+        cfg = self.pipe_cfg
+        img = preprocess_images(image)                        # [1, H, W, 3] in [-1, 1]
+        m = np.asarray(mask, np.float32)
+        if m.max() > 1.0:
+            m = m / 255.0
+        m = (m > 0.5).astype(np.float32)                      # binarize
+        masked = np.where(m[None, :, :, None] > 0.5, np.float32(-1.0), img)
+        lat = self._encode_scaled(torch.from_numpy(masked).to(self.device).permute(0, 3, 1, 2),
+                                  generator)                  # [1, 16, h, w]
+        mlat = 1.0 - resize_nearest(torch.from_numpy(m).to(self.device),
+                                    cfg.latent_height, cfg.latent_width)
+        cond = torch.cat([lat, mlat.to(lat.dtype).expand(1, 1, *mlat.shape)], dim=1)
+        return pack_latents(cond)                             # 17 channels -> 68
+
+    # --------------------------------------------------------------- call
+
+    @torch.inference_mode()
+    def __call__(self, conditions, image: Optional[np.ndarray] = None,
+                 mask: Optional[np.ndarray] = None,
+                 prompt_embeds: Optional[torch.Tensor] = None,
+                 pooled_embeds: Optional[torch.Tensor] = None,
+                 negative_prompt_embeds: Optional[torch.Tensor] = None,
+                 negative_pooled_embeds: Optional[torch.Tensor] = None,
+                 clip_ids=None, t5_ids=None, negative_clip_ids=None, negative_t5_ids=None,
+                 seed: int = 42, num_images: int = 1, guidance_scale: Optional[float] = None,
+                 true_guidance_scale: Optional[float] = None,
+                 num_inference_steps: Optional[int] = None, output_type: str = "np",
+                 latents: Optional[torch.Tensor] = None,
+                 timings: Optional[Dict[str, float]] = None):
+        """Edit the text lines of ``conditions`` into ``image`` under ``mask``.
+
+        Either embeddings or token ids for both the prompt and the negative
+        prompt (:data:`DEFAULT_NEGATIVE_PROMPT` is the reference's); the two
+        must have one sequence length. ``output_type``, ``latents`` and
+        ``timings`` as in :class:`FluxRepTextPipeline`.
+        """
+        if image is None or mask is None:
+            raise ValueError("the inpaint pipeline needs `image` and `mask`")
+        cfg = self.pipe_cfg
+        steps = num_inference_steps or cfg.num_inference_steps
+        gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        tscale = cfg.true_guidance_scale if true_guidance_scale is None else true_guidance_scale
+        clock = _StageClock(timings, self.device)
+
+        if prompt_embeds is None:
+            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+        if negative_prompt_embeds is None:
+            if negative_clip_ids is None:
+                raise ValueError("provide negative embeddings or negative token ids (the "
+                                 f"reference's default negative prompt: "
+                                 f"{DEFAULT_NEGATIVE_PROMPT!r})")
+            negative_prompt_embeds, negative_pooled_embeds = self.encode_prompt(
+                negative_clip_ids, negative_t5_ids)
+        embeds = [x.to(self.device) for x in (negative_prompt_embeds, prompt_embeds,
+                                              negative_pooled_embeds, pooled_embeds)]
+        if num_images > 1 and embeds[1].shape[0] == 1:
+            # one prompt, several images: both CFG halves tiled to the batch
+            embeds = [x.repeat_interleave(num_images, dim=0) for x in embeds]
+        ctx_cfg = torch.cat(embeds[:2])
+        pooled_cfg = torch.cat(embeds[2:])
+        clock.mark("encode_prompt")
+
+        g_lat, g_cond, g_glyph, g_inp = self.generators(seed)
+        cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
+        inpaint_cond = self.prepare_inpaint_cond(image, mask, g_inp)
+        if num_images > 1:
+            inpaint_cond = inpaint_cond.repeat(num_images, 1, 1)
+        if latents is not None:
+            latents = self.check_latents(latents, num_images)
+        else:
+            latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
+        clock.mark("prepare")
+
+        schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
+                                  cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
+                                  cfg.use_dynamic_shifting)
+        sampler = make_inpaint_sampler(
+            self.flux, self.controlnet, self.inpaint_controlnet, schedule,
+            dataclasses.replace(cfg, true_guidance_scale=tscale),
+            self.inpaint_conditioning_scale, self.compute_dtype)
+        img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
+        txt_ids = torch.zeros((ctx_cfg.shape[1], 3), device=self.device)
+        guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)
+                    if self.flux.config.guidance_embeds else None)
+        latents = sampler(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
+                          txt_ids, img_ids, guidance)
+        clock.mark("sample")
+        return self.finish(latents, output_type, clock)

@@ -3,8 +3,10 @@
 Counterpart of ``reptext_tpu/pipelines/txt2img.py::FluxRepTextPipeline`` on
 the path the slice runs: per-line canny / position / region conditioning
 encoded through the VAE, CLIP + T5 prompt encoding, the glyph-latent init,
-the step-gated, regionally masked ControlNet loop (``sampling/sampler.py``),
-and the VAE decode; its encoders also feed the training data path
+the step-gated, regionally masked ControlNet loop (``sampling/sampler.py``,
+with the velocity cache), and the VAE decode, at any size the
+``PipelineConfig`` gives (multiples of 16); its encoders also feed the
+training data path
 (``reptext_tpu_torch/data.py``). Randomness comes from ``torch.Generator``s
 derived from ``seed``; there is no global RNG. The JAX package's residency and fp8
 staging code exists for a 16 GB chip and has no counterpart here. img2img,
@@ -13,6 +15,7 @@ callbacks, custom timesteps/sigmas and ``generate_batch`` are not ported yet.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -48,6 +51,18 @@ from reptext_tpu_torch.sampling.sampler import make_txt2img_sampler
 
 def _as_ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long).to(device)
+
+
+def build_module(ctor, cfg, device: torch.device, dtype: torch.dtype, params=None,
+                 generator: Optional[torch.Generator] = None, **kw) -> torch.nn.Module:
+    """``ctor(cfg)`` built on the meta device, then materialised on ``device``
+    with ``params`` (a Flax tree) or drawn from ``generator``; frozen."""
+    module = ctor(cfg, device="meta", dtype=dtype, **kw).to_empty(device=device)
+    if params is None:
+        random_init_(module, generator)
+    else:
+        load_jax_params(module, params)
+    return module.eval().requires_grad_(False)
 
 
 class FluxRepTextPipeline:
@@ -88,23 +103,34 @@ class FluxRepTextPipeline:
         generator = torch.Generator(device=device).manual_seed(seed) if params is None else None
         built: Dict[str, Optional[torch.nn.Module]] = {}
         for name, (ctor, cfg) in specs.items():
-            if cfg is None:
-                built[name] = None
-                continue
             kw = {"remat": remat} if name in ("flux", "controlnet") else {}
-            module = ctor(cfg, device="meta", dtype=dtype, **kw).to_empty(device=device)
-            if params is None:
-                random_init_(module, generator)
-            else:
-                load_jax_params(module, params[name])
-            built[name] = module.eval().requires_grad_(False)
+            built[name] = None if cfg is None else build_module(
+                ctor, cfg, device, dtype, None if params is None else params[name], generator,
+                **kw)
         return cls(built["flux"], built["controlnet"], built["vae"], pipe_cfg,
                    clip=built["clip"], t5=built["t5"], compute_dtype=dtype)
 
-    def generators(self, seed: int) -> Tuple[torch.Generator, torch.Generator, torch.Generator]:
-        """(latent noise, condition posterior, glyph posterior) generators for ``seed``."""
-        seeds = np.random.SeedSequence(seed).generate_state(3)
+    def with_config(self, pipe_cfg: PipelineConfig) -> "FluxRepTextPipeline":
+        """The same pipeline (the same modules, nothing copied) for another
+        ``PipelineConfig``, e.g. another image size."""
+        clone = copy.copy(self)
+        clone.pipe_cfg = pipe_cfg
+        return clone
+
+    def generators(self, seed: int) -> Tuple[torch.Generator, ...]:
+        """(latent noise, condition posterior, glyph posterior, inpaint
+        posterior) generators for ``seed``, the four keys the JAX pipelines
+        split; txt2img uses the first three."""
+        seeds = np.random.SeedSequence(seed).generate_state(4)
         return tuple(torch.Generator(device=self.device).manual_seed(int(s)) for s in seeds)
+
+    def check_latents(self, latents: torch.Tensor, num_images: int) -> torch.Tensor:
+        """Given packed noise, checked against [num_images, S, 4*C], as float32."""
+        expect = (num_images, self.pipe_cfg.image_seq_len, 4 * self.vae.config.latent_channels)
+        if tuple(latents.shape) != expect:
+            raise ValueError(f"latents must be PACKED noise of shape {expect}; "
+                             f"got {tuple(latents.shape)}")
+        return latents.to(self.device, torch.float32)
 
     # ------------------------------------------------------------- encoders
 
@@ -216,14 +242,10 @@ class FluxRepTextPipeline:
             pooled_embeds = pooled_embeds.repeat_interleave(num_images, dim=0)
         clock.mark("encode_prompt")
 
-        g_lat, g_cond, g_glyph = self.generators(seed)
+        g_lat, g_cond, g_glyph, _ = self.generators(seed)
         cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
         if latents is not None:
-            expect = (num_images, cfg.image_seq_len, 4 * self.vae.config.latent_channels)
-            if tuple(latents.shape) != expect:
-                raise ValueError(f"latents must be PACKED noise of shape {expect}; "
-                                 f"got {tuple(latents.shape)}")
-            latents = latents.to(self.device, torch.float32)
+            latents = self.check_latents(latents, num_images)
         else:
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
         clock.mark("prepare")
@@ -240,6 +262,10 @@ class FluxRepTextPipeline:
         latents = sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
                           txt_ids, img_ids, guidance)
         clock.mark("sample")
+        return self.finish(latents, output_type, clock)
+
+    def finish(self, latents: torch.Tensor, output_type: str, clock: "_StageClock"):
+        """Sampled latents -> the requested ``output_type``."""
         if output_type == "latent":
             return latents
         images = self.decode(latents)

@@ -14,12 +14,17 @@ step:
 - advances the float32 latents by one Euler update.
 
 The timestep is built in the compute dtype, so it is rounded to bf16 before
-the embedding, as in the JAX sampler. The velocity cache is not ported yet.
+the embedding, as in the JAX sampler. The velocity cache
+(``PipelineConfig.velocity_cache_*``) is :func:`velocity_cache_select`, shared
+with the inpaint sampler: a skipped step runs no model and reuses or
+extrapolates the last computed velocities. In the adaptive modes the drift
+ratio is read on the host, one device sync per step, where the JAX scan
+decides inside the graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +41,69 @@ def cn_active_mask(pipe_cfg: PipelineConfig, num_steps: int, gate_step: int) -> 
     return [bool(x) for x in (idx < gate_step) & keep]
 
 
-def _velocity_cache_enabled(pipe_cfg: PipelineConfig) -> bool:
-    return (pipe_cfg.velocity_cache_interval > 1
-            or pipe_cfg.velocity_cache_mode in ("adaptive", "adaptive-linear"))
+def velocity_cache_settings(pipe_cfg: PipelineConfig) -> dict:
+    """The cache's keyword settings, read as the JAX samplers read them, and
+    ``enabled`` (an interval above 1 or an adaptive mode)."""
+    mode = pipe_cfg.velocity_cache_mode
+    if mode not in ("reuse", "linear", "adaptive", "adaptive-linear"):
+        raise ValueError(f"unknown velocity cache mode {mode!r} "
+                         "(reuse|linear|adaptive|adaptive-linear)")
+    kw = dict(vc_adaptive=mode in ("adaptive", "adaptive-linear"),
+              vc_linear=mode in ("linear", "adaptive-linear"),
+              vc_warmup=max(pipe_cfg.velocity_cache_warmup, 1),
+              vc_interval=max(pipe_cfg.velocity_cache_interval, 1),
+              vc_threshold=float(pipe_cfg.velocity_cache_threshold),
+              vc_max_skip=max(int(pipe_cfg.velocity_cache_max_skip), 1))
+    return dict(kw, enabled=kw["vc_interval"] > 1 or kw["vc_adaptive"])
+
+
+# (v_prev, v_prev2, s_prev, s_prev2, lat_ref, skips): the last two computed
+# velocities (None before the first), the float32 sigmas they were computed
+# at (0.0 before), the latents at the last computed step, consecutive skips
+CacheRegs = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], np.float32, np.float32,
+                  Optional[torch.Tensor], int]
+
+
+def empty_cache_regs() -> CacheRegs:
+    return None, None, np.float32(0.0), np.float32(0.0), None, 0
+
+
+def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheRegs,
+                          lat: torch.Tensor, sig_i: np.float32, i: int, always: bool, *,
+                          vc_adaptive: bool, vc_linear: bool, vc_warmup: int, vc_interval: int,
+                          vc_threshold: float, vc_max_skip: int
+                          ) -> Tuple[torch.Tensor, CacheRegs]:
+    """Twin of ``_velocity_cache_select``: run ``compute_fn`` or skip it.
+
+    Adaptive: run while the latents' relative L1 drift since the last
+    computed step (max over the batch) reaches ``vc_threshold``, or after
+    ``vc_max_skip`` skips; else every ``vc_interval``-th step after warmup.
+    ``always`` forces a run. A skipped step reuses the last computed velocity
+    or, linear, extrapolates over sigma from the last two; extrapolated
+    values never enter the registers. Returns ``(velocity, regs)``.
+    """
+    v_prev, v_prev2, s_prev, s_prev2, lat_ref, skips = regs
+    if vc_adaptive:
+        ref_lat = torch.zeros_like(lat) if lat_ref is None else lat_ref
+        drift = (lat - ref_lat).abs().mean(dim=(1, 2))
+        ref = ref_lat.abs().mean(dim=(1, 2))
+        rel = float((drift / (ref + 1e-8)).max())     # the host sync of this mode
+        run = always or rel >= vc_threshold or skips >= vc_max_skip
+    else:
+        run = always or (i - vc_warmup) % vc_interval == 0
+    if run:
+        v = compute_fn()
+        return v, (v, v_prev, sig_i, s_prev, lat.float(), 0)
+    if v_prev is None:
+        raise RuntimeError("the velocity cache skipped a step before any was computed")
+    v = v_prev
+    if vc_linear:
+        # first-order extrapolation over sigma; reuse until two computes exist
+        # (the empty register's sigma is 0, real schedule sigmas are > 0)
+        ds = np.float32(s_prev - s_prev2)
+        if abs(ds) > 1e-8 and s_prev2 > 0.0:
+            v = v_prev + (v_prev - v_prev2) * float(np.float32(1.0) / ds * (sig_i - s_prev))
+    return v, (v_prev, v_prev2, s_prev, s_prev2, lat_ref, skips + 1)
 
 
 def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
@@ -50,8 +115,8 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     latents: [B, S, C] packed (float32 out); cond_tokens [N, S, F] and
     token_masks [N, S, 1] are shared by the B images.
     """
-    if _velocity_cache_enabled(pipe_cfg):
-        raise NotImplementedError("the velocity cache is not ported yet")
+    vc = velocity_cache_settings(pipe_cfg)
+    vc_enabled = vc.pop("enabled")
     num_steps = schedule.num_steps
     gate_step = min(pipe_cfg.controlnet_conditioning_step, num_steps)
     cn_active = cn_active_mask(pipe_cfg, num_steps, gate_step)
@@ -77,19 +142,29 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
             return (res * masks.to(res.dtype)).sum(dim=1)
 
         lat = latents.float()
+        regs = empty_cache_regs()
         for i in range(num_steps):
             t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
             t_b = torch.full((b,), t_i, dtype=compute_dtype, device=lat.device)
             x_model = lat.to(compute_dtype)
-            block_res = single_res = None
-            if cn_active[i]:
-                block, single = controlnet(
-                    x_model.repeat(n_lines, 1, 1), cond, ctx_nb, pooled_nb,
-                    t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale)
-                block_res, single_res = mask_and_sum(block), mask_and_sum(single)
-            velocity = flux(x_model, ctx, pooled, t_b, img_ids, txt_ids, guidance,
+
+            def compute_velocity() -> torch.Tensor:
+                block_res = single_res = None
+                if cn_active[i]:
+                    block, single = controlnet(
+                        x_model.repeat(n_lines, 1, 1), cond, ctx_nb, pooled_nb,
+                        t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale)
+                    block_res, single_res = mask_and_sum(block), mask_and_sum(single)
+                return flux(x_model, ctx, pooled, t_b, img_ids, txt_ids, guidance,
                             controlnet_block_samples=block_res,
-                            controlnet_single_block_samples=single_res)
+                            controlnet_single_block_samples=single_res).float()
+
+            if vc_enabled:
+                always = i < vc["vc_warmup"] or i >= num_steps - 1 or i == 0
+                velocity, regs = velocity_cache_select(
+                    compute_velocity, regs, lat, schedule.sigmas[i], i, always, **vc)
+            else:
+                velocity = compute_velocity()
             lat = schedule.step(lat, velocity, i)
         return lat
 

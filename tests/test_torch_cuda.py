@@ -1,6 +1,8 @@
-"""The port's CUDA flash-attention kernels (forward K1/K2, backward K4)
-against their plain PyTorch versions, on the card, and gradients through a
-transformer block. Everything here needs a CUDA device and skips without one.
+"""The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4)
+against their plain PyTorch versions, on the card, the RoPE entry's route
+(K1, or the fp32 rotation then K2 at one chunk or K3 past 6144 tokens), and
+gradients through a transformer block. Everything here needs a CUDA device
+and skips without one.
 
 Run on the card (this file imports neither jax nor the tests' conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -47,32 +49,109 @@ def _inputs(dev, b, h, s, seed=0):
     return q, k, v, cos, sin
 
 
+def _counts():
+    return (fa.flash_attention_rope.launches, fa.flash_attention.launches,
+            fa.flash_attention_streaming.launches)
+
+
+def _rope_plain(q, k, v, cos, sin, online=None):
+    """The plain version of the RoPE entry's route at q's length, and the
+    (K1, K2, K3) launches the route makes."""
+    s = q.shape[2]
+    if fa.rope_fused(s):
+        return fa.flash_attention_rope_plain(q, k, v, cos, sin, online), (1, 0, 0)
+    qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+    if fa.streams(s):
+        return fa.flash_attention_streaming_plain(qr, kr, v, online), (0, 0, 1)
+    return fa.flash_attention_plain(qr, kr, v, online), (0, 1, 0)
+
+
 @pytest.mark.parametrize("b,h,s", [(1, 4, 4608), (2, 2, 1001), (1, 1, 5)])
 @pytest.mark.parametrize("online", [False, True])
 def test_kernel_matches_plain(dev, b, h, s, online):
     q, k, v, cos, sin = _inputs(dev, b, h, s)
-    n1, n2 = fa.flash_attention_rope.launches, fa.flash_attention.launches
-    pairs = ((fa.flash_attention_rope(q, k, v, cos, sin, online),
-              fa.flash_attention_rope_plain(q, k, v, cos, sin, online)),
+    before = _counts()
+    want_rope, route = _rope_plain(q, k, v, cos, sin, online)
+    pairs = ((fa.flash_attention_rope(q, k, v, cos, sin, online), want_rope),
              (fa.flash_attention(q, k, v, online), fa.flash_attention_plain(q, k, v, online)))
     torch.cuda.synchronize()
     for got, want in pairs:
         assert got[0].shape == (b, h, s, 128) and got[1].shape == (b, h, s)
         assert _out_err_ok(got[0], want[0])
         assert (got[1] - want[1]).abs().max().item() <= 1e-3
-    assert (fa.flash_attention_rope.launches, fa.flash_attention.launches) == (n1 + 1, n2 + 1)
+    n1, n2, n3 = (a - b for a, b in zip(_counts(), before))
+    assert (n1, n2, n3) == (route[0], route[1] + 1, route[2])
+
+
+@pytest.mark.parametrize("b,h,s", [(1, 2, 6500), (2, 1, 7424), (1, 1, 100)])
+@pytest.mark.parametrize("online", [False, True])
+def test_streaming_kernel_matches_plain(dev, b, h, s, online):
+    """K3 on pre-rotated q and k, at unaligned and aligned lengths and, through
+    its direct entry, below the threshold; the RoPE entry past 6144 tokens
+    launches K3 once and neither K1 nor K2."""
+    q, k, v, cos, sin = _inputs(dev, b, h, s, seed=s)
+    before = _counts()
+    got = fa.flash_attention_streaming(q, k, v, online)
+    want = fa.flash_attention_streaming_plain(q, k, v, online)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, h, s, 128) and got[0].dtype == torch.bfloat16
+    assert _out_err_ok(got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, 1)
+    if fa.streams(s):
+        before = _counts()
+        got = fa.flash_attention_rope(q, k, v, cos, sin, online)
+        want, route = _rope_plain(q, k, v, cos, sin, online)
+        assert route == (0, 0, 1)
+        assert tuple(a - b for a, b in zip(_counts(), before)) == route
+        assert _out_err_ok(got[0], want[0])
+        assert (got[1] - want[1]).abs().max().item() <= 1e-3
+
+
+def test_streaming_kernel_beyond_the_clamp(dev):
+    """Planted logits up to 80 (the scale folds back onto the fp32 logits)."""
+    s, d = 1000, 128
+    q = torch.zeros(1, 2, s, d, device=dev)
+    k = torch.zeros(1, 2, s, d, device=dev)
+    q[..., 0] = 80.0 * d ** 0.5
+    k[..., 0] = torch.linspace(-1.0, 1.0, s, device=dev)
+    v = torch.randn(1, 2, s, d, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = fa.flash_attention_streaming(q, k, v, online=False)
+    want = fa.flash_attention_streaming_plain(q, k, v, online=False)
+    assert _out_err_ok(got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert fa.flash_attention_streaming_plain(q, k, v, online=True)[1].max() > fa.LOGIT_CLAMP
+
+
+def test_gradients_through_the_streaming_route(dev):
+    """Past 6144 tokens the RoPE entry's backward is K4 with K3's lse."""
+    q, k, v, cos, sin = _inputs(dev, 1, 1, 6200, seed=6)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    n3, n4 = fa.flash_attention_streaming.launches, fa.flash_attention_backward.launches
+    out, lse = fa.flash_attention_rope(q, k, v, cos, sin)
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert (fa.flash_attention_streaming.launches, fa.flash_attention_backward.launches) == (
+        n3 + 1, n4 + 1)
+    qr, kr = apply_rope_half(q.detach(), cos, sin), apply_rope_half(k.detach(), cos, sin)
+    want = fa.flash_attention_backward_plain(qr, kr, v.detach(), out.detach(), lse, g)
+    got = (apply_rope_half(want[0], cos, -sin), apply_rope_half(want[1], cos, -sin), want[2])
+    for x, y in zip((q.grad, k.grad, v.grad), got):
+        assert _grad_ok(x, y)
 
 
 def test_strided_inputs_and_attention_entry(dev):
     """q/k/v as [B, S, H, D] buffers viewed [B, H, S, D], as the blocks make them;
     attention() on CUDA tensors goes to the kernel."""
-    q, k, v, cos, sin = _inputs(dev, 1, 4, 300, seed=1)
-    qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
-    n = fa.flash_attention_rope.launches
-    got = attention(qs, ks, vs, cos, sin)
-    want = fa.flash_attention_rope_plain(q, k, v, cos, sin)[0]
-    assert fa.flash_attention_rope.launches == n + 1
-    assert _out_err_ok(got, want)
+    for s in (300, 1001, 6200):      # one chunk (K2), fused (K1), streaming (K3)
+        q, k, v, cos, sin = _inputs(dev, 1, 4, s, seed=1)
+        qs, ks, vs = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+        before = _counts()
+        got = attention(qs, ks, vs, cos, sin)
+        want, route = _rope_plain(q, k, v, cos, sin)
+        assert tuple(a - b for a, b in zip(_counts(), before)) == route
+        assert _out_err_ok(got, want[0])
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
@@ -83,6 +162,8 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         fa.flash_attention(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    # at 1001 keys the route fuses the rotation into K1, which takes fp32 tables only
+    q, k, v, cos, sin = _inputs(dev, 1, 2, 1001, seed=2)
     with pytest.raises(ValueError, match="rope_cos"):
         fa.flash_attention_rope(q, k, v, cos.to(torch.bfloat16), sin)
 
@@ -146,9 +227,11 @@ def test_gradients_flow_through_the_kernels(dev, monkeypatch):
         ((x.float() * w_img).sum() + (ctx.float() * w_txt).sum()).backward()
         return block.to_q.weight.grad.float().clone()
 
-    n1, n4 = fa.flash_attention_rope.launches, fa.flash_attention_backward.launches
+    before, n4 = _counts(), fa.flash_attention_backward.launches
     got = q_grad()
-    assert (fa.flash_attention_rope.launches, fa.flash_attention_backward.launches) == (n1 + 1, n4 + 1)
+    # 256 joint tokens: one chunk, so the fp32 rotation and K2 (then K4)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 1, 0)
+    assert fa.flash_attention_backward.launches == n4 + 1
     monkeypatch.setattr(blocks, "attention", lambda q, k, v, c, s: plain_attention(
         apply_rope_half(q, c, s), apply_rope_half(k, c, s), v))
     want = q_grad()

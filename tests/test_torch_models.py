@@ -262,9 +262,13 @@ def test_sampler_two_steps_two_lines(models):
 
 
 def test_sampler_refuses_the_velocity_cache(models):
-    cfg = PipelineConfig(velocity_cache_interval=2)
-    with pytest.raises(NotImplementedError, match="velocity cache"):
+    """The velocity cache is ported (tests/test_torch_velocity_cache.py); the
+    sampler refuses only a cache mode it does not know."""
+    cfg = PipelineConfig(velocity_cache_interval=2, velocity_cache_mode="quadratic")
+    with pytest.raises(ValueError, match="velocity cache"):
         make_txt2img_sampler(models[4], models[5], build_schedule(2, S_IMG), cfg)
+    make_txt2img_sampler(models[4], models[5], build_schedule(2, S_IMG),
+                         PipelineConfig(velocity_cache_interval=2))
 
 
 def test_load_jax_params_checks_names_and_shapes(models):

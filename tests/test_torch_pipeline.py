@@ -190,6 +190,8 @@ def _env_without_jax_platforms():
 def test_port_never_imports_jax():
     code = ("import sys, reptext_tpu_torch, reptext_tpu_torch.cli, "
             "reptext_tpu_torch.pipelines.txt2img, reptext_tpu_torch.ops.flash_attention, "
+            "reptext_tpu_torch.pipelines.inpaint, reptext_tpu_torch.sampling.sampler_inpaint, "
+            "reptext_tpu_torch.ops.latents, reptext_tpu_torch.nn.vae, "
             "reptext_tpu_torch.data, reptext_tpu_torch.sampling.elastic, "
             "reptext_tpu_torch.sampling.train_controlnet; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
