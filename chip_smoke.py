@@ -21,16 +21,25 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    text/image ids, at unaligned lengths ((2, 24, 4106, 128); K3 (1, 24, 6500,
    128)), and beyond the logit clamp; errors and median times (kernel and
    plain version), and K1's and K3's clamped against their online softmax;
-4. reference: a small FLUX + ControlNet forward, and one ControlNet train
+4. variants: the attention A/B kernels of the study (chunked online softmax,
+   exp2, bf16 exp; reptext_tpu_torch/ops/attention_variants.py) against their
+   plain versions at (1, 24, 4608, 128), their times beside the plain
+   version's, SDPA's and the bound, the MUFU instructions in their SASS; then
+   the study's entry points (benchmarks.sweep_attention.run and
+   benchmarks.exp_softmax_overlap.run: the JAX scripts' own fp32 check at
+   (1, 2, 4608, 128) and their timings), which must launch every variant and
+   K2; and library_ms for K1-K4 (torch's scaled_dot_product_attention, timed
+   here only as the yardstick);
+5. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
-5. end to end: two 1024x1024 txt2img requests (an Arabic line, then a Latin
+6. end to end: two 1024x1024 txt2img requests (an Arabic line, then a Latin
    line) through the port's CLI path (reptext_tpu_torch.cli.build_pipeline /
    generate) at full FLUX.1-dev + RepText + T5-XXL + CLIP-L + VAE geometry,
    bf16, seeded random weights; checks the image shape, finite latents and
    that K1 ran steps * 57 + controlnet_steps * 14 times per image and K2 and
    K3 none;
-6. large: on the same modules, one 1536x1536 txt2img request through
+7. large: on the same modules, one 1536x1536 txt2img request through
    cli.generate (joint S = 9728: K3 = steps * 57 + controlnet_steps * 14, K1 =
    K2 = 0), then text inpainting through cli.generate_inpaint with one added
    inpaint ControlNet (seeded random weights): a 1280x960 request (S = 5312,
@@ -40,38 +49,35 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    steps * (57 + 14) + controlnet_steps * 14 launches of its kernel. Checks
    image shapes, uint8 and finite latents; prints s/image, stage seconds,
    sampler ms/step and peak memory; then frees the inpaint ControlNet;
-7. with --profile: torch.profiler over two inpaint steps at 1536x1152 (in the
+8. with --profile: torch.profiler over two inpaint steps at 1536x1152 (in the
    large phase) and over two ControlNet steps of the txt2img sampler at 1024^2,
    device (kernel) time by class, the device's idle share and the top kernels;
-8. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
+9. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
    train: warm start, AdamW at the CLI defaults, ElasticTrainer +
    PrefetchLoader) for 3 steps at batch 2, 1024^2, with remat; checks finite
    losses, nonzero heads and exactly-zero block gradients after step 1, a
    bit-identical base, and K1 = 141, K4 = 70, K2 = K3 = 0 launches per step;
    with --profile, then torch.profiler over one more train step.
 
-Then a JSON line of kernel results (launches per path, each path's counts set
-to 0 just before it and read just after), the nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}. The text lines come from
+Then a JSON line of the seven kernels' results (launches per path, each
+path's counts set to 0 just before it and read just after; times, the bound,
+SDPA's time), the nvidia-smi line, and as the last line {"ok": true,
+"device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
 arrays are used only where Pillow or a font is missing.
 """
 
+import argparse
+import json
 import os
+import statistics
+import subprocess
+import sys
+import time
+import types
 
-# reptext_tpu/__init__.py imports jax when JAX_PLATFORMS is set; the port runs without jax.
-os.environ.pop("JAX_PLATFORMS", None)
-
-import argparse  # noqa: E402
-import json  # noqa: E402
-import statistics  # noqa: E402
-import subprocess  # noqa: E402
-import sys  # noqa: E402
-import time  # noqa: E402
-import types  # noqa: E402
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "conditions_1024.npz")
@@ -93,6 +99,20 @@ LSE_ATOL = 1e-3
 # mean|plain|, per gradient.
 GRAD_MAX_RTOL = 2.0 ** -5
 GRAD_MEAN_RTOL = 2.0 ** -7
+# The attention variants vs their plain versions on the same bf16 inputs:
+# chunked (exp) and exp2 round p to bf16 where their plain versions do, but
+# against the running max tile by tile instead of the chunk's or the row's max,
+# so OUT_RTOL as above. bf16 exp adds a rounding the plain version places
+# elsewhere: the kernel rounds (logits - m) * log2(e) to bf16, the plain
+# version logits - m, each a relative error of 2^-9 in the exponent's argument,
+# so a probability may differ by up to 2^-8 |logits - m| relative (at most
+# 2^-8 / e of the row's largest one) on top of the bf16 rounding of p they
+# share: twice the limit, 2^-5 of max|plain out|, as the JAX script doubles
+# its own atol for this variant (4e-2 against 2e-2).
+BF16EXP_RTOL = 2.0 ** -5
+# Least time for the work, one H100 SXM at its published dense peaks.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
 # Small-model reference: bf16 activations on the card vs float32 on the CPU
 # with the same (bf16-valued) weights, 4 blocks deep: relative to max|ref|
 # (the forward output, the loss, and each ControlNet gradient tensor).
@@ -400,11 +420,168 @@ def backward_kernel_phase(dev):
     return {"ms": kern[0], "plain_ms": plain[0], "max_abs_err": err}
 
 
+def bound(flop, nbytes):
+    """(bound_ms, bound_by): the larger of ``flop`` at the bf16 tensor-core peak
+    and ``nbytes`` at the memory rate."""
+    t_ops, t_bytes = flop / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def forward_bound(b, h, s, d=128, lse=True, tables=False):
+    """A forward: both products, 4 B H S^2 D FLOP; q, k, v read and out written
+    once in bf16, the fp32 lse written, the fp32 [S, D] RoPE tables read."""
+    return bound(4 * b * h * s * s * d,
+                 4 * b * h * s * d * 2 + (4 * b * h * s if lse else 0) + (2 * s * d * 4 if tables else 0))
+
+
+def backward_bound(b, h, s, d=128):
+    """The backward's least work: five S^2 D products (q k^T, dO v^T, dS k,
+    dS^T q, P^T dO; K4 recomputes the first two in its second kernel, 7 in all),
+    10 B H S^2 D FLOP; q, k, v, out, dO and the lse read, dq, dk, dv written."""
+    return bound(10 * b * h * s * s * d, 8 * b * h * s * d * 2 + 4 * b * h * s)
+
+
+def variant_counters():
+    from reptext_tpu_torch.ops import attention_variants as av
+    from reptext_tpu_torch.ops import flash_attention as fa
+
+    return {"chunked": av.chunked_attn, "bf16exp": av.bf16exp_attn, "exp2": av.exp2_attn,
+            "K2": fa.flash_attention}
+
+
+def sass_exp_ops():
+    """Special-function (MUFU) instructions by kind in the SASS of the three
+    variant instantiations of the forward template, from cuobjdump."""
+    import re
+
+    from reptext_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.LIB_PATH], capture_output=True, text=True,
+                          check=True).stdout
+    names = {"0": "chunked (exp)", "1": "exp2", "2": "bf16exp (ex2.approx.ftz.bf16x2)"}
+    ops, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*attn_fwd_kernelILi128ELb0ELb1ELb1ELi(\d)E", ln)
+        if "Function :" in ln:
+            fn = names[m.group(1)] if m else None
+            continue
+        m = re.search(r"\b(MUFU\.[A-Z0-9_.]+)", ln)
+        if fn and m:
+            ops.setdefault(fn, {}).setdefault(m.group(1), 0)
+            ops[fn][m.group(1)] += 1
+    return ops
+
+
+def variants_phase(dev):
+    """The attention A/B kernels against their plain versions at the study's
+    shape, their SASS, the study's entry points (their launch counts set to 0
+    just before and read just after), and SDPA as every kernel's yardstick."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.benchmarks import exp_softmax_overlap, sweep_attention
+    from reptext_tpu_torch.ops import attention_variants as av
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(1, 24, 4608, 128, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    results = {}
+    for key, kern, plain, rtol in (
+            ("chunked", av.chunked_attn, av.chunked_attn_plain, OUT_RTOL),
+            ("exp2", av.exp2_attn, av.exp2_attn_plain, OUT_RTOL),
+            ("bf16exp", av.bf16exp_attn, av.bf16exp_attn_plain, BF16EXP_RTOL)):
+        got, want = kern(q, k, v), plain(q, k, v)
+        err = (got.float() - want.float()).abs().max().item()
+        out_max = want.float().abs().max().item()
+        ok = err <= rtol * out_max and bool(torch.isfinite(got.float()).all())
+        phase("variants", f"{key} (1,24,4608,128): out max_abs {err:.3e} (limit "
+                          f"{rtol * out_max:.3e} = 2^{int(np.log2(rtol))} x max|plain out| "
+                          f"{out_max:.4f}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"attention variant disagrees with its plain version: {key}")
+        kern_t, plain_t, line = alternated_ms(lambda: kern(q, k, v), lambda: plain(q, k, v))
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v))[0]
+        bound_ms, bound_by = forward_bound(1, 24, 4608, lse=False)
+        results[key] = {"ms": kern_t[0], "plain_ms": plain_t[0], "library_ms": lib,
+                        "max_abs_err": err, "bound_ms": bound_ms, "bound_by": bound_by}
+        phase("variants", f"{key} (1,24,4608,128) time: {line}; library (SDPA) {lib:.4f} ms; "
+                          f"bound {bound_ms:.4f} ms ({bound_by})")
+    del q, k, v
+    for fn, ops in sass_exp_ops().items():
+        phase("variants", f"SASS {fn}: " + ", ".join(f"{op} x{n}" for op, n in sorted(ops.items())))
+
+    counters = variant_counters()
+    for entry in counters.values():
+        entry.launches = 0
+    study = {"sweep_attention": sweep_attention.run(dev),
+             "exp_softmax_overlap": exp_softmax_overlap.run(dev)}
+    launches = {key: entry.launches for key, entry in counters.items()}
+    sweep, overlap = study["sweep_attention"], study["exp_softmax_overlap"]
+    phase("variants", "sweep_attention.run: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in sweep["kernels"].items())
+        + f", exp2 check max err {sweep['exp2_err']:.2e} (atol 2e-2), plain "
+          f"{sweep['plain_ms']:.4f} ms, tensor-core bound {sweep['tensor_core_ms']:.4f} ms, "
+          f"best MFU {100 * sweep['best_mfu']:.1f} %")
+    phase("variants", f"exp_softmax_overlap.run: production (K2) {overlap['production_ms']:.4f} ms; "
+          + "; ".join(f"chunked bq={c['block_q']} chunks={c['n_chunks']} {c['ms']:.4f} ms "
+                      f"(err {c['err']:.2e}, atol 2e-2)" for c in overlap["chunked"])
+          + f"; bf16-exp {overlap['bf16exp']['ms']:.4f} ms (err {overlap['bf16exp']['err']:.2e}, "
+            "atol 4e-2)")
+    phase("variants", "launches in the two run() calls: "
+          + ", ".join(f"{key} {n}" for key, n in launches.items()))
+    if not all(launches.values()):
+        raise SystemExit(f"the study's entry points did not launch every kernel: {launches}")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def library_yardsticks(dev):
+    """library_ms for K1-K4: one PyTorch call of the same function at each
+    kernel's main-path shape, timed as the kernels are (median of 20)."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    sdpa = F.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(13)
+    lib = {}
+
+    def rotated(b, txt, gh, gw):
+        s = txt + gh * gw
+        q, k, v = (torch.randn(b, 24, s, 128, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        cos, sin = rope_tables(txt, gh, gw, dev)
+        return q, k, v, apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+
+    q, k, v, qr, kr = rotated(1, 512, 64, 64)
+    lib["K2"] = cuda_time_ms(lambda: sdpa(q, k, v))[0]
+    # no single call fuses the rotation: SDPA on the rotated q and k, as context
+    lib["K1"] = cuda_time_ms(lambda: sdpa(qr, kr, v))[0]
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qr, kr, v))
+    out = sdpa(qg, kg, vg)
+    do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+    lib["K4"] = cuda_time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                         retain_graph=True))[0]
+    del q, k, v, qr, kr, qg, kg, vg, out, do
+    lib["K3"] = {}
+    for b, txt, gh, gw in ((2, 512, 72, 96), (1, 512, 96, 96)):
+        _, _, v, qr, kr = rotated(b, txt, gh, gw)
+        lib["K3"][f"({b},24,{qr.shape[2]},128)"] = cuda_time_ms(lambda: sdpa(qr, kr, v))[0]
+        del v, qr, kr
+    torch.cuda.empty_cache()
+    phase("variants", "library (torch.nn.functional.scaled_dot_product_attention, default "
+                      f"dispatch; median of 20): K2 (1,24,4608,128) {lib['K2']:.4f} ms; K1 the "
+                      f"same on rotated q, k {lib['K1']:.4f} ms (context: no call fuses RoPE); "
+                      f"K4 its backward alone {lib['K4']:.4f} ms; K3 "
+                      + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in lib["K3"].items()))
+    return lib
+
+
 def reference_phase(dev):
     """Small FLUX + ControlNet forward: card (bf16, kernel) vs CPU (fp32)."""
     import dataclasses
 
-    from reptext_tpu.configs import ControlNetConfig, FluxConfig
+    from reptext_tpu_torch.configs import ControlNetConfig, FluxConfig
     from reptext_tpu_torch.models.controlnet import RepTextControlNet
     from reptext_tpu_torch.models.flux import FluxTransformer2D
     from reptext_tpu_torch.nn.init import random_init_
@@ -519,7 +696,7 @@ def conditions_for(data, name, text, pos, size, font_size, path=FIXTURE):
     arrays; ``size`` is square or (width, height)."""
     width, height = (size, size) if isinstance(size, int) else size
     try:
-        from reptext_tpu.conditioning import TextLine, build_conditions, default_font_path
+        from reptext_tpu_torch.conditioning import TextLine, build_conditions, default_font_path
 
         default_font_path()
     except (ImportError, FileNotFoundError) as e:
@@ -964,6 +1141,8 @@ def main(argv=None):
     results = kernel_phase(dev)
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
+    variants, study_launches = variants_phase(dev)
+    library = library_yardsticks(dev)
     reference_phase(dev)
     txt2img, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
     by_path = {"txt2img": txt2img}
@@ -974,6 +1153,7 @@ def main(argv=None):
     by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)
     del pipe
 
+    by_path["attention_study"] = study_launches
     src = "reptext_tpu_torch/csrc/flash_attention.cu"
     entry = {
         "K1": {"name": "flash_attention_rope", "route": "cuda", "source": src,
@@ -986,17 +1166,30 @@ def main(argv=None):
                "source": "reptext_tpu_torch/csrc/flash_attention_bwd.cu",
                "replaces": "reptext_tpu/ops/flash_attention.py:577",
                "also_replaces": "reptext_tpu/ops/flash_attention.py:621"},
+        "chunked": {"name": "chunked_attn", "route": "cuda", "source": src,
+                    "replaces": "benchmarks/exp_softmax_overlap.py:80"},
+        "bf16exp": {"name": "bf16exp_attn", "route": "cuda", "source": src,
+                    "replaces": "benchmarks/exp_softmax_overlap.py:143"},
+        "exp2": {"name": "exp2_attn", "route": "cuda", "source": src,
+                 "replaces": "benchmarks/sweep_attention.py:67"},
     }
+    results.update(variants)
+    k3_shapes = {"(2,24,7424,128)": (2, 24, 7424), "(1,24,9728,128)": (1, 24, 9728)}
+    for key, (b_ms, b_by) in (("K1", forward_bound(1, 24, 4608, tables=True)),
+                              ("K2", forward_bound(1, 24, 4608)),
+                              ("K3", forward_bound(*k3_shapes["(2,24,7424,128)"])),
+                              ("K4", backward_bound(1, 24, 4608))):
+        results[key].update({"bound_ms": b_ms, "bound_by": b_by, "library_ms": library[key]})
+    results["K1"]["library_note"] = "SDPA on q and k rotated beforehand: no single call fuses RoPE"
+    results["K3"]["library_ms"] = library["K3"]["(2,24,7424,128)"]
+    results["K3"]["library_ms_by_shape"] = library["K3"]
+    results["K3"]["bound_ms_by_shape"] = {shape: forward_bound(*bhs)[0]
+                                          for shape, bhs in k3_shapes.items()}
     for key in entry:
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})
         entry[key].update(results[key])
-    # K2 is the same template without the rotation and with the scale folded
-    # into q; every path here passes RoPE tables at lengths where the route
-    # fuses (K1) or streams (K3), and each path checks that K2 ran 0 times, so
-    # it is checked and timed above but listed apart.
-    print(json.dumps({"kernels": [entry["K1"], entry["K3"], entry["K4"]],
-                      "off_main_path": [entry["K2"]]}), flush=True)
+    print(json.dumps({"kernels": list(entry.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

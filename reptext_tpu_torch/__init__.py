@@ -5,8 +5,8 @@ sub-package names:
 
 - ``ops``: latents, RoPE, the attention entry point, and the hand-written
   CUDA flash-attention kernels, forward (``csrc/flash_attention.cu``: K1,
-  K2 and the streaming K3) and backward (``csrc/flash_attention_bwd.cu``),
-  with their build
+  K2, the streaming K3 and the attention study's three variants) and
+  backward (``csrc/flash_attention_bwd.cu``), with their build
   (``ops/_build.py``), autograd wiring and plain PyTorch twins;
 - ``nn``: layers, embeddings, MMDiT blocks, VAE, CLIP and T5 encoders;
 - ``models``: the FLUX transformer and the RepText ControlNet (with remat and
@@ -17,11 +17,15 @@ sub-package names:
 - ``pipelines``: the txt2img and text-inpainting pipelines;
 - ``data``: step-indexed synthetic glyph training batches and their prefetcher;
 - ``io``: Flax-tree -> module weight carry (``load_jax_params``);
-- ``cli``: the txt2img, inpaint and train command line.
+- ``cli``: the txt2img, inpaint and train command line;
+- ``benchmarks``: the attention A/B study on the card (``sweep_attention``,
+  ``exp_softmax_overlap``);
+- ``configs``, ``conditioning``, ``text``, ``utils``: the port's own copies
+  of the JAX package's host code (dataclasses, glyph conditioning, token and
+  image helpers).
 
-Host-only code is shared with the JAX package (``reptext_tpu.configs``,
-``conditioning``, ``text``, ``utils.image``, ``io.convert``); none of it
-loads JAX unless ``JAX_PLATFORMS`` is set. This package never imports jax.
+This package imports neither jax nor anything of the JAX package
+(``reptext_tpu``); converted checkpoints reach it as numpy trees.
 """
 
 __version__ = "0.1.0"

@@ -7,16 +7,19 @@ Usage (random weights; no checkpoints exist in the repository):
     python -m reptext_tpu_torch.cli --mode inpaint --image photo.jpg --mask mask.png \
         --text "مرحبا" --position 370 200 --true-guidance-scale 3.5 \
         --random-weights --output results/edited.png
-    python -m reptext_tpu_torch.cli --mode train --random-weights --tiny \
+    python -m reptext_tpu_torch.cli --mode train --random-weights --tiny --device cpu \
         --size 64 --train-steps 3 --batch-size 2
 
-``--tiny`` builds the tiny test geometry in float32 (runs on the CPU); the
-full geometry runs in bf16 and needs a CUDA device. The flags keep the JAX
+``--device`` (``cuda``, the default, or ``cpu``) says where the modules
+live, as ``JAX_PLATFORMS`` does for the JAX CLI: bf16 on the card, float32 on
+the CPU; without a card ``cuda`` raises. ``--tiny`` is a geometry flag only:
+the tiny test geometry's head dim of 32 is not one the attention kernels
+take, so it runs with ``--device cpu``. The flags keep the JAX
 CLI's names and defaults (``reptext_tpu/cli.py``). Prompts become
 deterministic demo token ids (a stable CRC32 hash per word; T5 ids padded to
 the 512-token budget), since no tokenizer files are in the repository.
 Inpainting resizes the image so that its long side is at most 1536 and both
-sides are multiples of 64 (``reptext_tpu.utils.image.resize_to_multiple``)
+sides are multiples of 64 (``reptext_tpu_torch.utils.image.resize_to_multiple``)
 and the mask to match; the negative prompt defaults to the reference's.
 :func:`build_pipeline`, :func:`generate`, :func:`generate_inpaint` and
 :func:`train` are the parts of :func:`main`, for in-process callers.
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 import sys
 import zlib
 from typing import Tuple
@@ -36,6 +40,19 @@ import numpy as np
 
 # the JAX CLI's default --prompt-suffix (the reference driver's prompt style)
 PROMPT_SUFFIX = ", filmfotos, film grain, reversal film photography"
+
+
+def contains_cjk(text: str) -> bool:
+    return re.search(r"[一-鿿]", text) is not None
+
+
+def build_prompt(prompt: str, texts, suffix: str = "") -> str:
+    """Quote non-CJK render text into the prompt (reference: infer.py:108-112);
+    a copy of ``reptext_tpu/cli.py::build_prompt``."""
+    for t in texts:
+        if not contains_cjk(t):
+            prompt += f", '{t}'"
+    return prompt + suffix
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-weights", action="store_true",
                    help="seeded random weights (the only weights this port loads yet)")
     p.add_argument("--tiny", action="store_true",
-                   help="tiny model geometry in float32 on the CPU (demo and tests)")
+                   help="tiny model geometry (demo and tests; with --device cpu)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the modules run: cuda (bf16, the default) or cpu (float32)")
     p.add_argument("--output", default="results/result.png")
     p.add_argument("--train-steps", type=int, default=100, help="train: optimization steps")
     p.add_argument("--batch-size", type=int, default=2, help="train: samples per step")
@@ -109,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
 def pipeline_config(args, height=None, width=None):
     """The ``PipelineConfig`` of the flags at ``height`` x ``width`` (default
     ``--size`` square)."""
-    from reptext_tpu.configs import PipelineConfig
+    from reptext_tpu_torch.configs import PipelineConfig
 
     return PipelineConfig(
         height=height or args.size, width=width or args.size, num_inference_steps=args.steps,
@@ -127,7 +146,7 @@ def pipeline_config(args, height=None, width=None):
 
 def make_configs(args, height=None, width=None):
     """(flux, controlnet, vae, clip, t5, pipeline) configs for the flags."""
-    from reptext_tpu.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+    from reptext_tpu_torch.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
 
     cfgs = [FluxConfig(), ControlNetConfig(), VAEConfig(), CLIPConfig(), T5Config()]
     if args.tiny:
@@ -140,7 +159,7 @@ def load_inpaint_inputs(image_path: str, mask_path: str) -> Tuple[np.ndarray, np
     sides (long side at most 1536), the mask resized to match."""
     from PIL import Image
 
-    from reptext_tpu.utils.image import resize_to_multiple
+    from reptext_tpu_torch.utils.image import resize_to_multiple
 
     image = resize_to_multiple(np.asarray(Image.open(image_path).convert("RGB"), np.uint8))
     h, w = image.shape[:2]
@@ -149,9 +168,8 @@ def load_inpaint_inputs(image_path: str, mask_path: str) -> Tuple[np.ndarray, np
 
 
 def build_pipeline(args, height=None, width=None):
-    """The pipeline the flags describe, with seeded random weights: the full
-    geometry in bf16 on the CUDA device, or ``--tiny`` in float32 on the CPU
-    (its head dim of 32 is not one the attention kernel takes). ``--mode
+    """The pipeline the flags describe, with seeded random weights, on
+    ``--device``: bf16 on the CUDA device, float32 on the CPU. ``--mode
     inpaint`` adds the inpaint ControlNet to the same modules."""
     import torch
 
@@ -160,15 +178,11 @@ def build_pipeline(args, height=None, width=None):
 
     if not args.random_weights:
         raise SystemExit("pass --random-weights (no checkpoint loading in this port yet)")
-    device = "cpu" if args.tiny else "cuda"
-    if device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("the full geometry needs a CUDA device; torch.cuda.is_available() "
-                         "is False (use --tiny on the CPU)")
     flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args, height, width)
-    dtype = torch.float32 if args.tiny else torch.bfloat16
+    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     pipeline = FluxRepTextPipeline.create(
         flux_cfg, cn_cfg, vae_cfg, pipe_cfg, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
-        seed=args.seed, device=device, dtype=dtype, remat=args.mode == "train")
+        seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train")
     if args.mode == "inpaint":
         return FluxRepTextInpaintPipeline.from_pipeline(pipeline, seed=args.seed + 7)
     return pipeline
@@ -194,8 +208,6 @@ def _prompt_ids(args, pipeline, prompt: str) -> Tuple[np.ndarray, np.ndarray]:
 
 def generate(args, pipeline, conditions, timings=None, output_type: str = "np"):
     """One txt2img request: uint8 images [num_images, H, W, 3] (or ``output_type``)."""
-    from reptext_tpu.cli import build_prompt
-
     clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
                                                                 PROMPT_SUFFIX))
     return pipeline(conditions, clip_ids=clip_ids, t5_ids=t5_ids, seed=args.seed,
@@ -208,8 +220,7 @@ def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.nda
                      timings=None, output_type: str = "np"):
     """One inpaint request on ``image`` (uint8 [H, W, 3] at the pipeline's
     size) under ``mask``: uint8 images [num_images, H, W, 3] (or ``output_type``)."""
-    from reptext_tpu.cli import build_prompt
-    from reptext_tpu.text import pad_to_common_length
+    from reptext_tpu_torch.text import pad_to_common_length
     from reptext_tpu_torch.pipelines.inpaint import DEFAULT_NEGATIVE_PROMPT
 
     clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
@@ -289,7 +300,7 @@ def main(argv=None) -> int:
     if inpaint and (args.image is None or args.mask is None):
         parser.error("--mode inpaint requires --image and --mask")
 
-    from reptext_tpu.conditioning import TextLine, build_conditions
+    from reptext_tpu_torch.conditioning import TextLine, build_conditions
 
     height = width = args.size
     if inpaint:

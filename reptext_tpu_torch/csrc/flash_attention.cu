@@ -53,6 +53,35 @@
 // The wrapper still routes by _SINGLE_PASS_MAX_SEQ, for the reference's
 // rounding (fp32 rotation outside the kernel, scale after the product).
 // wgmma and TMA are later work.
+//
+// The attention A/B variants (reptext_attention_variant_fwd): the same
+// template with the running max, the scale on the fp32 logits, no lse store,
+// and a compile-time exponential (EXP):
+//   kExpE     replaces benchmarks/exp_softmax_overlap.py::_chunked_kernel, the
+//             online softmax over unrolled key chunks: e = exp(s - m). The
+//             64-key cp.async ring takes the place of the chunks.
+//   kExp2     replaces benchmarks/sweep_attention.py::_exp2_kernel: log2(e) is
+//             folded into the scale (the caller passes scale * log2(e)), so s,
+//             the running max and alpha are in log2 units and e = exp2(s - m).
+//   kExp2Bf16 replaces benchmarks/exp_softmax_overlap.py::_bf16exp_kernel:
+//             s - m (log2 units) is rounded to bf16 and exponentiated two at a
+//             time by ex2.approx.ftz.bf16x2; the packed result is the PV
+//             A fragment as it stands, and the row sums add its two halves in
+//             fp32. The Pallas kernel rounds logits - m (natural units) and
+//             takes exp at bf16; folding log2(e) in first moves that rounding
+//             to (logits - m) * log2(e): both are a relative error of 2^-9 in
+//             the exponent's argument.
+// The Pallas _bf16exp_kernel and _exp2_kernel take the full row max in one
+// pass over [block_q, S] fp32 logits held in VMEM. A [64, 4608] fp32 row tile
+// is 1.2 MB, far beyond one CTA's registers and shared memory, so these take
+// the running max instead: the function is the same, only where p is rounded
+// to bf16 differs (each tile's p against the max so far, rescaled in fp32).
+// What bounds them: at the study's (1, 24, 4608, 128), 2.61e11 FLOP of
+// products against 0.113 GB, 0.264 ms at 989 TFLOP/s (bytes: 0.034 ms); the
+// 5.1e8 exponentials run on the special-function unit beside the tensor
+// cores. sm_90's ptxas issues each packed ex2.approx.ftz.bf16x2 as two
+// MUFU.EX2.BF16, one per half (cuobjdump -sass), so the bf16 form issues as
+// many MUFU ops as kExp2; it saves the fp32 -> bf16 rounding of p instead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,6 +97,16 @@ constexpr int kBlockQ = 16 * kWarps;  // query rows per CTA (16 per warp)
 constexpr int kBlockK = 64;           // keys per shared-memory tile
 constexpr int kPad = 8;               // bf16 pad per smem row: conflict-free ldmatrix
 constexpr float kLogitClamp = 43.0f;
+
+// The softmax's exponential (see the source note).
+constexpr int kExpE = 0;      // expf(s - m)
+constexpr int kExp2 = 1;      // exp2f(s - m), s in log2 units
+constexpr int kExp2Bf16 = 2;  // ex2.approx.ftz.bf16x2(bf16(s - m)), s in log2 units
+
+template <int EXP>
+__device__ __forceinline__ float softmax_exp(float x) {
+  return EXP == kExpE ? expf(x) : exp2f(x);
+}
 
 struct Params {
   const __nv_bfloat16* q;
@@ -149,7 +188,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   load_rows_async<D, kBlockK, D + kPad, kThreads>(dst, src, ss, row0, seq);
 }
 
-template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS, int EXP = kExpE>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   constexpr int kLd = D + kPad;
   constexpr int kTile = kBlockK * kLd;    // elements per K or V stage
@@ -159,6 +198,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   constexpr int kHalf = D / 2;
   static_assert(kBlockQ <= 2 * kBlockK, "q' is staged in the two K stages");
   static_assert(!(ROPE && SCALE_LOGITS), "K3 takes pre-rotated q and k");
+  static_assert(EXP == kExpE || ONLINE, "the exp2 modes keep a running max");
 
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* k_s = smem;              // [2][kBlockK][kLd]
@@ -280,7 +320,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         // The first tile always holds key 0, so m_new is finite from here on.
         const float m_new = fmaxf(m_run[r], mx[r]);
-        const float alpha = expf(m_run[r] - m_new);
+        const float alpha = softmax_exp<EXP>(m_run[r] - m_new);
         l_part[r] *= alpha;
 #pragma unroll
         for (int n = 0; n < kNTilesO; ++n) {
@@ -291,26 +331,51 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
       }
     }
 
+    // p = exp(s - m). The fp32 modes keep p in the logits accumulators and
+    // round it to bf16 pairs in the PV loop below (packing here instead
+    // measured 5-10 % slower for K1-K3: 186 registers against 175-179). The
+    // bf16 mode rounds s - m to bf16 pairs and exponentiates them packed: a C
+    // fragment's two adjacent columns of one row (pp[n][0]: row g, pp[n][1]:
+    // row g + 8) are exactly the pair the PV A fragment takes.
+    [[maybe_unused]] uint32_t pp[EXP == kExp2Bf16 ? kNTilesS : 1][2];
 #pragma unroll
     for (int n = 0; n < kNTilesS; ++n) {
+      if constexpr (EXP == kExp2Bf16) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = ONLINE ? expf(s[n][e] - m_run[e >> 1]) : expf(s[n][e]);
-        s[n][e] = x;
-        l_part[e >> 1] += x;
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t e2 =
+              ex2_bf16x2(pack_bf16(s[n][2 * r] - m_run[r], s[n][2 * r + 1] - m_run[r]));
+          pp[n][r] = e2;
+          l_part[r] += bf16_lo(e2);
+          l_part[r] += bf16_hi(e2);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = softmax_exp<EXP>(ONLINE ? s[n][e] - m_run[e >> 1] : s[n][e]);
+          s[n][e] = x;
+          l_part[e >> 1] += x;
+        }
       }
     }
 
-    // o += bf16(p) v: the logits accumulators of two neighbouring 8-key tiles
-    // are exactly the A fragment of one 16-key k-step; one ldmatrix.x4.trans
-    // of V gives the B fragments of two 8-channel output tiles.
+    // o += bf16(p) v: the probabilities of two neighbouring 8-key tiles are
+    // exactly the A fragment of one 16-key k-step; one ldmatrix.x4.trans of V
+    // gives the B fragments of two 8-channel output tiles.
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      if constexpr (EXP == kExp2Bf16) {
+        pa[0] = pp[2 * kk][0];
+        pa[1] = pp[2 * kk][1];
+        pa[2] = pp[2 * kk + 1][0];
+        pa[3] = pp[2 * kk + 1][1];
+      } else {
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
       const __nv_bfloat16* vrow = vs + (kk * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
 #pragma unroll
       for (int n = 0; n < kNTilesO; n += 2) {
@@ -340,21 +405,21 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
       const float hi = __fdiv_rn(o[n][2 * r + 1], l_part[r]);
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) = pack_bf16(lo, hi);
     }
-    if (t == 0) {
+    if (t == 0 && p.lse != nullptr) {  // the A/B variants store no lse
       const float m = ONLINE ? m_run[r] : 0.0f;
       p.lse[((long long)b * p.heads + h) * seq + row] = m + logf(l_part[r]);
     }
   }
 }
 
-template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS = false>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS = false, int EXP = kExpE>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBlockK * (D + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS><<<grid, kThreads, kSmem, stream>>>(p);
+  attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -447,5 +512,31 @@ extern "C" int reptext_flash_attention_streaming_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = online ? launch<128, false, true, true>(p, batch, s)
                                  : launch<128, false, false, true>(p, batch, s);
+  return static_cast<int>(err);
+}
+
+// The attention A/B variants: running max, `scale` multiplied onto the fp32
+// logits (1/sqrt(D) for exp_mode 0; 1/sqrt(D) * log2(e) for the exp2 modes 1
+// and 2), out only (no lse). exp_mode: 0 exp (_chunked_kernel), 1 exp2
+// (_exp2_kernel), 2 packed bf16 exp2 (_bf16exp_kernel). Strides in elements,
+// as above; returns the cudaError_t.
+extern "C" int reptext_attention_variant_fwd(
+    const void* q, const void* k, const void* v, void* out,
+    int batch, int heads, int seq, int head_dim,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    float scale, int exp_mode, void* stream) {
+  if (seq < 1 || batch < 1 || heads < 1 || head_dim != 128 || exp_mode < 0 || exp_mode > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Params p = make_params(q, k, v, out, nullptr, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh,
+                               k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (exp_mode == kExpE) err = launch<128, false, true, true, kExpE>(p, batch, s);
+  else if (exp_mode == kExp2) err = launch<128, false, true, true, kExp2>(p, batch, s);
+  else err = launch<128, false, true, true, kExp2Bf16>(p, batch, s);
   return static_cast<int>(err);
 }

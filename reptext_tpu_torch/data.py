@@ -2,7 +2,7 @@
 and VAE path (PyTorch).
 
 Counterpart of ``reptext_tpu/data.py``. Deterministic random text lines are
-rendered by the shared conditioning frontend (``reptext_tpu.conditioning``:
+rendered by the conditioning frontend (``reptext_tpu_torch.conditioning``:
 shape, render, canny + position + region masks), encoded and packed by the
 pipeline exactly as at inference (``prepare_control_tokens``), and the target
 is the glyph composite over a flat background, VAE-encoded to packed latents.
@@ -26,8 +26,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from reptext_tpu.conditioning import TextLine, build_conditions
-from reptext_tpu.utils.image import preprocess_images
+from reptext_tpu_torch.conditioning import TextLine, build_conditions
+from reptext_tpu_torch.utils.image import preprocess_images
 from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids
 
 # Arabic-first defaults, with Latin mixed in (the JAX package's pools)

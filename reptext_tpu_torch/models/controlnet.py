@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from reptext_tpu.configs import ControlNetConfig
+from reptext_tpu_torch.configs import ControlNetConfig
 from reptext_tpu_torch.models.flux import FluxTransformer2D, run_block
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed

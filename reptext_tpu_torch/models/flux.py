@@ -27,7 +27,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from reptext_tpu.configs import FluxConfig
+from reptext_tpu_torch.configs import FluxConfig
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
 from reptext_tpu_torch.nn.layers import AdaLayerNormContinuous

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from reptext_tpu.configs import CLIPConfig
+from reptext_tpu_torch.configs import CLIPConfig
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

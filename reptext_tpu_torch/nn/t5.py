@@ -14,7 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from reptext_tpu.configs import T5Config
+from reptext_tpu_torch.configs import T5Config
 
 
 class T5LayerNorm(nn.Module):

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from reptext_tpu.configs import VAEConfig
+from reptext_tpu_torch.configs import VAEConfig
 
 
 class GroupNorm32(nn.Module):

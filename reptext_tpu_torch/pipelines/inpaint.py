@@ -27,8 +27,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from reptext_tpu.configs import ControlNetConfig, PipelineConfig
-from reptext_tpu.utils.image import preprocess_images
+from reptext_tpu_torch.configs import ControlNetConfig, PipelineConfig
+from reptext_tpu_torch.utils.image import preprocess_images
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
 from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids, resize_nearest
 from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline, _StageClock, build_module
@@ -79,7 +79,8 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
     @classmethod
     def create_inpaint(cls, inpaint_cn_cfg: Optional[ControlNetConfig] = None,
                        **kwargs) -> "FluxRepTextInpaintPipeline":
-        """``FluxRepTextPipeline.create(**kwargs)`` plus the inpaint ControlNet
+        """``FluxRepTextPipeline.create(**kwargs)`` (on the card unless
+        ``device="cpu"``) plus the inpaint ControlNet on the same device
         (``params["inpaint_controlnet"]`` when the trees are given)."""
         base = FluxRepTextPipeline.create(**kwargs)
         params = kwargs.get("params") or {}

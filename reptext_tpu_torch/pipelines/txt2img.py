@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from reptext_tpu.configs import (
+from reptext_tpu_torch.configs import (
     CLIPConfig,
     ControlNetConfig,
     FluxConfig,
@@ -30,7 +30,7 @@ from reptext_tpu.configs import (
     T5Config,
     VAEConfig,
 )
-from reptext_tpu.utils.image import postprocess_images, preprocess_images
+from reptext_tpu_torch.utils.image import postprocess_images, preprocess_images
 from reptext_tpu_torch.io.from_jax import load_jax_params
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
 from reptext_tpu_torch.models.flux import FluxTransformer2D
@@ -84,9 +84,13 @@ class FluxRepTextPipeline:
     def create(cls, flux_cfg: FluxConfig, cn_cfg: ControlNetConfig, vae_cfg: VAEConfig,
                pipe_cfg: PipelineConfig, params: Optional[Dict[str, Any]] = None,
                clip_cfg: Optional[CLIPConfig] = None, t5_cfg: Optional[T5Config] = None,
-               seed: int = 0, device="cpu", dtype: torch.dtype = torch.float32,
+               seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
                remat: bool = False) -> "FluxRepTextPipeline":
         """Build the modules on ``device`` in ``dtype``, every one frozen.
+
+        The card unless the caller asks for the CPU (``device="cpu"``); a CUDA
+        device on a host without one raises, it never falls back. ``dtype``
+        defaults to bf16 on the card and float32 on the CPU.
 
         With ``params`` (Flax trees of numpy arrays keyed flux / controlnet /
         vae / clip / t5) the weights are carried over by ``load_jax_params``;
@@ -97,6 +101,11 @@ class FluxRepTextPipeline:
         ControlNet trainable (``init_controlnet_training``).
         """
         device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} asked for, but torch.cuda.is_available() is "
+                               "False; pass device='cpu' to build on the CPU")
+        if dtype is None:
+            dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
         specs = {"flux": (FluxTransformer2D, flux_cfg), "controlnet": (RepTextControlNet, cn_cfg),
                  "vae": (AutoencoderKL, vae_cfg), "clip": (CLIPTextEncoder, clip_cfg),
                  "t5": (T5Encoder, t5_cfg)}

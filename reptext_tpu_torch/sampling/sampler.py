@@ -29,7 +29,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from reptext_tpu.configs import PipelineConfig
+from reptext_tpu_torch.configs import PipelineConfig
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 
 

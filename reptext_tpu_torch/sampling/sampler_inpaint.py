@@ -25,7 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from reptext_tpu.configs import PipelineConfig
+from reptext_tpu_torch.configs import PipelineConfig
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 from reptext_tpu_torch.sampling.sampler import (
     cn_active_mask, empty_cache_regs, velocity_cache_select, velocity_cache_settings,

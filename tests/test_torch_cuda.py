@@ -1,8 +1,8 @@
-"""The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4)
-against their plain PyTorch versions, on the card, the RoPE entry's route
-(K1, or the fp32 rotation then K2 at one chunk or K3 past 6144 tokens), and
-gradients through a transformer block. Everything here needs a CUDA device
-and skips without one.
+"""The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4,
+the attention A/B variants) against their plain PyTorch versions, on the
+card, the RoPE entry's route (K1, or the fp32 rotation then K2 at one chunk or
+K3 past 6144 tokens), and gradients through a transformer block. Everything
+here needs a CUDA device and skips without one.
 
 Run on the card (this file imports neither jax nor the tests' conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -12,13 +12,16 @@ Tolerances as chip_smoke.py states them: out within 2^-6 of max|plain out|
 element may land one ulp away), lse 1e-3; dq, dk, dv within 2^-5 of
 max|plain| (max-abs) and 2^-7 of mean|plain| (mean-abs): the kernel and its
 plain version round p and ds to bf16 at the same points but sum thousands of
-products in another order.
+products in another order. The variants as chip_smoke.py states them: out
+within 2^-6 of max|plain out| (chunked, exp2) and 2^-5 (bf16 exp, whose kernel
+rounds the exponential's argument at another point than its plain version).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from reptext_tpu_torch.ops import attention_variants as av
 from reptext_tpu_torch.ops import flash_attention as fa
 from reptext_tpu_torch.ops.attention import attention, plain_attention
 from reptext_tpu_torch.ops.rope import apply_rope_half, rope_cos_sin_half
@@ -245,3 +248,36 @@ def test_backward_rejects_what_it_does_not_take(dev):
         fa.flash_attention_backward(*(x.half() if x.dtype == torch.bfloat16 else x for x in args))
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention_backward(*(x[..., :64] if x.dim() == 4 else x for x in args))
+
+
+VARIANTS = {"chunked": (av.chunked_attn, av.chunked_attn_plain, 2.0 ** -6),
+            "exp2": (av.exp2_attn, av.exp2_attn_plain, 2.0 ** -6),
+            "bf16exp": (av.bf16exp_attn, av.bf16exp_attn_plain, 2.0 ** -5)}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+@pytest.mark.parametrize("b,h,s", [(1, 4, 4608), (2, 2, 1280)])
+def test_variant_kernel_matches_plain(dev, name, b, h, s):
+    entry, plain, rtol = VARIANTS[name]
+    q, k, v, _, _ = _inputs(dev, b, h, s, seed=s + 8)
+    n = entry.launches
+    got = entry(q, k, v)
+    torch.cuda.synchronize()
+    want = plain(q, k, v)
+    assert entry.launches == n + 1
+    assert got.shape == (b, h, s, 128) and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_variant_kernel_rejects_what_it_does_not_take(dev, name):
+    entry = VARIANTS[name][0]
+    q, k, v, _, _ = _inputs(dev, 1, 2, 320, seed=9)
+    n = entry.launches
+    with pytest.raises(ValueError, match="block_q"):
+        entry(q, k, v, 256)
+    with pytest.raises(TypeError, match="bfloat16"):
+        entry(q.half(), k.half(), v.half(), 64)
+    assert entry.launches == n

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from reptext_tpu.configs import (
+from reptext_tpu_torch import cli
+from reptext_tpu_torch.configs import (
     CLIPConfig, ControlNetConfig, FluxConfig, PipelineConfig, T5Config, VAEConfig,
 )
-from reptext_tpu_torch import cli
 from reptext_tpu_torch.data import GlyphTextDataset, PrefetchLoader
 from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 from reptext_tpu_torch.sampling.train_controlnet import (
@@ -31,7 +31,7 @@ def dataset():
     pipe = FluxRepTextPipeline.create(
         FluxConfig().tiny(), ControlNetConfig().tiny(), VAEConfig().tiny(),
         PipelineConfig(height=H, width=W, num_inference_steps=2, controlnet_conditioning_step=1),
-        clip_cfg=CLIPConfig().tiny(), t5_cfg=T5Config().tiny(), seed=0)
+        clip_cfg=CLIPConfig().tiny(), t5_cfg=T5Config().tiny(), seed=0, device="cpu")
     return GlyphTextDataset(pipe, batch_size=2, seed=7)
 
 
@@ -124,7 +124,8 @@ def test_a_batch_trains(dataset):
 
 
 def test_train_cli_runs_and_reports_a_finite_loss(capsys):
-    assert cli.main(["--mode", "train", "--tiny", "--random-weights", "--train-steps", "3",
+    assert cli.main(["--mode", "train", "--tiny", "--device", "cpu", "--random-weights",
+                     "--train-steps", "3",
                      "--batch-size", "2", "--size", "64"]) == 0
     out = capsys.readouterr().out
     assert out.count("[step]") == 3

@@ -42,17 +42,21 @@ from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 from reptext_tpu_torch.sampling.flow_match import build_schedule
 from reptext_tpu_torch.sampling.sampler_inpaint import make_inpaint_sampler
 
-from torch_port_util import TOL, random_tree, t
+from torch_port_util import TOL, port_config, port_configs_of, random_tree, t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 96, 128
 CN_CFG = ControlNetConfig().tiny()
-INP_CFG = default_inpaint_controlnet_config(CN_CFG)
+INP_CFG = dataclasses.replace(CN_CFG, extra_condition_channels=4)
 CFGS = dict(flux_cfg=FluxConfig().tiny(), cn_cfg=CN_CFG, vae_cfg=VAEConfig().tiny(),
             clip_cfg=CLIPConfig().tiny(), t5_cfg=T5Config().tiny())
 PIPE_CFG = PipelineConfig(height=H, width=W, num_inference_steps=3,
                           controlnet_conditioning_step=2, guidance_scale=3.5,
                           true_guidance_scale=3.0)
+# the same configs as the port's own classes, for the port's side
+T_INP_CFG = default_inpaint_controlnet_config(port_config(CN_CFG))
+T_CFGS = port_configs_of(CFGS)
+T_PIPE_CFG = port_config(PIPE_CFG)
 CLIP_IDS = np.array([[3, 7, 255, 0, 0, 0, 0, 0]], np.int32)
 T5_IDS = np.array([[5, 9, 11, 1, 0, 0, 0, 0]], np.int32)
 NEG_CLIP = np.array([[4, 8, 9, 255, 0, 0, 0, 0]], np.int32)
@@ -99,8 +103,8 @@ def pipes():
     params = _params()
     jpipe = JInpaint.create_inpaint(inpaint_cn_cfg=INP_CFG, pipe_cfg=PIPE_CFG, params=params,
                                     **CFGS)
-    tpipe = FluxRepTextInpaintPipeline.create_inpaint(inpaint_cn_cfg=INP_CFG, pipe_cfg=PIPE_CFG,
-                                                      params=params, **CFGS)
+    tpipe = FluxRepTextInpaintPipeline.create_inpaint(
+        inpaint_cn_cfg=T_INP_CFG, pipe_cfg=T_PIPE_CFG, params=params, device="cpu", **T_CFGS)
     cond = build_conditions([TextLine("مرحبا", (20, 36), font_size=30)], W, H, font_size=30)
     return jpipe, tpipe, cond
 
@@ -109,8 +113,8 @@ def test_default_negative_prompt_is_the_reference_one():
     from reptext_tpu.pipelines.inpaint import DEFAULT_NEGATIVE_PROMPT as JAX_DEFAULT
 
     assert DEFAULT_NEGATIVE_PROMPT == JAX_DEFAULT
-    assert INP_CFG.extra_condition_channels == 4
-    assert 4 * (INP_CFG.in_channels // 4 + 1) == INP_CFG.in_channels + 4 == 68
+    assert T_INP_CFG == port_config(INP_CFG) and T_INP_CFG.extra_condition_channels == 4
+    assert 4 * (T_INP_CFG.in_channels // 4 + 1) == T_INP_CFG.in_channels + 4 == 68
 
 
 @pytest.mark.parametrize("src,dst", [((96, 128), (12, 16)), ((1152, 1536), (144, 192)),
@@ -159,7 +163,7 @@ def test_inpaint_sampler_matches_jax(pipes, per_image):
                        j_img_ids(PIPE_CFG.latent_height, PIPE_CFG.latent_width), guidance)))
     schedule = build_schedule(3, s)
     tsample = make_inpaint_sampler(tpipe.flux, tpipe.controlnet, tpipe.inpaint_controlnet,
-                                   schedule, PIPE_CFG)
+                                   schedule, T_PIPE_CFG)
     with torch.inference_mode():
         got = tsample(*map(t, (lat, cond, masks, inp, ctx, pooled, txt_ids)),
                       prepare_latent_image_ids(PIPE_CFG.latent_height, PIPE_CFG.latent_width),
@@ -216,10 +220,10 @@ def test_inpaint_pipeline_checks_its_inputs(pipes):
 
 def test_from_pipeline_shares_the_modules(pipes):
     _, tpipe, _ = pipes
-    base = FluxRepTextPipeline(tpipe.flux, tpipe.controlnet, tpipe.vae, PIPE_CFG,
+    base = FluxRepTextPipeline(tpipe.flux, tpipe.controlnet, tpipe.vae, T_PIPE_CFG,
                                clip=tpipe.clip, t5=tpipe.t5)
-    other = dataclasses.replace(PIPE_CFG, height=64, width=64)
-    inp = FluxRepTextInpaintPipeline.from_pipeline(base, INP_CFG, pipe_cfg=other)
+    other = dataclasses.replace(T_PIPE_CFG, height=64, width=64)
+    inp = FluxRepTextInpaintPipeline.from_pipeline(base, T_INP_CFG, pipe_cfg=other)
     assert inp.flux is base.flux and inp.controlnet is base.controlnet and inp.vae is base.vae
     assert inp.t5 is base.t5 and inp.clip is base.clip and inp.pipe_cfg is other
     assert inp.inpaint_controlnet.controlnet_x_embedder.in_features == 68
@@ -234,7 +238,8 @@ def test_txt2img_non_square_matches_jax(pipes):
     jpipe = JPipeline.create(pipe_cfg=cfg, params={k: v for k, v in params.items()
                                                    if k != "inpaint_controlnet"}, **CFGS)
     _, tpipe, cond = pipes
-    tpipe = FluxRepTextPipeline(tpipe.flux, tpipe.controlnet, tpipe.vae, cfg, clip=tpipe.clip,
+    tpipe = FluxRepTextPipeline(tpipe.flux, tpipe.controlnet, tpipe.vae, port_config(cfg),
+                                clip=tpipe.clip,
                                 t5=tpipe.t5)
     noise = np.random.default_rng(9).standard_normal(
         (1, cfg.image_seq_len, 64)).astype(np.float32)
@@ -292,7 +297,7 @@ def test_tiny_cli_inpaint_writes_an_image(tmp_path):
     assert cli.main(["--mode", "inpaint", "--image", str(tmp_path / "photo.png"),
                      "--mask", str(tmp_path / "mask.png"), "--text", "مرحبا", "--position",
                      "40", "200", "--steps", "1", "--random-weights", "--tiny",
-                     "--font-size", "48", "--true-guidance-scale", "3.5",
+                     "--device", "cpu", "--font-size", "48", "--true-guidance-scale", "3.5",
                      "--output", str(out)]) == 0
     # resize_to_multiple: the long side 128 -> 768, both sides multiples of 64
     assert Image.open(out).size == (768, 576)

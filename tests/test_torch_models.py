@@ -33,7 +33,7 @@ from reptext_tpu_torch.nn import layers as tlayers
 from reptext_tpu_torch.sampling.flow_match import build_schedule
 from reptext_tpu_torch.sampling.sampler import make_txt2img_sampler
 
-from torch_port_util import TOL, carried, random_tree, t
+from torch_port_util import TOL, carried, port_config, random_tree, t
 
 FLUX_CFG = FluxConfig().tiny()
 CN_CFG = ControlNetConfig().tiny()          # 1 double + 2 single vs the base's 2 + 4
@@ -172,8 +172,8 @@ def models():
     jcn = JControlNet(CN_CFG, attention_backend="xla")
     ftree = random_tree(jflux, jnp.asarray(x["hidden"]), *common, seed=20)
     ctree = random_tree(jcn, jnp.asarray(x["hidden"]), jnp.asarray(x["cond"]), *common, seed=21)
-    tflux = carried(FluxTransformer2D(FLUX_CFG), ftree)
-    tcn = carried(RepTextControlNet(CN_CFG), ctree)
+    tflux = carried(FluxTransformer2D(port_config(FLUX_CFG)), ftree)
+    tcn = carried(RepTextControlNet(port_config(CN_CFG)), ctree)
     return jflux, jcn, ftree, ctree, tflux, tcn
 
 
@@ -253,7 +253,8 @@ def test_sampler_two_steps_two_lines(models):
         ftree, ctree, jnp.asarray(x["hidden"]), jnp.asarray(cond), jnp.asarray(masks),
         jnp.asarray(x["ctx"]), jnp.asarray(x["pooled"]), jnp.asarray(txt), jnp.asarray(img),
         jnp.asarray(x["guidance"]))
-    tsample = make_txt2img_sampler(tflux, tcn, build_schedule(steps, S_IMG), pipe_cfg)
+    tsample = make_txt2img_sampler(tflux, tcn, build_schedule(steps, S_IMG),
+                                   port_config(pipe_cfg))
     with torch.no_grad():
         got = tsample(t(x["hidden"]), t(cond), t(masks), t(x["ctx"]), t(x["pooled"]), t(txt),
                       t(img), t(x["guidance"]))
@@ -264,11 +265,11 @@ def test_sampler_two_steps_two_lines(models):
 def test_sampler_refuses_the_velocity_cache(models):
     """The velocity cache is ported (tests/test_torch_velocity_cache.py); the
     sampler refuses only a cache mode it does not know."""
-    cfg = PipelineConfig(velocity_cache_interval=2, velocity_cache_mode="quadratic")
+    cfg = port_config(PipelineConfig(velocity_cache_interval=2, velocity_cache_mode="quadratic"))
     with pytest.raises(ValueError, match="velocity cache"):
         make_txt2img_sampler(models[4], models[5], build_schedule(2, S_IMG), cfg)
     make_txt2img_sampler(models[4], models[5], build_schedule(2, S_IMG),
-                         PipelineConfig(velocity_cache_interval=2))
+                         port_config(PipelineConfig(velocity_cache_interval=2)))
 
 
 def test_load_jax_params_checks_names_and_shapes(models):
@@ -276,11 +277,11 @@ def test_load_jax_params_checks_names_and_shapes(models):
     tree = jax.tree_util.tree_map(lambda a: a, ftree)
     del tree["params"]["proj_out"]["bias"]
     with pytest.raises(KeyError, match="proj_out.bias"):
-        load_jax_params(FluxTransformer2D(FLUX_CFG), tree)
+        load_jax_params(FluxTransformer2D(port_config(FLUX_CFG)), tree)
     tree = jax.tree_util.tree_map(lambda a: a, ftree)
     tree["params"]["extra"] = {"kernel": np.zeros((2, 2), np.float32)}
     with pytest.raises(KeyError, match="extra.weight"):
-        load_jax_params(FluxTransformer2D(FLUX_CFG), tree)
-    small = dataclasses.replace(FLUX_CFG, in_channels=32)
+        load_jax_params(FluxTransformer2D(port_config(FLUX_CFG)), tree)
+    small = port_config(dataclasses.replace(FLUX_CFG, in_channels=32))
     with pytest.raises(ValueError, match="x_embedder.weight"):
         load_jax_params(FluxTransformer2D(small), ftree)

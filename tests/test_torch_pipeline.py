@@ -12,6 +12,7 @@ Also: the glyph-latent init with given noise, the conditions fixture of
 chip_smoke.py, the tiny CLI, and that the port never loads jax.
 """
 
+import ast
 import importlib.util
 import os
 import subprocess
@@ -36,7 +37,7 @@ from reptext_tpu.pipelines import FluxRepTextPipeline as JPipeline
 from reptext_tpu.utils.image import postprocess_images
 from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 
-from torch_port_util import TOL, random_tree, t
+from torch_port_util import TOL, port_config, port_configs_of, random_tree, t
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 128
@@ -74,7 +75,8 @@ def _shared_params():
 def pipes():
     params = _shared_params()
     jpipe = JPipeline.create(pipe_cfg=PIPE_CFG, params=params, **CFGS)
-    tpipe = FluxRepTextPipeline.create(pipe_cfg=PIPE_CFG, params=params, **CFGS)
+    tpipe = FluxRepTextPipeline.create(pipe_cfg=port_config(PIPE_CFG), params=params,
+                                       device="cpu", **port_configs_of(CFGS))
     cond = build_conditions([TextLine("مرحبا", (20, 40), font_size=36)], SIZE, SIZE,
                             font_size=36)
     return jpipe, tpipe, cond
@@ -166,8 +168,8 @@ def test_tiny_cli_writes_an_image(tmp_path):
 
     out = tmp_path / "r.png"
     assert cli.main(["--text", "مرحبا", "--position", "8", "16", "--size", "64", "--steps", "2",
-                     "--controlnet-step", "1", "--random-weights", "--tiny", "--font-size", "24",
-                     "--output", str(out)]) == 0
+                     "--controlnet-step", "1", "--random-weights", "--tiny", "--device", "cpu",
+                     "--font-size", "24", "--output", str(out)]) == 0
     from PIL import Image
 
     assert Image.open(out).size == (64, 64)
@@ -176,27 +178,84 @@ def test_tiny_cli_writes_an_image(tmp_path):
 def test_demo_token_ids_are_stable_and_padded():
     from reptext_tpu_torch.cli import demo_token_ids
 
-    a = demo_token_ids("a sign, 'Hello'", CFGS["clip_cfg"], T5Config(), 512)
-    b = demo_token_ids("a sign, 'Hello'", CFGS["clip_cfg"], T5Config(), 512)
+    clip_cfg, t5_cfg = port_config(CFGS["clip_cfg"]), port_config(T5Config())
+    a = demo_token_ids("a sign, 'Hello'", clip_cfg, t5_cfg, 512)
+    b = demo_token_ids("a sign, 'Hello'", clip_cfg, t5_cfg, 512)
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
     assert a[1].shape == (1, 512) and a[1][0, 3] == 1 and a[0][0, 3] == 255
 
 
-def _env_without_jax_platforms():
-    return {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+def _env(jax_platforms):
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    if jax_platforms is not None:
+        env["JAX_PLATFORMS"] = jax_platforms
+    return env
 
 
-def test_port_never_imports_jax():
-    code = ("import sys, reptext_tpu_torch, reptext_tpu_torch.cli, "
-            "reptext_tpu_torch.pipelines.txt2img, reptext_tpu_torch.ops.flash_attention, "
-            "reptext_tpu_torch.pipelines.inpaint, reptext_tpu_torch.sampling.sampler_inpaint, "
-            "reptext_tpu_torch.ops.latents, reptext_tpu_torch.nn.vae, "
-            "reptext_tpu_torch.data, reptext_tpu_torch.sampling.elastic, "
-            "reptext_tpu_torch.sampling.train_controlnet; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env_without_jax_platforms(),
+@pytest.mark.parametrize("jax_platforms", [None, "cpu"])
+def test_port_never_imports_jax(jax_platforms):
+    """Every module of the port, imported in a fresh process with
+    ``JAX_PLATFORMS`` unset and set as the tests set it, loads neither jax nor
+    any module of the JAX package."""
+    code = ("import importlib, pkgutil, sys, reptext_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(reptext_tpu_torch.__path__, "
+            "'reptext_tpu_torch.')]\n"
+            "for m in mods: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'reptext_tpu' or m.startswith('reptext_tpu.'))\n"
+            "assert not bad, bad\n"
+            "assert len(mods) > 30, mods\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(jax_platforms),
                    check=True, timeout=120)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_of_the_port_imports_the_jax_package():
+    """An AST walk over every module of the port and chip_smoke.py: no import
+    of jax or of reptext_tpu, at any depth of the code (function bodies too)."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "reptext_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    bad = [(os.path.relpath(p, ROOT), m) for p in paths for m in _imported_modules(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "reptext_tpu")]
+    assert not bad
+    assert len(paths) > 30
+
+
+def test_pipeline_defaults_to_the_card():
+    """create() without a device builds on CUDA: on a host without a card it
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("with a CUDA device the default build succeeds")
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
+
+    cfgs = port_configs_of(CFGS)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FluxRepTextPipeline.create(pipe_cfg=port_config(PIPE_CFG), **cfgs)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FluxRepTextInpaintPipeline.create_inpaint(pipe_cfg=port_config(PIPE_CFG), **cfgs)
+
+
+def test_cli_defaults_to_the_card():
+    """--tiny is geometry only: without --device cpu the CLI builds on CUDA and
+    raises on a host without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("with a CUDA device the CLI runs on it")
+    from reptext_tpu_torch import cli
+
+    assert cli.build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--text", "x", "--position", "8", "16", "--size", "64", "--steps", "1",
+                  "--random-weights", "--tiny", "--output", "unused.png"])
 
 
 def test_port_uses_no_library_attention_or_compile():
@@ -210,7 +269,7 @@ def test_port_uses_no_library_attention_or_compile():
 
 
 @pytest.mark.parametrize("alone", [False, True])
-def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch, capsys, alone):
+def test_chip_smoke_fails_without_a_card(tmp_path, capsys, alone):
     """chip_smoke.py exits non-zero and prints no result without a CUDA
     device: in this process from the repository (it fails before it loads
     anything of the port) and as the only file of a directory."""
@@ -218,8 +277,6 @@ def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch, capsys, alone):
     if not alone:
         if torch.cuda.is_available():
             pytest.skip("with a CUDA device chip_smoke.py runs the whole smoke test")
-        # the module drops JAX_PLATFORMS on import; monkeypatch puts it back
-        monkeypatch.setenv("JAX_PLATFORMS", os.environ.get("JAX_PLATFORMS", "cpu"))
         spec = importlib.util.spec_from_file_location("chip_smoke", src)
         smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(smoke)
@@ -230,7 +287,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch, capsys, alone):
         return
     (tmp_path / "chip_smoke.py").write_text(open(src, encoding="utf-8").read())
     proc = subprocess.run([sys.executable, str(tmp_path / "chip_smoke.py")], cwd=str(tmp_path),
-                          env=_env_without_jax_platforms(), capture_output=True, text=True,
+                          capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout

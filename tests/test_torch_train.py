@@ -31,7 +31,7 @@ from reptext_tpu_torch.models.flux import FluxTransformer2D
 from reptext_tpu_torch.nn.init import random_init_
 from reptext_tpu_torch.sampling import train_controlnet as ttrain
 
-from torch_port_util import TOL, carried, np_tree, random_tree, t
+from torch_port_util import TOL, carried, np_tree, port_config, random_tree, t
 
 FLUX_CFG = FluxConfig().tiny()
 CN_CFG = ControlNetConfig().tiny()
@@ -114,8 +114,9 @@ def _jax_leaf_kinds(tree):
 
 def _port_models(remat=False):
     flux_tree, cn_tree = _trees()
-    flux = carried(FluxTransformer2D(FLUX_CFG, remat=remat), flux_tree).requires_grad_(False)
-    cn = carried(RepTextControlNet(CN_CFG, remat=remat), cn_tree)
+    flux = carried(FluxTransformer2D(port_config(FLUX_CFG), remat=remat),
+                   flux_tree).requires_grad_(False)
+    cn = carried(RepTextControlNet(port_config(CN_CFG), remat=remat), cn_tree)
     return flux, cn
 
 
@@ -178,7 +179,7 @@ def test_warm_start_zero_head_gradient_structure():
     """From a warm start with the ControlNet's zero heads: the heads get
     gradient, the blocks they gate get exactly none, the loss is finite."""
     flux, _ = _port_models()
-    cn = random_init_(RepTextControlNet(CN_CFG), torch.Generator().manual_seed(0))
+    cn = random_init_(RepTextControlNet(port_config(CN_CFG)), torch.Generator().manual_seed(0))
     cn, _ = ttrain.init_controlnet_training(flux, cn, CN_CFG.num_layers, CN_CFG.num_single_layers)
     np.testing.assert_array_equal(cn.double_blocks[0].block.to_q.weight.detach().numpy(),
                                   flux.double_blocks[0].block.to_q.weight.detach().numpy())

@@ -19,7 +19,7 @@ from reptext_tpu_torch.nn.clip import CLIPTextEncoder
 from reptext_tpu_torch.nn.t5 import T5Encoder, relative_position_bucket
 from reptext_tpu_torch.nn.vae import AutoencoderKL
 
-from torch_port_util import TOL, carried, random_tree, t
+from torch_port_util import TOL, carried, port_config, random_tree, t
 
 VAE_CFG = VAEConfig().tiny()
 
@@ -29,7 +29,7 @@ def vae():
     img = np.random.default_rng(0).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     jvae = JVAE(VAE_CFG)
     tree = random_tree(jvae, jnp.asarray(img), seed=1)
-    return jvae, tree, carried(AutoencoderKL(VAE_CFG), tree), img
+    return jvae, tree, carried(AutoencoderKL(port_config(VAE_CFG)), tree), img
 
 
 def test_vae_encode_moments(vae):
@@ -75,7 +75,7 @@ def test_clip_text_encoder():
     jclip = JCLIP(cfg)
     tree = random_tree(jclip, jnp.asarray(ids), seed=3)
     want_x, want_pooled = jax.jit(jclip.apply)(tree, jnp.asarray(ids))
-    tclip = carried(CLIPTextEncoder(cfg), tree)
+    tclip = carried(CLIPTextEncoder(port_config(cfg)), tree)
     with torch.no_grad():
         got_x, got_pooled = tclip(torch.from_numpy(ids).long())
         with pytest.raises(ValueError, match="max_position_embeddings"):
@@ -99,5 +99,5 @@ def test_t5_encoder():
     tree = random_tree(jt5, jnp.asarray(ids), seed=5)
     want = jax.jit(jt5.apply)(tree, jnp.asarray(ids))
     with torch.no_grad():
-        got = carried(T5Encoder(cfg), tree)(torch.from_numpy(ids).long())
+        got = carried(T5Encoder(port_config(cfg)), tree)(torch.from_numpy(ids).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -24,6 +24,8 @@ from reptext_tpu_torch.sampling.flow_match import build_schedule
 from reptext_tpu_torch.sampling.sampler import make_txt2img_sampler
 from reptext_tpu_torch.sampling.sampler_inpaint import make_inpaint_sampler
 
+from torch_port_util import port_config
+
 B, S, C, S_TXT, INNER = 1, 16, 8, 4, 8
 L_CN, LS_CN = 2, 3          # RepText stub depths
 L_INP, LS_INP = 1, 2        # inpaint stub depths
@@ -83,6 +85,7 @@ class _Counted:
 
 def _run(kind, cfg):
     """The port's sampler of ``kind`` over the stub models; (latents, flux calls)."""
+    cfg = port_config(cfg)
     a = {k: torch.from_numpy(v) for k, v in _args().items()}
     schedule = build_schedule(cfg.num_inference_steps, cfg.image_seq_len)
     flux = _Counted(_stub_flux)

@@ -8,10 +8,13 @@ inputs in float32. The tree's shapes come from ``jax.eval_shape`` of the
 module's ``init``, which costs a fraction of running the initialisers.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import torch
 
+from reptext_tpu_torch import configs as port_configs
 from reptext_tpu_torch.io.from_jax import load_jax_params
 
 # the default parity tolerance (tests/test_torch_parity_model.py:331)
@@ -53,3 +56,15 @@ def carried(module: torch.nn.Module, tree) -> torch.nn.Module:
 
 def t(x):
     return torch.from_numpy(np.array(x, np.float32))
+
+
+def port_config(cfg):
+    """The port's config dataclass of the same name with ``cfg``'s fields, so
+    that the port never sees the JAX package's class."""
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    return getattr(port_configs, type(cfg).__name__)(**fields)
+
+
+def port_configs_of(cfgs):
+    """``{name: port_config(cfg)}`` for a dict of JAX configs."""
+    return {k: port_config(v) for k, v in cfgs.items()}
