@@ -21,6 +21,17 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    text/image ids, at unaligned lengths ((2, 24, 4106, 128); K3 (1, 24, 6500,
    128)), and beyond the logit clamp; errors and median times (kernel and
    plain version), and K1's and K3's clamped against their online softmax;
+   then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
+   4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
+   and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
+   request makes (q (1, 24, 8704, 128) against the text block and two image
+   blocks of 8192 keys) against the plain steps, within 2^-6 of max|plain
+   out|; the step's, the whole ring's and SDPA's times beside the bound; with
+   two or more cards, one process per card over NCCL: the K5 ring against the
+   plain ring, then the 2048^2 request of phase 10 on each card alone and with
+   shard_for_sp over the cards (ring and Ulysses, each called twice: cold,
+   warm), the transfers alone, and a profile of one warm step of each backend
+   (one card: a line says so);
 4. variants: the attention A/B kernels of the study (chunked online softmax,
    exp2, bf16 exp; reptext_tpu_torch/ops/attention_variants.py) against their
    plain versions at (1, 24, 4608, 128), their times beside the plain
@@ -57,9 +68,16 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    PrefetchLoader) for 3 steps at batch 2, 1024^2, with remat; checks finite
    losses, nonzero heads and exactly-zero block gradients after step 1, a
    bit-identical base, and K1 = 141, K4 = 70, K2 = K3 = 0 launches per step;
-   with --profile, then torch.profiler over one more train step.
+   with --profile, then torch.profiler over one more train step;
+10. sp: on the same modules, txt2img at 2048x2048 (S = 16896) for 2 steps with
+   the ControlNet on both, from the same packed noise: the single-device
+   pipeline (K3: 142 launches), then FluxRepTextPipeline.shard_for_sp over 2
+   thread ranks on the card (parallel/testing.py) with the ring backend (K5:
+   (n + 1) x 71 launches per rank and step) and the Ulysses backend (K3 on 12
+   heads per rank: 71 per rank and step); each gathered latent against the
+   single device's within SP_RTOL, ranks equal; ms/step, peak memory.
 
-Then a JSON line of the seven kernels' results (launches per path, each
+Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after; times, the bound,
 SDPA's time), the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
@@ -118,6 +136,20 @@ PEAK_BYTES_PER_S = 3.35e12
 # (the forward output, the loss, and each ControlNet gradient tensor).
 REF_RTOL = 5e-2
 DOUBLE_CALLS, SINGLE_CALLS = 19 + 38, 4 + 10
+# The ring phase: K5 alone over 4 thread ranks; SP txt2img at 2048^2 (512 T5
+# tokens + a 128 x 128 token grid) over 2 thread ranks on one card.
+RING_RANKS, SP_RANKS, HEADS = 4, 2, 24
+RING_LENGTHS = (4608, 16896)
+SP_SIZE, TXT_LEN = 2048, 512
+S_SP = (SP_SIZE // 16) ** 2
+# SP txt2img against the single-device pipeline, latents after 2 steps:
+# max_abs within 5e-2 of max|single|, the small-model reference's limit. Both
+# runs are bf16 end to end and differ only where they round: the attention's
+# sums in another order (split over ranks; the ring's online softmax and fp32
+# state against K3's clamped single pass; Ulysses' K3 over 12 heads), and
+# cuBLAS on half the rows. A ring that drops or repeats a block moves the
+# velocity by its own size, tens of percent of the latents after one step.
+SP_RTOL = REF_RTOL
 # One train step with remat: the forward runs every block once (57 + 14); the
 # backward recomputes and differentiates every block but the base's first
 # double block, whose inputs carry no gradient (the residuals join after it).
@@ -132,9 +164,10 @@ def phase(name, msg):
 
 def forward_counters():
     from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops import ring_attention as ra
 
     return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
-            "K3": fa.flash_attention_streaming}
+            "K3": fa.flash_attention_streaming, "K5": ra.ring_step}
 
 
 def reset_launches():
@@ -728,8 +761,8 @@ def e2e_phase(dev, steps, cn_steps, seed):
                  f"parameters, bf16, seeded random weights, device {dev}")
 
     gate = min(cn_steps, steps)
-    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0}
-    launches = {"K1": 0, "K2": 0, "K3": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    launches = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
     for i, (name, text, pos) in enumerate(reqs):
         args = cli.build_parser().parse_args(["--text", text, "--position", *map(str, pos), *base])
         cond, source = conditions_for(data, name, text, pos, size, font_size)
@@ -750,8 +783,8 @@ def e2e_phase(dev, steps, cn_steps, seed):
                      + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
                      + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; "
                      f"kernel launches K1 {got['K1']} (expected {expect['K1']}) K2 {got['K2']} "
-                     f"K3 {got['K3']} (expected 0 and 0: every block passes RoPE tables, "
-                     f"S = 4608); image {images.shape} {images.dtype}, "
+                     f"K3 {got['K3']} K5 {got['K5']} (expected 0, 0 and 0: every block passes RoPE "
+                     f"tables, S = 4608, one device); image {images.shape} {images.dtype}, "
                      f"mean {images.mean():.2f}; latents finite {finite}")
         if not (finite and shape_ok and got == expect):
             raise SystemExit(f"end-to-end request {i + 1} failed its checks")
@@ -833,7 +866,7 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     args, cond, source, width, height = request(name, [])
     big = pipe.with_config(cli.pipeline_config(args, height, width))
     s = big.pipe_cfg.image_seq_len + big.pipe_cfg.max_sequence_length
-    expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS}
+    expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K5": 0}
     launches[name] = run_request(
         f"txt2img {width}x{height} (S = {s}, conditions: {source})",
         lambda timings: cli.generate(args, big, cond, timings=timings, output_type="latent"),
@@ -857,7 +890,7 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
         image, mask = source_image(seed, height, width), box_mask(cond)
         s = cfg.image_seq_len + cfg.max_sequence_length
         kernel = "K3" if fa.streams(s) else "K1"
-        expect = {"K1": 0, "K2": 0, "K3": 0}
+        expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
         expect[kernel] = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
         launches[name] = run_request(
             f"inpaint {width}x{height} (S = {s}, CFG batch 2, true-CFG {TRUE_GUIDANCE}, "
@@ -972,6 +1005,8 @@ def kernel_class(name):
         return "attention backward kernel (attn_bwd_dq_kernel + attn_bwd_dkv_kernel)"
     if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMMs (cuBLAS kernels behind nn.Linear)"
+    if "nccl" in name.lower():
+        return "NCCL transfers and collectives (on their own stream, beside the compute)"
     if "multi_tensor_apply" in name:
         return "optimizer (AdamW's multi-tensor kernels)"
     return "elementwise, reductions, copies (norms, modulation, casts, cat, gelu)"
@@ -994,8 +1029,10 @@ def device_profile(label, run, expect_launches):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     wall_prof = time.perf_counter() - t0
-    # device events only: host-side aten:: and runtime events are not device time
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events only: host-side aten:: and runtime events are not device time,
+    # and NCCL's "nccl:..." ranges repeat the kernels they span
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.name.startswith("nccl:")]
     if not kernels:
         raise SystemExit("the profiler recorded no device kernels")
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -1109,11 +1146,396 @@ def inpaint_profile(dev, inp, cond, image, mask, seed):
                     fa.flash_attention_rope: 0, fa.flash_attention: 0})
 
 
+def step_bound(b, h, sq, sk, d=128):
+    """One ring step: both products, 4 B H Sq Sk D FLOP; q, k, v read once in
+    bf16 and the fp32 state (acc, m, l) read and written once."""
+    state = 4 * b * h * sq * (d + 2)
+    return bound(4 * b * h * sq * sk * d, 2 * b * h * (sq + 2 * sk) * d + 2 * state)
+
+
+def sharded_attention(dev, n, q, k, v, impl):
+    """``sequence_sharded_attention`` over n thread ranks on the card, the
+    shards' outputs put back together."""
+    from reptext_tpu_torch.parallel.sequence import sequence_sharded_attention
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    return torch.cat(run_spmd(LocalSPGroup(n, dev), lambda g: sequence_sharded_attention(
+        g.shard(q, 2), g.shard(k, 2), g.shard(v, 2), g, impl)), dim=2)
+
+
+def check_out(label, got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    out_max = want.float().abs().max().item()
+    ok = err <= OUT_RTOL * out_max and bool(torch.isfinite(got.float()).all())
+    phase("ring", f"{label}: out max_abs {err:.3e} (limit {OUT_RTOL * out_max:.3e} = 2^-6 x "
+                  f"max|plain out| {out_max:.4f}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"K5 disagrees with its plain version: {label}")
+    return err
+
+
+def ring_kernel_phase(dev):
+    """K5 alone: sequence_sharded_attention(impl="ring_kernel") over 4 thread
+    ranks against the plain ring at the 1024^2 and the 2048^2 joint lengths;
+    the three launches one rank of the 2048^2 SP request makes (text block,
+    its own image block, the other rank's) against the plain steps; the step
+    kernel, the whole ring and SDPA timed beside the bound."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    def rnd(*shape):
+        return torch.randn(*shape, 128, generator=gen, device=dev).to(torch.bfloat16)
+
+    err, by_shape = 0.0, {}
+    h = HEADS
+    for s in RING_LENGTHS:
+        q, k, v = rnd(1, h, s), rnd(1, h, s), rnd(1, h, s)
+        sq = s // RING_RANKS
+        label = f"(1,{h},{s},128) over {RING_RANKS} ranks"
+        err = max(err, check_out(f"ring_kernel {label}",
+                                 sharded_attention(dev, RING_RANKS, q, k, v, "ring_kernel"),
+                                 sharded_attention(dev, RING_RANKS, q, k, v, "ring")))
+        q0, k0, v0 = (x[:, :, :sq] for x in (q, k, v))
+        state = ra.ring_step(q0, k0, v0, None, True, False)
+        plain_state = ra.ring_step_plain(q0, k0, v0, None, True, False)
+        kern, pln, line = alternated_ms(
+            lambda: ra.ring_step(q0, k0, v0, state, False, False),
+            lambda: ra.ring_step_plain(q0, k0, v0, plain_state, False, False))
+        ring = cuda_time_ms(lambda: sharded_attention(dev, RING_RANKS, q, k, v, "ring_kernel"),
+                            repeats=5, warmup=1)
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q0, k, v))[0]
+        b_ms, b_by = step_bound(1, h, sq, sq)
+        by_shape[label] = {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib, "ring_ms": ring[0]}
+        phase("ring", f"K5 middle step (1,{h},{sq},128) x (1,{h},{sq},128) time: {line}; bound "
+                      f"{b_ms:.4f} ms ({b_by}); the whole ring over {RING_RANKS} thread ranks on "
+                      f"one card {ring[0]:.3f} ms (median of 5, {RING_RANKS ** 2} launches);"
+                      f" library (SDPA, the rank's {sq} queries over all {s} keys) {lib:.4f} ms")
+        del q, k, v, q0, k0, v0, state, plain_state
+        torch.cuda.empty_cache()
+
+    # one rank of the 2048^2 SP request (SP_RANKS ranks): its queries [text;
+    # image shard] against the text block, its own image block, the other's
+    sq, sk = TXT_LEN + S_SP // SP_RANKS, S_SP // SP_RANKS
+    q, (kt, vt), (k1, v1), (k2, v2) = rnd(1, h, sq), *[(rnd(1, h, n), rnd(1, h, n))
+                                                        for n in (TXT_LEN, sk, sk)]
+    blocks = ((kt, vt), (k1, v1), (k2, v2))
+
+    def steps(fn):
+        state = None
+        for i, (k, v) in enumerate(blocks):
+            state = fn(q, k, v, state, i == 0, i == len(blocks) - 1)
+        return state
+
+    label = (f"the {SP_SIZE}^2 SP rank's steps, q (1,{h},{sq},128) x k "
+             f"(1,{h},{TXT_LEN}|{sk}|{sk},128)")
+    err = max(err, check_out(label, steps(ra.ring_step), steps(ra.ring_step_plain)))
+    state = ra.ring_step(q, kt, vt, None, True, False)
+    plain_state = ra.ring_step_plain(q, kt, vt, None, True, False)
+    kern, pln, line = alternated_ms(
+        lambda: ra.ring_step(q, k1, v1, state, False, False),
+        lambda: ra.ring_step_plain(q, k1, v1, plain_state, False, False))
+    rank_steps = cuda_time_ms(lambda: steps(ra.ring_step))[0]
+    k_all, v_all = torch.cat([kt, k1, k2], dim=2), torch.cat([vt, v1, v2], dim=2)
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_all, v_all))[0]
+    b_ms, b_by = step_bound(1, h, sq, sk)
+    rank_bound = sum(step_bound(1, h, sq, n)[0] for n in (TXT_LEN, sk, sk))
+    phase("ring", f"K5 image step (1,{h},{sq},128) x (1,{h},{sk},128) time: {line}; bound "
+                  f"{b_ms:.4f} ms ({b_by}); the rank's {len(blocks)} steps {rank_steps:.4f} ms "
+                  f"(bound {rank_bound:.4f} ms); library (SDPA over the {TXT_LEN + 2 * sk} keys) "
+                  f"{lib:.4f} ms")
+    del q, blocks, kt, vt, k1, v1, k2, v2, k_all, v_all, state, plain_state
+    torch.cuda.empty_cache()
+    return {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "rank_steps_ms": rank_steps, "rank_steps_bound_ms": rank_bound,
+            "library_note": "SDPA over the rank's queries and all keys: the output of the rank's "
+                            "three steps (rank_steps_ms)",
+            "max_abs_err": err, "by_shape": by_shape}
+
+
+def nccl_worker(rank, world, port):
+    """One process per card: the K5 ring over NCCL against the plain ring."""
+    import torch.distributed as dist
+
+    from reptext_tpu_torch.parallel.group import DistSPGroup
+    from reptext_tpu_torch.parallel.sequence import sequence_sharded_attention
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    group = DistSPGroup(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn(1, 24, 4608, 128, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    got, want = (sequence_sharded_attention(group.shard(q, 2), group.shard(k, 2),
+                                            group.shard(v, 2), group, impl)
+                 for impl in ("ring_kernel", "ring"))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = err <= OUT_RTOL * want.float().abs().max().item()
+    print(json.dumps({"rank": rank, "k5_ring_max_abs_err": err, "ok": ok}), flush=True)
+    del q, k, v, got, want
+    ok = dist_sp_run(dev, group) and ok
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def dist_sp_run(dev, group, seed=0, steps=2):
+    """The SP request over the cards, as ``--shard spN`` runs it: this rank's
+    process builds the full pipeline on its card, runs the request on its own
+    (the reference, every rank alike), then shard_for_sp over the NCCL group
+    with the ring and the Ulysses backends, each twice (the first call is cold:
+    NCCL's and cuBLAS's first use at these shapes); a JSON line per run, then
+    the transfers alone and a profile of one warm step of each backend."""
+    from reptext_tpu_torch import cli
+
+    pipe = cli.build_pipeline(cli.build_parser().parse_args(
+        ["--random-weights", "--seed", str(seed)]))
+    big, cond, _, kw = sp_request(pipe, dev, seed, steps)
+    n, calls, ok, ref = group.size, DOUBLE_CALLS + SINGLE_CALLS, True, None
+    for backend, call in ((b, c) for b in (None, "ring", "ulysses") for c in ("cold", "warm")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timings = {}
+        if backend is not None:
+            big.shard_for_sp(group, backend)
+        lat = big(cond, timings=timings, **kw)
+        torch.cuda.synchronize()
+        big.sp_group = big.flux.attention_backend = big.controlnet.attention_backend = None
+        got = read_launches()
+        expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0}
+        if backend == "ring":
+            expect.update(K3=0, K5=(n + 1) * steps * calls)
+        ref = lat if backend is None else ref
+        rel = (lat - ref).abs().max().item() / ref.abs().max().item()
+        run_ok = got == expect and rel <= SP_RTOL and bool(torch.isfinite(lat).all())
+        ok = ok and run_ok
+        print(json.dumps({"rank": group.rank, "sp": backend or "one card", "call": call, "cards": n,
+                          "ms_per_step": 1e3 * timings["sample"] / steps,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": got, "expected": expect, "max_abs_vs_one_card": rel,
+                          "ok": run_ok}), flush=True)
+    print(json.dumps({"rank": group.rank, "comm": comm_times(group, dev)}), flush=True)
+    for backend in ("ring", "ulysses"):
+        dist_sp_profile(big, cond, kw, group, dev, seed, backend)
+    return ok
+
+
+def comm_times(group, dev):
+    """The SP request's transfers alone, CUDA-event medians of 10 on every
+    rank in step: one ring slot (K and V of a rank's image block) around the
+    ring, and one Ulysses all-to-all of a [1, 24, S/n, 128] tensor."""
+    n = group.size
+    slot = torch.randn(2, 1, HEADS, S_SP // n, 128, device=dev).to(torch.bfloat16)
+    out = torch.empty_like(slot)
+    x = slot[0].contiguous()
+    ring = cuda_time_ms(lambda: group.ppermute_right(slot, out=out).wait(), repeats=10, warmup=2)[0]
+    a2a = cuda_time_ms(lambda: group.all_to_all(x, 1, 2), repeats=10, warmup=2)[0]
+    sent = x.numel() * 2 * (n - 1) / n   # bytes that leave the card in the all-to-all
+    return {"ring_slot_mb": slot.numel() * 2 / 1e6, "ring_ms": ring,
+            "ring_gb_per_s": slot.numel() * 2 / ring / 1e6, "all_to_all_mb": x.numel() * 2 / 1e6,
+            "all_to_all_ms": a2a, "all_to_all_gb_per_s_sent": sent / a2a / 1e6}
+
+
+def dist_sp_profile(big, cond, kw, group, dev, seed, backend):
+    """torch.profiler over one SP sampler step (ControlNet on) over the cards."""
+    from reptext_tpu_torch.ops import ring_attention as ra
+    from reptext_tpu_torch.ops.latents import prepare_latent_image_ids
+    from reptext_tpu_torch.sampling.flow_match import build_schedule
+    from reptext_tpu_torch.sampling.sampler import make_sp_txt2img_sampler
+
+    cfg = big.pipe_cfg
+    with torch.inference_mode():
+        emb, pooled = big.encode_prompt(kw["clip_ids"], kw["t5_ids"])
+        cond_tokens, token_masks = big.prepare_control_tokens(cond, big.generators(seed)[1])
+    schedule = build_schedule(1, cfg.image_seq_len, cfg.base_image_seq_len, cfg.max_image_seq_len,
+                              cfg.base_shift, cfg.max_shift, cfg.use_dynamic_shifting)
+    big.flux.attention_backend = big.controlnet.attention_backend = backend
+    sampler = make_sp_txt2img_sampler(big.flux, big.controlnet, schedule, cfg, group,
+                                      big.compute_dtype)
+    img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, dev)
+    txt_ids = torch.zeros((emb.shape[1], 3), device=dev)
+    guidance = torch.full((1,), cfg.guidance_scale, dtype=torch.float32, device=dev)
+
+    def run():
+        with torch.inference_mode():
+            sampler(kw["latents"], cond_tokens, token_masks, emb, pooled, txt_ids, img_ids,
+                    guidance)
+        torch.cuda.synchronize()
+
+    n, calls = group.size, DOUBLE_CALLS + SINGLE_CALLS
+    try:
+        device_profile(f"rank {group.rank}: one {backend} SP step at {SP_SIZE}^2 over {n} cards",
+                       run, {ra.ring_step: (n + 1) * calls if backend == "ring" else 0})
+    finally:
+        big.flux.attention_backend = big.controlnet.attention_backend = None
+
+
+def multi_card_phase():
+    """With two or more cards, one process per card over NCCL: the K5 ring
+    against the plain ring, then the SP request over the cards
+    (``dist_sp_run``)."""
+    import socket
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        phase("ring", f"{n} card: the K5 ring over NCCL across cards needs two or more and is "
+                      "not run; every one-card check above and below runs")
+        return
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nccl-worker",
+                               str(r), str(n), str(port)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(timeout=300)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise SystemExit("the NCCL ring timed out")
+    for r, out in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")] or ["no result line"]
+        phase("ring", f"NCCL rank {r} of {n} (K5 ring at (1,24,4608,128) vs the plain ring, "
+                      f"then txt2img {SP_SIZE}^2 on one card, ring and ulysses over the cards, "
+                      "the transfers alone): " + " | ".join(lines))
+        for ln in out.splitlines():
+            if ln.startswith("[profile]") and (r == 0 or "idle" in ln):
+                print(ln, flush=True)
+    if any(p.returncode != 0 for p in procs):
+        raise SystemExit("the NCCL ring failed: " + "\n".join(outs))
+
+
+def conditions_2048(data, name, text, pos, font_size):
+    """The SP request's conditions (SP_SIZE^2, twice the fixture's size):
+    build_conditions with the 1024^2 request's position and font size doubled
+    when Pillow and a font are there, else the fixture arrays repeated 2 x 2."""
+    try:
+        from reptext_tpu_torch.conditioning import TextLine, build_conditions, default_font_path
+
+        default_font_path()
+    except (ImportError, FileNotFoundError) as e:
+        up = lambda a: np.repeat(np.repeat(a, 2, axis=0), 2, axis=1)   # noqa: E731
+        line = types.SimpleNamespace(**{k: up(data[f"{name}.{k}"]) for k in
+                                        ("canny_image", "position_mask", "region_mask")})
+        cond = types.SimpleNamespace(lines=[line], glyph_canvas=up(data[f"{name}.glyph_canvas"]),
+                                     num_lines=1)
+        return cond, f"fixture {os.path.relpath(FIXTURE, ROOT)} repeated 2 x 2 ({type(e).__name__})"
+    cond = build_conditions([TextLine(text, (2 * pos[0], 2 * pos[1]), font_size=2 * font_size)],
+                            SP_SIZE, SP_SIZE, font_size=2 * font_size)
+    return cond, "build_conditions"
+
+
+def sp_request(pipe, dev, seed, steps):
+    """The SP request: (the pipeline at SP_SIZE^2, its conditions and their
+    source, the call's keywords: the first fixture line's prompt, seeded
+    packed noise as ``latents=``, the ControlNet on every step)."""
+    from reptext_tpu_torch import cli
+
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    args = cli.build_parser().parse_args(
+        ["--text", text, "--position", str(2 * pos[0]), str(2 * pos[1]), "--size", str(SP_SIZE),
+         "--steps", str(steps), "--controlnet-step", str(steps), "--seed", str(seed),
+         "--font-size", str(2 * font_size), "--random-weights"])
+    cond, source = conditions_2048(data, name, text, pos, font_size)
+    big = pipe.with_config(cli.pipeline_config(args, SP_SIZE, SP_SIZE))
+    s_img = big.pipe_cfg.image_seq_len
+    clip_ids, t5_ids = cli._prompt_ids(args, big, cli.build_prompt(args.prompt, args.text,
+                                                                    cli.PROMPT_SUFFIX))
+    noise = torch.randn((1, s_img, 64), generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    kw = dict(clip_ids=clip_ids, t5_ids=t5_ids, seed=seed, latents=noise, output_type="latent",
+              num_inference_steps=steps, guidance_scale=args.guidance_scale)
+    return big, cond, source, kw
+
+
+def sp_phase(dev, pipe, seed):
+    """SP txt2img at 2048^2: the single-device pipeline (K3), then
+    shard_for_sp over SP_RANKS thread ranks with the ring (K5) and Ulysses
+    (K3 on 24 / SP_RANKS heads) backends, 2 steps with the ControlNet on both,
+    from the same packed noise; latents against the single device's."""
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    steps = 2
+    big, cond, source, kw = sp_request(pipe, dev, seed, steps)
+    s_img = big.pipe_cfg.image_seq_len
+    calls = DOUBLE_CALLS + SINGLE_CALLS
+    runs, launches = {}, {}
+    for label, backend in (("single", None), ("ring", "ring"), ("ulysses", "ulysses")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        if backend is None:
+            timings = {}
+            lat = big(cond, timings=timings, **kw)
+            outs = [(lat, timings)]
+        else:
+            def rank(g):
+                timings = {}
+                return big.with_config(big.pipe_cfg).shard_for_sp(g, backend)(
+                    cond, timings=timings, **kw), timings
+            try:
+                outs = run_spmd(LocalSPGroup(SP_RANKS, dev), rank)
+            finally:   # the modules are shared with the single-device pipeline
+                big.flux.attention_backend = big.controlnet.attention_backend = None
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        launches[f"sp_{label}" if backend else "txt2img_2048"] = got
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = 1 if backend is None else SP_RANKS
+        expect = {"K1": 0, "K2": 0, "K3": n * steps * calls, "K5": 0}
+        if backend == "ring":
+            expect.update(K3=0, K5=n * (n + 1) * steps * calls)
+        lat = outs[0][0]
+        same = all(bool(torch.equal(o[0], lat)) for o in outs[1:])
+        finite = bool(torch.isfinite(lat).all()) and tuple(lat.shape) == (1, s_img, 64)
+        ms_step = 1e3 * statistics.median(o[1]["sample"] for o in outs) / steps
+        runs[label] = lat
+        line = (f"txt2img {SP_SIZE}x{SP_SIZE} (S = {TXT_LEN + s_img}, conditions: {source}), "
+                + ("one device" if backend is None else f"{backend} over {n} thread ranks on one "
+                   f"card") + f": {wall:.3f} s for {steps} steps with the ControlNet on both (the "
+                f"first call at this size and backend); "
+                f"sampler {ms_step:.1f} ms/step; peak device memory {peak:.2f} GiB; launches "
+                + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                + (f" (K5 per rank per step {got['K5'] / (n * steps):.0f} = (n + 1) x {calls})"
+                   if backend == "ring" else "")
+                + f"; latents finite, shape ok {finite}; ranks equal {same}")
+        if backend is not None:
+            ref = runs["single"]
+            err = (lat - ref).abs()
+            rel_max = err.max().item() / ref.abs().max().item()
+            rel_mean = err.mean().item() / ref.abs().mean().item()
+            ok_tol = rel_max <= SP_RTOL
+            line += (f"; vs one device: max_abs/max|ref| {rel_max:.3e} (tol {SP_RTOL}), "
+                     f"mean_abs/mean|ref| {rel_mean:.3e} -> {'ok' if ok_tol else 'FAIL'}")
+        else:
+            ok_tol = True
+        phase("sp", line)
+        if not (finite and same and got == expect and ok_tol):
+            raise SystemExit(f"the SP txt2img run ({label}) failed its checks")
+    d = (runs["ring"] - runs["ulysses"]).abs().max().item() / runs["single"].abs().max().item()
+    phase("sp", f"ring vs ulysses: max_abs/max|single| {d:.3e}")
+    del runs, outs, lat
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--controlnet-step", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--nccl-worker", nargs=3, type=int, metavar=("RANK", "WORLD", "PORT"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also profile two inpaint steps at 1536x1152, two ControlNet "
                          "steps at 1024^2 and one train step "
@@ -1124,6 +1546,8 @@ def main(argv=None):
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
     sys.path.insert(0, ROOT)
     from reptext_tpu_torch.ops import _build  # noqa: F401 (fails outside the repository)
+    if args.nccl_worker:
+        return nccl_worker(*args.nccl_worker)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1141,6 +1565,8 @@ def main(argv=None):
     results = kernel_phase(dev)
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
+    results["K5"] = ring_kernel_phase(dev)
+    multi_card_phase()
     variants, study_launches = variants_phase(dev)
     library = library_yardsticks(dev)
     reference_phase(dev)
@@ -1151,6 +1577,9 @@ def main(argv=None):
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
     by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)
+    pipe.controlnet.requires_grad_(False).zero_grad(set_to_none=True)
+    pipe.flux.remat = pipe.controlnet.remat = False
+    by_path.update(sp_phase(dev, pipe, args.seed))
     del pipe
 
     by_path["attention_study"] = study_launches
@@ -1172,6 +1601,8 @@ def main(argv=None):
                     "replaces": "benchmarks/exp_softmax_overlap.py:143"},
         "exp2": {"name": "exp2_attn", "route": "cuda", "source": src,
                  "replaces": "benchmarks/sweep_attention.py:67"},
+        "K5": {"name": "ring_step", "route": "cuda", "source": src,
+               "replaces": "reptext_tpu/ops/ring_attention.py:53"},
     }
     results.update(variants)
     k3_shapes = {"(2,24,7424,128)": (2, 24, 7424), "(1,24,9728,128)": (1, 24, 9728)}

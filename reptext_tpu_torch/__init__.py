@@ -5,8 +5,8 @@ sub-package names:
 
 - ``ops``: latents, RoPE, the attention entry point, and the hand-written
   CUDA flash-attention kernels, forward (``csrc/flash_attention.cu``: K1,
-  K2, the streaming K3 and the attention study's three variants) and
-  backward (``csrc/flash_attention_bwd.cu``), with their build
+  K2, the streaming K3, the attention study's three variants and K5's ring
+  step) and backward (``csrc/flash_attention_bwd.cu``), with their build
   (``ops/_build.py``), autograd wiring and plain PyTorch twins;
 - ``nn``: layers, embeddings, MMDiT blocks, VAE, CLIP and T5 encoders;
 - ``models``: the FLUX transformer and the RepText ControlNet (with remat and
@@ -15,6 +15,9 @@ sub-package names:
   velocity cache, the dual-ControlNet true-CFG inpaint loop, the ControlNet
   training recipe and the elastic training loop;
 - ``pipelines``: the txt2img and text-inpainting pipelines;
+- ``parallel``: sequence parallelism (SP groups over ``torch.distributed``,
+  the ring, all-gather and Ulysses attention, the SP forward; ranks as
+  threads of one process for the tests);
 - ``data``: step-indexed synthetic glyph training batches and their prefetcher;
 - ``io``: Flax-tree -> module weight carry (``load_jax_params``);
 - ``cli``: the txt2img, inpaint and train command line;

@@ -9,6 +9,8 @@ Usage (random weights; no checkpoints exist in the repository):
         --random-weights --output results/edited.png
     python -m reptext_tpu_torch.cli --mode train --random-weights --tiny --device cpu \
         --size 64 --train-steps 3 --batch-size 2
+    torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --shard sp2 --sp-backend ring \
+        --text "مرحبا" --position 740 400 --size 2048 --random-weights
 
 ``--device`` (``cuda``, the default, or ``cpu``) says where the modules
 live, as ``JAX_PLATFORMS`` does for the JAX CLI: bf16 on the card, float32 on
@@ -24,7 +26,12 @@ and the mask to match; the negative prompt defaults to the reference's.
 :func:`build_pipeline`, :func:`generate`, :func:`generate_inpaint` and
 :func:`train` are the parts of :func:`main`, for in-process callers.
 Training checkpoints every block (``remat``), which the JAX CLI does not: the
-full geometry needs it to fit one card.
+full geometry needs it to fit one card. ``--shard spN`` (txt2img) shards the
+image tokens over N ranks, one process per card started by ``torchrun
+--nproc-per-node N`` (gloo processes on the CPU with ``--device cpu``); every
+rank builds the same seeded pipeline, and rank 0 writes the images. Without N
+ranks it raises. ``--shard DPxTP``/``auto``, sequence-parallel inpainting and
+sharded training are not ported yet.
 """
 
 from __future__ import annotations
@@ -121,7 +128,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train: directory for restore points and controlnet_final.pt "
                         "(omit for in-memory restore points)")
     p.add_argument("--corpus-dir", default=None, help="train on a photo corpus (not ported yet)")
-    p.add_argument("--shard", default=None, help="sharding over devices (not ported yet)")
+    p.add_argument("--shard", default=None, metavar="spN",
+                   help="txt2img: shard the image tokens over N ranks, one process per card "
+                        "under torchrun --nproc-per-node N (DPxTP and auto: not ported yet)")
+    p.add_argument("--sp-backend", choices=["ring", "ulysses"], default="ring",
+                   help="sequence-parallel attention for --shard spN: the K/V ring, or the "
+                        "ulysses all-to-all head swap (needs heads %% N == 0)")
     return p
 
 
@@ -278,13 +290,25 @@ def train(args, pipeline, dataset=None, on_event=None):
     return trainer
 
 
+def sp_group(args):
+    """The SP group of ``--shard spN`` (txt2img only): this job's N ranks."""
+    spec = args.shard.lower()
+    if args.mode != "txt2img":
+        raise SystemExit(f"--shard is not ported yet for --mode {args.mode}")
+    if not spec.startswith("sp") or (spec[2:] and not spec[2:].isdigit()):
+        raise SystemExit(f"--shard {args.shard}: only spN is ported yet (DPxTP and auto are not)")
+    from reptext_tpu_torch.parallel import make_sp_group
+
+    n = int(spec[2:]) if spec[2:] else int(os.environ.get("WORLD_SIZE", "1"))
+    return make_sp_group(n, args.device)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.mode == "serve":
         raise SystemExit("--mode serve is not ported yet")
-    if args.shard:
-        raise SystemExit("--shard is not ported yet")
+    group = sp_group(args) if args.shard else None
     if args.mode == "train":
         for flag, unported in (("--corpus-dir", args.corpus_dir),
                                ("--ocr-loss-weight > 0", args.ocr_loss_weight > 0.0)):
@@ -307,6 +331,8 @@ def main(argv=None) -> int:
         image, mask = load_inpaint_inputs(args.image, args.mask)
         height, width = image.shape[:2]
     pipeline = build_pipeline(args, height, width)
+    if group is not None:
+        pipeline.shard_for_sp(group, args.sp_backend)
     lines = [TextLine(t, tuple(p), font_size=args.font_size)
              for t, p in zip(args.text, args.position)]
     conditions = build_conditions(lines, width, height, font_path=args.font,
@@ -316,6 +342,12 @@ def main(argv=None) -> int:
     else:
         images = generate(args, pipeline, conditions)
 
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if group.rank != 0:
+            return 0
     from PIL import Image
 
     os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)

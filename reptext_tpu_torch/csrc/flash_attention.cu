@@ -82,6 +82,31 @@
 // cores. sm_90's ptxas issues each packed ex2.approx.ftz.bf16x2 as two
 // MUFU.EX2.BF16, one per half (cuobjdump -sass), so the bf16 form issues as
 // many MUFU ops as kExp2; it saves the fp32 -> bf16 rounding of p instead.
+//
+// The ring step (reptext_ring_attention_step, CARRY) replaces
+// reptext_tpu/ops/ring_attention.py::_ring_kernel (K5). The Pallas kernel is one
+// program per device that rotates K/V blocks to its right neighbour by
+// in-kernel RDMA and folds each block into an fp32 online-softmax state. Here
+// one launch is one ring step: the K/V transfer runs outside the kernel, as a
+// collective on the group (reptext_tpu_torch/ops/ring_attention.py), and no
+// kernel ever waits on another rank. The step is this template with the
+// running max, expf, the scale on the fp32 logits, no clamp, Sq queries
+// against Sk keys (keys past Sk masked as K3 masks them), and the state
+// carried between launches in device memory: acc [B, H, Sq, D], m and l
+// [B, H, Sq], all fp32 and contiguous. The first step sets m = -1e30, l = 0,
+// acc = 0 in registers, as the Pallas kernel initialises its scratch; a later
+// step loads them. Each thread loads and stores exactly the rows and columns
+// of its own C fragments (rows g and g + 8 of its warp's 16, columns 2t and
+// 2t + 1 of each 8-channel tile), so the state never passes through shared
+// memory; l is loaded into the quad's t = 0 lane and summed over the quad at
+// the end like the partial row sums. Every step but the last stores the
+// state; the last writes acc / l in q's dtype and stores no state. p is
+// rounded to bf16 for PV as in K1-K3, where the Pallas kernel multiplies fp32
+// p by fp32 V. What bounds it: at (1, 24, 4608, 128) over 4 ranks (Sq = Sk =
+// 1152) a step is 1.63e10 FLOP (16.5 us at 989 TFLOP/s) against ~50 MB of
+// q, k, v and the fp32 state in and out (14.9 us at 3.35 TB/s): the carried
+// state nearly balances the step. Keeping the state in registers across the
+// steps needs the transfers inside one kernel, which is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,8 +146,15 @@ struct Params {
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int heads;
-  int seq;
+  int seq;                  // query rows
+  int seq_k;                // keys (== seq but for the ring step)
   float scale;
+  // ring step (CARRY) only: the fp32 state, contiguous, and the step's role
+  float* acc;               // [B, H, seq, D]
+  float* m_state;           // [B, H, seq]
+  float* l_state;           // [B, H, seq]
+  int first;
+  int last;
 };
 
 __device__ __forceinline__ void load8_rounded(const float* p, float (&f)[8]) {
@@ -188,7 +220,7 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_b
   load_rows_async<D, kBlockK, D + kPad, kThreads>(dst, src, ss, row0, seq);
 }
 
-template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS, int EXP = kExpE>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS, int EXP = kExpE, bool CARRY = false>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   constexpr int kLd = D + kPad;
   constexpr int kTile = kBlockK * kLd;    // elements per K or V stage
@@ -199,6 +231,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   static_assert(kBlockQ <= 2 * kBlockK, "q' is staged in the two K stages");
   static_assert(!(ROPE && SCALE_LOGITS), "K3 takes pre-rotated q and k");
   static_assert(EXP == kExpE || ONLINE, "the exp2 modes keep a running max");
+  static_assert(!CARRY || (ONLINE && SCALE_LOGITS && EXP == kExpE && !ROPE),
+                "the ring step is the online, scale-on-logits, expf form");
 
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
   __nv_bfloat16* k_s = smem;              // [2][kBlockK][kLd]
@@ -207,6 +241,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int seq = p.seq;
+  const int seq_k = p.seq_k;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // row within the 8-row group of an mma fragment
@@ -257,21 +292,41 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   // the end) and, online, the running row maxima (kept equal across the quad).
   float l_part[2] = {0.0f, 0.0f};
   float m_run[2] = {-INFINITY, -INFINITY};
+  // The ring step's state row of (b, h), in elements, for rows g and g + 8.
+  [[maybe_unused]] long long state_row[2] = {0, 0};
+  if constexpr (CARRY) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      state_row[r] = ((long long)b * p.heads + h) * seq + row;
+      m_run[r] = -1e30f;  // the Pallas kernel's NEG_INF
+      if (p.first || row >= seq) continue;
+      m_run[r] = p.m_state[state_row[r]];
+      l_part[r] = t == 0 ? p.l_state[state_row[r]] : 0.0f;
+      const float* arow = p.acc + state_row[r] * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kNTilesO; ++n) {
+        const float2 a = *reinterpret_cast<const float2*>(arow + n * 8);
+        o[n][2 * r] = a.x;
+        o[n][2 * r + 1] = a.y;
+      }
+    }
+  }
 
   // ldmatrix lane addressing: lane -> (matrix lane / 8, row lane % 8)
   const int lm = lane >> 3, lr = lane & 7;
-  const int n_tiles = (seq + kBlockK - 1) / kBlockK;
+  const int n_tiles = (seq_k + kBlockK - 1) / kBlockK;
 
-  load_tile_async<D>(k_s, kb, p.k_ss, 0, seq);
-  load_tile_async<D>(v_s, vb, p.v_ss, 0, seq);
+  load_tile_async<D>(k_s, kb, p.k_ss, 0, seq_k);
+  load_tile_async<D>(v_s, vb, p.v_ss, 0, seq_k);
   cp_async_commit();
 
   for (int it = 0; it < n_tiles; ++it) {
     const int stage = it & 1;
     const int k0 = it * kBlockK;
     if (it + 1 < n_tiles) {
-      load_tile_async<D>(k_s + (stage ^ 1) * kTile, kb, p.k_ss, k0 + kBlockK, seq);
-      load_tile_async<D>(v_s + (stage ^ 1) * kTile, vb, p.v_ss, k0 + kBlockK, seq);
+      load_tile_async<D>(k_s + (stage ^ 1) * kTile, kb, p.k_ss, k0 + kBlockK, seq_k);
+      load_tile_async<D>(v_s + (stage ^ 1) * kTile, vb, p.v_ss, k0 + kBlockK, seq_k);
     }
     cp_async_commit();
     cp_async_wait_1();  // this tile's group has landed; the next may be in flight
@@ -303,7 +358,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
         float x = SCALE_LOGITS ? __fmul_rn(s[n][e], p.scale) : s[n][e];
         if (!ONLINE) x = fminf(fmaxf(x, -kLogitClamp), kLogitClamp);
         const int col = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = col < seq ? x : -INFINITY;
+        s[n][e] = col < seq_k ? x : -INFINITY;
       }
     }
 
@@ -394,6 +449,26 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
     l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
   }
 
+  if constexpr (CARRY) {
+    if (!p.last) {  // store the state: acc undivided, m, l
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + g + 8 * r;
+        if (row >= seq) continue;
+        float* arow = p.acc + state_row[r] * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < kNTilesO; ++n) {
+          *reinterpret_cast<float2*>(arow + n * 8) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+        }
+        if (t == 0) {
+          p.m_state[state_row[r]] = m_run[r];
+          p.l_state[state_row[r]] = l_part[r];
+        }
+      }
+      return;
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
@@ -412,14 +487,15 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(const Params p) {
   }
 }
 
-template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS = false, int EXP = kExpE>
+template <int D, bool ROPE, bool ONLINE, bool SCALE_LOGITS = false, int EXP = kExpE,
+          bool CARRY = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBlockK * (D + kPad) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP, CARRY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP><<<grid, kThreads, kSmem, stream>>>(p);
+  attn_fwd_kernel<D, ROPE, ONLINE, SCALE_LOGITS, EXP, CARRY><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -460,7 +536,13 @@ Params make_params(const void* q, const void* k, const void* v, void* out, void*
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.heads = heads;
   p.seq = seq;
+  p.seq_k = seq;
   p.scale = scale;
+  p.acc = nullptr;
+  p.m_state = nullptr;
+  p.l_state = nullptr;
+  p.first = 1;
+  p.last = 1;
   return p;
 }
 
@@ -539,4 +621,35 @@ extern "C" int reptext_attention_variant_fwd(
   else if (exp_mode == kExp2) err = launch<128, false, true, true, kExp2>(p, batch, s);
   else err = launch<128, false, true, true, kExp2Bf16>(p, batch, s);
   return static_cast<int>(err);
+}
+
+// K5's ring step: q [B, H, seq_q, D] against one K/V block [B, H, seq_k, D],
+// all bf16 with the head dim contiguous, folded into the contiguous fp32 state
+// acc [B, H, seq_q, D], m and l [B, H, seq_q] (see the source note). `first`
+// starts the state instead of loading it; `last` writes acc / l to `out`
+// (q's layout: strides o_*) and stores no state. Strides in elements;
+// returns the cudaError_t of the launch.
+extern "C" int reptext_ring_attention_step(
+    const void* q, const void* k, const void* v, void* out, void* acc, void* m_state,
+    void* l_state, int batch, int heads, int seq_q, int seq_k, int head_dim,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    float scale, int first, int last, void* stream) {
+  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || head_dim != 128 ||
+      (last && out == nullptr) || (!(first && last) && (acc == nullptr || m_state == nullptr ||
+                                                        l_state == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p = make_params(q, k, v, out, nullptr, heads, seq_q, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                         v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
+  p.seq_k = seq_k;
+  p.acc = static_cast<float*>(acc);
+  p.m_state = static_cast<float*>(m_state);
+  p.l_state = static_cast<float*>(l_state);
+  p.first = first;
+  p.last = last;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(launch<128, false, true, true, kExpE, true>(p, batch, s));
 }

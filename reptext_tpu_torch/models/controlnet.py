@@ -5,7 +5,8 @@ latents plus a packed conditioning tensor (canny + position latents) through
 a zero-initialised ``controlnet_x_embedder``, trimmed double/single stacks,
 and one zero-initialised ``proj`` head per block whose output is the
 residual for the base model, multiplied by ``conditioning_scale``.
-``remat`` checkpoints each block as in ``models/flux.py``;
+``remat`` checkpoints each block and ``attention_backend`` switches the blocks
+to sequence parallelism, as in ``models/flux.py``;
 :func:`params_from_transformer` is the warm-start weight surgery. Union mode
 is not ported yet.
 """
@@ -56,6 +57,7 @@ class RepTextControlNet(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
         self.remat = remat
+        self.attention_backend: Optional[str] = None
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.controlnet_x_embedder = nn.Linear(
             cfg.in_channels + cfg.extra_condition_channels, cfg.inner_dim, **kw)
@@ -85,14 +87,16 @@ class RepTextControlNet(nn.Module):
 
         block_samples = []
         for layer in self.double_blocks:
-            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin)
+            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin,
+                               self.attention_backend)
             block_samples.append(layer.proj(x))
 
         txt_len = ctx.shape[1]
         joint = torch.cat([ctx, x], dim=1)
         single_samples = []
         for layer in self.single_blocks:
-            joint = run_block(layer.block, self.remat, joint, temb, cos, sin)
+            joint = run_block(layer.block, self.remat, joint, temb, cos, sin,
+                              self.attention_backend, txt_len)
             single_samples.append(layer.proj(joint[:, txt_len:]))
 
         scale = torch.tensor(conditioning_scale, dtype=dtype, device=x.device)

@@ -11,6 +11,11 @@ residual stack passed (one stack, or a tuple of differently deep stacks).
 Double-block residuals go to the image stream, single-block residuals to the
 image-token slice of the joint sequence.
 
+``attention_backend`` (None, or 'ring' / 'ulysses' for the sequence-parallel
+blocks) is the counterpart of the JAX module field that
+``clone(attention_backend=...)`` switches: a plain attribute, read at every
+forward, that the pipeline's ``shard_for_sp`` sets on the shared modules.
+
 ``remat=True`` runs each block under ``torch.utils.checkpoint`` (non-reentrant)
 when autograd records, the counterpart of ``nn.remat`` on the JAX layer
 stacks: a block keeps only its inputs, and its activations are recomputed
@@ -92,6 +97,7 @@ class FluxTransformer2D(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
         self.remat = remat
+        self.attention_backend: Optional[str] = None
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.time_text_embed = CombinedTimestepTextEmbed(
             cfg.inner_dim, cfg.pooled_projection_dim, cfg.time_embed_dim,
@@ -121,7 +127,8 @@ class FluxTransformer2D(nn.Module):
         double_idx = None if double_stacks is None else [
             inject_index(s.shape[0], cfg.num_layers) for s in double_stacks]
         for i, layer in enumerate(self.double_blocks):
-            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin)
+            ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin,
+                               self.attention_backend)
             if double_stacks is not None:
                 x = x + read_inject(double_stacks, [ix[i] for ix in double_idx]).to(x.dtype)
 
@@ -131,7 +138,8 @@ class FluxTransformer2D(nn.Module):
         single_idx = None if single_stacks is None else [
             inject_index(s.shape[0], cfg.num_single_layers) for s in single_stacks]
         for i, layer in enumerate(self.single_blocks):
-            joint = run_block(layer.block, self.remat, joint, temb, cos, sin)
+            joint = run_block(layer.block, self.remat, joint, temb, cos, sin,
+                              self.attention_backend, txt_len)
             if single_stacks is not None:
                 # in place on the block's fresh output tensor: no op saves that
                 # tensor for backward (it comes from an add), and a recomputed

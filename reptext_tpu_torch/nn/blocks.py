@@ -4,13 +4,16 @@ Counterpart of ``reptext_tpu/nn/blocks.py``: the double-stream joint block
 (AdaLN-Zero per stream, joint attention over [text; image] with RoPE rotated
 inside the attention op, gated residuals, per-stream gelu-tanh FF) and the
 single-stream block (parallel attention and MLP branches projected out
-together). Per-head RMS q/k norm in both. The IP-Adapter and the
-sequence-parallel (ring/ulysses) branches are not ported yet.
+together). Per-head RMS q/k norm in both. With ``attention_backend`` 'ring'
+or 'ulysses' (JAX :131-151, :225-245) a block runs sequence-parallel: text
+tokens on every rank, image tokens sharded, q and k rotated with the rank's
+tables before the joint ring or Ulysses attention of ``parallel/sequence.py``
+over the group of the thread's SP context. The IP-Adapter is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +27,8 @@ from reptext_tpu_torch.nn.layers import (
     modulate,
 )
 from reptext_tpu_torch.ops.attention import attention
+from reptext_tpu_torch.ops.rope import apply_rope_half
+from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -36,6 +41,22 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     """[B, H, S, D] -> [B, S, H*D]."""
     b, h, s, d = x.shape
     return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def sp_joint_attention(backend: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       rope_cos: torch.Tensor, rope_sin: torch.Tensor, s_txt: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The blocks' SP branch on the joint [text; image shard] q, k, v:
+    (text output [B, S_txt, H*D], image output shard [B, S_img/n, H*D])."""
+    sp_attn = JOINT_SP_ATTENTION.get(backend)
+    if sp_attn is None:
+        raise ValueError(f"unknown attention_backend {backend!r} (None, ring or ulysses)")
+    # rotated here, with the rank's tables, so roped K blocks travel
+    q = apply_rope_half(q, rope_cos, rope_sin)
+    k = apply_rope_half(k, rope_cos, rope_sin)
+    attn_t, attn_i = sp_attn(q[:, :, :s_txt], k[:, :, :s_txt], v[:, :, :s_txt],
+                             q[:, :, s_txt:], k[:, :, s_txt:], v[:, :, s_txt:])
+    return merge_heads(attn_t), merge_heads(attn_i)
 
 
 class JointTransformerBlock(nn.Module):
@@ -65,8 +86,8 @@ class JointTransformerBlock(nn.Module):
         self.ff_context = FeedForward(dim, mlp_ratio, **kw)
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
-                temb: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                temb: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                attention_backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         h = self.num_heads
         s_txt = encoder_hidden_states.shape[1]
         norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(hidden_states, temb)
@@ -84,8 +105,12 @@ class JointTransformerBlock(nn.Module):
         q = torch.cat([q_t, q_i], dim=2)
         k = torch.cat([k_t, k_i], dim=2)
         v = torch.cat([v_t, v_i], dim=2)
-        attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
-        txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
+        if attention_backend is None:
+            attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
+            txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
+        else:
+            txt_attn, img_attn = sp_joint_attention(attention_backend, q, k, v, rope_cos,
+                                                    rope_sin, s_txt)
 
         hidden_states = hidden_states + gate_msa[:, None, :] * self.to_out(img_attn)
         ff_out = self.ff(modulate(hidden_states, shift_mlp, scale_mlp))
@@ -117,13 +142,24 @@ class SingleTransformerBlock(nn.Module):
         self.proj_out = nn.Linear(inner + int(dim * mlp_ratio), dim, **kw)
 
     def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor,
-                rope_cos: torch.Tensor, rope_sin: torch.Tensor) -> torch.Tensor:
+                rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                attention_backend: Optional[str] = None,
+                txt_len: Optional[int] = None) -> torch.Tensor:
+        """``txt_len``: the text tokens at the head of the sequence, which
+        the SP backends need (they are replicated, the rest is sharded)."""
         h = self.num_heads
         normed, gate = self.norm(hidden_states, temb)
         mlp = gelu_tanh(self.proj_mlp(normed))
         q = self.norm_q(split_heads(self.to_q(normed), h))
         k = self.norm_k(split_heads(self.to_k(normed), h))
         v = split_heads(self.to_v(normed), h)
-        attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
+        if attention_backend is None:
+            attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
+        else:
+            if txt_len is None:
+                raise ValueError(f"attention_backend={attention_backend!r} needs txt_len on "
+                                 "the single block")
+            attn = torch.cat(sp_joint_attention(attention_backend, q, k, v, rope_cos, rope_sin,
+                                                txt_len), dim=1)
         out = self.proj_out(torch.cat([attn, mlp], dim=-1))
         return hidden_states + gate[:, None, :] * out

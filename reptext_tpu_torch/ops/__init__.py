@@ -1,1 +1,1 @@
-"""Tensor ops of the port: latents, RoPE, attention and the CUDA flash-attention kernel."""
+"""Tensor ops of the port: latents, RoPE, attention, and the CUDA attention and ring-step kernels."""

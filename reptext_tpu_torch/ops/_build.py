@@ -28,8 +28,16 @@ LIB_PATH = os.path.join(BUILD_DIR, "libreptext_torch_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = {"seconds": None, "ptxas": ""}
+
+
+def count_launch(entry) -> None:
+    """``entry.launches += 1`` under a lock: ranks run as threads of one
+    process (``parallel/testing.py``) launch concurrently."""
+    with _count_lock:
+        entry.launches += 1
 
 
 def sources() -> List[str]:
@@ -130,6 +138,9 @@ def load() -> ctypes.CDLL:
             fn.restype = c_i
             fn = lib.reptext_flash_attention_bwd
             fn.argtypes = ([c_p] * 9 + [c_i] * 4 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
+            fn.restype = c_i
+            fn = lib.reptext_ring_attention_step
+            fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p]
             fn.restype = c_i
             _lib = lib
         return _lib

@@ -28,7 +28,8 @@ rotates q and k with the fp32 tables first and un-rotates dq and dk after, as
 A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
 the same rounding points; ``chip_smoke.py`` holds the kernels against them on
-the card. Each kernel entry counts its launches in ``<entry>.launches``.
+the card. Each kernel entry counts its launches in ``<entry>.launches``
+(``_build.count_launch``: thread-safe).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from reptext_tpu_torch.ops._build import count_launch
 from reptext_tpu_torch.ops.rope import apply_rope_half
 
 LOGIT_CLAMP = 43.0
@@ -294,7 +296,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # the kernels take; any other layout (an expanded sum() gradient) is copied
     do = do if _kernel_strides(do) else do.contiguous()
     result = _launch_backward(q, k, v, out, lse, do, _online(online))
-    flash_attention_backward.launches += 1
+    count_launch(flash_attention_backward)
     return result
 
 
@@ -304,7 +306,7 @@ def _forward(q, k, v, online: bool, streaming: bool) -> Tuple[torch.Tensor, torc
         plain = flash_attention_streaming_plain if streaming else flash_attention_plain
         return plain(q, k, v, online)
     out, lse = _launch(q, k, v, None, None, online, streaming)
-    (flash_attention_streaming if streaming else flash_attention).launches += 1
+    count_launch(flash_attention_streaming if streaming else flash_attention)
     return out, lse
 
 
@@ -342,7 +344,7 @@ class _FlashAttentionRope(torch.autograd.Function):
             out, lse = flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
         else:
             out, lse = _launch(q, k, v, rope_cos, rope_sin, online)
-            flash_attention_rope.launches += 1
+            count_launch(flash_attention_rope)
         ctx.online = online
         ctx.save_for_backward(q, k, v, rope_cos, rope_sin, out, lse)
         ctx.mark_non_differentiable(lse)

@@ -57,6 +57,9 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         self.inpaint_controlnet = inpaint_controlnet
         self.inpaint_conditioning_scale = inpaint_conditioning_scale
 
+    def shard_for_sp(self, group, backend: str = "ring"):
+        raise NotImplementedError("sequence-parallel inpainting is not ported yet")
+
     # ---------------------------------------------------------------- build
 
     @classmethod

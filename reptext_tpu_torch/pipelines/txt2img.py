@@ -9,8 +9,11 @@ with the velocity cache), and the VAE decode, at any size the
 training data path
 (``reptext_tpu_torch/data.py``). Randomness comes from ``torch.Generator``s
 derived from ``seed``; there is no global RNG. The JAX package's residency and fp8
-staging code exists for a 16 GB chip and has no counterpart here. img2img,
-callbacks, custom timesteps/sigmas and ``generate_batch`` are not ported yet.
+staging code exists for a 16 GB chip and has no counterpart here.
+:meth:`FluxRepTextPipeline.shard_for_sp` runs the denoise loop
+sequence-parallel over an SP group (``parallel/``). img2img, callbacks,
+custom timesteps/sigmas, ``generate_batch`` and tensor parallelism
+(``shard_for_inference``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from reptext_tpu_torch.ops.latents import (
     unpack_latents,
 )
 from reptext_tpu_torch.sampling.flow_match import build_schedule
-from reptext_tpu_torch.sampling.sampler import make_txt2img_sampler
+from reptext_tpu_torch.sampling.sampler import make_sp_txt2img_sampler, make_txt2img_sampler
 
 
 def _as_ids(ids, device) -> torch.Tensor:
@@ -77,6 +80,7 @@ class FluxRepTextPipeline:
         self.pipe_cfg = pipe_cfg
         self.compute_dtype = compute_dtype
         self.device = next(flux.parameters()).device
+        self.sp_group = None
 
     # ---------------------------------------------------------------- build
 
@@ -125,6 +129,31 @@ class FluxRepTextPipeline:
         clone = copy.copy(self)
         clone.pipe_cfg = pipe_cfg
         return clone
+
+    def shard_for_sp(self, group, backend: str = "ring") -> "FluxRepTextPipeline":
+        """Sequence-parallel sampling over ``group`` (an ``SPGroup``): the
+        image tokens of the denoise loop are sharded over its ranks, and the
+        joint attention of every block runs as the K/V ring ('ring') or the
+        all-to-all head swap ('ulysses', which needs heads % n == 0).
+
+        Checks what the JAX ``shard_for_sp`` checks, then switches both
+        models' ``attention_backend`` (the modules are shared, as JAX's
+        ``clone`` shares the params) and makes ``__call__`` use the SP
+        sampler. Every rank calls the pipeline with the same inputs and gets
+        the whole result. Returns self.
+        """
+        n = group.size
+        s_img = self.pipe_cfg.image_seq_len
+        if s_img % n:
+            raise ValueError(f"image sequence ({s_img} tokens) must divide the sp group ({n})")
+        if backend not in ("ring", "ulysses"):
+            raise ValueError(f"sp backend must be ring|ulysses, got {backend!r}")
+        if backend == "ulysses" and self.flux.config.num_attention_heads % n:
+            raise ValueError(f"ulysses needs heads % sp == 0 "
+                             f"({self.flux.config.num_attention_heads} % {n})")
+        self.sp_group = group
+        self.flux.attention_backend = self.controlnet.attention_backend = backend
+        return self
 
     def generators(self, seed: int) -> Tuple[torch.Generator, ...]:
         """(latent noise, condition posterior, glyph posterior, inpaint
@@ -262,8 +291,12 @@ class FluxRepTextPipeline:
         schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
                                   cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
                                   cfg.use_dynamic_shifting)
-        sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
-                                       self.compute_dtype)
+        if self.sp_group is None:
+            sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
+                                           self.compute_dtype)
+        else:
+            sampler = make_sp_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
+                                              self.sp_group, self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((prompt_embeds.shape[1], 3), device=self.device)
         guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)

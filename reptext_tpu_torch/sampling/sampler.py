@@ -20,6 +20,11 @@ with the inpaint sampler: a skipped step runs no model and reuses or
 extrapolates the last computed velocities. In the adaptive modes the drift
 ratio is read on the host, one device sync per step, where the JAX scan
 decides inside the graph.
+
+:func:`make_sp_txt2img_sampler` is the sequence-parallel loop: the counterpart
+of the JAX ``shard_map`` over the whole scan, every rank running the loop on
+its token shard; the attention exchange inside the blocks is the only
+communication per step, besides the adaptive cache's mean over the group.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import numpy as np
 import torch
 
 from reptext_tpu_torch.configs import PipelineConfig
+from reptext_tpu_torch.parallel.group import SPGroup
+from reptext_tpu_torch.parallel.sequence import sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 
 
@@ -71,14 +78,18 @@ def empty_cache_regs() -> CacheRegs:
 def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheRegs,
                           lat: torch.Tensor, sig_i: np.float32, i: int, always: bool, *,
                           vc_adaptive: bool, vc_linear: bool, vc_warmup: int, vc_interval: int,
-                          vc_threshold: float, vc_max_skip: int
+                          vc_threshold: float, vc_max_skip: int,
+                          signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                           ) -> Tuple[torch.Tensor, CacheRegs]:
     """Twin of ``_velocity_cache_select``: run ``compute_fn`` or skip it.
 
     Adaptive: run while the latents' relative L1 drift since the last
     computed step (max over the batch) reaches ``vc_threshold``, or after
     ``vc_max_skip`` skips; else every ``vc_interval``-th step after warmup.
-    ``always`` forces a run. A skipped step reuses the last computed velocity
+    ``always`` forces a run. ``signal_mean`` (an SP group's mean) turns the
+    shard's per-image drift and reference means into the global ones before
+    the host decides, so every rank takes the same branch, as the JAX
+    sampler's ``pmean`` does. A skipped step reuses the last computed velocity
     or, linear, extrapolates over sigma from the last two; extrapolated
     values never enter the registers. Returns ``(velocity, regs)``.
     """
@@ -87,6 +98,8 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
         ref_lat = torch.zeros_like(lat) if lat_ref is None else lat_ref
         drift = (lat - ref_lat).abs().mean(dim=(1, 2))
         ref = ref_lat.abs().mean(dim=(1, 2))
+        if signal_mean is not None:     # equal shards: the mean of shard means
+            drift, ref = signal_mean(drift), signal_mean(ref)
         rel = float((drift / (ref + 1e-8)).max())     # the host sync of this mode
         run = always or rel >= vc_threshold or skips >= vc_max_skip
     else:
@@ -108,15 +121,19 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
 
 def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                          schedule: FlowMatchSchedule, pipe_cfg: PipelineConfig,
-                         compute_dtype: torch.dtype = torch.float32) -> Callable:
+                         compute_dtype: torch.dtype = torch.float32,
+                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                         ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, prompt_embeds,
     pooled_embeds, txt_ids, img_ids, guidance) -> latents``.
 
     latents: [B, S, C] packed (float32 out); cond_tokens [N, S, F] and
-    token_masks [N, S, 1] are shared by the B images.
+    token_masks [N, S, 1] are shared by the B images. ``signal_mean``: see
+    :func:`velocity_cache_select`.
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
+    vc["signal_mean"] = signal_mean
     num_steps = schedule.num_steps
     gate_step = min(pipe_cfg.controlnet_conditioning_step, num_steps)
     cn_active = cn_active_mask(pipe_cfg, num_steps, gate_step)
@@ -167,5 +184,33 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                 velocity = compute_velocity()
             lat = schedule.step(lat, velocity, i)
         return lat
+
+    return sample
+
+
+def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
+                            schedule: FlowMatchSchedule, pipe_cfg: PipelineConfig,
+                            group: SPGroup, compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """The txt2img loop with the image tokens sharded over ``group``.
+
+    Both models carry an SP ``attention_backend`` ('ring' or 'ulysses'). The
+    returned ``sample`` takes the same global tensors as
+    :func:`make_txt2img_sampler`'s on every rank, runs the loop on the rank's
+    shard of the latents, conditions, token masks and ``img_ids`` under the
+    group's SP context (every other op is per token), and returns the
+    gathered latents on every rank.
+    """
+    base = make_txt2img_sampler(flux, controlnet, schedule, pipe_cfg, compute_dtype,
+                                signal_mean=group.all_reduce_mean)
+
+    def sample(latents: torch.Tensor, cond_tokens: torch.Tensor, token_masks: torch.Tensor,
+               prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
+               txt_ids: torch.Tensor, img_ids: torch.Tensor,
+               guidance: Optional[torch.Tensor]) -> torch.Tensor:
+        with sp_context(group):
+            lat = base(group.shard(latents, 1), group.shard(cond_tokens, 1),
+                       group.shard(token_masks, 1), prompt_embeds, pooled_embeds, txt_ids,
+                       group.shard(img_ids, 0), guidance)
+        return group.all_gather(lat, 1)
 
     return sample

@@ -1,6 +1,6 @@
 """The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4,
-the attention A/B variants) against their plain PyTorch versions, on the
-card, the RoPE entry's route (K1, or the fp32 rotation then K2 at one chunk or
+the attention A/B variants, K5's ring step) against their plain PyTorch
+versions, on the card, the RoPE entry's route (K1, or the fp32 rotation then K2 at one chunk or
 K3 past 6144 tokens), and gradients through a transformer block. Everything
 here needs a CUDA device and skips without one.
 
@@ -15,6 +15,10 @@ plain version round p and ds to bf16 at the same points but sum thousands of
 products in another order. The variants as chip_smoke.py states them: out
 within 2^-6 of max|plain out| (chunked, exp2) and 2^-5 (bf16 exp, whose kernel
 rounds the exponential's argument at another point than its plain version).
+K5's step: its normalised output (acc / l) within 2^-6 of max|plain| (p is
+rounded to bf16 for PV where the plain version keeps fp32), the running max
+within 1e-3 and the row sums within 1e-3 relative (both from fp32 logits of
+the same bf16 inputs, summed in another order).
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 
 from reptext_tpu_torch.ops import attention_variants as av
 from reptext_tpu_torch.ops import flash_attention as fa
+from reptext_tpu_torch.ops import ring_attention as ra
 from reptext_tpu_torch.ops.attention import attention, plain_attention
 from reptext_tpu_torch.ops.rope import apply_rope_half, rope_cos_sin_half
 
@@ -281,3 +286,76 @@ def test_variant_kernel_rejects_what_it_does_not_take(dev, name):
     with pytest.raises(TypeError, match="bfloat16"):
         entry(q.half(), k.half(), v.half(), 64)
     assert entry.launches == n
+
+
+def _ring_inputs(dev, b, h, sq, sks, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    def rnd(s):
+        return torch.randn(b, h, s, 128, generator=g, device=dev).to(torch.bfloat16)
+
+    return rnd(sq), [(rnd(sk), rnd(sk)) for sk in sks]
+
+
+@pytest.mark.parametrize("sq,sks", [(1152, (1152, 1152, 1152)), (200, (512, 333, 8)),
+                                    (8704, (512, 8192))])
+def test_ring_step_matches_plain_at_every_step(dev, sq, sks):
+    """The first, middle and last steps one at a time, each from the same
+    state on both sides: the state after every step but the last, then the
+    output; key blocks of unaligned lengths (333, 8) are masked as K3 masks."""
+    q, blocks = _ring_inputs(dev, 1, 2, sq, sks, seed=sq)
+    state = None
+    for i, (k, v) in enumerate(blocks):
+        first, last = i == 0, i == len(blocks) - 1
+        plain_in = None if first else tuple(x.clone() for x in state)
+        n = ra.ring_step.launches
+        got = ra.ring_step(q, k, v, state, first, last)
+        torch.cuda.synchronize()
+        want = ra.ring_step_plain(q, k, v, plain_in, first, last)
+        assert ra.ring_step.launches == n + 1
+        if last:
+            assert got.shape == q.shape and got.dtype == torch.bfloat16
+            assert bool(torch.isfinite(got.float()).all()) and _out_err_ok(got, want)
+            break
+        (acc, m, l), (p_acc, p_m, p_l) = got, want
+        assert (m - p_m).abs().max().item() <= 1e-3
+        assert ((l - p_l).abs() / p_l).max().item() <= 1e-3
+        assert _out_err_ok(acc / l[..., None], p_acc / p_l[..., None])
+        state = got
+
+
+def test_ring_step_in_one_launch_is_attention(dev):
+    """first and last together: one softmax over the block, no state."""
+    q, [(k, v)] = _ring_inputs(dev, 2, 2, 300, (1000,), seed=3)
+    got = ra.ring_step(q, k, v, None, True, True)
+    torch.cuda.synchronize()
+    assert _out_err_ok(got, ra.ring_step_plain(q, k, v, None, True, True))
+
+
+def test_ring_kernel_over_thread_ranks_matches_the_plain_ring(dev):
+    from reptext_tpu_torch.parallel.sequence import sequence_sharded_attention
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    q, [(k, v)] = _ring_inputs(dev, 1, 4, 1024, (1024,), seed=5)
+
+    def sharded(impl):
+        return torch.cat(run_spmd(LocalSPGroup(4, dev), lambda g: sequence_sharded_attention(
+            g.shard(q, 2), g.shard(k, 2), g.shard(v, 2), g, impl)), dim=2)
+
+    n = ra.ring_step.launches
+    got = sharded("ring_kernel")
+    torch.cuda.synchronize()
+    assert ra.ring_step.launches == n + 16     # 4 ranks x 4 steps, counted under threads
+    assert _out_err_ok(got, sharded("ring"))
+
+
+def test_ring_step_rejects_what_it_does_not_take(dev):
+    q, [(k, v)] = _ring_inputs(dev, 1, 2, 128, (128,), seed=7)
+    n = ra.ring_step.launches
+    with pytest.raises(TypeError, match="bfloat16"):
+        ra.ring_step(q.float(), k, v, None, True, True)
+    state = ra.ring_step(q, k, v, None, True, False)
+    with pytest.raises(ValueError, match="state acc"):
+        ra.ring_step(q, k, v, (state[0].half(), state[1], state[2]), False, True)
+    with pytest.raises(ValueError, match="k_blk has shape"):
+        ra.ring_step(q, k[:, :1], v, state, False, True)
+    assert ra.ring_step.launches == n + 1
