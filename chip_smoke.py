@@ -11,7 +11,10 @@ Needs one CUDA device (an H100; the kernels are built for sm_90a) and exits
 non-zero without one. Phases, one line each, and any failure ends the run:
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: nvcc builds the kernels from reptext_tpu_torch/csrc;
+2. build: nvcc builds the kernels from reptext_tpu_torch/csrc; registers per thread and
+   spill bytes of every kernel from ptxas, its performance warnings (any one
+   fails the run), and the tensor-core instructions in the SASS of every instantiation of the forward
+   template: each must run on wgmma (HGMMA) and none on mma.sync (HMMA);
 3. kernels: the flash-attention forward kernel (K1 RoPE-fused, K2 plain), the
    streaming forward kernel (K3, past 6144 tokens, on q and k rotated with
    the fp32 tables) and the backward kernel (K4, dq and dk/dv) against their
@@ -19,14 +22,20 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    4608, 128), K3 at the 1536x1152 inpaint shape (2, 24, 7424, 128) and the
    1536^2 shape (1, 24, 9728, 128), all with RoPE tables from the real
    text/image ids, at unaligned lengths ((2, 24, 4106, 128); K3 (1, 24, 6500,
-   128)), and beyond the logit clamp; errors and median times (kernel and
-   plain version), and K1's and K3's clamped against their online softmax;
+   128)), K3 at the 2048^2 request's shapes (clamped at (1, 24, 16896, 128),
+   the one-card path; online at (1, 12, 16896, 128), a Ulysses rank's half of
+   the heads) and beyond the logit clamp; errors and median times (kernel and
+   plain version, with the achieved TFLOP/s and the bound's share of the
+   time), and K1's and K3's clamped against their online softmax;
    then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
    request makes (q (1, 24, 8704, 128) against the text block and two image
    blocks of 8192 keys) against the plain steps, within 2^-6 of max|plain
-   out|; the step's, the whole ring's and SDPA's times beside the bound; with
+   out|; the step's, the whole ring's and SDPA's times beside the bound;
+   Ulysses over 4 thread ranks with logits planted beyond the clamp against
+   plain_attention (its local attention is an exact softmax) and against the
+   clamped K2, from which it must differ; with
    two or more cards, one process per card over NCCL: the K5 ring against the
    plain ring, then the 2048^2 request of phase 10 on each card alone and with
    shard_for_sp over the cards (ring and Ulysses, each called twice: cold,
@@ -73,9 +82,11 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    the ControlNet on both, from the same packed noise: the single-device
    pipeline (K3: 142 launches), then FluxRepTextPipeline.shard_for_sp over 2
    thread ranks on the card (parallel/testing.py) with the ring backend (K5:
-   (n + 1) x 71 launches per rank and step) and the Ulysses backend (K3 on 12
-   heads per rank: 71 per rank and step); each gathered latent against the
-   single device's within SP_RTOL, ranks equal; ms/step, peak memory.
+   (n + 1) x 71 launches per rank and step) and the Ulysses backend (K3's
+   running-max form on 12 heads per rank: 71 per rank and step); each
+   gathered latent against the single device's within SP_RTOL, ranks equal;
+   ms/step, peak memory. The sharded pipelines are with_config clones over the
+   modules the single-device pipeline goes on using.
 
 Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after; times, the bound,
@@ -146,8 +157,8 @@ S_SP = (SP_SIZE // 16) ** 2
 # max_abs within 5e-2 of max|single|, the small-model reference's limit. Both
 # runs are bf16 end to end and differ only where they round: the attention's
 # sums in another order (split over ranks; the ring's online softmax and fp32
-# state against K3's clamped single pass; Ulysses' K3 over 12 heads), and
-# cuBLAS on half the rows. A ring that drops or repeats a block moves the
+# state, and Ulysses' running-max K3 over 12 heads, against K3's clamped
+# single pass), and cuBLAS on half the rows. A ring that drops or repeats a block moves the
 # velocity by its own size, tens of percent of the latents after one step.
 SP_RTOL = REF_RTOL
 # One train step with remat: the forward runs every block once (57 + 14); the
@@ -208,6 +219,15 @@ def alternated_ms(kernel, plain):
             f"{min(p1[1], p2[1]):.4f}, max {max(p1[2], p2[2]):.4f}); 20 repeats each")
 
 
+def rate(flop, ms, bound_ms):
+    """Achieved TFLOP/s of ``flop`` operations in ``ms``, and the bound's share of the time."""
+    return f"{flop / ms / 1e9:.1f} TFLOP/s, bound / time {100 * bound_ms / ms:.1f} %"
+
+
+def attention_flop(b, h, sq, sk, d=128):
+    return 4 * b * h * sq * sk * d
+
+
 def rope_tables(txt_len, grid_h, grid_w, device):
     """FLUX RoPE tables for [txt_len zeros; (0, row, col) grid] ids."""
     from reptext_tpu_torch.ops.latents import prepare_latent_image_ids
@@ -262,7 +282,9 @@ def kernel_phase(dev):
             ("K2", lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v))):
         kern, pln, line = alternated_ms(run, plain)
         results[key] = {"ms": kern[0], "plain_ms": pln[0]}
-        phase("kernels", f"{key} (1,24,4608,128) time: {line}")
+        b_ms = forward_bound(1, 24, 4608, tables=key == "K1")[0]
+        phase("kernels", f"{key} (1,24,4608,128) time: {line}; "
+                         f"{rate(attention_flop(1, 24, 4608, 4608), kern[0], b_ms)}")
     # clamped (the default) against online softmax, alternated within this call
     ab = {False: [], True: []}
     for online in (False, True, True, False, False, True):
@@ -335,7 +357,9 @@ def streaming_kernel_phase(dev):
         kern, pln, line = alternated_ms(lambda: fa.flash_attention_streaming(q, k, v),
                                         lambda: fa.flash_attention_streaming_plain(q, k, v))
         ms[shape] = {"ms": kern[0], "plain_ms": pln[0]}
-        phase("kernels", f"K3 {shape} time: {line}")
+        s_len = q.shape[2]
+        phase("kernels", f"K3 {shape} time: {line}; "
+                         f"{rate(attention_flop(b, 24, s_len, s_len), kern[0], forward_bound(b, 24, s_len)[0])}")
         if b == 2:
             ab = {False: [], True: []}
             for online in (False, True, True, False, False, True):
@@ -354,6 +378,22 @@ def streaming_kernel_phase(dev):
                                fa.flash_attention_streaming(q, k, v, online),
                                fa.flash_attention_streaming_plain(q, k, v, online)))
     del q, k, v
+    # the 2048^2 request: 512 T5 tokens + a 128 x 128 grid = 16896 keys, a
+    # 132-tile key loop. One card runs the clamped form over all 24 heads; a
+    # Ulysses rank of two runs the online form over its 12. The plain version
+    # goes four heads at a time (heads are independent): its fp32 logits of
+    # all of them at once would not fit beside the rest.
+    q, k, v = inputs(1, TXT_LEN, SP_SIZE // 16, SP_SIZE // 16)
+    for heads, online in ((HEADS, False), (HEADS // SP_RANKS, True)):
+        want = [fa.flash_attention_streaming_plain(q[:, h:h + 4], k[:, h:h + 4], v[:, h:h + 4],
+                                                   online) for h in range(0, heads, 4)]
+        want = tuple(torch.cat(part, dim=1) for part in zip(*want))
+        err = max(err, compare(
+            f"K3 (1,{heads},{S_SP + TXT_LEN},128) {'online' if online else 'clamped'}",
+            fa.flash_attention_streaming(q[:, :heads], k[:, :heads], v[:, :heads], online), want))
+        del want
+    del q, k, v
+    torch.cuda.empty_cache()
     # beyond the clamp: planted logits up to 80, which K3 scales on the fp32 logits
     s, d = 1000, 128
     q = torch.zeros(1, 2, s, d, device=dev)
@@ -482,9 +522,56 @@ def variant_counters():
             "K2": fa.flash_attention}
 
 
-def sass_exp_ops():
-    """Special-function (MUFU) instructions by kind in the SASS of the three
-    variant instantiations of the forward template, from cuobjdump."""
+FWD_RE = r"attn_fwd_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)EE"
+
+
+def kernel_label(mangled):
+    """A readable name for a kernel of the library from its mangled one: the
+    forward template's instantiations by their arguments (ROPE, ONLINE, EXP,
+    CARRY, PIPELINED), the others by their function name."""
+    import re
+
+    m = re.search(FWD_RE, mangled)
+    if m is None:
+        other = re.search(r"(rope_rotate_kernel|attn_bwd_\w+?_kernel)", mangled)
+        return other.group(1) if other else mangled[:60]
+    rope, online, exp, carry, overlap = (int(g) for g in m.groups())
+    if carry:
+        name = "K5"
+    elif rope:
+        name = "K1"
+    else:
+        name = {0: "chunked (exp)", 1: "K2/K3" + (" and exp2" if online else ""),
+                2: "bf16exp (ex2.approx.ftz.bf16x2)"}[exp]
+    return (f"{name} {'online' if online else 'clamped'} "
+            f"[{'overlapped' if overlap else 'one product after the other'}]")
+
+
+def ptxas_summary(log):
+    """{kernel label: (registers per thread, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output."""
+    import re
+
+    out, fn = {}, None
+    spills = (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn] = (int(m.group(1)), *spills)
+            fn = None
+    return out
+
+
+def sass_ops():
+    """{kernel label: {instruction: count}} for the tensor-core (HGMMA: wgmma;
+    HMMA: mma.sync) and special-function (MUFU) instructions in the library's
+    SASS, from cuobjdump."""
     import re
 
     from reptext_tpu_torch.ops import _build
@@ -492,21 +579,60 @@ def sass_exp_ops():
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _build.LIB_PATH], capture_output=True, text=True,
                           check=True).stdout
-    names = {"0": "chunked (exp)", "1": "exp2", "2": "bf16exp (ex2.approx.ftz.bf16x2)"}
     ops, fn = {}, None
     for ln in sass.splitlines():
-        m = re.search(r"Function : \S*attn_fwd_kernelILi128ELb0ELb1ELb1ELi(\d)E", ln)
         if "Function :" in ln:
-            fn = names[m.group(1)] if m else None
+            fn = kernel_label(ln.split("Function :")[1].strip())
+            ops[fn] = {}
             continue
-        m = re.search(r"\b(MUFU\.[A-Z0-9_.]+)", ln)
+        m = re.search(r"\b(HGMMA|HMMA|MUFU\.[A-Z0-9_.]+)\b", ln)
         if fn and m:
-            ops.setdefault(fn, {}).setdefault(m.group(1), 0)
-            ops[fn][m.group(1)] += 1
+            ops[fn][m.group(1)] = ops[fn].get(m.group(1), 0) + 1
     return ops
 
 
-def variants_phase(dev):
+def build_phase():
+    """Build the library; registers and spills of every kernel from ptxas, and
+    the tensor-core instructions of the forward template's instantiations:
+    each must run its products on wgmma (HGMMA) and none on mma.sync (HMMA).
+    A ptxas performance warning (it serialised wgmma products that the source
+    meant to overlap) fails the run."""
+    from reptext_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.build(force=True)
+    phase("build", f"nvcc {' '.join(_build.ARCH_FLAGS)} built "
+                   f"{os.path.relpath(_build.LIB_PATH, ROOT)} in {time.perf_counter() - t0:.1f} s")
+    summary = ptxas_summary(_build.build_log["ptxas"])
+    phase("build", "ptxas, registers per thread at launch (the forward template's producer "
+                   "warpgroup then drops to 24 and its consumers rise to 240 by setmaxnreg) and "
+                   "spill bytes (stores/loads): "
+                   + " | ".join(f"{fn}: {r} regs, spill {st}/{ld}"
+                                for fn, (r, st, ld) in sorted(summary.items())))
+    warned = [ln for ln in _build.build_log["ptxas"].splitlines()
+              if "Potential Performance Loss" in ln]
+    phase("build", f"ptxas performance warnings: {len(warned)}" + "".join(
+        f" | {kernel_label(w)}: {w.split('Loss:')[1].split(' in the function')[0].strip()}"
+        for w in warned))
+    if warned:
+        raise SystemExit("ptxas warns of a performance loss in the kernels it built")
+    _build.load()
+    ops = sass_ops()
+    forward = {fn: c for fn, c in ops.items() if fn.startswith(("K1", "K2", "K5", "chunked",
+                                                                "bf16exp"))}
+    phase("build", "SASS tensor-core instructions of the forward template: "
+                   + " | ".join(f"{fn}: HGMMA x{c.get('HGMMA', 0)}, HMMA x{c.get('HMMA', 0)}"
+                                for fn, c in sorted(forward.items())))
+    bad = [fn for fn, c in forward.items() if c.get("HMMA", 0) or not c.get("HGMMA", 0)]
+    served = {fn.split(" [")[0] for fn in forward}
+    missing = {"K1 clamped", "K1 online", "K2/K3 clamped", "K2/K3 and exp2 online",
+               "K5 online"} - served
+    if bad or missing:
+        raise SystemExit(f"the forward template is not on wgmma alone: {bad}; missing {missing}")
+    return ops
+
+
+def variants_phase(dev, sass):
     """The attention A/B kernels against their plain versions at the study's
     shape, their SASS, the study's entry points (their launch counts set to 0
     just before and read just after), and SDPA as every kernel's yardstick."""
@@ -540,8 +666,10 @@ def variants_phase(dev):
         phase("variants", f"{key} (1,24,4608,128) time: {line}; library (SDPA) {lib:.4f} ms; "
                           f"bound {bound_ms:.4f} ms ({bound_by})")
     del q, k, v
-    for fn, ops in sass_exp_ops().items():
-        phase("variants", f"SASS {fn}: " + ", ".join(f"{op} x{n}" for op, n in sorted(ops.items())))
+    for fn, ops in sorted(sass.items()):
+        if fn.startswith(("chunked", "bf16exp", "K2/K3 and exp2")):
+            phase("variants", f"SASS {fn}: " + ", ".join(
+                f"{op} x{n}" for op, n in sorted(ops.items()) if op.startswith("MUFU")))
 
     counters = variant_counters()
     for entry in counters.values():
@@ -1174,6 +1302,40 @@ def check_out(label, got, want):
     return err
 
 
+def ulysses_exact_check(dev, gen):
+    """Ulysses' local attention is an exact softmax, as the reference's is:
+    with logits planted beyond the clamp (row logits span [-80, 80], as in the
+    kernels phase), ulysses over RING_RANKS thread ranks must agree with
+    plain_attention within OUT_RTOL of max|out| and must not agree with the
+    clamped kernel, which the one-card path keeps."""
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.attention import plain_attention
+
+    s, d, h = 1024, 128, 2 * RING_RANKS
+    q = torch.zeros(1, h, s, d, device=dev)
+    k = torch.zeros(1, h, s, d, device=dev)
+    q[..., 0] = 80.0 * d ** 0.5
+    k[..., 0] = torch.linspace(-1.0, 1.0, s, device=dev)
+    v = torch.randn(1, h, s, d, generator=gen, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    n2 = fa.flash_attention.launches
+    got = sharded_attention(dev, RING_RANKS, q, k, v, "ulysses")
+    n2 = fa.flash_attention.launches - n2
+    want = plain_attention(q, k, v)
+    clamped = fa.flash_attention(q, k, v, online=False)[0]
+    out_max = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    off = (got.float() - clamped.float()).abs().max().item()
+    ok = err <= OUT_RTOL * out_max < off and n2 == RING_RANKS
+    phase("ring", f"ulysses over {RING_RANKS} thread ranks, (1,{h},{s},128) with logits planted up "
+                  f"to 80: vs plain_attention (exact fp32 softmax) max_abs {err:.3e} (limit "
+                  f"{OUT_RTOL * out_max:.3e} = 2^-6 x max|out| {out_max:.4f}); vs the clamped "
+                  f"K2 max_abs {off:.3e} (must exceed the limit); K2 launches {n2} (one per "
+                  f"rank, the running-max form) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("ulysses' local attention is not the exact softmax")
+
+
 def ring_kernel_phase(dev):
     """K5 alone: sequence_sharded_attention(impl="ring_kernel") over 4 thread
     ranks against the plain ring at the 1024^2 and the 2048^2 joint lengths;
@@ -1210,7 +1372,8 @@ def ring_kernel_phase(dev):
         by_shape[label] = {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
                            "library_ms": lib, "ring_ms": ring[0]}
         phase("ring", f"K5 middle step (1,{h},{sq},128) x (1,{h},{sq},128) time: {line}; bound "
-                      f"{b_ms:.4f} ms ({b_by}); the whole ring over {RING_RANKS} thread ranks on "
+                      f"{b_ms:.4f} ms ({b_by}); {rate(attention_flop(1, h, sq, sq), kern[0], b_ms)}; "
+                      f"the whole ring over {RING_RANKS} thread ranks on "
                       f"one card {ring[0]:.3f} ms (median of 5, {RING_RANKS ** 2} launches);"
                       f" library (SDPA, the rank's {sq} queries over all {s} keys) {lib:.4f} ms")
         del q, k, v, q0, k0, v0, state, plain_state
@@ -1243,11 +1406,13 @@ def ring_kernel_phase(dev):
     b_ms, b_by = step_bound(1, h, sq, sk)
     rank_bound = sum(step_bound(1, h, sq, n)[0] for n in (TXT_LEN, sk, sk))
     phase("ring", f"K5 image step (1,{h},{sq},128) x (1,{h},{sk},128) time: {line}; bound "
-                  f"{b_ms:.4f} ms ({b_by}); the rank's {len(blocks)} steps {rank_steps:.4f} ms "
+                  f"{b_ms:.4f} ms ({b_by}); {rate(attention_flop(1, h, sq, sk), kern[0], b_ms)}; "
+                  f"the rank's {len(blocks)} steps {rank_steps:.4f} ms "
                   f"(bound {rank_bound:.4f} ms); library (SDPA over the {TXT_LEN + 2 * sk} keys) "
                   f"{lib:.4f} ms")
     del q, blocks, kt, vt, k1, v1, k2, v2, k_all, v_all, state, plain_state
     torch.cuda.empty_cache()
+    ulysses_exact_check(dev, gen)
     return {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "rank_steps_ms": rank_steps, "rank_steps_bound_ms": rank_bound,
             "library_note": "SDPA over the rank's queries and all keys: the output of the rank's "
@@ -1301,11 +1466,9 @@ def dist_sp_run(dev, group, seed=0, steps=2):
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         timings = {}
-        if backend is not None:
-            big.shard_for_sp(group, backend)
-        lat = big(cond, timings=timings, **kw)
+        run = big if backend is None else big.with_config(big.pipe_cfg).shard_for_sp(group, backend)
+        lat = run(cond, timings=timings, **kw)
         torch.cuda.synchronize()
-        big.sp_group = big.flux.attention_backend = big.controlnet.attention_backend = None
         got = read_launches()
         expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0}
         if backend == "ring":
@@ -1354,9 +1517,8 @@ def dist_sp_profile(big, cond, kw, group, dev, seed, backend):
         cond_tokens, token_masks = big.prepare_control_tokens(cond, big.generators(seed)[1])
     schedule = build_schedule(1, cfg.image_seq_len, cfg.base_image_seq_len, cfg.max_image_seq_len,
                               cfg.base_shift, cfg.max_shift, cfg.use_dynamic_shifting)
-    big.flux.attention_backend = big.controlnet.attention_backend = backend
     sampler = make_sp_txt2img_sampler(big.flux, big.controlnet, schedule, cfg, group,
-                                      big.compute_dtype)
+                                      backend, big.compute_dtype)
     img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, dev)
     txt_ids = torch.zeros((emb.shape[1], 3), device=dev)
     guidance = torch.full((1,), cfg.guidance_scale, dtype=torch.float32, device=dev)
@@ -1368,11 +1530,8 @@ def dist_sp_profile(big, cond, kw, group, dev, seed, backend):
         torch.cuda.synchronize()
 
     n, calls = group.size, DOUBLE_CALLS + SINGLE_CALLS
-    try:
-        device_profile(f"rank {group.rank}: one {backend} SP step at {SP_SIZE}^2 over {n} cards",
-                       run, {ra.ring_step: (n + 1) * calls if backend == "ring" else 0})
-    finally:
-        big.flux.attention_backend = big.controlnet.attention_backend = None
+    device_profile(f"rank {group.rank}: one {backend} SP step at {SP_SIZE}^2 over {n} cards",
+                   run, {ra.ring_step: (n + 1) * calls if backend == "ring" else 0})
 
 
 def multi_card_phase():
@@ -1482,10 +1641,7 @@ def sp_phase(dev, pipe, seed):
                 timings = {}
                 return big.with_config(big.pipe_cfg).shard_for_sp(g, backend)(
                     cond, timings=timings, **kw), timings
-            try:
-                outs = run_spmd(LocalSPGroup(SP_RANKS, dev), rank)
-            finally:   # the modules are shared with the single-device pipeline
-                big.flux.attention_backend = big.controlnet.attention_backend = None
+            outs = run_spmd(LocalSPGroup(SP_RANKS, dev), rank)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_launches()
@@ -1555,19 +1711,14 @@ def main(argv=None):
     phase("device", f"{smi}; torch {torch.__version__} CUDA {torch.version.cuda}; "
                     f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    t0 = time.perf_counter()
-    _build.build(force=True)
-    regs = [ln.strip() for ln in _build.build_log["ptxas"].splitlines() if "registers" in ln]
-    phase("build", f"nvcc {' '.join(_build.ARCH_FLAGS)} built {os.path.relpath(_build.LIB_PATH, ROOT)} "
-                   f"in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(regs)}")
-    _build.load()
+    sass = build_phase()
 
     results = kernel_phase(dev)
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
     results["K5"] = ring_kernel_phase(dev)
     multi_card_phase()
-    variants, study_launches = variants_phase(dev)
+    variants, study_launches = variants_phase(dev, sass)
     library = library_yardsticks(dev)
     reference_phase(dev)
     txt2img, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)

@@ -7,7 +7,7 @@ unit beside the tensor cores. Measured against the production kernel (K2,
 ``flash_attention``) at (1, 24, 4608, 128) bf16:
 
 1. *chunked online softmax* (``chunked_attn``, ``_chunked_kernel``): the
-   running-max kernel; its 64-key tiles are the chunks, so ``block_q`` and
+   running-max kernel; its 128-key tiles are the chunks, so ``block_q`` and
    ``n_chunks`` (the TPU's tiling, swept as the JAX script sweeps them) set
    nothing on the card but the correctness check's plain twin;
 2. *bf16 exp* (``bf16exp_attn``, ``_bf16exp_kernel``): the exponential's

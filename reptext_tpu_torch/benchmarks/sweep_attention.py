@@ -2,7 +2,7 @@
 
 The port's counterpart of the JAX package's ``benchmarks/sweep_attention.py``.
 The JAX script sweeps the Pallas forward over ``block_q``; the CUDA kernel has
-one tiling (64-query CTAs, 64-key tiles), so the production line is K2
+one tiling (128-query CTAs, 128-key tiles), so the production line is K2
 (``flash_attention``) once. Then the exp2 variant (``exp2_attn``,
 ``_exp2_kernel``: log2(e) folded into the scale), checked against an fp32
 softmax at (1, 2, 4608, 128) (atol 2e-2) before it is timed; the plain PyTorch

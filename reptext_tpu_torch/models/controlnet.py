@@ -5,8 +5,8 @@ latents plus a packed conditioning tensor (canny + position latents) through
 a zero-initialised ``controlnet_x_embedder``, trimmed double/single stacks,
 and one zero-initialised ``proj`` head per block whose output is the
 residual for the base model, multiplied by ``conditioning_scale``.
-``remat`` checkpoints each block and ``attention_backend`` switches the blocks
-to sequence parallelism, as in ``models/flux.py``;
+``remat`` checkpoints each block and the thread's SP context switches the
+blocks to sequence parallelism, as in ``models/flux.py``;
 :func:`params_from_transformer` is the warm-start weight surgery. Union mode
 is not ported yet.
 """
@@ -23,6 +23,7 @@ from reptext_tpu_torch.models.flux import FluxTransformer2D, run_block
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
 from reptext_tpu_torch.ops.rope import rope_cos_sin_half
+from reptext_tpu_torch.parallel.sequence import active_backend
 
 
 class _ControlDoubleLayer(nn.Module):
@@ -57,7 +58,6 @@ class RepTextControlNet(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
         self.remat = remat
-        self.attention_backend: Optional[str] = None
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.controlnet_x_embedder = nn.Linear(
             cfg.in_channels + cfg.extra_condition_channels, cfg.inner_dim, **kw)
@@ -84,11 +84,12 @@ class RepTextControlNet(nn.Module):
         ctx = self.context_embedder(encoder_hidden_states.to(dtype))
         cos, sin = rope_cos_sin_half(torch.cat([txt_ids, img_ids], dim=0),
                                      cfg.axes_dims_rope, cfg.rope_theta)
+        backend = active_backend()
 
         block_samples = []
         for layer in self.double_blocks:
             ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin,
-                               self.attention_backend)
+                               backend)
             block_samples.append(layer.proj(x))
 
         txt_len = ctx.shape[1]
@@ -96,7 +97,7 @@ class RepTextControlNet(nn.Module):
         single_samples = []
         for layer in self.single_blocks:
             joint = run_block(layer.block, self.remat, joint, temb, cos, sin,
-                              self.attention_backend, txt_len)
+                              backend, txt_len)
             single_samples.append(layer.proj(joint[:, txt_len:]))
 
         scale = torch.tensor(conditioning_scale, dtype=dtype, device=x.device)

@@ -11,10 +11,12 @@ residual stack passed (one stack, or a tuple of differently deep stacks).
 Double-block residuals go to the image stream, single-block residuals to the
 image-token slice of the joint sequence.
 
-``attention_backend`` (None, or 'ring' / 'ulysses' for the sequence-parallel
-blocks) is the counterpart of the JAX module field that
-``clone(attention_backend=...)`` switches: a plain attribute, read at every
-forward, that the pipeline's ``shard_for_sp`` sets on the shared modules.
+The blocks' attention backend (None, or 'ring' / 'ulysses' for the
+sequence-parallel blocks) is what the JAX module field
+``clone(attention_backend=...)`` switches. Here the module holds no such
+field: every forward reads the backend of the thread's SP context
+(``parallel/sequence.py::active_backend``), so sharded and unsharded
+pipelines share one set of module instances.
 
 ``remat=True`` runs each block under ``torch.utils.checkpoint`` (non-reentrant)
 when autograd records, the counterpart of ``nn.remat`` on the JAX layer
@@ -37,6 +39,7 @@ from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformer
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
 from reptext_tpu_torch.nn.layers import AdaLayerNormContinuous
 from reptext_tpu_torch.ops.rope import rope_cos_sin_half
+from reptext_tpu_torch.parallel.sequence import active_backend
 
 Stacks = Union[None, torch.Tensor, Sequence[torch.Tensor]]
 
@@ -97,7 +100,6 @@ class FluxTransformer2D(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
         self.remat = remat
-        self.attention_backend: Optional[str] = None
         self.x_embedder = nn.Linear(cfg.in_channels, cfg.inner_dim, **kw)
         self.time_text_embed = CombinedTimestepTextEmbed(
             cfg.inner_dim, cfg.pooled_projection_dim, cfg.time_embed_dim,
@@ -122,13 +124,14 @@ class FluxTransformer2D(nn.Module):
         ctx = self.context_embedder(encoder_hidden_states.to(dtype))
         cos, sin = rope_cos_sin_half(torch.cat([txt_ids, img_ids], dim=0),
                                      cfg.axes_dims_rope, cfg.rope_theta)
+        backend = active_backend()
 
         double_stacks = as_stack_tuple(controlnet_block_samples)
         double_idx = None if double_stacks is None else [
             inject_index(s.shape[0], cfg.num_layers) for s in double_stacks]
         for i, layer in enumerate(self.double_blocks):
             ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin,
-                               self.attention_backend)
+                               backend)
             if double_stacks is not None:
                 x = x + read_inject(double_stacks, [ix[i] for ix in double_idx]).to(x.dtype)
 
@@ -139,7 +142,7 @@ class FluxTransformer2D(nn.Module):
             inject_index(s.shape[0], cfg.num_single_layers) for s in single_stacks]
         for i, layer in enumerate(self.single_blocks):
             joint = run_block(layer.block, self.remat, joint, temb, cos, sin,
-                              self.attention_backend, txt_len)
+                              backend, txt_len)
             if single_stacks is not None:
                 # in place on the block's fresh output tensor: no op saves that
                 # tensor for backward (it comes from an add), and a recomputed

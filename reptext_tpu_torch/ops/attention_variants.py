@@ -14,8 +14,8 @@ On a CUDA tensor each entry launches its instantiation of the forward template
 in ``csrc/flash_attention.cu`` (``reptext_attention_variant_fwd``; see the
 source note) or raises; only a CPU tensor takes the plain version beside it,
 which mirrors the Pallas body op for op. ``block_q`` and ``n_chunks`` are the
-TPU's tiling: they do not change what the kernel computes (64-query CTAs
-streaming 64-key tiles with a running max). Rows are independent, so
+TPU's tiling: they do not change what the kernel computes (128-query CTAs
+streaming 128-key tiles with a running max). Rows are independent, so
 ``block_q`` changes nothing in the plain versions either; ``n_chunks`` sets
 where ``chunked_attn_plain`` rescales. Both are checked as the JAX grid needs
 them (``s % block_q == 0``, ``s % n_chunks == 0``): the JAX grid leaves the
@@ -152,7 +152,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, exp_mode: int) ->
 def chunked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int = 256,
                  n_chunks: int = 4) -> torch.Tensor:
     """``_chunked_kernel``: attention with the online softmax. On the card the
-    64-key tiles of the kernel's ring are its chunks, whatever ``n_chunks``
+    128-key tiles of the kernel's ring are its chunks, whatever ``n_chunks``
     says; ``.launches`` counts the kernel's launches."""
     _check_tiling(q, k, v, block_q, n_chunks)
     if q.device.type == "cpu":

@@ -3,7 +3,9 @@
 Counterpart of ``reptext_tpu/ops/flash_attention.py``. The CUDA kernel in
 ``csrc/flash_attention.cu`` replaces the Pallas kernels ``_attn_kernel_rope``
 (K1, RoPE fused), ``_attn_kernel`` (K2) and ``_streaming_kernel`` (K3) with
-one template. Its semantics are the Pallas kernels' (see the source note):
+one template (TMA loads, ``wgmma`` products, exp2 on logits in log2 units;
+outputs and lse in the Pallas kernels' natural units). Its semantics are the
+Pallas kernels' (see the source note):
 half-split RoPE with bf16-rounded tables (K1), 1/sqrt(D) folded into q before
 the bf16 rounding (K1, K2) or multiplied onto the fp32 logits (K3), fp32
 logits clipped to +/-43 with no running max (``REPTEXT_SOFTMAX=online``
@@ -187,9 +189,13 @@ def flash_attention_backward_einsum(q: torch.Tensor, k: torch.Tensor, v: torch.T
 
 
 def _kernel_strides(x: torch.Tensor) -> bool:
-    """The layout the kernels take: a contiguous head dim, 8-element-aligned
-    strides and a 16-byte-aligned base."""
-    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0
+    """The layout the kernels take, which is what a TMA tensor map takes: a
+    contiguous head dim, every other stride a positive multiple of 8 elements
+    (16 bytes; a dimension of one element has no stride to speak of) and a
+    16-byte-aligned base."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(n == 1 or (s > 0 and s % 8 == 0)
+                    for n, s in zip(x.shape[:-1], x.stride()[:-1])))
 
 
 def _check(name: str, x: torch.Tensor, shape) -> None:
@@ -205,7 +211,7 @@ def _check(name: str, x: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not _kernel_strides(x):
         raise ValueError(
-            f"{name} needs a contiguous head dim, 8-element-aligned strides and a "
+            f"{name} needs a contiguous head dim, positive 8-element-aligned strides and a "
             f"16-byte-aligned base (strides {x.stride()})")
 
 

@@ -16,13 +16,18 @@ gather the result.
 - ``allgather``: K/V gathered once, one softmax over all keys (one K5 step
   with the state started and finished in one launch on the card);
 - ``ulysses``: an all-to-all trades the rank's token slice of every head for
-  every token of ``H/n`` heads, attention through ``ops/attention.py``
-  (K2, or K3 past 6144 tokens, on the card), and back.
+  every token of ``H/n`` heads, one exact softmax over all keys
+  (:func:`exact_attention`: the running-max form of K2, or of K3 past 6144
+  tokens, on the card; the JAX package's Ulysses is an fp32 softmax too, with
+  no clamp on the logits), and back.
 
 The model's blocks reach :func:`joint_ring_attention_local` or
-:func:`joint_ulysses_attention_local` with the group of the thread's SP
-context (:func:`sp_context`), which the SP forward and sampler set: the thread
-ranks share one module instance, so the group cannot be a module attribute.
+:func:`joint_ulysses_attention_local` through the thread's SP context
+(:func:`sp_context`), which the SP forward and sampler set. It carries the
+group and the backend, and it is their only carrier: several pipelines,
+sharded or not, share one set of module instances (``with_config``,
+``from_pipeline``, the thread ranks), so neither is ever written into a
+module. A model reads its backend with :func:`active_backend`.
 On the card every step of the joint ring runs on K5, since it computes the
 same function as ``_online_softmax_block``.
 """
@@ -35,7 +40,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from reptext_tpu_torch.ops.attention import attention
+from reptext_tpu_torch.ops.attention import plain_attention
+from reptext_tpu_torch.ops.flash_attention import flash_attention
 from reptext_tpu_torch.ops.ring_attention import (
     ring_flash_attention,
     ring_loop,
@@ -48,14 +54,15 @@ _context = threading.local()
 
 
 @contextlib.contextmanager
-def sp_context(group: SPGroup):
-    """Make ``group`` the SP group of this thread's blocks while inside."""
-    prev = getattr(_context, "group", None)
-    _context.group = group
+def sp_context(group: SPGroup, backend: str):
+    """Make ``group`` the SP group, and ``backend`` ('ring' | 'ulysses') the
+    attention backend, of this thread's blocks while inside."""
+    prev = getattr(_context, "group", None), getattr(_context, "backend", None)
+    _context.group, _context.backend = group, backend
     try:
         yield group
     finally:
-        _context.group = prev
+        _context.group, _context.backend = prev
 
 
 def current_group() -> SPGroup:
@@ -64,6 +71,21 @@ def current_group() -> SPGroup:
         raise RuntimeError("a sequence-parallel attention backend runs only inside "
                            "sequence_parallel_forward or the SP sampler (no SP group is set)")
     return group
+
+
+def active_backend() -> Optional[str]:
+    """The attention backend of a model's blocks: the thread's SP context's,
+    None outside any (the one-device attention)."""
+    return getattr(_context, "backend", None)
+
+
+def exact_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """One exact softmax over all keys of [B, H, S, D] q, k, v already
+    rotated: the running-max form of K2 (K3 past 6144 tokens) on the card,
+    whatever ``REPTEXT_SOFTMAX`` says, and :func:`plain_attention` on the CPU."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, online=True)[0]
+    return plain_attention(q, k, v)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,7 +111,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """All-to-all head swap: [B, H, S/n, D] -> [B, H/n, S, D], attention, back."""
     _check_heads(q.shape[1], group.size)
     swap = lambda x: group.all_to_all(x, 1, 2)   # noqa: E731
-    return group.all_to_all(attention(swap(q), swap(k), swap(v)), 2, 1)
+    return group.all_to_all(exact_attention(swap(q), swap(k), swap(v)), 2, 1)
 
 
 def sequence_sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,7 +155,7 @@ def joint_ulysses_attention_local(q_t, k_t, v_t, q_i, k_i, v_i,
     q = torch.cat([heads(q_t), a2a_in(q_i)], dim=2)
     k = torch.cat([heads(k_t), a2a_in(k_i)], dim=2)
     v = torch.cat([heads(v_t), a2a_in(v_i)], dim=2)
-    o = attention(q, k, v)
+    o = exact_attention(q, k, v)
     attn_i = group.all_to_all(o[:, :, s_txt:], 2, 1)
     attn_t = group.all_gather(o[:, :, :s_txt], 1)
     return attn_t, attn_i
@@ -152,22 +174,24 @@ def _shard_stacks(stacks, group: SPGroup):
 
 
 def sequence_parallel_forward(model, hidden_states, encoder_hidden_states, pooled_projections,
-                              timestep, img_ids, txt_ids, guidance=None,
-                              group: Optional[SPGroup] = None,
+                              timestep, img_ids, txt_ids, guidance=None, *,
+                              group: SPGroup, backend: str,
                               controlnet_block_samples=None,
                               controlnet_single_block_samples=None) -> torch.Tensor:
     """A FLUX forward with the image sequence sharded over ``group``.
 
-    ``model`` has ``attention_backend`` 'ring' or 'ulysses'. Every rank
+    ``backend`` is 'ring' or 'ulysses' (the JAX function's
+    ``clone(attention_backend=...)``): the SP attention of ``model``'s blocks
+    for this call. Every rank
     passes the global tensors; the packed latents [B, S_img, C], the image
     RoPE ids [S_img, 3] and the ControlNet residual stacks [L, B, S_img, D]
     (a tensor or a tuple) are sharded over the tokens (the injection is per
     token), the rest is replicated. Returns the global velocity on every rank.
     """
-    if getattr(model, "attention_backend", None) not in JOINT_SP_ATTENTION:
-        raise ValueError("sequence_parallel_forward needs a model with attention_backend "
-                         f"ring|ulysses, got {getattr(model, 'attention_backend', None)!r}")
-    with sp_context(group):
+    if backend not in JOINT_SP_ATTENTION:
+        raise ValueError(f"sequence_parallel_forward needs the backend ring|ulysses, "
+                         f"got {backend!r}")
+    with sp_context(group, backend):
         out = model(group.shard(hidden_states, 1), encoder_hidden_states, pooled_projections,
                     timestep, group.shard(img_ids, 0), txt_ids, guidance,
                     controlnet_block_samples=_shard_stacks(controlnet_block_samples, group),

@@ -80,7 +80,7 @@ class FluxRepTextPipeline:
         self.pipe_cfg = pipe_cfg
         self.compute_dtype = compute_dtype
         self.device = next(flux.parameters()).device
-        self.sp_group = None
+        self.sp_group = self.sp_backend = None
 
     # ---------------------------------------------------------------- build
 
@@ -136,11 +136,13 @@ class FluxRepTextPipeline:
         joint attention of every block runs as the K/V ring ('ring') or the
         all-to-all head swap ('ulysses', which needs heads % n == 0).
 
-        Checks what the JAX ``shard_for_sp`` checks, then switches both
-        models' ``attention_backend`` (the modules are shared, as JAX's
-        ``clone`` shares the params) and makes ``__call__`` use the SP
-        sampler. Every rank calls the pipeline with the same inputs and gets
-        the whole result. Returns self.
+        Checks what the JAX ``shard_for_sp`` checks, then makes ``__call__``
+        use the SP sampler with this backend. The backend belongs to this
+        pipeline, as the JAX package gives it to the sharded pipeline's module
+        clones: nothing is written into ``self.flux`` or ``self.controlnet``,
+        which other pipelines (``with_config`` clones, an inpaint pipeline)
+        share and go on using unsharded. Every rank calls the pipeline with
+        the same inputs and gets the whole result. Returns self.
         """
         n = group.size
         s_img = self.pipe_cfg.image_seq_len
@@ -151,8 +153,7 @@ class FluxRepTextPipeline:
         if backend == "ulysses" and self.flux.config.num_attention_heads % n:
             raise ValueError(f"ulysses needs heads % sp == 0 "
                              f"({self.flux.config.num_attention_heads} % {n})")
-        self.sp_group = group
-        self.flux.attention_backend = self.controlnet.attention_backend = backend
+        self.sp_group, self.sp_backend = group, backend
         return self
 
     def generators(self, seed: int) -> Tuple[torch.Generator, ...]:
@@ -296,7 +297,8 @@ class FluxRepTextPipeline:
                                            self.compute_dtype)
         else:
             sampler = make_sp_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
-                                              self.sp_group, self.compute_dtype)
+                                              self.sp_group, self.sp_backend,
+                                              self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((prompt_embeds.shape[1], 3), device=self.device)
         guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)

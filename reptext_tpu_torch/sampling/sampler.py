@@ -36,7 +36,7 @@ import torch
 
 from reptext_tpu_torch.configs import PipelineConfig
 from reptext_tpu_torch.parallel.group import SPGroup
-from reptext_tpu_torch.parallel.sequence import sp_context
+from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION, sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 
 
@@ -190,16 +190,21 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
 
 def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                             schedule: FlowMatchSchedule, pipe_cfg: PipelineConfig,
-                            group: SPGroup, compute_dtype: torch.dtype = torch.float32) -> Callable:
+                            group: SPGroup, backend: str,
+                            compute_dtype: torch.dtype = torch.float32) -> Callable:
     """The txt2img loop with the image tokens sharded over ``group``.
 
-    Both models carry an SP ``attention_backend`` ('ring' or 'ulysses'). The
+    ``backend`` ('ring' or 'ulysses') is the SP attention of both models'
+    blocks (what the JAX sampler's clones carry in their
+    ``attention_backend``). The
     returned ``sample`` takes the same global tensors as
     :func:`make_txt2img_sampler`'s on every rank, runs the loop on the rank's
     shard of the latents, conditions, token masks and ``img_ids`` under the
     group's SP context (every other op is per token), and returns the
     gathered latents on every rank.
     """
+    if backend not in JOINT_SP_ATTENTION:
+        raise ValueError(f"the SP sampler needs the backend ring|ulysses, got {backend!r}")
     base = make_txt2img_sampler(flux, controlnet, schedule, pipe_cfg, compute_dtype,
                                 signal_mean=group.all_reduce_mean)
 
@@ -207,7 +212,7 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
                guidance: Optional[torch.Tensor]) -> torch.Tensor:
-        with sp_context(group):
+        with sp_context(group, backend):
             lat = base(group.shard(latents, 1), group.shard(cond_tokens, 1),
                        group.shard(token_masks, 1), prompt_embeds, pooled_embeds, txt_ids,
                        group.shard(img_ids, 0), guidance)

@@ -22,7 +22,10 @@ from reptext_tpu.ops.attention import attention as jattention
 from reptext_tpu.ops.rope import rope_cos_sin_half as jrope_tables
 from reptext_tpu_torch.ops import _build
 from reptext_tpu_torch.ops import flash_attention as tfa
+from reptext_tpu_torch.ops import ring_attention as tra
 from reptext_tpu_torch.ops.attention import attention, plain_attention
+from reptext_tpu_torch.ops.rope import apply_rope_half
+from torch_port_util import LOG2E, emulated_key_loop
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 LSE_TOL = dict(rtol=5e-5, atol=5e-5)
@@ -140,6 +143,90 @@ def test_online_matches_pallas_online_kernel(monkeypatch):
     got_o, got_l = tfa.flash_attention(*_t(q, k, v), online=True)
     np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o), **TOL)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(want_l), **LSE_TOL)
+
+
+# ----------------------------------------- the kernel's key loop, emulated
+#
+# The card's kernel streams 128-key tiles, keeps its logits in log2 units
+# (one multiply after the product, the clamp at 43 log2(e), exp2), rounds p to
+# bf16 for PV and converts lse and the ring step's m back to natural units.
+# tests/torch_port_util.py::emulated_key_loop is that loop in plain PyTorch;
+# here it is held against the plain versions at the card's tolerances
+# (chip_smoke.py: out within 2^-6 of max|plain out|, lse within 1e-3; the ring
+# state: m within 1e-3, l within 1e-3 relative), on bf16 inputs as the kernel
+# takes them, at an aligned and an unaligned length.
+
+OUT_RTOL, LSE_ATOL = 2.0 ** -6, 1e-3
+
+
+def _bf16_qkv(b, h, s, d, seed):
+    return [x.to(torch.bfloat16) for x in _t(*_qkv(b, h, s, d, seed))]
+
+
+def _assert_out(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= OUT_RTOL * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("s", [256, 300])
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_emulated_key_loop_matches_plain(kernel, online, s):
+    d = 64
+    q, k, v = _bf16_qkv(2, 2, s, d, seed=s + online)
+    scale = 1.0 / math.sqrt(d)
+    if kernel == "K1":
+        cos, sin = _t(*jrope_tables(jnp.asarray(_ids(s)), (16, 24, 24)))
+        want = tfa.flash_attention_rope_plain(q, k, v, cos, sin, online)
+        cos, sin = (x.to(torch.bfloat16).float() for x in (cos, sin))
+        qp = (apply_rope_half(q.float(), cos, sin) * scale).to(q.dtype)
+        got = emulated_key_loop(qp, apply_rope_half(k, cos, sin), v, LOG2E, online)
+    elif kernel == "K2":
+        want = tfa.flash_attention_plain(q, k, v, online)
+        got = emulated_key_loop((q.float() * scale).to(q.dtype), k, v, LOG2E, online)
+    else:
+        want = tfa.flash_attention_streaming_plain(q, k, v, online)
+        got = emulated_key_loop(q, k, v, scale * LOG2E, online)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == want[0].shape
+    _assert_out(got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+def test_emulated_key_loop_beyond_the_clamp(online):
+    """Planted logits up to 80: clamped, both clip at 43 (43 log2(e) in log2
+    units); online, neither does, and the two modes differ."""
+    q, k, v = (x.to(torch.bfloat16) for x in _t(*_planted(80.0)))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    want = tfa.flash_attention_streaming_plain(q, k, v, online)
+    got = emulated_key_loop(q, k, v, scale * LOG2E, online)
+    _assert_out(got[0], want[0])
+    assert (got[1] - want[1]).abs().max().item() <= LSE_ATOL
+    other = emulated_key_loop(q, k, v, scale * LOG2E, not online)
+    assert (got[0].float() - other[0].float()).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("sq,sks", [(200, (512, 333, 8)), (128, (128, 256))])
+def test_emulated_ring_steps_match_plain(sq, sks):
+    """K5's carried state over unequal K/V blocks, held against
+    ``ring_step_plain`` after every step: m goes through natural units in
+    the state and back to log2 units at the next step."""
+    d = 64
+    q = _bf16_qkv(1, 2, sq, d, seed=sq)[0]
+    mul = LOG2E / math.sqrt(d)
+    state = want = None
+    for i, sk in enumerate(sks):
+        k, v = _bf16_qkv(1, 2, sk, d, seed=sk + i)[:2]
+        first, last = i == 0, i == len(sks) - 1
+        want = tra.ring_step_plain(q, k, v, want, first, last)
+        state = emulated_key_loop(q, k, v, mul, True, state=state, first=first, last=last,
+                                  carry=True)
+        if last:
+            _assert_out(state, want)
+        else:
+            _assert_out(state[0] / state[2][..., None], want[0] / want[2][..., None])
+            assert (state[1] - want[1]).abs().max().item() <= 1e-3
+            assert ((state[2] - want[2]).abs() / want[2]).max().item() <= 1e-3
 
 
 def test_softmax_mode_is_read_once(monkeypatch):

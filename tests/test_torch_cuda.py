@@ -19,7 +19,19 @@ K5's step: its normalised output (acc / l) within 2^-6 of max|plain| (p is
 rounded to bf16 for PV where the plain version keeps fp32), the running max
 within 1e-3 and the row sums within 1e-3 relative (both from fp32 logits of
 the same bf16 inputs, summed in another order).
+
+The kernel against its emulation (tests/torch_port_util.py::emulated_key_loop,
+the key loop in plain PyTorch, tile by tile, which the CPU tests hold against
+the plain versions): both round p to bf16 against the same running max, so
+they differ only in the order of fp32 sums and in ex2.approx's last bits. With
+the running max the kernel must lie at least four times closer to the
+emulation than to its plain version (mean-abs; clamped, the softmax is
+max-free, the tiles' order drops out and the two are one function), lse and the ring state's m within 5e-5, l within 5e-5
+relative, and the fp32 state's acc within 2^-9 of max|acc| (one p that rounds
+to the neighbouring bf16 moves an element by up to 2^-8 p |v|).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -30,6 +42,7 @@ from reptext_tpu_torch.ops import flash_attention as fa
 from reptext_tpu_torch.ops import ring_attention as ra
 from reptext_tpu_torch.ops.attention import attention, plain_attention
 from reptext_tpu_torch.ops.rope import apply_rope_half, rope_cos_sin_half
+from torch_port_util import LOG2E, emulated_key_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -160,6 +173,150 @@ def test_strided_inputs_and_attention_entry(dev):
         want, route = _rope_plain(q, k, v, cos, sin)
         assert tuple(a - b for a, b in zip(_counts(), before)) == route
         assert _out_err_ok(got, want[0])
+
+
+@pytest.mark.parametrize("s", [128, 127, 64, 1])
+@pytest.mark.parametrize("online", [False, True])
+def test_one_cta_of_queries_and_less(dev, s, online):
+    """Sq of one 128-row CTA and less: the second consumer warpgroup's rows,
+    or all but one row, lie past the end; one key tile, partly masked."""
+    q, k, v, _, _ = _inputs(dev, 2, 3, s, seed=s)
+    for entry, plain in ((fa.flash_attention, fa.flash_attention_plain),
+                         (fa.flash_attention_streaming, fa.flash_attention_streaming_plain)):
+        got, want = entry(q, k, v, online), plain(q, k, v, online)
+        torch.cuda.synchronize()
+        assert got[0].shape == (2, 3, s, 128) and bool(torch.isfinite(got[0].float()).all())
+        assert _out_err_ok(got[0], want[0])
+        assert (got[1] - want[1]).abs().max().item() <= 1e-3
+
+
+def _mean_err(got, want):
+    return (got.float() - want.float()).abs().mean().item()
+
+
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_kernel_matches_its_emulated_key_loop(dev, kernel, online):
+    """1001 keys (eight 128-key tiles, the last one partly masked): the kernel
+    is the loop that ``emulated_key_loop`` spells out, far closer to it than
+    to the plain version's single softmax over all keys."""
+    q, k, v, cos, sin = _inputs(dev, 2, 2, 1001, seed=21)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if kernel == "K1":
+        assert fa.rope_fused(1001)
+        got = fa.flash_attention_rope(q, k, v, cos, sin, online)
+        plain = fa.flash_attention_rope_plain(q, k, v, cos, sin, online)
+        cos_b, sin_b = (x.to(torch.bfloat16).float() for x in (cos, sin))
+        qp = (apply_rope_half(q.float(), cos_b, sin_b) * scale).to(q.dtype)
+        emu = emulated_key_loop(qp, apply_rope_half(k, cos_b, sin_b), v, LOG2E, online)
+    elif kernel == "K2":
+        got = fa.flash_attention(q, k, v, online)
+        plain = fa.flash_attention_plain(q, k, v, online)
+        emu = emulated_key_loop((q.float() * scale).to(q.dtype), k, v, LOG2E, online)
+    else:
+        got = fa.flash_attention_streaming(q, k, v, online)
+        plain = fa.flash_attention_streaming_plain(q, k, v, online)
+        emu = emulated_key_loop(q, k, v, scale * LOG2E, online)
+    torch.cuda.synchronize()
+    to_emu, to_plain = _mean_err(got[0], emu[0]), _mean_err(got[0], plain[0])
+    lse_err = (got[1] - emu[1]).abs().max().item()
+    report = f"out mean-abs to emulation {to_emu:.3e}, to plain {to_plain:.3e}; lse {lse_err:.3e}"
+    if online:   # clamped, p is rounded against no maximum: plain and emulation agree
+        assert 4 * to_emu <= to_plain, report
+    # an element lands at most one bf16 step from the emulation's
+    assert (got[0].float() - emu[0].float()).abs().max().item() <= (
+        2.0 ** -7 * emu[0].float().abs().max().item()), report
+    assert lse_err <= 5e-5, report
+
+
+def test_ring_step_matches_its_emulated_key_loop(dev):
+    """K5's fp32 state after every step over unequal blocks, both sides
+    carrying their own state (m through natural units and back)."""
+    sks = (512, 333, 8, 700)
+    q, blocks = _ring_inputs(dev, 1, 2, 200, sks, seed=23)
+    mul = LOG2E / math.sqrt(q.shape[-1])
+    got = emu = plain = None
+    for i, (k, v) in enumerate(blocks):
+        first, last = i == 0, i == len(sks) - 1
+        got = ra.ring_step(q, k, v, got, first, last)
+        emu = emulated_key_loop(q, k, v, mul, True, state=emu, first=first, last=last, carry=True)
+        plain = ra.ring_step_plain(q, k, v, plain, first, last)
+        torch.cuda.synchronize()
+        if last:
+            assert (got.float() - emu.float()).abs().max().item() <= (
+                2.0 ** -7 * emu.float().abs().max().item())
+            break
+        to_emu, to_plain = _mean_err(got[0], emu[0]), _mean_err(got[0], plain[0])
+        acc_err = (got[0] - emu[0]).abs().max().item() / emu[0].abs().max().item()
+        m_err = (got[1] - emu[1]).abs().max().item()
+        l_err = ((got[2] - emu[2]).abs() / emu[2]).max().item()
+        report = (f"step {i}: acc mean-abs to emulation {to_emu:.3e}, to plain {to_plain:.3e}; "
+                  f"acc max-abs/max|acc| {acc_err:.3e}; m {m_err:.3e}; l rel {l_err:.3e}")
+        assert 4 * to_emu <= to_plain, report
+        assert acc_err <= 2.0 ** -9 and m_err <= 5e-5 and l_err <= 5e-5, report
+
+
+def test_layouts_a_tensor_map_takes(dev):
+    """K and V reach shared memory through TMA tensor maps over the caller's
+    strides: a window of a longer sequence (a shifted, 16-byte-aligned base),
+    heads taken from a wider buffer, and a batch of one viewed from a
+    [S, H, D] buffer all go to the kernel as they are."""
+    big_q, big_k, big_v, _, _ = _inputs(dev, 2, 6, 700, seed=11)
+    window = tuple(x[:, 1:5, 37:637] for x in (big_q, big_k, big_v))
+    shd = tuple(x[0].transpose(0, 1).contiguous().transpose(0, 1)[None] for x in window)
+    for q, k, v in (window, shd):
+        assert not q.is_contiguous()
+        n = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == n + 1
+        assert _out_err_ok(got[0], want[0])
+        assert (got[1] - want[1]).abs().max().item() <= 1e-3
+
+
+def test_layouts_no_tensor_map_takes_are_refused(dev):
+    """A stride that is not a multiple of 16 bytes, a broadcast (zero) stride
+    and a base off the 16-byte grid are refused by the wrapper, before any
+    launch."""
+    q, k, v, _, _ = _inputs(dev, 2, 2, 64, seed=12)
+    n = fa.flash_attention.launches
+    wide = torch.zeros(2, 2, 64, 132, dtype=torch.bfloat16, device=dev)
+    odd_rows = wide[..., :128]                      # row stride 132 elements
+    broadcast = k[:1].expand(2, -1, -1, -1)         # batch stride 0
+    flat = torch.zeros(k.numel() + 8, dtype=torch.bfloat16, device=dev)
+    shifted = flat[4:4 + k.numel()].view(k.shape)   # base 8 bytes off the grid
+    for bad in (odd_rows, broadcast, shifted):
+        with pytest.raises(ValueError, match="strides"):
+            fa.flash_attention(q, bad, v)
+        with pytest.raises(ValueError, match="strides"):
+            ra.ring_step(q, k, bad, None, True, True)
+    assert fa.flash_attention.launches == n
+
+
+def test_ulysses_local_attention_is_exact(dev):
+    """With logits planted beyond the clamp, Ulysses over thread ranks is the
+    exact softmax (the running-max kernel), as the reference's is, and not the
+    clamped kernel the one-card path keeps."""
+    from reptext_tpu_torch.parallel.sequence import sequence_sharded_attention
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    s, d = 1024, 128
+    q = torch.zeros(1, 4, s, d, device=dev)
+    k = torch.zeros(1, 4, s, d, device=dev)
+    q[..., 0] = 80.0 * d ** 0.5
+    k[..., 0] = torch.linspace(-1.0, 1.0, s, device=dev)
+    v = torch.randn(1, 4, s, d, device=dev)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    n = fa.flash_attention.launches
+    got = torch.cat(run_spmd(LocalSPGroup(2, dev), lambda g: sequence_sharded_attention(
+        g.shard(q, 2), g.shard(k, 2), g.shard(v, 2), g, "ulysses")), dim=2)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == n + 2
+    want = plain_attention(q, k, v)
+    assert _out_err_ok(got, want)
+    assert not _out_err_ok(got, fa.flash_attention(q, k, v, online=False)[0])
+    assert not _out_err_ok(attention(q, k, v), want)   # the one-card path stays clamped
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
@@ -297,7 +454,7 @@ def _ring_inputs(dev, b, h, sq, sks, seed):
 
 
 @pytest.mark.parametrize("sq,sks", [(1152, (1152, 1152, 1152)), (200, (512, 333, 8)),
-                                    (8704, (512, 8192))])
+                                    (8704, (512, 8192)), (64, (1, 127, 129)), (1, (5, 130))])
 def test_ring_step_matches_plain_at_every_step(dev, sq, sks):
     """The first, middle and last steps one at a time, each from the same
     state on both sides: the state after every step but the last, then the

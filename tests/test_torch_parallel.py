@@ -91,10 +91,8 @@ def _cn_tree():
                        i["guidance"], seed=2)
 
 
-def _port(module_cls, cfg, tree, backend):
-    module = carried(module_cls(port_config(cfg)), tree)
-    module.attention_backend = backend
-    return module
+def _port(module_cls, cfg, tree):
+    return carried(module_cls(port_config(cfg)), tree)
 
 
 def _stacks(seed=3, b=2):
@@ -118,22 +116,23 @@ def test_sp_forward_matches_jax(eight_devices, backend, n, with_cn):
         j_in["pooled_projections"], j_in["timestep"], j_in["img_ids"], j_in["txt_ids"],
         j_in["guidance"], mesh=make_sp_mesh(n), controlnet_block_samples=bb,
         controlnet_single_block_samples=ss))(_flux_tree(), j_in["hidden_states"], *j_stacks))
-    model = _port(FluxTransformer2D, CFG, _flux_tree(), backend)
+    model = _port(FluxTransformer2D, CFG, _flux_tree())
     tin = {k: t(v) for k, v in inputs.items()}
     tst = [None if s is None else t(s) for s in stacks]
     with torch.no_grad():
         outs = run_spmd(LocalSPGroup(n), lambda g: sequence_parallel_forward(
-            model, **tin, group=g, controlnet_block_samples=tst[0],
+            model, **tin, group=g, backend=backend, controlnet_block_samples=tst[0],
             controlnet_single_block_samples=tst[1]))
     for out in outs:
         np.testing.assert_allclose(out.numpy(), want, **FWD_TOL)
 
 
 def test_sp_forward_needs_an_sp_backend():
-    model = _port(FluxTransformer2D, CFG, _flux_tree(), None)
+    model = _port(FluxTransformer2D, CFG, _flux_tree())
     tin = {k: t(v) for k, v in _inputs().items()}
-    with pytest.raises(ValueError, match="attention_backend"):
-        run_spmd(LocalSPGroup(2), lambda g: sequence_parallel_forward(model, **tin, group=g))
+    with pytest.raises(ValueError, match="ring\\|ulysses"):
+        run_spmd(LocalSPGroup(2), lambda g: sequence_parallel_forward(
+            model, **tin, group=g, backend=None))
 
 
 def _sampler_args():
@@ -164,15 +163,15 @@ ADAPTIVE = dict(num_inference_steps=4, controlnet_conditioning_step=4,
 
 def _port_sampler(cfg, backend, n):
     steps = cfg.num_inference_steps
-    flux = _port(FluxTransformer2D, CFG, _flux_tree(), backend)
-    cn = _port(RepTextControlNet, CN_CFG, _cn_tree(), backend)
+    flux = _port(FluxTransformer2D, CFG, _flux_tree())
+    cn = _port(RepTextControlNet, CN_CFG, _cn_tree())
     args = [t(a) for a in _sampler_args()]
     schedule = build_schedule(steps, S_IMG)
     with torch.no_grad():
         if backend is None:
             return make_txt2img_sampler(flux, cn, schedule, port_config(cfg))(*args).numpy()
         outs = run_spmd(LocalSPGroup(n), lambda g: make_sp_txt2img_sampler(
-            flux, cn, schedule, port_config(cfg), g)(*args))
+            flux, cn, schedule, port_config(cfg), g, backend)(*args))
     for out in outs[1:]:
         np.testing.assert_array_equal(out.numpy(), outs[0].numpy())
     return outs[0].numpy()
@@ -251,11 +250,8 @@ def pipes():
 
 def _port_sp_latents(tpipe, cond, noise, n, backend):
     kw = dict(clip_ids=CLIP_IDS, t5_ids=T5_IDS, latents=t(noise), output_type="latent")
-    try:
-        outs = run_spmd(LocalSPGroup(n), lambda g: tpipe.with_config(tpipe.pipe_cfg)
-                        .shard_for_sp(g, backend)(cond, **kw))
-    finally:   # the modules are shared with the unsharded pipeline
-        tpipe.flux.attention_backend = tpipe.controlnet.attention_backend = None
+    outs = run_spmd(LocalSPGroup(n), lambda g: tpipe.with_config(tpipe.pipe_cfg)
+                    .shard_for_sp(g, backend)(cond, **kw))
     for out in outs[1:]:
         np.testing.assert_array_equal(out.numpy(), outs[0].numpy())
     return outs[0].numpy()
@@ -277,6 +273,58 @@ def test_shard_for_sp_matches_unsharded_and_jax(eight_devices, pipes):
         np.testing.assert_allclose(got, want, **LAT_TOL)
 
 
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_shard_for_sp_leaves_the_shared_modules_alone(pipes, backend):
+    """After ``base.with_config(cfg).shard_for_sp(g)``, ``base`` and an inpaint
+    pipeline built from it run unsharded, with no reset, and give the outputs
+    they gave before; the sharded clones go on running sharded beside them."""
+    _, base, cond, noise = pipes
+    kw = dict(clip_ids=CLIP_IDS, t5_ids=T5_IDS, latents=t(noise), output_type="latent")
+    inp = FluxRepTextInpaintPipeline.from_pipeline(base, seed=3)
+    r = np.random.default_rng(5)
+    image = r.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    mask = np.zeros((SIZE, SIZE), np.uint8)
+    mask[8:40, 8:56] = 255
+    inp_kw = dict(image=image, mask=mask, negative_clip_ids=CLIP_IDS, negative_t5_ids=T5_IDS,
+                  **kw)
+    base_before, inp_before = base(cond, **kw), inp(cond, **inp_kw)
+
+    group = LocalSPGroup(2)
+    sharded = [base.with_config(base.pipe_cfg).shard_for_sp(group.member(rank), backend)
+               for rank in range(2)]
+    assert not any(hasattr(m, "attention_backend") for m in (base.flux, base.controlnet))
+    assert base.sp_group is None and base.sp_backend is None
+    assert all(p.sp_backend == backend and p.flux is base.flux for p in sharded)
+    torch.testing.assert_close(base(cond, **kw), base_before, rtol=0, atol=0)
+    torch.testing.assert_close(inp(cond, **inp_kw), inp_before, rtol=0, atol=0)
+    outs = run_spmd(group, lambda g: sharded[g.rank](cond, **kw))
+    for out in outs:
+        np.testing.assert_allclose(out.numpy(), base_before.numpy(), **LAT_TOL)
+    torch.testing.assert_close(base(cond, **kw), base_before, rtol=0, atol=0)
+
+
+def test_sp_context_carries_the_backend():
+    """The backend travels with the thread's SP context, its only carrier,
+    and ends with it."""
+    from reptext_tpu_torch.parallel.sequence import active_backend, sp_context
+
+    assert active_backend() is None
+    with sp_context(LocalSPGroup(2).member(0), "ulysses"):
+        assert active_backend() == "ulysses"
+        with sp_context(LocalSPGroup(2).member(1), "ring"):
+            assert active_backend() == "ring"
+        assert active_backend() == "ulysses"
+    assert active_backend() is None
+
+
+def test_sp_sampler_needs_a_backend():
+    flux = _port(FluxTransformer2D, CFG, _flux_tree())
+    cn = _port(RepTextControlNet, CN_CFG, _cn_tree())
+    with pytest.raises(ValueError, match="ring\\|ulysses"):
+        make_sp_txt2img_sampler(flux, cn, build_schedule(2, S_IMG), port_config(_pipe_cfg()),
+                                LocalSPGroup(2).member(0), None)
+
+
 @pytest.mark.parametrize("n,backend,match", [
     (3, "ring", "must divide"),              # 16 image tokens over 3 ranks
     (2, "allgather", "ring\\|ulysses"),
@@ -286,7 +334,7 @@ def test_shard_for_sp_refuses(pipes, n, backend, match):
     tpipe = pipes[1].with_config(pipes[1].pipe_cfg)
     with pytest.raises(ValueError, match=match):
         tpipe.shard_for_sp(LocalSPGroup(n).member(0), backend)
-    assert tpipe.sp_group is None and tpipe.flux.attention_backend is None
+    assert tpipe.sp_group is None and tpipe.sp_backend is None
 
 
 def test_sp_inpainting_is_not_ported(pipes):
