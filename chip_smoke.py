@@ -13,20 +13,26 @@ non-zero without one. Phases, one line each, and any failure ends the run:
 1. device: the card's name and power limit from nvidia-smi;
 2. build: nvcc builds the kernels from reptext_tpu_torch/csrc; registers per thread and
    spill bytes of every kernel from ptxas, its performance warnings (any one
-   fails the run), and the tensor-core instructions in the SASS of every instantiation of the forward
-   template: each must run on wgmma (HGMMA) and none on mma.sync (HMMA);
+   fails the run), and the tensor-core instructions in the SASS of every
+   instantiation of the forward template and of the backward's main kernel:
+   each must run on wgmma (HGMMA) and none on mma.sync (HMMA), and the
+   backward's main kernel must not spill;
 3. kernels: the flash-attention forward kernel (K1 RoPE-fused, K2 plain), the
    streaming forward kernel (K3, past 6144 tokens, on q and k rotated with
-   the fp32 tables) and the backward kernel (K4, dq and dk/dv) against their
-   plain PyTorch versions on the card: K1/K2/K4 at the 1024^2 shape (1, 24,
-   4608, 128), K3 at the 1536x1152 inpaint shape (2, 24, 7424, 128) and the
-   1536^2 shape (1, 24, 9728, 128), all with RoPE tables from the real
-   text/image ids, at unaligned lengths ((2, 24, 4106, 128); K3 (1, 24, 6500,
-   128)), K3 at the 2048^2 request's shapes (clamped at (1, 24, 16896, 128),
-   the one-card path; online at (1, 12, 16896, 128), a Ulysses rank's half of
-   the heads) and beyond the logit clamp; errors and median times (kernel and
-   plain version, with the achieved TFLOP/s and the bound's share of the
-   time), and K1's and K3's clamped against their online softmax;
+   the fp32 tables) and the backward (K4: preprocess pass, main kernel,
+   epilogue) against their plain PyTorch versions on the card: K1/K2/K4 at
+   the 1024^2 shape (1, 24, 4608, 128), K4 also at every train launch's (2,
+   24, 4608, 128) and on K3's lse at (1, 24, 7424, 128), K3 at the 1536x1152
+   inpaint shape (2, 24, 7424, 128) and the 1536^2 shape (1, 24, 9728, 128),
+   all with RoPE tables from the real text/image ids, at unaligned lengths
+   ((2, 24, 4106, 128); K3 (1, 24, 6500, 128)), K3 at the 2048^2 request's
+   shapes (clamped at (1, 24, 16896, 128), the one-card path; online at (1,
+   12, 16896, 128), a Ulysses rank's half of the heads) and beyond the logit
+   clamp; errors and median times (kernel and plain version, with the
+   achieved TFLOP/s and the bound's share of the time), K1's and K3's clamped
+   against their online softmax, and K4 called twice on the same inputs
+   (max|dq1 - dq2| beside its limit: the adds into dq land in another order
+   each run; dk and dv must be bit-equal);
    then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
@@ -431,15 +437,25 @@ def compare_grads(name, got, want):
     return worst
 
 
+def plain_backward_by_heads(fa, args, online, heads=8):
+    """flash_attention_backward_plain a few heads at a time (heads are
+    independent): its fp32 [S, S] tensors of every head at once would not fit
+    beside the rest at the larger shapes."""
+    parts = [fa.flash_attention_backward_plain(*(x[:, h:h + heads] for x in args), online=online)
+             for h in range(0, args[0].shape[1], heads)]
+    return tuple(torch.cat(part, dim=1) for part in zip(*parts))
+
+
 def backward_kernel_phase(dev):
-    """K4 (dq and dk/dv kernels) against flash_attention_backward_plain."""
+    """K4 (preprocess, main kernel, epilogue) against flash_attention_backward_plain."""
     from reptext_tpu_torch.ops import flash_attention as fa
     from reptext_tpu_torch.ops.rope import apply_rope_half
 
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def inputs(q, k, v, cos, sin, online):
-        """Rotated q/k, v, K1's out and lse, and dO laid out as merge_heads'
+        """Rotated q/k, v, the forward's out and lse (K1, or K3 past 6144
+        tokens: the RoPE entry's route), and dO laid out as merge_heads'
         gradient arrives ([B, S, H, D] memory viewed [B, H, S, D])."""
         out, lse = fa.flash_attention_rope(q, k, v, cos, sin, online)
         b, h, s, d = q.shape
@@ -450,28 +466,76 @@ def backward_kernel_phase(dev):
         return [torch.randn(b, h, s, d, generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(3)]
 
-    err = 0.0
-    q, k, v = qkv(1, 24, 4608)
+    def timed(shape, args):
+        b, h, s = shape
+        kern, plain, line = alternated_ms(lambda: fa.flash_attention_backward(*args),
+                                          lambda: fa.flash_attention_backward_plain(*args))
+        pre = cuda_time_ms(lambda: fa.backward_preprocess(args[3], args[4], args[5]))[0]
+        phase("kernels", f"K4 ({b},{h},{s},128) time (the preprocess pass, the main kernel, the "
+                         f"zeroing of its fp32 dq buffer and the epilogue): {line}; the "
+                         f"preprocess pass alone {pre:.4f} ms; "
+                         f"{rate(10 * b * h * s * s * 128, kern[0], backward_bound(b, h, s)[0])}")
+        return {"ms": kern[0], "plain_ms": plain[0], "preprocess_ms": pre}
+
+    err, ms = 0.0, {}
     cos, sin = rope_tables(512, 64, 64, dev)
-    for online in (False, True):
-        args = inputs(q, k, v, cos, sin, online)
-        err = max(err, compare_grads(
-            f"K4 (1,24,4608,128) {'online' if online else 'clamped'}",
-            fa.flash_attention_backward(*args, online=online),
-            fa.flash_attention_backward_plain(*args, online=online)))
-        if not online:
-            timed = args
-    kern, plain, line = alternated_ms(lambda: fa.flash_attention_backward(*timed),
-                                      lambda: fa.flash_attention_backward_plain(*timed))
-    phase("kernels", f"K4 (1,24,4608,128) time (dq + dkv kernels and the delta reduction): {line}")
-    del q, k, v, args, timed
+    for b in (1, 2):
+        q, k, v = qkv(b, 24, 4608)
+        for online in (False, True) if b == 1 else (False,):
+            args = inputs(q, k, v, cos, sin, online)
+            err = max(err, compare_grads(
+                f"K4 ({b},24,4608,128) {'online' if online else 'clamped'}",
+                fa.flash_attention_backward(*args, online=online),
+                fa.flash_attention_backward_plain(*args, online=online)))
+            if not online:
+                keep = args
+        ms[f"({b},24,4608,128)"] = timed((b, 24, 4608), keep)
+        del args
+    # the train step's shape again: the preprocess pass against its plain
+    # version, and two calls on the same inputs (dq's adds land in another
+    # order each run; dk and dv are summed in a fixed one)
+    out, lse, do = keep[3:]
+    (delta, lse2), (p_delta, p_lse2) = (fa.backward_preprocess(out, lse, do),
+                                        fa.backward_preprocess_plain(out, lse, do))
+    d_err, d_lim = (delta - p_delta).abs().max().item(), 2.0 ** -20 * p_delta.abs().max().item()
+    l_err = (lse2 - p_lse2).abs().max().item()
+    ok = d_err <= d_lim and l_err <= 1e-5 and delta.shape == p_delta.shape
+    phase("kernels", f"K4 preprocess (2,24,4608,128): delta max_abs {d_err:.3e} (limit {d_lim:.3e} "
+                     f"= 2^-20 x max|plain delta|: fp32 sums of 128 products in another order), "
+                     f"lse log2(e) max_abs {l_err:.3e} (limit 1e-5) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the backward's preprocess pass disagrees with its plain version")
+    first, second = fa.flash_attention_backward(*keep), fa.flash_attention_backward(*keep)
+    dq_diff = (first[0].float() - second[0].float()).abs().max().item()
+    dq_lim = GRAD_MAX_RTOL * first[0].float().abs().max().item()
+    same = bool(torch.equal(first[1], second[1])) and bool(torch.equal(first[2], second[2]))
+    phase("kernels", f"K4 (2,24,4608,128) two calls on the same inputs: max|dq1 - dq2| "
+                     f"{dq_diff:.3e} (limit {dq_lim:.3e} = 2^-5 x max|dq|); dk and dv bit-equal "
+                     f"{same} -> {'ok' if same and dq_diff <= dq_lim else 'FAIL'}")
+    if not (same and dq_diff <= dq_lim):
+        raise SystemExit("the backward kernel is not reproducible where it must be")
+    del q, k, v, keep, out, lse, do, first, second
     torch.cuda.empty_cache()
 
     q, k, v = qkv(2, 24, 4106)
     cos, sin = rope_tables(10, 64, 64, dev)
     args = inputs(q, k, v, cos, sin, None)
     err = max(err, compare_grads("K4 (2,24,4106,128)", fa.flash_attention_backward(*args),
-                                 fa.flash_attention_backward_plain(*args)))
+                                 plain_backward_by_heads(fa, args, None)))
+    del q, k, v, args
+    torch.cuda.empty_cache()
+
+    # past 6144 tokens the route's forward is K3: K4 on its lse, at the
+    # 1536x1152 inpaint length (512 T5 tokens + a 72 x 96 grid)
+    q, k, v = qkv(1, 24, 7424)
+    cos, sin = rope_tables(512, 72, 96, dev)
+    n3 = fa.flash_attention_streaming.launches
+    args = inputs(q, k, v, cos, sin, None)
+    if fa.flash_attention_streaming.launches != n3 + 1:
+        raise SystemExit("the RoPE entry did not take K3 at 7424 tokens")
+    err = max(err, compare_grads("K4 (1,24,7424,128) on K3's lse",
+                                 fa.flash_attention_backward(*args),
+                                 plain_backward_by_heads(fa, args, None)))
     del q, k, v, args
     torch.cuda.empty_cache()
 
@@ -490,7 +554,9 @@ def backward_kernel_phase(dev):
                                  fa.flash_attention_backward(*args, online=False),
                                  fa.flash_attention_backward_plain(*args, online=False)))
     torch.cuda.empty_cache()
-    return {"ms": kern[0], "plain_ms": plain[0], "max_abs_err": err}
+    main = ms["(1,24,4608,128)"]
+    return {"ms": main["ms"], "plain_ms": main["plain_ms"], "ms_by_shape": ms,
+            "max_abs_err": err, "dq_run_to_run_max_abs": dq_diff}
 
 
 def bound(flop, nbytes):
@@ -509,8 +575,8 @@ def forward_bound(b, h, s, d=128, lse=True, tables=False):
 
 def backward_bound(b, h, s, d=128):
     """The backward's least work: five S^2 D products (q k^T, dO v^T, dS k,
-    dS^T q, P^T dO; K4 recomputes the first two in its second kernel, 7 in all),
-    10 B H S^2 D FLOP; q, k, v, out, dO and the lse read, dq, dk, dv written."""
+    dS^T q, P^T dO: the five K4 makes), 10 B H S^2 D FLOP; q, k, v, out, dO and
+    the lse read, dq, dk, dv written."""
     return bound(10 * b * h * s * s * d, 8 * b * h * s * d * 2 + 4 * b * h * s)
 
 
@@ -528,11 +594,15 @@ FWD_RE = r"attn_fwd_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)EE"
 def kernel_label(mangled):
     """A readable name for a kernel of the library from its mangled one: the
     forward template's instantiations by their arguments (ROPE, ONLINE, EXP,
-    CARRY, PIPELINED), the others by their function name."""
+    CARRY, PIPELINED), the backward's main kernel by its softmax, the others
+    by their function name."""
     import re
 
     m = re.search(FWD_RE, mangled)
     if m is None:
+        bwd = re.search(r"attn_bwd_kernelILb(\d)EE", mangled)
+        if bwd:
+            return f"K4 main {'online' if int(bwd.group(1)) else 'clamped'}"
         other = re.search(r"(rope_rotate_kernel|attn_bwd_\w+?_kernel)", mangled)
         return other.group(1) if other else mangled[:60]
     rope, online, exp, carry, overlap = (int(g) for g in m.groups())
@@ -593,8 +663,9 @@ def sass_ops():
 
 def build_phase():
     """Build the library; registers and spills of every kernel from ptxas, and
-    the tensor-core instructions of the forward template's instantiations:
-    each must run its products on wgmma (HGMMA) and none on mma.sync (HMMA).
+    the tensor-core instructions of the forward template's instantiations and
+    of the backward's main kernel: each must run its products on wgmma (HGMMA)
+    and none on mma.sync (HMMA), and the backward's main kernel must not spill.
     A ptxas performance warning (it serialised wgmma products that the source
     meant to overlap) fails the run."""
     from reptext_tpu_torch.ops import _build
@@ -604,8 +675,9 @@ def build_phase():
     phase("build", f"nvcc {' '.join(_build.ARCH_FLAGS)} built "
                    f"{os.path.relpath(_build.LIB_PATH, ROOT)} in {time.perf_counter() - t0:.1f} s")
     summary = ptxas_summary(_build.build_log["ptxas"])
-    phase("build", "ptxas, registers per thread at launch (the forward template's producer "
-                   "warpgroup then drops to 24 and its consumers rise to 240 by setmaxnreg) and "
+    phase("build", "ptxas, registers per thread at launch (the producer warpgroup of the forward "
+                   "template and of the backward's main kernel then drops to 24 and their "
+                   "consumers rise to 240 by setmaxnreg) and "
                    "spill bytes (stores/loads): "
                    + " | ".join(f"{fn}: {r} regs, spill {st}/{ld}"
                                 for fn, (r, st, ld) in sorted(summary.items())))
@@ -629,6 +701,17 @@ def build_phase():
                "K5 online"} - served
     if bad or missing:
         raise SystemExit(f"the forward template is not on wgmma alone: {bad}; missing {missing}")
+    backward = {fn: c for fn, c in ops.items() if fn.startswith("K4 main")}
+    phase("build", "SASS tensor-core instructions of the backward's main kernel: "
+                   + " | ".join(f"{fn}: HGMMA x{c.get('HGMMA', 0)}, HMMA x{c.get('HMMA', 0)}"
+                                for fn, c in sorted(backward.items())))
+    bad = [fn for fn, c in backward.items() if c.get("HMMA", 0) or not c.get("HGMMA", 0)]
+    if bad or set(backward) != {"K4 main clamped", "K4 main online"}:
+        raise SystemExit(f"the backward's main kernel is not on wgmma alone: {bad}; found "
+                         f"{sorted(backward)}")
+    spilled = [fn for fn, (_, st, ld) in summary.items() if fn.startswith("K4 main") and (st or ld)]
+    if spilled:
+        raise SystemExit(f"the backward's main kernel spills registers: {spilled}")
     return ops
 
 
@@ -718,12 +801,15 @@ def library_yardsticks(dev):
     lib["K2"] = cuda_time_ms(lambda: sdpa(q, k, v))[0]
     # no single call fuses the rotation: SDPA on the rotated q and k, as context
     lib["K1"] = cuda_time_ms(lambda: sdpa(qr, kr, v))[0]
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qr, kr, v))
-    out = sdpa(qg, kg, vg)
-    do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
-    lib["K4"] = cuda_time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                                         retain_graph=True))[0]
-    del q, k, v, qr, kr, qg, kg, vg, out, do
+    lib["K4"] = {}
+    for b in (1, 2):      # the kernel phase's shape, and every train launch's (batch 2)
+        qg, kg, vg = (x.detach().repeat(b, 1, 1, 1).requires_grad_(True) for x in (qr, kr, v))
+        out = sdpa(qg, kg, vg)
+        do = torch.randn(out.shape, generator=gen, device=dev).to(torch.bfloat16)
+        lib["K4"][f"({b},24,4608,128)"] = cuda_time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))[0]
+        del qg, kg, vg, out, do
+    del q, k, v, qr, kr
     lib["K3"] = {}
     for b, txt, gh, gw in ((2, 512, 72, 96), (1, 512, 96, 96)):
         _, _, v, qr, kr = rotated(b, txt, gh, gw)
@@ -733,7 +819,9 @@ def library_yardsticks(dev):
     phase("variants", "library (torch.nn.functional.scaled_dot_product_attention, default "
                       f"dispatch; median of 20): K2 (1,24,4608,128) {lib['K2']:.4f} ms; K1 the "
                       f"same on rotated q, k {lib['K1']:.4f} ms (context: no call fuses RoPE); "
-                      f"K4 its backward alone {lib['K4']:.4f} ms; K3 "
+                      "K4 its backward alone "
+                      + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in lib["K4"].items())
+                      + "; K3 "
                       + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in lib["K3"].items()))
     return lib
 
@@ -1130,7 +1218,8 @@ def kernel_class(name):
     if "attn_fwd_kernel" in name or "rope_rotate_kernel" in name:
         return "attention kernel (attn_fwd_kernel + rope_rotate_kernel; K1, K2, K3)"
     if "attn_bwd_" in name:
-        return "attention backward kernel (attn_bwd_dq_kernel + attn_bwd_dkv_kernel)"
+        return ("attention backward kernel (attn_bwd_preprocess_kernel + attn_bwd_kernel + "
+                "attn_bwd_epilogue_kernel; K4)")
     if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMMs (cuBLAS kernels behind nn.Linear)"
     if "nccl" in name.lower():
@@ -1762,6 +1851,10 @@ def main(argv=None):
                               ("K3", forward_bound(*k3_shapes["(2,24,7424,128)"])),
                               ("K4", backward_bound(1, 24, 4608))):
         results[key].update({"bound_ms": b_ms, "bound_by": b_by, "library_ms": library[key]})
+    results["K4"]["library_ms"] = library["K4"]["(1,24,4608,128)"]
+    results["K4"]["library_ms_by_shape"] = library["K4"]
+    results["K4"]["bound_ms_by_shape"] = {f"({b},24,4608,128)": backward_bound(b, 24, 4608)[0]
+                                          for b in (1, 2)}
     results["K1"]["library_note"] = "SDPA on q and k rotated beforehand: no single call fuses RoPE"
     results["K3"]["library_ms"] = library["K3"]["(2,24,7424,128)"]
     results["K3"]["library_ms_by_shape"] = library["K3"]

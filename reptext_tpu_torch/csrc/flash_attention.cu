@@ -141,6 +141,7 @@
 
 #include "hopper_utils.cuh"
 #include "mma_utils.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -618,57 +619,13 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime, so
-// the library links against the runtime alone (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* sym = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) sym = nullptr;
-    return reinterpret_cast<EncodeTiled>(sym);
-  }();
-  return fn;
-}
-
-// A 4-D map over (D, S, H, B) of a bf16 tensor with element strides (ss, sh,
-// sb) and a contiguous head dim; a box is 64 channels x kBlockK rows of one
-// (b, h), stored with the 128-byte swizzle. Rows past `seq` read as zero.
-bool make_map(CUtensorMap* map, const void* base, int batch, int heads, int seq, long long sb,
-              long long sh, long long ss) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {kD, (cuuint64_t)seq, (cuuint64_t)heads, (cuuint64_t)batch};
-  // the stride of a dimension of one element is never used: any legal value
-  const cuuint64_t strides[3] = {(cuuint64_t)(seq > 1 ? ss : kD) * 2,
-                                 (cuuint64_t)(heads > 1 ? sh : kD) * 2,
-                                 (cuuint64_t)(batch > 1 ? sb : kD) * 2};
-  const cuuint32_t box[4] = {kHalf, (cuuint32_t)kBlockK, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool ROPE, bool ONLINE, int EXP = kExp2, bool CARRY = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   CUtensorMap map_k, map_v;
   // a layout no tensor map takes (a stride that is not a positive multiple of
   // 16 bytes, a misaligned base) is refused here
-  if (!make_map(&map_k, p.k, batch, p.heads, p.seq_k, p.k_sb, p.k_sh, p.k_ss) ||
-      !make_map(&map_v, p.v, batch, p.heads, p.seq_k, p.v_sb, p.v_sh, p.v_ss)) {
+  if (!make_map(&map_k, p.k, batch, p.heads, p.seq_k, p.k_sb, p.k_sh, p.k_ss, kD, kBlockK) ||
+      !make_map(&map_v, p.v, batch, p.heads, p.seq_k, p.v_sb, p.v_sh, p.v_ss, kD, kBlockK)) {
     return cudaErrorInvalidValue;
   }
   // the packed bf16 exponential keeps its pairs in the logits' registers, which

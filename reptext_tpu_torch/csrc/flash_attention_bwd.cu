@@ -1,11 +1,14 @@
-// Joint (non-causal) flash attention backward for FLUX MMDiT blocks, sm_90a.
+// Joint (non-causal) flash attention backward for FLUX MMDiT blocks, sm_90a:
+// one warp-specialised TMA + wgmma kernel between a preprocess and an
+// epilogue pass.
 //
 // Replaces reptext_tpu/ops/flash_attention.py::_dq_kernel (dQ) and
 // ::_dkv_kernel (dK, dV), the Pallas kernels behind _flash_backward_pallas
-// (K4). q and k arrive already rotated (the RoPE entry's backward rotates them
-// in PyTorch with the fp32 tables and un-rotates dq and dk afterwards, as
-// _rope_bwd does). What it computes, per (b, h), from the forward's saved
-// lse and delta_i = sum_d dO_i * O_i (fp32, computed by the caller):
+// (K4), and the delta = sum(dO * O) that XLA computes before them. q and k
+// arrive already rotated (the RoPE entry's backward rotates them in PyTorch
+// with the fp32 tables and un-rotates dq and dk afterwards, as _rope_bwd
+// does). What it computes, per (b, h), from the forward's saved lse:
+//   delta_i = sum_d fp32(dO_i) * fp32(O_i)
 //   s_ij = fp32(q_i . k_j) * scale;  clamped mode: clip(s_ij, -43, 43), with
 //          the gradient passed straight through beyond the bound (the Pallas
 //          kernels' choice); online mode: no clip
@@ -14,416 +17,569 @@
 //   dq_i = scale * sum_j bf16(ds_ij) k_j
 //   dk_j = scale * sum_i bf16(ds_ij) q_i;  dv_j = sum_i bf16(p_ij) dO_i
 // Products run on bf16 operands with fp32 accumulation (p and ds are rounded
-// to bf16 before their products, as the forward rounds p); dq, dk, dv are
-// written in bf16.
+// to bf16 before their products, as the forward rounds p; the Pallas kernels
+// keep them fp32); dq, dk, dv are written in bf16. The exponential is exp2 on
+// logits in log2 units, as in the forward: p = 2^(s * scale * log2(e) - lse *
+// log2(e)), one FFMA and one MUFU.EX2, the clamp at +/-43 log2(e).
 //
-// What bounds it on an H100: at (1, 24, 4608, 128) the two kernels do
-// 7 * 2 * S^2 * D * H = 9.1e11 FLOP (dQ: QK^T, dO V^T, dS K; dK/dV: the same
-// two logit products again, P^T dO and dS^T Q) against ~0.2 GB of traffic,
-// far above the card's ~295 FLOP/byte ridge: it is bound by tensor-core math
-// and by how well shared memory feeds it, not by device memory.
+// What bounds it on an H100: at (1, 24, 4608, 128) the five products (q k^T,
+// dO v^T, p^T dO, ds^T q, ds k) are 10 S^2 D H = 6.5e11 FLOP (0.660 ms at 989
+// TFLOP/s) against ~0.2 GB of operand traffic (0.06 ms at 3.35 TB/s):
+// tensor-core math, how shared memory feeds it, and how much else (the
+// exponentials, the packing, the dq reduction) runs under it.
 //
-// What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16) and nothing of size S^2 leaves the chip. The logits are
-// recomputed in both kernels instead of being shared through device memory,
-// which would cost an S x S write and read per head.
-//   dQ kernel: one CTA of 4 warps owns 64 query rows; each warp keeps its 16
-//     rows of q and dO as mma A-fragments in registers and accumulates dq in
-//     fp32 registers, while K and V stream through a two-stage cp.async ring in
-//     64-key tiles (the forward's schedule).
-//   dK/dV kernel: one CTA of 4 warps owns 64 key rows, held in shared memory
-//     (the two fp32 accumulators, dk and dv, already take 128 registers per
-//     thread); Q, dO, lse and delta stream through a two-stage cp.async ring in
-//     64-query tiles. The transposed products (k q^T, v dO^T) make the key the
-//     row of every fragment, so p^T and ds^T go from accumulators straight into
-//     A-fragments, and dO and Q are read transposed by ldmatrix.trans.
-// Rows and keys past S are zero-filled by the copies and masked, so the
-// unaligned S = 4106 needs no padded tensors. The Pallas tiling (block_q,
-// block_kv = 512 and the padding to them) followed from VMEM limits and is
-// not carried over. wgmma, TMA and sharing the logits between the two passes
-// are later work.
+// The design. Three launches per call:
+// (1) attn_bwd_preprocess_kernel reads dO and O once (16 bytes a thread, 16
+//     threads a row) and writes fp32 delta and lse * log2(e), both [B, H,
+//     S_pad] with S_pad = S rounded up to 64 and zeros past S, so that a
+//     64-query slice is one aligned 256-byte bulk copy.
+// (2) attn_bwd_kernel: a CTA owns 128 keys of one (b, h) and has three
+//     warpgroups. Warpgroup 0 is the producer (setmaxnreg 24): one thread
+//     loads the CTA's K and V tiles once by TMA and then streams Q, dO, lse
+//     log2(e) and delta in 64-query tiles into a two-stage ring, a "full"
+//     mbarrier per stage counting the bytes that land, an "empty" one the
+//     consumer warps that are done with it. Warpgroups 1 and 2 are consumers
+//     (setmaxnreg 240), 64 keys each, and keep dk and dv [64 keys, 128] in
+//     fp32 registers over the whole query loop. Per query tile each computes
+//     the logits transposed, keys as rows: s^T = k q^T and dp^T = v dO^T
+//     (wgmma m64n64k16, both operands K-major in shared memory), so that p^T
+//     and ds^T in the accumulator fragment's layout are, rounded to bf16, the
+//     register A operand of dv += p^T dO and dk += ds^T q (m64n128k16, dO and
+//     Q read in their own [queries, D] layout through the MN-major B
+//     descriptor, as the forward reads V). The query of a logit is its
+//     fragment column, so lse log2(e) and delta come from the stage's stat
+//     tile in shared memory. For dq the same bf16 ds^T is also written to a
+//     swizzled [128 keys, 64 queries] tile in shared memory; after a named
+//     barrier both warpgroups have their halves there, and each computes dq
+//     [64 queries, 64 channels] = ds k over all 128 keys for its half of the
+//     channels (m64n64k16 with A transposed, i.e. MN-major from shared
+//     memory, and B = the resident K tile, MN-major). The ds tile is double
+//     buffered, so one barrier per query tile is enough. The partial dq goes
+//     from the fragment to a swizzled fp32 staging tile in shared memory and
+//     from there into an fp32 [B, H, S, D] buffer in device memory by TMA
+//     reduce-add (cp.reduce.async.bulk.tensor, one thread per warpgroup, two
+//     boxes of 64 queries x 32 channels); rows past S are dropped by the
+//     map's bounds. The key tile is the fastest grid index, so one head's 36
+//     CTAs (S = 4608) run together and its 2.4 MB slice of the buffer stays
+//     in L2 while they add 85 MB into it (2.0 GB per call at batch 1). Five
+//     products per tile, nothing of size S^2 leaves the chip.
+// (3) attn_bwd_epilogue_kernel multiplies the fp32 dq buffer by scale and
+//     writes bf16 dq.
+// Queries and keys past S are zero-filled by the tensor maps' bounds and
+// masked (p^T = 0 for a query >= S as well as for a key >= S), so unaligned
+// and short S need no padded tensors. The 64-query tile follows from
+// registers: dk and dv take 128 per consumer thread, s^T and dp^T at 64
+// queries 64 more, then the bf16 fragments (32) and dq (32) in their place.
+// The Pallas tiling (block_q, block_kv = 512 and the padding to them)
+// followed from VMEM limits and is not carried over.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, CUDA events, median
+// of 20, one call = the three launches and the zeroing of the dq buffer):
+// 1.47-1.62 ms at (1, 24, 4608, 128), 403-445 TFLOP/s, 41-45 % of the bound
+// (the mma.sync pair of kernels it replaces: 4.89-4.93 ms; the backward of
+// PyTorch's fused attention call, SDPA, alone: 1.38-1.74 ms), and 2.83-2.98 ms
+// at (2, 24, 4608, 128), every train launch's shape (44-47 %; SDPA 2.54-2.99).
+// Registers hold it there: each product runs to its end before the next
+// step (logits, exponentials, dv/dk with dq behind them), because the next
+// tile's logits beside dk, dv, the bf16 fragments and dq would need 256
+// registers a thread. The forms that were tried and lost: adding dq from the
+// fragments with red.global.add.v2.f32 (the 8-byte adds cost a quarter more
+// time than the staged TMA adds); the warpgroups taking turns at the tensor
+// cores with dq deferred by one tile (a branch around a wgmma in flight made
+// ptxas spill; peeled, no gain); adding dq under the next tile's logit
+// products (spills). ptxas: 168 registers at launch, no spills.
+//
+// Run-to-run order: the adds into the dq buffer land in the order the CTAs
+// reach them, which changes from run to run, so dq's last bits do (fp32 sums
+// of 36 partials before the bf16 rounding). dk and dv are summed in one
+// CTA's registers in a fixed order and are bit-equal across runs. The Pallas
+// kernels' order is fixed throughout.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_utils.cuh"
 #include "mma_utils.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlock = 16 * kWarps;  // rows a CTA owns, and rows per streamed tile
-constexpr int kPad = 8;              // bf16 pad per smem row: conflict-free ldmatrix
+constexpr int kD = 128;              // head dim (FLUX's)
+constexpr int kHalf = kD / 2;        // 64 bf16: one 128-byte swizzled row
+constexpr int kRowBytes = 128;
+constexpr int kWgKeys = 64;          // keys per consumer warpgroup
+constexpr int kConsumers = 2;        // consumer warpgroups per CTA
+constexpr int kBlockKV = kWgKeys * kConsumers;   // keys a CTA owns
+constexpr int kBlockQ = 64;          // queries per streamed tile
+constexpr int kStages = 2;           // stages of the Q / dO ring
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kKVHalfBytes = kBlockKV * kRowBytes;  // one 64-channel half of K or V
+constexpr int kKVTileBytes = 2 * kKVHalfBytes;
+constexpr int kQHalfBytes = kBlockQ * kRowBytes;    // one 64-channel half of a Q or dO tile
+constexpr int kQTileBytes = 2 * kQHalfBytes;
+constexpr int kDsTileBytes = kBlockKV * kRowBytes;  // [128 keys][64 queries] bf16
+constexpr int kStatBytes = 2 * kBlockQ * 4;         // lse log2(e) and delta of one tile
+constexpr int kStageBytes = 2 * kQTileBytes + kStatBytes;
+constexpr int kDsBufs = 2;           // ds^T tiles: one barrier per query tile is enough
+constexpr int kDqStageBytes = kBlockQ * kHalf * 4;  // a warpgroup's [64 queries][64 ch] fp32
+constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kKVTileBytes +
+                           kStages * kStageBytes + kDsBufs * kDsTileBytes +
+                           kConsumers * kDqStageBytes +
+                           (1 + 2 * kStages) * 8 /* mbarriers */;
+constexpr int kStatPad = kBlockQ;    // lse log2(e) and delta rows are padded to this
+
 constexpr float kLogitClamp = 43.0f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
-  const __nv_bfloat16* q;     // rotated
-  const __nv_bfloat16* k;     // rotated
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;           // [B, H, S] contiguous
-  const float* delta;         // [B, H, S] contiguous
+  const __nv_bfloat16* out;   // the forward's output (preprocess only)
+  const __nv_bfloat16* dout;  // (preprocess only; the main kernel reads it through its map)
+  const float* lse;           // [B, H, S] contiguous, natural units
+  float* lse2;                // [B, H, S_pad] contiguous: lse * log2(e), 0 past S
+  float* delta;               // [B, H, S_pad] contiguous, 0 past S
+  float* dq_acc;              // [B, H, S, D] fp32 contiguous, zeroed by the caller
   __nv_bfloat16* dq;          // [B, H, S, D] contiguous
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
   long long d_sb, d_sh, d_ss;
   int heads;
   int seq;
+  int seq_pad;
   float scale;
 };
 
-template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long ss, int row0, int seq) {
-  load_rows_async<D, kBlock, D + kPad, kThreads>(dst, src, ss, row0, seq);
+// delta = rowsum(dO * O) and lse * log2(e): 16 threads per row, 8 channels each.
+__global__ void __launch_bounds__(256) attn_bwd_preprocess_kernel(const BwdParams p) {
+  constexpr int kChunks = kD / 8;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = idx / kChunks;      // < seq_pad: the grid covers it exactly
+  const int d0 = (idx % kChunks) * 8;
+  const int h = blockIdx.y, b = blockIdx.z;
+  float sum = 0.0f;
+  if (row < p.seq) {
+    float o[8], g[8];
+    unpack8(*reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh +
+                                            (long long)row * p.o_ss + d0), o);
+    unpack8(*reinterpret_cast<const uint4*>(p.dout + b * p.d_sb + h * p.d_sh +
+                                            (long long)row * p.d_ss + d0), g);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum = fmaf(g[i], o[i], sum);
+  }
+#pragma unroll
+  for (int off = kChunks / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (d0 == 0) {
+    const long long bh = (long long)b * p.heads + h;
+    p.delta[bh * p.seq_pad + row] = sum;
+    p.lse2[bh * p.seq_pad + row] = row < p.seq ? p.lse[bh * p.seq + row] * kLog2e : 0.0f;
+  }
 }
 
-// p = exp(clip(s * scale) - lse), masked, as one logit of either kernel.
+// dq = bf16(scale * dq_acc), 8 elements a thread.
+__global__ void __launch_bounds__(256) attn_bwd_epilogue_kernel(const BwdParams p, long long n8) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n8) return;
+  const float4 a = reinterpret_cast<const float4*>(p.dq_acc)[2 * idx];
+  const float4 c = reinterpret_cast<const float4*>(p.dq_acc)[2 * idx + 1];
+  const float f[8] = {a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale,
+                      c.x * p.scale, c.y * p.scale, c.z * p.scale, c.w * p.scale};
+  reinterpret_cast<uint4*>(p.dq)[idx] = pack8(f);
+}
+
+// One tile's transposed logits to p^T (in s) and ds^T (in dp), in place. A
+// thread's fragment: s[4 j + e] is query q0 + 8 j + 2 t + (e & 1) (its column)
+// of key key0 + 8 (e >> 1) (its row). TAIL: the tile reaches past the last
+// query or the CTA past the last key; those entries are 0.
+template <bool ONLINE, bool TAIL>
+__device__ __forceinline__ void bwd_softmax_tile(float (&s)[kBlockQ / 2], float (&dp)[kBlockQ / 2],
+                                                 const float* lse2_s, const float* delta_s,
+                                                 float mul, int key0, int q0, int seq, int t) {
+#pragma unroll
+  for (int j = 0; j < kBlockQ / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2_s + 8 * j + 2 * t);
+    const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float lse2 = (e & 1) ? l2.y : l2.x;
+      float x;
+      if constexpr (ONLINE) {
+        x = fmaf(s[i], mul, -lse2);
+      } else {
+        x = fminf(fmaxf(s[i] * mul, -kLogitClamp * kLog2e), kLogitClamp * kLog2e) - lse2;
+      }
+      float pr = ex2_approx(x);
+      if (TAIL && (key0 + 8 * (e >> 1) >= seq || q0 + 8 * j + 2 * t + (e & 1) >= seq)) pr = 0.0f;
+      s[i] = pr;
+      dp[i] = pr * (dp[i] - ((e & 1) ? dl.y : dl.x));
+    }
+  }
+}
+
 template <bool ONLINE>
-__device__ __forceinline__ float prob(float s, float scale, float lse, bool valid) {
-  float x = s * scale;
-  if (!ONLINE) x = fminf(fmaxf(x, -kLogitClamp), kLogitClamp);
-  return valid ? expf(x - lse) : 0.0f;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_do,
+                const __grid_constant__ CUtensorMap map_dq) {
+  constexpr int kNS = kBlockQ / 2;         // logits per thread and tile
+  constexpr int kDSteps = kD / 16;         // wgmma k-steps over the head dim (s^T, dp^T)
+  constexpr int kQSteps = kBlockQ / 16;    // over the tile's queries (dv, dk)
+  constexpr int kKeySteps = kBlockKV / 16; // over the CTA's keys (dq)
 
-// Write a warp's 16 x D fp32 accumulator rows (times `mul`) as bf16 into a
-// contiguous [S, D] matrix at rows row0 + g and row0 + g + 8.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[D / 8][4],
-                                           int row0, int g, int t, int seq, float mul) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= seq) continue;
-    __nv_bfloat16* drow = dst + (long long)row * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
-    }
-  }
-}
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern repeats every 1024 bytes of the shared address
+  uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sm_k = smem_addr(sm);                     // 2 halves x [kBlockKV][64]
+  const uint32_t sm_v = sm_k + kKVTileBytes;               // the same
+  const uint32_t sm_q = sm_v + kKVTileBytes;               // kStages x 2 x [kBlockQ][64]
+  const uint32_t sm_do = sm_q + kStages * kQTileBytes;     // the same
+  const uint32_t sm_ds = sm_do + kStages * kQTileBytes;    // kDsBufs x [kBlockKV][kBlockQ]
+  const uint32_t sm_dq = sm_ds + kDsBufs * kDsTileBytes;   // kConsumers x 2 x [kBlockQ][32] fp32
+  const uint32_t sm_stat = sm_dq + kConsumers * kDqStageBytes;  // kStages x (lse2, delta)[kBlockQ]
+  const uint32_t bars = sm_stat + kStages * kStatBytes;
+  uint8_t* const ds_ptr = sm + 2 * kKVTileBytes + 2 * kStages * kQTileBytes;
+  uint8_t* const dq_ptr = ds_ptr + kDsBufs * kDsTileBytes;
+  const float* const stat_ptr =
+      reinterpret_cast<const float*>(dq_ptr + kConsumers * kDqStageBytes);
+  // tile `it` lives in slot it % kStages; its barriers flip once per round
+  const auto slot = [](int it) { return it % kStages; };
+  const auto round = [](int it) { return static_cast<uint32_t>(it / kStages) & 1u; };
+  const uint32_t full_kv = bars;
+  const auto full = [&](int it) { return bars + 8 * (1 + slot(it)); };
+  const auto empty = [&](int it) { return bars + 8 * (1 + kStages + slot(it)); };
 
-template <int D, bool ONLINE>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(const BwdParams p) {
-  constexpr int kLd = D + kPad;
-  constexpr int kTile = kBlock * kLd;
-  constexpr int kKSteps = D / 16;   // mma k-steps over the head dim
-  constexpr int kNTilesD = D / 8;   // 8-channel column tiles of dq
-
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* k_s = smem;              // [2][kBlock][kLd]
-  __nv_bfloat16* v_s = smem + 2 * kTile;  // [2][kBlock][kLd]
-
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int seq = p.seq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row within it
-  const int q0 = blockIdx.x * kBlock;
+  const int kv0 = blockIdx.x * kBlockKV;
+  const int n_tiles = (seq + kBlockQ - 1) / kBlockQ;
   const long long bh = (long long)b * p.heads + h;
 
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-
-  // q and dO rows of this CTA, staged through the two K stages -> A fragments.
-  load_tile_async<D>(k_s, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, seq);
-  load_tile_async<D>(k_s + kTile, p.dout + b * p.d_sb + h * p.d_sh, p.d_ss, q0, seq);
-  cp_async_commit();
-  cp_async_wait_0();
-  __syncthreads();
-  uint32_t qf[kKSteps][4], df[kKSteps][4];
-  {
-    const int off = (warp * 16 + g) * kLd + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int o = off + (i & 1) * 8 * kLd + kk * 16 + (i >> 1) * 8;
-        qf[kk][i] = *reinterpret_cast<const uint32_t*>(k_s + o);
-        df[kk][i] = *reinterpret_cast<const uint32_t*>(k_s + kTile + o);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * kConsumers);  // one arrival per consumer warp
     }
+    mbar_init_fence();
   }
   __syncthreads();
 
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    lse_r[r] = row < seq ? p.lse[bh * seq + row] : 0.0f;
-    delta_r[r] = row < seq ? p.delta[bh * seq + row] : 0.0f;
-  }
-
-  float acc[kNTilesD][4];
-#pragma unroll
-  for (int n = 0; n < kNTilesD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  load_tile_async<D>(k_s, kb, p.k_ss, 0, seq);
-  load_tile_async<D>(v_s, vb, p.v_ss, 0, seq);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int k0 = it * kBlock;
-    if (it + 1 < n_tiles) {
-      load_tile_async<D>(k_s + (stage ^ 1) * kTile, kb, p.k_ss, k0 + kBlock, seq);
-      load_tile_async<D>(v_s + (stage ^ 1) * kTile, vb, p.v_ss, k0 + kBlock, seq);
-    }
-    cp_async_commit();
-    cp_async_wait_1();  // this tile's group has landed; the next may be in flight
-    __syncthreads();
-    const __nv_bfloat16* ks = k_s + stage * kTile;
-    const __nv_bfloat16* vs = v_s + stage * kTile;
-
-    // 16 keys at a time: s = q k^T and dp = dO v^T (two 8-key column tiles
-    // each), then ds -> one A fragment of the 16-key k-step of dq += ds k.
-#pragma unroll
-    for (int c = 0; c < kBlock / 16; ++c) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-        const int key_off = ((2 * c + j) * 8 + lr) * kLd + lm * 8;
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; kk += 2) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, ks + key_off + kk * 16);
-          mma_bf16_16816(s[j], qf[kk], bf[0], bf[1]);
-          mma_bf16_16816(s[j], qf[kk + 1], bf[2], bf[3]);
-          ldmatrix_x4(bf, vs + key_off + kk * 16);
-          mma_bf16_16816(dp[j], df[kk], bf[0], bf[1]);
-          mma_bf16_16816(dp[j], df[kk + 1], bf[2], bf[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + (2 * c + j) * 8 + 2 * t + (e & 1);
-          const float pr = prob<ONLINE>(s[j][e], p.scale, lse_r[e >> 1], col < seq);
-          s[j][e] = pr * (dp[j][e] - delta_r[e >> 1]);
-        }
-      }
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[0][0], s[0][1]);
-      pa[1] = pack_bf16(s[0][2], s[0][3]);
-      pa[2] = pack_bf16(s[1][0], s[1][1]);
-      pa[3] = pack_bf16(s[1][2], s[1][3]);
-      const __nv_bfloat16* krow = ks + (c * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < kNTilesD; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, krow + n * 8);
-        mma_bf16_16816(acc[n], pa, bf[0], bf[1]);
-        mma_bf16_16816(acc[n + 1], pa, bf[2], bf[3]);
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(full_kv, 2 * kKVTileBytes);
+      tma_load_4d(sm_k, &map_k, full_kv, 0, kv0, h, b);
+      tma_load_4d(sm_k + kKVHalfBytes, &map_k, full_kv, kHalf, kv0, h, b);
+      tma_load_4d(sm_v, &map_v, full_kv, 0, kv0, h, b);
+      tma_load_4d(sm_v + kKVHalfBytes, &map_v, full_kv, kHalf, kv0, h, b);
+      const float* lse2_row = p.lse2 + bh * p.seq_pad;
+      const float* delta_row = p.delta + bh * p.seq_pad;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int q0 = it * kBlockQ;
+        const uint32_t qt = sm_q + slot(it) * kQTileBytes;
+        const uint32_t dot = sm_do + slot(it) * kQTileBytes;
+        const uint32_t st = sm_stat + slot(it) * kStatBytes;
+        mbar_wait(empty(it), round(it) ^ 1);
+        mbar_arrive_expect_tx(full(it), kStageBytes);
+        tma_load_4d(qt, &map_q, full(it), 0, q0, h, b);
+        tma_load_4d(qt + kQHalfBytes, &map_q, full(it), kHalf, q0, h, b);
+        tma_load_4d(dot, &map_do, full(it), 0, q0, h, b);
+        tma_load_4d(dot + kQHalfBytes, &map_do, full(it), kHalf, q0, h, b);
+        bulk_load(st, lse2_row + q0, kStatBytes / 2, full(it));
+        bulk_load(st + kStatBytes / 2, delta_row + q0, kStatBytes / 2, full(it));
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x - 128;
+    const int cw = tid >> 7;          // consumer warpgroup
+    const int wtid = tid & 127;       // thread within it
+    const int warp = wtid >> 5;
+    const int lane = wtid & 31;
+    const int g = lane >> 2;  // row within the 8-row group of a fragment
+    const int t = lane & 3;   // column pair within the fragment
+    const int key_row = cw * kWgKeys + warp * 16 + g;  // this thread's first key in the CTA
+    const bool key_tail = kv0 + kBlockKV > seq;
+    const float mul = p.scale * kLog2e;
 
-  store_rows<D>(p.dq + bh * seq * D, acc, q0 + warp * 16, g, t, seq, p.scale);
+    // this warpgroup's 64 keys of K and V (A operands of s^T and dp^T) and its
+    // 64-channel half of all 128 keys of K (B operand of dq)
+    const uint32_t k_rows = sm_k + cw * kWgKeys * kRowBytes;
+    const uint32_t v_rows = sm_v + cw * kWgKeys * kRowBytes;
+    const uint32_t k_cols = sm_k + cw * kKVHalfBytes;
+
+    float dk[kD / 2], dv[kD / 2];
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+    // One arrival per warp: wgmma.wait_group has made the warp's reads complete.
+    const auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    // s^T = k q^T and dp^T = v dO^T of tile `it`: 64 keys x 64 queries each,
+    // issued and committed
+    const auto issue_logits = [&](float (&s)[kNS], float (&dp)[kNS], int it) {
+      const uint32_t q_addr = sm_q + slot(it) * kQTileBytes;
+      const uint32_t do_addr = sm_do + slot(it) * kQTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        const uint32_t half = kk >> 2, in = (kk & 3) * 32u;
+        wgmma_ss_n64<0, 0>(s, wgmma_desc(k_rows + half * kKVHalfBytes + in, 16, 1024),
+                           wgmma_desc(q_addr + half * kQHalfBytes + in, 16, 1024), kk != 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kDSteps; ++kk) {
+        const uint32_t half = kk >> 2, in = (kk & 3) * 32u;
+        wgmma_ss_n64<0, 0>(dp, wgmma_desc(v_rows + half * kKVHalfBytes + in, 16, 1024),
+                           wgmma_desc(do_addr + half * kQHalfBytes + in, 16, 1024), kk != 0);
+      }
+      wgmma_commit();
+    };
+
+    // the logits of tile `it` to p^T and ds^T, in place
+    const auto softmax = [&](float (&s)[kNS], float (&dp)[kNS], int it) {
+      const float* lse2_s = stat_ptr + slot(it) * (kStatBytes / 4);
+      const int q0 = it * kBlockQ;
+      if (key_tail || q0 + kBlockQ > seq) {
+        bwd_softmax_tile<ONLINE, true>(s, dp, lse2_s, lse2_s + kBlockQ, mul, kv0 + key_row, q0,
+                                       seq, t);
+      } else {
+        bwd_softmax_tile<ONLINE, false>(s, dp, lse2_s, lse2_s + kBlockQ, mul, kv0 + key_row, q0,
+                                        seq, t);
+      }
+    };
+
+    // bf16 p^T and ds^T as A fragments: two neighbouring 8-query column tiles
+    // are the A fragment of one 16-query k-step (i = 8 kk + 2 a: a0 row g,
+    // queries 2t..; a1 row g + 8; a2, a3 queries + 8). ds^T also goes to the
+    // shared tile `buf`, row = key, 16-byte chunk c (8 queries) of row r at
+    // chunk c ^ (r % 8): the MN-major A operand of dq.
+    const auto pack = [&](const float (&s)[kNS], const float (&dp)[kNS],
+                          uint32_t (&pa)[kQSteps][4], uint32_t (&da)[kQSteps][4], int buf) {
+      uint8_t* ds_rows = ds_ptr + buf * kDsTileBytes + key_row * kRowBytes + 4 * t;
+#pragma unroll
+      for (int i = 0; i < kNS; i += 2) {
+        pa[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
+        const uint32_t d2 = pack_bf16(dp[i], dp[i + 1]);
+        da[i >> 3][(i >> 1) & 3] = d2;
+        // key_row % 8 == g for both of the thread's rows
+        *reinterpret_cast<uint32_t*>(ds_rows + ((i >> 1) & 1) * 8 * kRowBytes +
+                                     (((i >> 2) ^ g) << 4)) = d2;
+      }
+      fence_proxy_async();
+    };
+
+    // dv += p^T dO and dk += ds^T q of tile `it`, issued (not committed)
+    const auto issue_dkv = [&](const uint32_t (&pa)[kQSteps][4], const uint32_t (&da)[kQSteps][4],
+                               int it) {
+      const uint32_t q_addr = sm_q + slot(it) * kQTileBytes;
+      const uint32_t do_addr = sm_do + slot(it) * kQTileBytes;
+      wgmma_fence_regs(dv);
+      wgmma_fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kQSteps; ++kk) {
+        wgmma_rs_n128_bt(dv, pa[kk], wgmma_desc(do_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kQSteps; ++kk) {
+        wgmma_rs_n128_bt(dk, da[kk], wgmma_desc(q_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+      }
+    };
+
+    // dq[64 queries x 64 channels] = ds k over the CTA's 128 keys, from the
+    // shared tile `buf`, issued (not committed)
+    const auto issue_dq = [&](float (&dq)[kNS], int buf) {
+      const uint32_t ds_addr = sm_ds + buf * kDsTileBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeySteps; ++kk) {
+        wgmma_ss_n64<1, 1>(dq, wgmma_desc(ds_addr + kk * 16 * kRowBytes, kDsTileBytes, 1024),
+                           wgmma_desc(k_cols + kk * 16 * kRowBytes, kKVHalfBytes, 1024), kk != 0);
+      }
+    };
+
+    // the partial dq of tile `it` added into the fp32 buffer. The fragment
+    // (rows g and g + 8 of the warp's 16 queries, this warpgroup's 64
+    // channels) goes to the warpgroup's staging tile, two boxes of [64
+    // queries][32 channels] fp32 with the 128-byte swizzle (16-byte chunk c of
+    // row r at chunk c ^ (r % 8)), and one thread adds both boxes into device
+    // memory by TMA; rows past S are dropped by the map's bounds.
+    const uint32_t stage_addr = sm_dq + cw * kDqStageBytes;
+    uint8_t* const stage_ptr = dq_ptr + cw * kDqStageBytes;
+    const auto add_dq = [&](const float (&dq)[kNS], int it) {
+      if (wtid == 0) bulk_wait_read<0>();     // the previous add has read the tile
+      named_barrier_sync<128>(4 + cw);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = warp * 16 + g + 8 * r;
+        uint8_t* row_ptr = stage_ptr + row * kRowBytes + (2 * t & 3) * 4;
+#pragma unroll
+        for (int j = 0; j < kHalf / 8; ++j) {
+          // channel 8 j + 2 t of the half: box j / 4, chunk 2 (j % 4) + t / 2
+          *reinterpret_cast<float2*>(row_ptr + (j >> 2) * (kDqStageBytes / 2) +
+                                     (((2 * (j & 3) + (t >> 1)) ^ g) << 4)) =
+              make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+        }
+      }
+      fence_proxy_async();
+      named_barrier_sync<128>(4 + cw);
+      if (wtid == 0) {
+        const int q0 = it * kBlockQ;
+        tma_reduce_add_4d(&map_dq, stage_addr, cw * kHalf, q0, h, b);
+        tma_reduce_add_4d(&map_dq, stage_addr + kDqStageBytes / 2, cw * kHalf + 32, q0, h, b);
+        bulk_commit();
+      }
+    };
+
+    mbar_wait(full_kv, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      float s[kNS], dp[kNS], dq[kNS];
+      uint32_t pa[kQSteps][4], da[kQSteps][4];
+      mbar_wait(full(it), round(it));
+      issue_logits(s, dp, it);
+      wgmma_wait<0>();
+      wgmma_fence_regs(s);
+      wgmma_fence_regs(dp);
+      softmax(s, dp, it);
+      pack(s, dp, pa, da, it % kDsBufs);
+      issue_dkv(pa, da, it);
+      wgmma_commit();
+      // both warpgroups' halves of ds^T are in shared memory past this barrier
+      named_barrier_sync<128 * kConsumers>(1);
+      issue_dq(dq, it % kDsBufs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(dq);
+      wgmma_fence_regs(dv);
+      wgmma_fence_regs(dk);
+      release(empty(it));
+      add_dq(dq, it);
+    }
+
+    if (wtid == 0) bulk_wait_read<0>();  // the staging tile outlives its last add
+
+    // dk (times scale) and dv: rows g and g + 8 of the warp's 16 keys
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kv0 + key_row + 8 * r;
+      if (key >= seq) continue;
+      __nv_bfloat16* dk_row = p.dk + (bh * seq + key) * kD + 2 * t;
+      __nv_bfloat16* dv_row = p.dv + (bh * seq + key) * kD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dk_row + n * 8) =
+            pack_bf16(dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dv_row + n * 8) =
+            pack_bf16(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      }
+    }
+  }
 }
 
-template <int D, bool ONLINE>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int kLd = D + kPad;
-  constexpr int kTile = kBlock * kLd;
-  constexpr int kKSteps = D / 16;
-  constexpr int kNTilesD = D / 8;
-
-  extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  __nv_bfloat16* k_s = smem;                // [kBlock][kLd], this CTA's keys
-  __nv_bfloat16* v_s = smem + kTile;        // [kBlock][kLd]
-  __nv_bfloat16* q_s = smem + 2 * kTile;    // [2][kBlock][kLd]
-  __nv_bfloat16* do_s = smem + 4 * kTile;   // [2][kBlock][kLd]
-  float* stat_s = reinterpret_cast<float*>(smem + 6 * kTile);  // [2][lse, delta][kBlock]
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int seq = p.seq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int lm = lane >> 3, lr = lane & 7;
-  const int kv0 = blockIdx.x * kBlock;
-  const long long bh = (long long)b * p.heads + h;
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.d_sb + h * p.d_sh;
-  const float* lseb = p.lse + bh * seq;
-  const float* deltab = p.delta + bh * seq;
-
-  // the 64 queries of tile `it`: Q, dO, lse and delta into ring stage `st`
-  auto load_queries = [&](int it, int st) {
-    const int row0 = it * kBlock;
-    load_tile_async<D>(q_s + st * kTile, qb, p.q_ss, row0, seq);
-    load_tile_async<D>(do_s + st * kTile, dob, p.d_ss, row0, seq);
-    if (threadIdx.x < 2 * kBlock) {
-      const int i = threadIdx.x % kBlock;
-      const bool valid = row0 + i < seq;
-      const float* src = threadIdx.x < kBlock ? lseb : deltab;
-      cp_async4(stat_s + (2 * st + threadIdx.x / kBlock) * kBlock + i,
-                src + (valid ? row0 + i : 0), valid);
-    }
-  };
-
-  load_tile_async<D>(k_s, p.k + b * p.k_sb + h * p.k_sh, p.k_ss, kv0, seq);
-  load_tile_async<D>(v_s, p.v + b * p.v_sb + h * p.v_sh, p.v_ss, kv0, seq);
-  load_queries(0, 0);
-  cp_async_commit();
-
-  float dk[kNTilesD][4], dv[kNTilesD][4];
-#pragma unroll
-  for (int n = 0; n < kNTilesD; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
-  }
-  // A fragments of this warp's 16 keys (k and v rows) come from shared memory
-  const int a_off = (warp * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
-
-  const int n_tiles = (seq + kBlock - 1) / kBlock;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int stage = it & 1;
-    const int qt0 = it * kBlock;
-    if (it + 1 < n_tiles) load_queries(it + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    const __nv_bfloat16* qs = q_s + stage * kTile;
-    const __nv_bfloat16* dos = do_s + stage * kTile;
-    const float* lse_s = stat_s + 2 * stage * kBlock;
-    const float* delta_s = lse_s + kBlock;
-
-    // 16 queries at a time: s^T = k q^T and dp^T = v dO^T (two 8-query column
-    // tiles each), then p^T and ds^T -> A fragments of the 16-query k-step of
-    // dv += p^T dO and dk += ds^T q.
-#pragma unroll
-    for (int c = 0; c < kBlock / 16; ++c) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-      }
-      // B fragments of queries c*16 + [0, 8) (j = 0) and + [8, 16) (j = 1)
-      const int b_off = (c * 16 + (lm >> 1) * 8 + lr) * kLd + (lm & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t a[4], bf[4];
-        ldmatrix_x4(a, k_s + a_off + kk * 16);
-        ldmatrix_x4(bf, qs + b_off + kk * 16);
-        mma_bf16_16816(s[0], a, bf[0], bf[1]);
-        mma_bf16_16816(s[1], a, bf[2], bf[3]);
-        ldmatrix_x4(a, v_s + a_off + kk * 16);
-        ldmatrix_x4(bf, dos + b_off + kk * 16);
-        mma_bf16_16816(dp[0], a, bf[0], bf[1]);
-        mma_bf16_16816(dp[1], a, bf[2], bf[3]);
-      }
-      float ds[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = c * 16 + j * 8 + 2 * t + (e & 1);  // query within the tile
-          const float pr = prob<ONLINE>(s[j][e], p.scale, lse_s[i], qt0 + i < seq);
-          s[j][e] = pr;
-          ds[j][e] = pr * (dp[j][e] - delta_s[i]);
-        }
-      }
-      uint32_t pa[4], da[4];
-      pa[0] = pack_bf16(s[0][0], s[0][1]);
-      pa[1] = pack_bf16(s[0][2], s[0][3]);
-      pa[2] = pack_bf16(s[1][0], s[1][1]);
-      pa[3] = pack_bf16(s[1][2], s[1][3]);
-      da[0] = pack_bf16(ds[0][0], ds[0][1]);
-      da[1] = pack_bf16(ds[0][2], ds[0][3]);
-      da[2] = pack_bf16(ds[1][0], ds[1][1]);
-      da[3] = pack_bf16(ds[1][2], ds[1][3]);
-      const int t_off = (c * 16 + (lm & 1) * 8 + lr) * kLd + (lm >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < kNTilesD; n += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, dos + t_off + n * 8);
-        mma_bf16_16816(dv[n], pa, bf[0], bf[1]);
-        mma_bf16_16816(dv[n + 1], pa, bf[2], bf[3]);
-        ldmatrix_x4_trans(bf, qs + t_off + n * 8);
-        mma_bf16_16816(dk[n], da, bf[0], bf[1]);
-        mma_bf16_16816(dk[n + 1], da, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  const int row0 = kv0 + warp * 16;
-  store_rows<D>(p.dk + bh * seq * D, dk, row0, g, t, seq, p.scale);
-  store_rows<D>(p.dv + bh * seq * D, dv, row0, g, t, seq, 1.0f);
+BwdParams make_params(const void* out, const void* dout, const void* lse, void* lse2, void* delta,
+                      void* dq_acc, void* dq, void* dk, void* dv, int heads, int seq, int seq_pad,
+                      long long o_sb, long long o_sh, long long o_ss,
+                      long long d_sb, long long d_sh, long long d_ss, float scale) {
+  BwdParams p;
+  p.out = static_cast<const __nv_bfloat16*>(out);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = static_cast<const float*>(lse);
+  p.lse2 = static_cast<float*>(lse2);
+  p.delta = static_cast<float*>(delta);
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.d_sb = d_sb; p.d_sh = d_sh; p.d_ss = d_ss;
+  p.heads = heads;
+  p.seq = seq;
+  p.seq_pad = seq_pad;
+  p.scale = scale;
+  return p;
 }
 
-template <int D, bool ONLINE>
-cudaError_t launch_bwd(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr int kTileBytes = kBlock * (D + kPad) * sizeof(__nv_bfloat16);
-  constexpr int kSmemDq = 4 * kTileBytes;
-  constexpr int kSmemDkv = 6 * kTileBytes + 4 * kBlock * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_kernel<D, ONLINE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDq);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel<D, ONLINE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDkv);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.seq + kBlock - 1) / kBlock, p.heads, batch);
-  attn_bwd_dq_kernel<D, ONLINE><<<grid, kThreads, kSmemDq, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<D, ONLINE><<<grid, kThreads, kSmemDkv, stream>>>(p);
-  return cudaGetLastError();
+bool bad_shape(int batch, int heads, int seq, int seq_pad, int head_dim) {
+  // FLUX's head dim; other widths get their instantiation when a model needs one
+  return seq < 1 || batch < 1 || heads < 1 || head_dim != kD || seq_pad < seq ||
+         seq_pad % kStatPad != 0;
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
-// q, k, v, dout: bf16 [B, H, S, D] with element strides (the head dim
-// contiguous); lse, delta: fp32 [B, H, S] contiguous; dq, dk, dv: bf16
-// [B, H, S, D] contiguous, allocated by the caller. Returns the cudaError_t of
-// the launches (0 on success).
+// Strides are in elements; the head dim must be contiguous, every other stride
+// a multiple of 8 elements and the bases 16-byte aligned. Each function
+// returns the cudaError_t of its launches (0 on success).
+
+// delta = rowsum(dO * O) and lse * log2(e). out, dout: bf16 [B, H, S, D] with
+// strides; lse: fp32 [B, H, S] contiguous; lse2, delta: fp32 [B, H, seq_pad]
+// contiguous with seq_pad a multiple of 64, written whole (0 past S).
+extern "C" int reptext_flash_attention_bwd_preprocess(
+    const void* out, const void* dout, const void* lse, void* lse2, void* delta,
+    int batch, int heads, int seq, int seq_pad, int head_dim,
+    long long o_sb, long long o_sh, long long o_ss,
+    long long d_sb, long long d_sh, long long d_ss, void* stream) {
+  if (bad_shape(batch, heads, seq, seq_pad, head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BwdParams p = make_params(out, dout, lse, lse2, delta, nullptr, nullptr, nullptr, nullptr,
+                                  heads, seq, seq_pad, o_sb, o_sh, o_ss, d_sb, d_sh, d_ss, 0.0f);
+  dim3 grid(seq_pad * (kD / 8) / 256, heads, batch);
+  attn_bwd_preprocess_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The main kernel and the epilogue. q, k, v, dout: bf16 [B, H, S, D] with
+// strides; lse2, delta: the preprocess pass's outputs; dq_acc: fp32 [B, H, S,
+// D] contiguous and zero; dq, dk, dv: bf16 [B, H, S, D] contiguous. All
+// allocated by the caller.
 extern "C" int reptext_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int batch, int heads, int seq,
-    int head_dim,
+    const void* q, const void* k, const void* v, const void* dout, const void* lse2,
+    const void* delta, void* dq_acc, void* dq, void* dk, void* dv,
+    int batch, int heads, int seq, int seq_pad, int head_dim,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long d_sb, long long d_sh, long long d_ss,
     float scale, int online, void* stream) {
-  BwdParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.d_sb = d_sb; p.d_sh = d_sh; p.d_ss = d_ss;
-  p.heads = heads;
-  p.seq = seq;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq < 1 || batch < 1 || heads < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  // FLUX's head dim; other widths get their instantiation when a model needs one
-  if (head_dim == 128) {
-    err = online ? launch_bwd<128, true>(p, batch, s) : launch_bwd<128, false>(p, batch, s);
-  } else {
-    err = cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, seq, seq_pad, head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  const BwdParams p = make_params(nullptr, dout, nullptr, const_cast<void*>(lse2),
+                                  const_cast<void*>(delta), dq_acc, dq, dk, dv, heads, seq,
+                                  seq_pad, 0, 0, 0, d_sb, d_sh, d_ss, scale);
+  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+  // a layout no tensor map takes is refused here
+  if (!make_map(&map_q, q, batch, heads, seq, q_sb, q_sh, q_ss, kD, kBlockQ) ||
+      !make_map(&map_k, k, batch, heads, seq, k_sb, k_sh, k_ss, kD, kBlockKV) ||
+      !make_map(&map_v, v, batch, heads, seq, v_sb, v_sh, v_ss, kD, kBlockKV) ||
+      !make_map(&map_do, dout, batch, heads, seq, d_sb, d_sh, d_ss, kD, kBlockQ) ||
+      !make_map_f32(&map_dq, dq_acc, batch, heads, seq, kD, kBlockQ)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto kernel = online ? attn_bwd_kernel<true> : attn_bwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the key tile is the fastest index: one head's CTAs run together, so its
+  // slice of dq_acc stays in L2 while they add into it
+  dim3 grid((seq + kBlockKV - 1) / kBlockKV, heads, batch);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(p, map_q, map_k, map_v, map_do, map_dq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n8 = (long long)batch * heads * seq * (kD / 8);
+  attn_bwd_epilogue_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, s>>>(p, n8);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
-// Hopper-only building blocks of the forward attention template (sm_90a):
-// mbarriers, TMA tile loads (cp.async.bulk.tensor), wgmma descriptors for the
-// 128-byte swizzle, the wgmma.mma_async forms the kernel issues, named
-// barriers and setmaxnreg. Every helper is a forced-inline device function in
-// an anonymous namespace, as in mma_utils.cuh.
+// Hopper-only building blocks of the attention kernels, forward and backward
+// (sm_90a): mbarriers, TMA tile loads (cp.async.bulk.tensor) and plain bulk
+// copies, wgmma descriptors for the 128-byte swizzle, the wgmma.mma_async
+// forms the kernels issue, named barriers and setmaxnreg. Every helper is a
+// forced-inline device function in an anonymous namespace, as in mma_utils.cuh.
 
 #pragma once
 
@@ -62,6 +62,40 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous device memory into shared memory,
+// both 16-byte aligned; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One box of shared memory added (fp32 add, element by element, in no fixed
+// order against other adds) into a 4-D tensor map's tensor in device memory;
+// the part of the box past the map's bounds is dropped. Completion is tracked
+// by the issuing thread's bulk group.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Generic-proxy writes to shared memory (st.shared) made visible to the
@@ -150,6 +184,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : REPTEXT_ACC32(d, 0), REPTEXT_ACC32(d, 32)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands in shared memory.
+// TRANS_A / TRANS_B 0: the operand is K-major (A as [64][16], B as [64][16],
+// the reduction dim contiguous); 1: MN-major (A as [16][64], B as [16][64],
+// its 64 rows or columns contiguous, the reduction dim across 128-byte rows).
+// The accumulator fragment is wgmma_ss_n128's at half the columns: d[4 j + e]
+// is column 8 j + 2 t + (e & 1) of row 16 w + g + 8 (e >> 1).
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REPTEXT_REGS32
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : REPTEXT_ACC32(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d[64 x 128] += A[64 x 16] B[16 x 128], A from registers (the mma.sync

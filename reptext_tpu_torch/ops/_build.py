@@ -136,8 +136,11 @@ def load() -> ctypes.CDLL:
             fn = lib.reptext_attention_variant_fwd
             fn.argtypes = [c_p] * 4 + [c_i] * 4 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p]
             fn.restype = c_i
+            fn = lib.reptext_flash_attention_bwd_preprocess
+            fn.argtypes = [c_p] * 5 + [c_i] * 5 + [c_ll] * 6 + [c_p]
+            fn.restype = c_i
             fn = lib.reptext_flash_attention_bwd
-            fn.argtypes = ([c_p] * 9 + [c_i] * 4 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
+            fn.argtypes = ([c_p] * 10 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
             fn.restype = c_i
             fn = lib.reptext_ring_attention_step
             fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p]

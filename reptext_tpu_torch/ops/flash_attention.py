@@ -25,7 +25,14 @@ The entries are ``torch.autograd.Function``s, the counterparts of the two
 ``csrc/flash_attention_bwd.cu``): it recomputes p from the saved lse of
 whichever forward ran, as ``_flash_backward_pallas`` does; the RoPE entry
 rotates q and k with the fp32 tables first and un-rotates dq and dk after, as
-``_rope_bwd`` does.
+``_rope_bwd`` does. One call is three launches: a preprocess pass (delta =
+sum(dO * O) and lse * log2(e), :func:`backward_preprocess`), one TMA +
+``wgmma`` kernel in which a CTA owns 128 keys, streams the queries and makes
+all five products from one set of logits (exp2 on log2 units, as the
+forward), adding its partial dq into an fp32 buffer, and an epilogue that
+scales and rounds dq. The adds land in an order that changes from run to run,
+so dq's last bits do; dk and dv are bit-equal across runs (the JAX package's
+backward is fixed throughout).
 
 A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
@@ -47,6 +54,8 @@ from reptext_tpu_torch.ops._build import count_launch
 from reptext_tpu_torch.ops.rope import apply_rope_half
 
 LOGIT_CLAMP = 43.0
+LOG2E = 1.4426950408889634
+_STAT_PAD = 64    # K4's per-query statistics are padded to its 64-query tile
 _SUPPORTED_HEAD_DIMS = (128,)   # FLUX's; the kernel is instantiated for these only
 # Above this joint length the JAX package takes its streaming kernel (K3).
 _SINGLE_PASS_MAX_SEQ = 6144
@@ -261,6 +270,52 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
     return out, lse
 
 
+def backward_preprocess_plain(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's preprocess pass in plain PyTorch: (delta, lse2), both fp32
+    [B, H, S_pad] with S_pad = S rounded up to 64 and zeros past S. delta =
+    sum_d dO * O in fp32 (``jnp.sum(g * out)`` in the JAX package), lse2 =
+    lse * log2(e): the main kernel's exponential is exp2."""
+    pad = (0, _round_up(lse.shape[-1], _STAT_PAD) - lse.shape[-1])
+    delta = (do.float() * out.float()).sum(dim=-1)
+    return (torch.nn.functional.pad(delta, pad),
+            torch.nn.functional.pad(lse * LOG2E, pad))
+
+
+def backward_preprocess(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's preprocess pass, one hand-written kernel on CUDA tensors (out and
+    dO read once, 16 bytes a thread); see :func:`backward_preprocess_plain`.
+    Launches are counted by :func:`flash_attention_backward`, whose first pass
+    this is."""
+    if out.device.type == "cpu":
+        return backward_preprocess_plain(out, lse, do)
+    from reptext_tpu_torch.ops import _build
+
+    b, h, s, d = out.shape
+    if d not in _SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    for name, x in (("out", out), ("do", do)):
+        _check(name, x, (b, h, s, d))
+        if x.device != out.device:
+            raise ValueError(f"{name} is on {x.device}, out on {out.device}")
+    if (lse.device != out.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 [{b}, {h}, {s}] tensor on {out.device}")
+    lib = _build.load()
+    s_pad = _round_up(s, _STAT_PAD)
+    delta, lse2 = (torch.empty((b, h, s_pad), dtype=torch.float32, device=out.device)
+                   for _ in range(2))
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.reptext_flash_attention_bwd_preprocess(
+        out.data_ptr(), do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+        b, h, s, s_pad, d, *out.stride()[:3], *do.stride()[:3], stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward preprocess launch failed: cudaError {err}")
+    return delta, lse2
+
+
 def _launch_backward(q, k, v, out, lse, do, online: bool
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     from reptext_tpu_torch.ops import _build
@@ -268,21 +323,24 @@ def _launch_backward(q, k, v, out, lse, do, online: bool
     b, h, s, d = q.shape
     if d not in _SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)):
+    for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, (b, h, s, d))
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if (lse.device != q.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
-            or not lse.is_contiguous()):
-        raise ValueError(f"lse must be a contiguous float32 [{b}, {h}, {s}] tensor on {q.device}")
+    if out.shape != q.shape or out.device != q.device:
+        raise ValueError(f"out has shape {tuple(out.shape)} on {out.device}, q "
+                         f"{tuple(q.shape)} on {q.device}")
+    delta, lse2 = backward_preprocess(out, lse, do)
     lib = _build.load()
-    delta = (do.float() * out.float()).sum(dim=-1)      # [B, H, S] fp32, contiguous
+    # the key-tile CTAs add their partial dq into this fp32 buffer (see the source note)
+    dq_acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.reptext_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, s, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, s, lse2.shape[-1], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         1.0 / math.sqrt(d), int(online), stream)
     if err != 0:
@@ -295,7 +353,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              online: Optional[bool] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: (dq, dk, dv) for q, k (rotated), v, out, lse and dO; see
-    :func:`flash_attention_backward_plain` for what it computes."""
+    :func:`flash_attention_backward_plain` for what it computes. ``.launches``
+    counts calls that reach the kernels (three launches each)."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, out, lse, do, online)
     # dO arrives strided (merge_heads' gradient, [B, S, H, D] memory), which

@@ -1,6 +1,6 @@
-"""The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4,
-the attention A/B variants, K5's ring step) against their plain PyTorch
-versions, on the card, the RoPE entry's route (K1, or the fp32 rotation then K2 at one chunk or
+"""The port's CUDA flash-attention kernels (forward K1/K2/K3, backward K4
+with its preprocess pass, the attention A/B variants, K5's ring step) against
+their plain PyTorch versions, on the card, the RoPE entry's route (K1, or the fp32 rotation then K2 at one chunk or
 K3 past 6144 tokens), and gradients through a transformer block. Everything
 here needs a CUDA device and skips without one.
 
@@ -29,6 +29,15 @@ emulation than to its plain version (mean-abs; clamped, the softmax is
 max-free, the tiles' order drops out and the two are one function), lse and the ring state's m within 5e-5, l within 5e-5
 relative, and the fp32 state's acc within 2^-9 of max|acc| (one p that rounds
 to the neighbouring bf16 moves an element by up to 2^-8 p |v|).
+
+The backward against its emulation (torch_port_util.emulated_backward_loop:
+128 keys owned, 64-query tiles streamed, exp2 on log2 units, bf16 p and ds):
+both round p and ds at the same points from the same log2-unit logits, so
+they differ in the order of fp32 sums, in ex2.approx's last bits and, for dq,
+in the order its partial sums land: every gradient within 2^-7 of max|emulated|
+(one bf16 step at the top of its range) and 2^-10 of mean|emulated| (mean-abs),
+eight times closer than the limit against the plain version. dk and dv are
+bit-equal across calls; dq is not (its adds land in another order each run).
 """
 
 import math
@@ -42,7 +51,7 @@ from reptext_tpu_torch.ops import flash_attention as fa
 from reptext_tpu_torch.ops import ring_attention as ra
 from reptext_tpu_torch.ops.attention import attention, plain_attention
 from reptext_tpu_torch.ops.rope import apply_rope_half, rope_cos_sin_half
-from torch_port_util import LOG2E, emulated_key_loop
+from torch_port_util import LOG2E, emulated_backward_loop, emulated_key_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -362,6 +371,96 @@ def test_backward_kernel_matches_plain(dev, b, h, s, online):
     for x, y in zip(got, want):
         assert x.shape == (b, h, s, 128) and x.dtype == torch.bfloat16
         assert bool(torch.isfinite(x.float()).all())
+        assert _grad_ok(x, y)
+
+
+def _near_emulation(got, want):
+    err, ref = (got.float() - want.float()).abs(), want.float().abs()
+    return (err.max().item() <= 2.0 ** -7 * ref.max().item()
+            and err.mean().item() <= 2.0 ** -10 * ref.mean().item())
+
+
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+@pytest.mark.parametrize("b,h,s", [(2, 2, 1000), (1, 2, 4106), (1, 3, 128), (2, 1, 64)])
+def test_backward_kernel_matches_its_emulated_loop(dev, b, h, s, online):
+    """Batch 2 with ragged last tiles (1000 = 7 x 128 + 104 keys, 15 x 64 + 40
+    queries), 4106, one key block, one query tile."""
+    args = _bwd_inputs(dev, b, h, s, online, seed=s)
+    got = fa.flash_attention_backward(*args, online=online)
+    emu = emulated_backward_loop(*args, online=online)
+    torch.cuda.synchronize()
+    for x, y in zip(got, emu):
+        assert x.shape == (b, h, s, 128) and x.dtype == torch.bfloat16
+        assert _near_emulation(x, y)
+
+
+@pytest.mark.parametrize("s", [1, 17, 63])
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+def test_backward_under_one_query_tile(dev, s, online):
+    """S of less than one 64-query tile: the maps zero-fill, the kernel masks."""
+    q, k, v, _, _ = _inputs(dev, 2, 3, s, seed=s)
+    out, lse = fa.flash_attention(q, k, v, online)
+    do = torch.randn_like(out)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do, online=online)
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, do, online=online)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x.float()).all()) for x in got)
+    if s == 1:
+        # one key: ds = p (dp - delta) is 0 but for the forward's bf16 rounding of
+        # p (clamped) or for rounding noise alone (online, where p = 1: |dp| ~ 10
+        # at a relative 1e-6, times k / sqrt(D)), so dq and dk get an absolute
+        # floor beside the relative limit
+        for x, y in zip(got[:2], want[:2]):
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= 2.0 ** -5 * y.float().abs().max().item() + 1e-5
+        got, want = got[2:], want[2:]
+    for x, y in zip(got, want):
+        assert _grad_ok(x, y)
+
+
+def test_backward_on_the_streaming_kernels_lse(dev):
+    """Past 6144 tokens the forward is K3; K4 recomputes p from its lse."""
+    q, k, v, _, _ = _inputs(dev, 1, 2, 6200, seed=8)
+    out, lse = fa.flash_attention_streaming(q, k, v)
+    do = torch.randn_like(out)
+    got = fa.flash_attention_backward(q, k, v, out, lse, do)
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, do)
+    for x, y in zip(got, want):
+        assert _grad_ok(x, y)
+
+
+def test_backward_preprocess_matches_plain(dev):
+    """delta = sum(dO * O) within 2^-20 of max|plain| (fp32 sums of 128
+    products in another order), lse * log2(e) to the last bit or one, zeros in
+    the padding to a multiple of 64 rows; out and dO strided as they arrive."""
+    _, _, _, out, lse, do = _bwd_inputs(dev, 2, 3, 1000, online=False, seed=13)
+    delta, lse2 = fa.backward_preprocess(out, lse, do)
+    p_delta, p_lse2 = fa.backward_preprocess_plain(out, lse, do)
+    torch.cuda.synchronize()
+    assert delta.shape == lse2.shape == p_delta.shape == (2, 3, 1024)
+    assert (delta - p_delta).abs().max().item() <= 2.0 ** -20 * p_delta.abs().max().item()
+    assert (lse2 - p_lse2).abs().max().item() <= 1e-5
+    assert not bool(delta[..., 1000:].any()) and not bool(lse2[..., 1000:].any())
+
+
+def test_backward_twice_dk_dv_bit_equal_and_copied_layouts(dev):
+    """Two calls on the same inputs: dk and dv to the bit, dq within the
+    kernel's tolerance (its adds land in another order each run). A dO no
+    tensor map takes (an expanded sum() gradient: zero strides) is copied."""
+    args = _bwd_inputs(dev, 2, 4, 1000, online=False, seed=17)
+    first = fa.flash_attention_backward(*args)
+    second = fa.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+    assert _grad_ok(first[0], second[0])
+    q, k, v, out, lse, _ = args
+    ones = torch.ones((), dtype=torch.bfloat16, device=dev).expand(q.shape)
+    assert not fa._kernel_strides(ones)
+    n = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, out, lse, ones)
+    want = fa.flash_attention_backward_plain(q, k, v, out, lse, ones)
+    assert fa.flash_attention_backward.launches == n + 1
+    for x, y in zip(got, want):
         assert _grad_ok(x, y)
 
 

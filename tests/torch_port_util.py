@@ -8,7 +8,7 @@ inputs in float32. The tree's shapes come from ``jax.eval_shape`` of the
 module's ``init``, which costs a fraction of running the initialisers.
 jax is imported where a helper needs it, so that the tests that run on a CUDA
 card without it (tests/test_torch_cuda.py) can take :func:`emulated_key_loop`
-from here.
+and :func:`emulated_backward_loop` from here.
 """
 
 import dataclasses
@@ -121,3 +121,46 @@ def emulated_key_loop(qp, kp, v, logit_mul, online, tile=128, state=None, first=
     if carry:
         return out
     return out, (m * LN2 if online else 0.0) + torch.log(l)
+
+
+def emulated_backward_loop(q, k, v, out, lse, do, online, key_tile=128, query_tile=64,
+                           clamp=43.0):
+    """The backward kernel's loops (``csrc/flash_attention_bwd.cu``) in plain
+    PyTorch: the preprocess pass (delta = sum(dO * O), lse * log2(e)); then a
+    block of ``key_tile`` keys owned at a time, the queries streamed past it
+    in tiles of ``query_tile``: transposed fp32 logits k q^T taken to log2
+    units by one multiply with log2(e) / sqrt(D), clamped at ``clamp`` *
+    log2(e) unless ``online``, p^T = exp2(. - lse log2(e)), ds^T = p^T (v
+    dO^T - delta), both rounded to q's dtype for their products, dk and dv
+    accumulated in fp32 across the query tiles, the block's partial dq added
+    into an fp32 buffer across the key blocks; the scale and the rounding to
+    q's dtype at the end. A last tile shorter than its size stands for the
+    masked rows past the end. tests/test_torch_cuda.py holds the kernel itself
+    against this loop, closer than against its plain version.
+    """
+    f32 = dict(dtype=torch.float32, device=q.device)
+    s_len, d = q.shape[2], q.shape[3]
+    scale = 1.0 / float(np.sqrt(d))
+    mul = torch.tensor(scale * LOG2E, **f32)
+    delta = (do.float() * out.float()).sum(dim=-1)
+    lse2 = lse * torch.tensor(LOG2E, **f32)
+    dq_acc = torch.zeros(q.shape, **f32)
+    dk, dv = torch.zeros(q.shape, **f32), torch.zeros(q.shape, **f32)
+    for kv0 in range(0, s_len, key_tile):
+        kt, vt = (x[:, :, kv0:kv0 + key_tile].float() for x in (k, v))
+        dk_blk, dv_blk = torch.zeros(kt.shape, **f32), torch.zeros(kt.shape, **f32)
+        for q0 in range(0, s_len, query_tile):
+            rows = slice(q0, q0 + query_tile)
+            qt, dot = q[:, :, rows].float(), do[:, :, rows].float()
+            x = torch.matmul(kt, qt.transpose(-1, -2)) * mul
+            if not online:
+                x = x.clamp(-clamp * LOG2E, clamp * LOG2E)
+            p_t = torch.exp2(x - lse2[:, :, None, rows])
+            ds_t = p_t * (torch.matmul(vt, dot.transpose(-1, -2)) - delta[:, :, None, rows])
+            p_t, ds_t = p_t.to(q.dtype).float(), ds_t.to(q.dtype).float()
+            dv_blk += torch.matmul(p_t, dot)
+            dk_blk += torch.matmul(ds_t, qt)
+            dq_acc[:, :, rows] += torch.matmul(ds_t.transpose(-1, -2), kt)
+        dk[:, :, kv0:kv0 + key_tile] = dk_blk
+        dv[:, :, kv0:kv0 + key_tile] = dv_blk
+    return (dq_acc * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
