@@ -59,6 +59,15 @@ non-zero without one. Phases, one line each, and any failure ends the run:
 5. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
+5b. checkpoint: a synthetic diffusers snapshot (FLUX.1-dev transformer, VAE,
+   CLIP-L, T5-XXL, a RepText ControlNet, tokenizer files) at full width with
+   the depth cut (CKPT_FLUX, CKPT_CN, CKPT_T5), bf16 from a seed, written by
+   reptext_tpu_torch.io.synthetic, converted by io.convert_cli.main, loaded
+   through cli.build_pipeline(--checkpoint-dir) and, from the converter's
+   trees, through FluxRepTextPipeline.create(params=...): every parameter
+   bit-equal, one 1024^2 request's latents bit-equal, its ids from the
+   vendored tokenizers; seconds to write, convert and load, GB/s, host peak
+   RSS, sizes;
 6. end to end: two 1024x1024 txt2img requests (an Arabic line, then a Latin
    line) through the port's CLI path (reptext_tpu_torch.cli.build_pipeline /
    generate) at full FLUX.1-dev + RepText + T5-XXL + CLIP-L + VAE geometry,
@@ -74,7 +83,18 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    seeded numpy source image and a box mask over the text line; per image
    steps * (57 + 14) + controlnet_steps * 14 launches of its kernel. Checks
    image shapes, uint8 and finite latents; prints s/image, stage seconds,
-   sampler ms/step and peak memory; then frees the inpaint ControlNet;
+   sampler ms/step and peak memory;
+7b. serve: a GenerationServer (reptext_tpu_torch.serving) on 127.0.0.1 over the
+   same pipeline and, for mode=inpaint, the inpaint ControlNet at 1280x960,
+   driven over HTTP by client threads: a burst of 4 compatible 1024^2
+   requests (one batch of 4), the same 4 with max_batch 1, one 1536^2 request
+   (K3), two requests with other guidance scales (two batches) and two
+   inpaint requests (one batch of 2); /metrics' batch counts, launches per
+   batch (steps x 57 + ControlNet steps x 14, whatever the batch), PNG shapes,
+   the burst's latents against each request's alone within SERVE_RTOL (direct
+   calls), each served PNG against the decode of those latents; seconds from
+   first submit to last answer, images/s, p50/p95 latency, peak memory; then
+   frees the inpaint ControlNet;
 8. with --profile: torch.profiler over two inpaint steps at 1536x1152 (in the
    large phase) and over two ControlNet steps of the txt2img sampler at 1024^2,
    device (kernel) time by class, the device's idle share and the top kernels;
@@ -99,10 +119,13 @@ path's counts set to 0 just before it and read just after; times, the bound,
 SDPA's time), the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
-arrays are used only where Pillow or a font is missing.
+arrays are used only where Pillow or a font is missing (the serve phase's
+worker takes them through its ``conditions`` method, replaced on the instance).
 """
 
 import argparse
+import base64
+import io
 import json
 import os
 import statistics
@@ -173,6 +196,28 @@ SP_RTOL = REF_RTOL
 FWD_CALLS = DOUBLE_CALLS + SINGLE_CALLS
 TRAIN_K4 = FWD_CALLS - 1
 TRAIN_K1 = FWD_CALLS + TRAIN_K4
+# The checkpoint phase's synthetic snapshot: full widths, depth cut to (double,
+# single) blocks of FLUX and the ControlNet and T5 layers, ~4.5 GB of bf16
+# written and ~4.5 GB converted; written under SCRATCH (git-ignored), removed
+# after the phase.
+CKPT_FLUX, CKPT_CN, CKPT_T5 = (2, 2), (1, 1), 2
+SCRATCH = ".chip_smoke"
+# The serve phase: the worker lingers this long after a request arrives so
+# that a burst sent by 4 client threads at once lands in one batch.
+BATCH_WINDOW_S = 0.25
+# A request's latents in a batch of 4 against the same request alone, after 4
+# steps: max_abs within 5e-2 of max|alone|, the SP comparison's limit. Both are
+# bf16 end to end; only the batch's GEMMs differ (cuBLAS picks its tiles and
+# the split of each sum by M, 4 x 4608 rows against 4608), so an output may
+# round one way in one and the other way in the other, and that moves through
+# 57 + 14 blocks a step, as the SP ranks' sums in another order do.
+SERVE_RTOL = SP_RTOL
+# The burst's PNGs against the same requests' alone, in uint8 levels: the VAE
+# decodes the batch's four latents in one call and cuDNN picks its convolution
+# algorithms by the batch, so equal latents decode a rounding apart (bf16
+# activations: 2^-8 of a value) compounded through the decoder's 30 convolutions
+# and its group norms: each pixel within 8 levels, their mean within 0.5.
+SERVE_PNG_MAX, SERVE_PNG_MEAN = 8, 0.5
 
 
 def phase(name, msg):
@@ -1056,7 +1101,8 @@ def run_request(label, call, pipe, expect, shape, steps):
 def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     """txt2img at 1536^2, then inpainting at 1280x960 and 1536x1152, on the
     e2e phase's modules plus one inpaint ControlNet; with ``profile``, a
-    device profile of two inpaint steps at 1536x1152."""
+    device profile of two inpaint steps at 1536x1152. Returns the launches
+    and the inpaint pipeline (the serve phase's)."""
     from reptext_tpu_torch import cli
     from reptext_tpu_torch.ops import flash_attention as fa
     from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
@@ -1116,8 +1162,338 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
             inp, expect, (1, height, width, 3), steps)
         if profile and kernel == "K3":
             inpaint_profile(dev, inp, cond, image, mask, seed)
-    del inp
-    torch.cuda.empty_cache()
+    return launches, inp
+
+
+def checkpoint_phase(dev, steps, cn_steps, seed):
+    """A synthetic diffusers snapshot at full width (cut depth) written with the
+    port's writer, converted by io.convert_cli, loaded through
+    cli.build_pipeline(--checkpoint-dir) and, from the converter's trees,
+    through FluxRepTextPipeline.create(params=...): every parameter bit-equal,
+    one 1024^2 request's latents bit-equal, its ids from the vendored
+    tokenizers. Returns the first pipeline's launches."""
+    import dataclasses
+    import resource
+    import shutil
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.configs import (
+        CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig,
+    )
+    from reptext_tpu_torch.io import convert as C
+    from reptext_tpu_torch.io import convert_cli, synthetic
+    from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
+    from reptext_tpu_torch.text import CLIPBPETokenizer
+
+    flux_cfg = dataclasses.replace(FluxConfig(), num_layers=CKPT_FLUX[0],
+                                   num_single_layers=CKPT_FLUX[1])
+    cn_cfg = dataclasses.replace(ControlNetConfig(), num_layers=CKPT_CN[0],
+                                 num_single_layers=CKPT_CN[1])
+    t5_cfg = dataclasses.replace(T5Config(), num_layers=CKPT_T5)
+    vae_cfg, clip_cfg = VAEConfig(), CLIPConfig()
+    cut = (f"FLUX {CKPT_FLUX[0]} + {CKPT_FLUX[1]} blocks of 19 + 38, ControlNet {CKPT_CN[0]} + "
+           f"{CKPT_CN[1]} of 4 + 10, T5-XXL {CKPT_T5} layers of 24; widths, CLIP-L and the VAE "
+           "whole")
+    work = os.path.join(ROOT, SCRATCH)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    snap, out = os.path.join(work, "snapshot"), os.path.join(work, "converted")
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    try:
+        free = shutil.disk_usage(work).free / 1e9
+        t0 = time.perf_counter()
+        written = synthetic.write_pipeline_snapshot(
+            os.path.join(snap, "pipeline"), flux_cfg, vae_cfg, clip_cfg, t5_cfg, seed=seed,
+            device=dev, dtype=torch.bfloat16)
+        written += synthetic.write_controlnet_snapshot(
+            os.path.join(snap, "controlnet"), cn_cfg, seed=seed + 1, device=dev,
+            dtype=torch.bfloat16)
+        synthetic.write_tokenizers(os.path.join(snap, "pipeline"))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = convert_cli.main(["--pipeline-dir", os.path.join(snap, "pipeline"),
+                               "--controlnet-dir", os.path.join(snap, "controlnet"),
+                               "--out", out])
+        convert_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+        phase("checkpoint", f"synthetic diffusers snapshot, bf16, seeded ({cut}): "
+                            f"{written / 1e9:.3f} GB written in {write_s:.1f} s ({free:.0f} GB "
+                            f"free before); io.convert_cli exit {rc} in {convert_s:.3f} s, "
+                            f"converted directory {size / 1e9:.3f} GB")
+
+        data, req_size, font_size, reqs = load_requests()
+        name, text, pos = reqs[0]
+        args = cli.build_parser().parse_args(
+            ["--checkpoint-dir", out, "--text", text, "--position", *map(str, pos), "--size",
+             str(req_size), "--steps", str(steps), "--controlnet-step", str(cn_steps), "--seed",
+             str(seed), "--font-size", str(font_size)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = cli.build_pipeline(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        modules = ("flux", "controlnet", "vae", "clip", "t5")
+        nbytes = sum(p.numel() * p.element_size() for m in modules
+                     for p in getattr(pipe, m).parameters())
+        t0 = time.perf_counter()
+        trees = {
+            "flux": C.convert_flux_transformer(C.load_safetensors_state(
+                os.path.join(snap, "pipeline", "transformer"), dtype=None), flux_cfg),
+            "controlnet": C.convert_controlnet(C.load_safetensors_state(
+                os.path.join(snap, "controlnet"), dtype=None), cn_cfg),
+            "vae": C.convert_vae(C.load_safetensors_state(
+                os.path.join(snap, "pipeline", "vae"), dtype=None), vae_cfg),
+            "clip": C.convert_clip(C.load_safetensors_state(
+                os.path.join(snap, "pipeline", "text_encoder"), dtype=None), clip_cfg),
+            "t5": C.convert_t5(C.load_safetensors_state(
+                os.path.join(snap, "pipeline", "text_encoder_2"), dtype=None), t5_cfg)}
+        ref = FluxRepTextPipeline.create(flux_cfg, cn_cfg, vae_cfg, pipe.pipe_cfg, params=trees,
+                                         clip_cfg=clip_cfg, t5_cfg=t5_cfg, device=dev)
+        torch.cuda.synchronize()
+        tree_s = time.perf_counter() - t0
+        del trees
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        same = all(
+            [n for n, _ in getattr(pipe, m).named_parameters()]
+            == [n for n, _ in getattr(ref, m).named_parameters()]
+            and all(a.dtype == b.dtype == torch.bfloat16 and torch.equal(a, b)
+                    for a, b in zip(getattr(pipe, m).parameters(), getattr(ref, m).parameters()))
+            for m in modules)
+        phase("checkpoint", f"cli.build_pipeline(--checkpoint-dir) {load_s:.3f} s for "
+                            f"{nbytes / 1e9:.3f} GB of parameters ({nbytes / 1e9 / load_s:.2f} "
+                            f"GB/s, files mapped from the page cache onto the card); "
+                            f"create(params=converter trees) {tree_s:.3f} s; every parameter of "
+                            f"the five modules bit-equal {same}; host peak RSS {rss:.2f} GiB "
+                            f"(ru_maxrss; {rss0:.2f} before the phase)")
+
+        prompt = cli.build_prompt(args.prompt, args.text, cli.PROMPT_SUFFIX)
+        clip_ids, t5_ids = cli._prompt_ids(args, pipe, prompt)
+        demo = cli.demo_token_ids(prompt, pipe.clip.config, pipe.t5.config, 512)
+        direct = CLIPBPETokenizer.from_dir(os.path.join(out, "tokenizer")).encode(prompt)
+        vendored = (clip_ids[0].tolist() == direct and not np.array_equal(clip_ids, demo[0])
+                    and not np.array_equal(t5_ids, demo[1]))
+        cond, source = conditions_for(data, name, text, pos, req_size, font_size)
+        gate = min(cn_steps, steps)
+        expect = {"K1": steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN), "K2": 0, "K3": 0, "K5": 0}
+        reset_launches()
+        t0 = time.perf_counter()
+        lat = cli.generate(args, pipe, cond, output_type="latent")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        lat_ref = cli.generate(args, ref, cond, output_type="latent")
+        equal = bool(torch.equal(lat, lat_ref))
+        finite = bool(torch.isfinite(lat).all())
+        phase("checkpoint", f"1024^2 request ({name}, conditions: {source}) through both: "
+                            f"{wall:.3f} s; ids from the vendored tokenizers {vendored} (CLIP "
+                            f"{int((clip_ids[0] != clip_ids[0, -1]).sum())} tokens before its "
+                            f"padding, T5 {int((t5_ids[0] > 1).sum())} + </s>); latents bit-equal "
+                            f"{equal}, finite {finite}; launches "
+                            + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect)))
+        if not (rc == 0 and same and vendored and equal and finite and got == expect):
+            raise SystemExit("the checkpoint phase failed its checks")
+        del pipe, ref, lat, lat_ref
+        torch.cuda.empty_cache()
+        return got
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def png_array(b64):
+    from PIL import Image
+
+    raw = base64.b64decode(b64)
+    return raw[:8] == b"\x89PNG\r\n\x1a\n", np.asarray(Image.open(io.BytesIO(raw)))
+
+
+def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
+    """A GenerationServer over the e2e phase's pipeline and the large phase's
+    inpaint ControlNet (--serve-inpaint), on 127.0.0.1, driven over HTTP by
+    client threads: a burst of 4 compatible 1024^2 requests (one batch), the
+    same 4 with max_batch 1, one 1536^2 request (K3), two requests whose
+    signatures differ and two 1280x960 inpaint requests. The worker's
+    conditions come from the fixtures (no font on the card)."""
+    import dataclasses
+    import http.client
+    import threading
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.serving import GenerationServer, _pad_rows, _png_b64
+    from reptext_tpu_torch.utils.metrics import Metrics
+
+    data, size, font_size, reqs = load_requests()
+    large = np.load(LARGE_FIXTURE)
+    table, sources = {}, set()
+    for name, text, pos in reqs:
+        table[(text, size, size)], src = conditions_for(data, name, text, pos, size, font_size)
+        sources.add(src)
+    lines = {}
+    for name in ("txt2img_1536", "inpaint_1280x960"):
+        text = str(large[f"{name}.text"])
+        pos = tuple(int(v) for v in large[f"{name}.position"])
+        w, h = (int(v) for v in large[f"{name}.size"])
+        table[(text, w, h)], src = conditions_for(large, name, text, pos, (w, h),
+                                                  int(large["font_size"]), LARGE_FIXTURE)
+        lines[name] = (text, pos, w, h)
+        sources.add(src)
+
+    def conditions(req, width, height):
+        return table[(req.lines[0]["text"], width, height)]
+
+    text, pos, w_inp, h_inp = lines["inpaint_1280x960"]
+    inp_serve = inp.with_config(dataclasses.replace(inp.pipe_cfg, height=h_inp, width=w_inp))
+    server = GenerationServer(pipe, host="127.0.0.1", port=0, max_batch=4,
+                              batch_window_s=BATCH_WINDOW_S, inpaint_pipeline=inp_serve,
+                              metrics=Metrics(), request_timeout_s=600)
+    server.worker.conditions = conditions
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.address[:2]
+
+    def http_call(method, path, payload=None):
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        conn.request(method, path, body=None if payload is None else json.dumps(payload),
+                     headers={"Content-Type": "application/json"} if payload else {})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        return resp.status, body
+
+    gate = min(cn_steps, steps)
+    per_batch = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
+    per_inpaint_batch = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    launches, fails = {}, []
+
+    def scenario(label, payloads, max_batch, batches, expect, shape):
+        server.worker.max_batch = max_batch
+        # one at a time there is nothing to wait for
+        server.worker.batch_window_s = BATCH_WINDOW_S if max_batch > 1 else 0.0
+        server.worker.metrics = Metrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = [None] * len(payloads)
+
+        def client(i):
+            t0 = time.perf_counter()
+            status, body = http_call("POST", "/generate", payloads[i])
+            out[i] = (status, body, t0, time.perf_counter())
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        got = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches[f"serve_{label}"] = got
+        _, snap = http_call("GET", "/metrics")
+        images, ok_png = [], True
+        for status, body, _, _ in out:
+            if status != 200:
+                fails.append(f"{label}: HTTP {status} {body}")
+                continue
+            is_png, image = png_array(body["image_png_base64"])
+            ok_png &= is_png and image.shape == shape and image.dtype == np.uint8
+            images.append(image)
+        lat = sorted(o[3] - o[2] for o in out)
+        wall = max(o[3] for o in out) - min(o[2] for o in out)
+        counted = snap["counters"].get("serving.batches", 0)
+        sizes = snap["timings"].get("serving.batch_size", {})
+        ok = (ok_png and len(images) == len(payloads) and counted == batches
+              and got == expect and sizes.get("max_s") == len(payloads) / batches)
+        phase("serve", f"{label}: {len(payloads)} request(s), max_batch {max_batch}: {wall:.3f} s "
+                       f"from first submit to last answer, {len(payloads) / wall:.3f} images/s; "
+                       f"latency p50 {np.percentile(lat, 50):.3f} s, p95 "
+                       f"{np.percentile(lat, 95):.3f} s; /metrics: {counted} batch(es) (expected "
+                       f"{batches}), batch size max {sizes.get('max_s')}; launches "
+                       + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                       + f"; PNG {shape} uint8 {ok_png}; peak device memory {peak:.2f} GiB -> "
+                       + ("ok" if ok else "FAIL"))
+        if not ok:
+            fails.append(label)
+        return images
+
+    def payload(i, name_text_pos, **extra):
+        name, text, pos = name_text_pos
+        return dict({"prompt": cli.build_prompt(f"a street sign in city {i}", [text],
+                                                cli.PROMPT_SUFFIX),
+                     "lines": [{"text": text, "position": list(pos), "font_size": font_size}],
+                     "seed": seed + i}, **extra)
+
+    try:
+        burst = [payload(i, reqs[i % 2]) for i in range(4)]
+        square = (size, size, 3)
+        batched = scenario("burst", burst, 4, 1, dict(zero, K1=per_batch), square)
+        alone = scenario("one_at_a_time", burst, 1, 4, dict(zero, K1=4 * per_batch), square)
+
+        # the same requests called directly: the batch's latents against each
+        # request's alone (bf16, SERVE_RTOL), and each served PNG against the
+        # decode of the direct call's latents (the same computation: the batch's
+        # four latents decoded in one call, as the worker decodes them)
+        worker = server.worker
+        conds = [conditions(types.SimpleNamespace(lines=p["lines"]), size, size) for p in burst]
+        ids = [worker._tokenize(p["prompt"]) for p in burst]
+        seeds = [p["seed"] for p in burst]
+        stages_b, stages_1 = {}, {}
+        lat_b = pipe.generate_batch(conds, clip_ids=_pad_rows([c[0] for c, _ in ids]),
+                                    t5_ids=_pad_rows([t[0] for _, t in ids]), seeds=seeds,
+                                    output_type="latent", timings=stages_b)
+        t0 = time.perf_counter()
+        rel, decoded = [], [pipe.decode(lat_b)]
+        torch.cuda.synchronize()
+        stages_b["decode"] = time.perf_counter() - t0
+        for i in range(4):
+            lat_1 = pipe(conds[i], clip_ids=ids[i][0], t5_ids=ids[i][1], seed=seeds[i],
+                         output_type="latent", timings=stages_1)
+            rel.append(((lat_b[i] - lat_1[0]).abs().max() / lat_1.abs().max()).item())
+            t0 = time.perf_counter()
+            decoded.append(pipe.decode(lat_1))
+            torch.cuda.synchronize()
+            stages_1["decode"] = time.perf_counter() - t0
+        served_diff = max(int(np.abs(a.astype(int) - b.astype(int)).max()) for a, b in
+                          zip([*decoded[0], *(d[0] for d in decoded[1:])], batched + alone))
+        pix = np.abs(np.stack(batched).astype(int) - np.stack(alone).astype(int))
+        ok = (max(rel) <= SERVE_RTOL and served_diff == 0 and pix.max() <= SERVE_PNG_MAX
+              and pix.mean() <= SERVE_PNG_MEAN)
+        phase("serve", f"burst vs one at a time: latents max_abs/max|alone| per request "
+                       + ", ".join(f"{r:.3e}" for r in rel) + f" (tol {SERVE_RTOL}); served PNGs "
+                       f"against the decode of the same call's latents: max {served_diff} "
+                       f"level(s) (must be 0); burst vs alone PNGs: max {pix.max()} levels (tol "
+                       f"{SERVE_PNG_MAX}), mean {pix.mean():.3f} (tol {SERVE_PNG_MEAN}) -> "
+                       f"{'ok' if ok else 'FAIL'}; called directly, the batch of 4 takes "
+                       + ", ".join(f"{k} {v:.3f} s" for k, v in stages_b.items())
+                       + f" (sampler {1e3 * stages_b['sample'] / steps:.1f} ms/step), one "
+                       f"request alone (the last) "
+                       + ", ".join(f"{k} {v:.3f} s" for k, v in stages_1.items())
+                       + f" (sampler {1e3 * stages_1['sample'] / steps:.1f} ms/step)")
+        if not ok:
+            fails.append("burst vs one at a time")
+
+        text, pos, w, h = lines["txt2img_1536"]
+        scenario("1536", [payload(0, ("txt2img_1536", text, pos), width=w, height=h)], 4, 1,
+                 dict(zero, K3=per_batch), (h, w, 3))
+        scenario("mismatched", [payload(0, reqs[0]), payload(1, reqs[1], guidance_scale=4.0)],
+                 4, 2, dict(zero, K1=2 * per_batch), square)
+        text, pos, w, h = lines["inpaint_1280x960"]
+        cond = table[(text, w, h)]
+        image, mask = source_image(seed, h, w), box_mask(cond)
+        inpaint = [payload(i, ("inpaint_1280x960", text, pos), mode="inpaint",
+                           image_png_base64=_png_b64(image), mask_png_base64=_png_b64(mask))
+                   for i in range(2)]
+        scenario("inpaint", inpaint, 4, 1, dict(zero, K1=per_inpaint_batch), (h, w, 3))
+        phase("serve", f"launches per batch of B requests with N lines: K1 (K3 past 6144 joint "
+                       f"tokens) = steps x 57 + ControlNet steps x 14 = {per_batch} whatever B and "
+                       f"N (every block is one attention call over the batch's rows, the "
+                       f"ControlNet's over N x B rows); inpainting steps x (57 + 14) + ControlNet "
+                       f"steps x 14 = {per_inpaint_batch} (its rows: 2B); batch window "
+                       f"{BATCH_WINDOW_S} s; conditions: {', '.join(sorted(sources))}")
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if fails or thread.is_alive():
+        raise SystemExit(f"the serve phase failed its checks: {fails}")
     return launches
 
 
@@ -1812,8 +2188,14 @@ def main(argv=None):
     reference_phase(dev)
     txt2img, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
     by_path = {"txt2img": txt2img}
-    by_path.update(large_phase(dev, pipe, args.steps, args.controlnet_step, args.seed,
-                               args.profile))
+    # after e2e, so that e2e's first request is still the process's first
+    by_path["checkpoint"] = checkpoint_phase(dev, args.steps, args.controlnet_step, args.seed)
+    large, inp = large_phase(dev, pipe, args.steps, args.controlnet_step, args.seed,
+                             args.profile)
+    by_path.update(large)
+    by_path.update(serve_phase(dev, pipe, inp, args.steps, args.controlnet_step, args.seed))
+    del inp
+    torch.cuda.empty_cache()
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
     by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)

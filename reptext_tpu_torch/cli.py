@@ -1,9 +1,14 @@
-"""Command line of the PyTorch port: txt2img, text inpainting and ControlNet training.
+"""Command line of the PyTorch port: txt2img, text inpainting, serving and ControlNet training.
 
-Usage (random weights; no checkpoints exist in the repository):
+Usage (converted checkpoints: ``python -m reptext_tpu_torch.io.convert_cli``;
+or seeded random weights):
+    python -m reptext_tpu_torch.cli --checkpoint-dir ~/ckpts/converted-torch \
+        --text "مرحبا" --position 370 200 --prompt "a street sign in city" \
+        --size 1024 --steps 30 --output results/result.png
+    python -m reptext_tpu_torch.cli --mode serve --checkpoint-dir ~/ckpts/converted-torch \
+        --port 8470 --max-batch 4 --batch-window 0.05 --serve-inpaint
     python -m reptext_tpu_torch.cli --text "مرحبا" --position 370 200 \
-        --prompt "a street sign in city" --size 1024 --steps 30 \
-        --random-weights --output results/result.png
+        --size 1024 --steps 30 --random-weights --output results/result.png
     python -m reptext_tpu_torch.cli --mode inpaint --image photo.jpg --mask mask.png \
         --text "مرحبا" --position 370 200 --true-guidance-scale 3.5 \
         --random-weights --output results/edited.png
@@ -17,9 +22,15 @@ live, as ``JAX_PLATFORMS`` does for the JAX CLI: bf16 on the card, float32 on
 the CPU; without a card ``cuda`` raises. ``--tiny`` is a geometry flag only:
 the tiny test geometry's head dim of 32 is not one the attention kernels
 take, so it runs with ``--device cpu``. The flags keep the JAX
-CLI's names and defaults (``reptext_tpu/cli.py``). Prompts become
-deterministic demo token ids (a stable CRC32 hash per word; T5 ids padded to
-the 512-token budget), since no tokenizer files are in the repository.
+CLI's names and defaults (``reptext_tpu/cli.py``). ``--checkpoint-dir`` loads
+the port's converted checkpoint (``io/checkpoint.py``; a JAX orbax directory
+does not load): its ``configs.json`` geometry wins over the defaults unless
+``--tiny`` is given, and prompts are tokenized by the vendored CLIP BPE and
+SentencePiece tokenizers from its ``tokenizer*/`` files. Without those files
+prompts become deterministic demo token ids (a stable CRC32 hash per word;
+T5 ids padded to the 512-token budget). ``--mode serve`` answers ``POST
+/generate``, ``GET /healthz`` and ``GET /metrics`` (``serving.py``), coalescing
+compatible requests onto the batch axis of one sampler call.
 Inpainting resizes the image so that its long side is at most 1536 and both
 sides are multiples of 64 (``reptext_tpu_torch.utils.image.resize_to_multiple``)
 and the mask to match; the negative prompt defaults to the reference's.
@@ -30,13 +41,14 @@ full geometry needs it to fit one card. ``--shard spN`` (txt2img) shards the
 image tokens over N ranks, one process per card started by ``torchrun
 --nproc-per-node N`` (gloo processes on the CPU with ``--device cpu``); every
 rank builds the same seeded pipeline, and rank 0 writes the images. Without N
-ranks it raises. ``--shard DPxTP``/``auto``, sequence-parallel inpainting and
-sharded training are not ported yet.
+ranks it raises. ``--shard DPxTP``/``auto``, sequence-parallel inpainting,
+serving and training are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import re
 import sys
@@ -66,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="RepText txt2img, inpainting and training, PyTorch + CUDA port")
     p.add_argument("--mode", choices=["txt2img", "inpaint", "serve", "train"],
-                   default="txt2img", help="serve is not ported yet")
+                   default="txt2img")
     p.add_argument("--text", action="append",
                    help="txt2img/inpaint: text line to render (repeatable, required)")
     p.add_argument("--position", action="append", nargs=2, type=int,
@@ -107,13 +119,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="inpaint: true CFG scale over the negative prompt")
     p.add_argument("--font", default=None, help="TTF font path")
     p.add_argument("--font-size", type=int, default=80)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="the port's converted checkpoint (python -m "
+                        "reptext_tpu_torch.io.convert_cli ... --out DIR)")
     p.add_argument("--random-weights", action="store_true",
-                   help="seeded random weights (the only weights this port loads yet)")
+                   help="seeded random weights (demo; without --checkpoint-dir)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model geometry (demo and tests; with --device cpu)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the modules run: cuda (bf16, the default) or cpu (float32)")
     p.add_argument("--output", default="results/result.png")
+    p.add_argument("--host", default="127.0.0.1", help="serve: bind host")
+    p.add_argument("--port", type=int, default=8470, help="serve: bind port")
+    p.add_argument("--warmup", action="store_true",
+                   help="serve: run one request before accepting traffic")
+    p.add_argument("--max-batch", type=int, default=4,
+                   help="serve: max coalesced requests per sampler call")
+    p.add_argument("--batch-window", type=float, default=0.0,
+                   help="serve: seconds to linger for burst coalescing")
+    p.add_argument("--serve-inpaint", action="store_true",
+                   help="serve: also build the inpaint pipeline (POST /generate with "
+                        "mode=inpaint)")
     p.add_argument("--train-steps", type=int, default=100, help="train: optimization steps")
     p.add_argument("--batch-size", type=int, default=2, help="train: samples per step")
     p.add_argument("--learning-rate", type=float, default=1e-5)
@@ -157,12 +183,20 @@ def pipeline_config(args, height=None, width=None):
 
 
 def make_configs(args, height=None, width=None):
-    """(flux, controlnet, vae, clip, t5, pipeline) configs for the flags."""
+    """(flux, controlnet, vae, clip, t5, pipeline) configs for the flags: the
+    geometry that ``--checkpoint-dir``'s configs.json records wins over the
+    defaults unless ``--tiny`` is given."""
     from reptext_tpu_torch.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
 
     cfgs = [FluxConfig(), ControlNetConfig(), VAEConfig(), CLIPConfig(), T5Config()]
     if args.tiny:
         cfgs = [c.tiny() for c in cfgs]
+    elif args.checkpoint_dir:
+        from reptext_tpu_torch.io.checkpoint import load_saved_configs
+
+        saved = load_saved_configs(args.checkpoint_dir)
+        cfgs = [saved.get(name, c) for name, c in zip(("flux", "controlnet", "vae", "clip", "t5"),
+                                                       cfgs)]
     return (*cfgs, pipeline_config(args, height, width))
 
 
@@ -180,24 +214,53 @@ def load_inpaint_inputs(image_path: str, mask_path: str) -> Tuple[np.ndarray, np
 
 
 def build_pipeline(args, height=None, width=None):
-    """The pipeline the flags describe, with seeded random weights, on
-    ``--device``: bf16 on the CUDA device, float32 on the CPU. ``--mode
-    inpaint`` adds the inpaint ControlNet to the same modules."""
+    """The pipeline the flags describe on ``--device`` (bf16 on the CUDA
+    device, float32 on the CPU): the weights of ``--checkpoint-dir``, mapped
+    from its files into modules built on the meta device, or seeded random
+    ones. ``--mode inpaint`` adds the inpaint ControlNet to the same modules
+    (:func:`add_inpaint`)."""
     import torch
 
-    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
     from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 
-    if not args.random_weights:
-        raise SystemExit("pass --random-weights (no checkpoint loading in this port yet)")
+    params = None
+    if args.checkpoint_dir:
+        from reptext_tpu_torch.io.checkpoint import load_pipeline_params
+
+        params = load_pipeline_params(args.checkpoint_dir,
+                                      ("flux", "controlnet", "vae", "clip", "t5"))
+        missing = sorted({"flux", "controlnet", "vae", "clip", "t5"} - set(params))
+        if missing:
+            raise SystemExit(f"--checkpoint-dir {args.checkpoint_dir} lacks {missing}")
+    elif not args.random_weights:
+        raise SystemExit("pass --checkpoint-dir or --random-weights")
     flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args, height, width)
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     pipeline = FluxRepTextPipeline.create(
-        flux_cfg, cn_cfg, vae_cfg, pipe_cfg, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
+        flux_cfg, cn_cfg, vae_cfg, pipe_cfg, params=params, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
         seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train")
     if args.mode == "inpaint":
-        return FluxRepTextInpaintPipeline.from_pipeline(pipeline, seed=args.seed + 7)
+        return add_inpaint(args, pipeline)
     return pipeline
+
+
+def add_inpaint(args, pipeline):
+    """An inpaint pipeline over ``pipeline``'s modules plus the inpaint
+    ControlNet: ``--checkpoint-dir``'s when it holds one (its configs.json
+    geometry unless ``--tiny``), else seeded random weights."""
+    from reptext_tpu_torch.io.checkpoint import component_path
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
+
+    cfg = params = None
+    if args.checkpoint_dir and os.path.isfile(component_path(args.checkpoint_dir,
+                                                             "inpaint_controlnet")):
+        from reptext_tpu_torch.io.checkpoint import load_pipeline_params, load_saved_configs
+
+        params = load_pipeline_params(args.checkpoint_dir,
+                                      ("inpaint_controlnet",))["inpaint_controlnet"]
+        if not args.tiny:
+            cfg = load_saved_configs(args.checkpoint_dir).get("inpaint_controlnet")
+    return FluxRepTextInpaintPipeline.from_pipeline(pipeline, cfg, params, seed=args.seed + 7)
 
 
 def demo_token_ids(prompt: str, clip_cfg, t5_cfg, t5_length: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -213,9 +276,36 @@ def demo_token_ids(prompt: str, clip_cfg, t5_cfg, t5_length: int) -> Tuple[np.nd
     return np.asarray([clip], np.int64), np.asarray([t5], np.int64)
 
 
+@functools.lru_cache(maxsize=4)
+def _tokenizers(clip_dir: str, spm_path: str):
+    """The vendored tokenizers of one checkpoint directory, read once (a
+    server tokenizes every request)."""
+    from reptext_tpu_torch.text import CLIPBPETokenizer, SentencePieceUnigram
+
+    return CLIPBPETokenizer.from_dir(clip_dir), SentencePieceUnigram.from_file(spm_path)
+
+
+def _tokenize(prompt: str, clip_cfg, t5_cfg, checkpoint_dir, t5_length: int = 512
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """(clip ids [1, 77], t5 ids [1, t5_length]) from the vendored tokenizers
+    when ``checkpoint_dir`` holds ``tokenizer/vocab.json`` and
+    ``tokenizer_2/spiece.model``, else :func:`demo_token_ids`. The JAX CLI's
+    fallback hashes words with Python's salted ``hash()`` and pads no T5 ids;
+    the port's is stable across processes."""
+    if checkpoint_dir:
+        clip_dir = os.path.join(checkpoint_dir, "tokenizer")
+        spm = os.path.join(checkpoint_dir, "tokenizer_2", "spiece.model")
+        if os.path.isfile(os.path.join(clip_dir, "vocab.json")) and os.path.isfile(spm):
+            clip_tok, t5_tok = _tokenizers(os.path.abspath(clip_dir), os.path.abspath(spm))
+            clip = clip_tok.encode(prompt, max_length=clip_cfg.max_position_embeddings)
+            t5 = t5_tok.encode(prompt, max_length=t5_length, add_eos=True, pad_to_max=True)
+            return np.asarray([clip], np.int64), np.asarray([t5], np.int64)
+    return demo_token_ids(prompt, clip_cfg, t5_cfg, t5_length)
+
+
 def _prompt_ids(args, pipeline, prompt: str) -> Tuple[np.ndarray, np.ndarray]:
-    return demo_token_ids(prompt, pipeline.clip.config, pipeline.t5.config,
-                          pipeline.pipe_cfg.max_sequence_length)
+    return _tokenize(prompt, pipeline.clip.config, pipeline.t5.config, args.checkpoint_dir,
+                     pipeline.pipe_cfg.max_sequence_length)
 
 
 def generate(args, pipeline, conditions, timings=None, output_type: str = "np"):
@@ -290,6 +380,26 @@ def train(args, pipeline, dataset=None, on_event=None):
     return trainer
 
 
+def build_server(args):
+    """The ``--mode serve`` server (not yet serving): a ``GenerationServer``
+    over the pipeline of the flags at ``--size`` and, with
+    ``--serve-inpaint``, the inpaint pipeline over the same modules;
+    prompts through :func:`_tokenize`."""
+    from reptext_tpu_torch.serving import GenerationServer
+
+    pipeline = build_pipeline(args)
+    inpaint = add_inpaint(args, pipeline) if args.serve_inpaint else None
+    clip_cfg, t5_cfg = pipeline.clip.config, pipeline.t5.config
+    t5_length = pipeline.pipe_cfg.max_sequence_length
+
+    def tokenizer(prompt):
+        return _tokenize(prompt, clip_cfg, t5_cfg, args.checkpoint_dir, t5_length)
+
+    return GenerationServer(pipeline, host=args.host, port=args.port, tokenizer=tokenizer,
+                            warmup=args.warmup, max_batch=args.max_batch,
+                            batch_window_s=args.batch_window, inpaint_pipeline=inpaint)
+
+
 def sp_group(args):
     """The SP group of ``--shard spN`` (txt2img only): this job's N ranks."""
     spec = args.shard.lower()
@@ -306,9 +416,19 @@ def sp_group(args):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.mode == "serve":
-        raise SystemExit("--mode serve is not ported yet")
     group = sp_group(args) if args.shard else None
+    if args.mode == "serve":
+        server = build_server(args)
+        host, port = server.address[:2]
+        print(f"serving on http://{host}:{port} (POST /generate, GET /healthz, GET /metrics)",
+              flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+        return 0
     if args.mode == "train":
         for flag, unported in (("--corpus-dir", args.corpus_dir),
                                ("--ocr-loss-weight > 0", args.ocr_loss_weight > 0.0)):

@@ -1,1 +1,3 @@
-"""Weight carry from Flax parameter trees into the port's modules."""
+"""Weights: the safetensors reader and writer, the diffusers -> Flax-named
+converters and their command line, the port's checkpoint directory, and the
+carry of Flax parameter trees into the port's modules."""

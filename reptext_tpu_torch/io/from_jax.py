@@ -1,4 +1,4 @@
-"""Carry Flax parameter trees (numpy) into the port's modules.
+"""Carry Flax parameter trees (numpy arrays or torch tensors) into the port's modules.
 
 The port names its parameters after the Flax tree, so the mapping is
 mechanical:
@@ -11,8 +11,11 @@ mechanical:
   along their leading layer axis into the matching ``ModuleList`` entries.
 
 Any module parameter without a leaf, any leaf without a parameter, and any
-shape mismatch raises. This is also the real-checkpoint route: diffusers
-safetensors -> ``reptext_tpu.io.convert.convert_*`` -> :func:`load_jax_params`.
+shape mismatch raises. Leaves may be numpy arrays (a JAX tree) or CPU torch
+tensors (``io/convert.py``'s trees, bf16 kept); a torch leaf's transposes are
+views. This is also the real-checkpoint route: diffusers safetensors ->
+``io.convert.convert_*`` -> :func:`load_jax_params`, or -> :func:`flatten_jax_params`
+-> the port's checkpoint files (``io/convert_cli.py``).
 
 Since ``kernel`` and ``scale`` both become ``weight``, the name alone cannot
 say which Flax leaf a parameter was; :func:`flax_leaf_kinds` tells it from
@@ -21,7 +24,7 @@ the owning module's type.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,21 +33,24 @@ _STACKED = ("double_blocks", "single_blocks")
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
 
+Leaf = Union[np.ndarray, torch.Tensor]
+
+
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+            ) -> Iterator[Tuple[Tuple[str, ...], Leaf]]:
     for key, val in tree.items():
         if isinstance(val, Mapping):
             yield from _leaves(val, prefix + (key,))
         else:
-            yield prefix + (key,), np.asarray(val)
+            yield prefix + (key,), val if isinstance(val, torch.Tensor) else np.asarray(val)
 
 
-def _to_torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+def _to_torch_layout(leaf: str, arr: Leaf) -> Leaf:
     if leaf == "kernel":
         if arr.ndim == 2:
             return arr.T
         if arr.ndim == 4:
-            return arr.transpose(3, 2, 0, 1)
+            return (arr.permute if isinstance(arr, torch.Tensor) else arr.transpose)(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     return arr
 
@@ -71,11 +77,11 @@ def flax_leaf_kinds(module: torch.nn.Module) -> Dict[str, str]:
     return kinds
 
 
-def flatten_jax_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Flax variables tree -> {torch parameter name: array in torch layout}."""
+def flatten_jax_params(tree: Mapping[str, Any]) -> Dict[str, Leaf]:
+    """Flax variables tree -> {torch parameter name: leaf in torch layout}."""
     if set(tree) == {"params"}:
         tree = tree["params"]
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, Leaf] = {}
     for path, arr in _leaves(tree):
         leaf = path[-1]
         name = list(path[:-1]) + [_RENAME.get(leaf, leaf)]
@@ -90,9 +96,10 @@ def flatten_jax_params(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 
 @torch.no_grad()
 def load_jax_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.nn.Module:
-    """Fill ``module``'s parameters from a Flax tree of numpy arrays, in place.
+    """Fill ``module``'s parameters from a Flax tree, in place.
 
-    Values are cast to each parameter's dtype and copied to its device.
+    Values are cast to each parameter's dtype and copied to its device; numpy
+    leaves go through float32, torch leaves are cast directly.
     """
     flat = flatten_jax_params(tree)
     params = dict(module.named_parameters())
@@ -107,5 +114,7 @@ def load_jax_params(module: torch.nn.Module, tree: Mapping[str, Any]) -> torch.n
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: tree shape {tuple(arr.shape)} != parameter "
                              f"shape {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(p.dtype))
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+        p.copy_(arr)
     return module

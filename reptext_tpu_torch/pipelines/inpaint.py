@@ -15,14 +15,16 @@ negative prompt (``sampling/sampler_inpaint.py``). As in the JAX package:
 :meth:`FluxRepTextInpaintPipeline.from_pipeline` shares FLUX, the RepText
 ControlNet, the VAE, CLIP and T5 of a built pipeline and adds only the inpaint
 ControlNet (the JAX CLI's tree sharing), so one card holds one FLUX.
-``generate_batch``, ``return_dict`` and custom ``timesteps``/``sigmas`` are
-not ported yet.
+:meth:`FluxRepTextInpaintPipeline.generate_batch` runs several requests, each
+with its own image, mask, conditions, prompts and seed, in one true-CFG
+sampler call (serving's coalesced inpaint batches). ``return_dict`` and
+custom ``timesteps``/``sigmas`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -168,7 +170,15 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         else:
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
         clock.mark("prepare")
+        latents = self._sample_inpaint(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
+                                       pooled_cfg, steps, gscale, tscale)
+        clock.mark("sample")
+        return self.finish(latents, output_type, clock)
 
+    def _sample_inpaint(self, latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
+                        pooled_cfg, steps: int, gscale: float, tscale: float) -> torch.Tensor:
+        """The dual-ControlNet true-CFG loop over ``steps`` steps."""
+        cfg = self.pipe_cfg
         schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
                                   cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
                                   cfg.use_dynamic_shifting)
@@ -178,9 +188,60 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
             self.inpaint_conditioning_scale, self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((ctx_cfg.shape[1], 3), device=self.device)
-        guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)
+        guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
+                               device=self.device)
                     if self.flux.config.guidance_embeds else None)
-        latents = sampler(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
-                          txt_ids, img_ids, guidance)
+        return sampler(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
+                       txt_ids, img_ids, guidance)
+
+    # ------------------------------------------------------- batched serving
+
+    @torch.inference_mode()
+    def generate_batch(self, conditions_list: Sequence, images: Sequence[np.ndarray],
+                       masks: Sequence[np.ndarray], clip_ids, t5_ids, negative_clip_ids,
+                       negative_t5_ids, seeds: Sequence[int],
+                       guidance_scale: Optional[float] = None,
+                       true_guidance_scale: Optional[float] = None,
+                       num_inference_steps: Optional[int] = None, output_type: str = "np",
+                       timings: Optional[Dict[str, float]] = None):
+        """B inpaint requests in one dual-ControlNet true-CFG sampler call.
+
+        Row i has its own conditions, image, mask, prompt and negative prompt
+        ids and seed; its draws come from ``self.generators(seeds[i])`` as in
+        ``__call__``. The CFG embeds are [negatives (B); positives (B)] and
+        the conditions ride the sampler as [N, B, S, F]; all requests must
+        share the number of text lines, the steps and the true-CFG scale.
+        """
+        cfg = self.pipe_cfg
+        n_lines = {c.num_lines for c in conditions_list}
+        if len(n_lines) != 1:
+            raise ValueError(f"batch requests must share num_lines, got {n_lines}")
+        b = len(conditions_list)
+        if not (b == len(images) == len(masks) == len(seeds) == np.asarray(clip_ids).shape[0]
+                == np.asarray(t5_ids).shape[0]):
+            raise ValueError("batch inputs have mismatched lengths")
+        steps = num_inference_steps or cfg.num_inference_steps
+        gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        tscale = cfg.true_guidance_scale if true_guidance_scale is None else true_guidance_scale
+        clock = _StageClock(timings, self.device)
+
+        prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+        neg_embeds, neg_pooled = self.encode_prompt(negative_clip_ids, negative_t5_ids)
+        ctx_cfg = torch.cat([neg_embeds, prompt_embeds])
+        pooled_cfg = torch.cat([neg_pooled, pooled_embeds])
+        clock.mark("encode_prompt")
+
+        cond_l, mask_l, lat_l, inp_l = [], [], [], []
+        for conds, image, mask, seed in zip(conditions_list, images, masks, seeds):
+            g_lat, g_cond, g_glyph, g_inp = self.generators(int(seed))
+            ct, tm = self.prepare_control_tokens(conds, g_cond)
+            cond_l.append(ct)
+            mask_l.append(tm)
+            inp_l.append(self.prepare_inpaint_cond(image, mask, g_inp))
+            lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
+        clock.mark("prepare")
+        latents = self._sample_inpaint(
+            torch.cat(lat_l), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
+            torch.cat(inp_l), ctx_cfg, pooled_cfg, steps, gscale, tscale)
         clock.mark("sample")
         return self.finish(latents, output_type, clock)

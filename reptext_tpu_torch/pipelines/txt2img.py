@@ -11,16 +11,24 @@ training data path
 derived from ``seed``; there is no global RNG. The JAX package's residency and fp8
 staging code exists for a 16 GB chip and has no counterpart here.
 :meth:`FluxRepTextPipeline.shard_for_sp` runs the denoise loop
-sequence-parallel over an SP group (``parallel/``). img2img, callbacks,
-custom timesteps/sigmas, ``generate_batch`` and tensor parallelism
+sequence-parallel over an SP group (``parallel/``).
+:meth:`FluxRepTextPipeline.generate_batch` puts several requests, each with
+its own conditions, prompt and seed, on the batch axis of one sampler call
+(serving's coalesced batches, ``serving.py``); :meth:`with_resolution` is a
+view at another size over the same modules (serving's resolution buckets).
+Weights come from seeded random draws, from Flax-named trees
+(``io/convert.py``, the JAX package's trees) or from the port's converted
+checkpoint files (``io/checkpoint.py``). img2img, callbacks, custom
+timesteps/sigmas, the IP-Adapter and tensor parallelism
 (``shard_for_inference``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,15 +64,35 @@ def _as_ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long).to(device)
 
 
+# the module class of each pipeline component (and of each converted file)
+MODULES = {"flux": FluxTransformer2D, "controlnet": RepTextControlNet,
+           "inpaint_controlnet": RepTextControlNet, "vae": AutoencoderKL,
+           "clip": CLIPTextEncoder, "t5": T5Encoder}
+
+
+def is_state_dict(params) -> bool:
+    """True for a flat {parameter name: tensor} state dict (the port's
+    checkpoint files), False for a nested Flax tree."""
+    return (isinstance(params, Mapping) and len(params) > 0
+            and all(isinstance(v, torch.Tensor) for v in params.values()))
+
+
 def build_module(ctor, cfg, device: torch.device, dtype: torch.dtype, params=None,
                  generator: Optional[torch.Generator] = None, **kw) -> torch.nn.Module:
     """``ctor(cfg)`` built on the meta device, then materialised on ``device``
-    with ``params`` (a Flax tree) or drawn from ``generator``; frozen."""
-    module = ctor(cfg, device="meta", dtype=dtype, **kw).to_empty(device=device)
-    if params is None:
-        random_init_(module, generator)
+    in ``dtype``: from ``params``, a module state dict (taken over with
+    ``load_state_dict(assign=True)``, then moved and cast) or a Flax tree, or
+    drawn from ``generator``; frozen."""
+    module = ctor(cfg, device="meta", dtype=dtype, **kw)
+    if params is not None and is_state_dict(params):
+        module.load_state_dict(params, strict=True, assign=True)
+        module.to(device=device, dtype=dtype)
     else:
-        load_jax_params(module, params)
+        module.to_empty(device=device)
+        if params is None:
+            random_init_(module, generator)
+        else:
+            load_jax_params(module, params)
     return module.eval().requires_grad_(False)
 
 
@@ -96,11 +124,13 @@ class FluxRepTextPipeline:
         device on a host without one raises, it never falls back. ``dtype``
         defaults to bf16 on the card and float32 on the CPU.
 
-        With ``params`` (Flax trees of numpy arrays keyed flux / controlnet /
-        vae / clip / t5) the weights are carried over by ``load_jax_params``;
-        without, they are drawn on the device from one generator seeded with
-        ``seed``. Modules are first built on the meta device, so no host copy
-        of the weights is ever made. ``remat`` checkpoints the blocks of FLUX
+        With ``params`` (keyed flux / controlnet / vae / clip / t5: Flax trees
+        of numpy arrays or torch tensors, carried over by ``load_jax_params``,
+        or module state dicts from ``io.checkpoint.load_pipeline_params``,
+        taken over as they are) the weights come from there; without, they
+        are drawn on the device from one generator seeded with ``seed``.
+        Modules are first built on the meta device, so no extra host copy of
+        the weights is made. ``remat`` checkpoints the blocks of FLUX
         and the ControlNet for training; a training caller makes the
         ControlNet trainable (``init_controlnet_training``).
         """
@@ -110,16 +140,15 @@ class FluxRepTextPipeline:
                                "False; pass device='cpu' to build on the CPU")
         if dtype is None:
             dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
-        specs = {"flux": (FluxTransformer2D, flux_cfg), "controlnet": (RepTextControlNet, cn_cfg),
-                 "vae": (AutoencoderKL, vae_cfg), "clip": (CLIPTextEncoder, clip_cfg),
-                 "t5": (T5Encoder, t5_cfg)}
+        cfgs = {"flux": flux_cfg, "controlnet": cn_cfg, "vae": vae_cfg, "clip": clip_cfg,
+                 "t5": t5_cfg}
         generator = torch.Generator(device=device).manual_seed(seed) if params is None else None
         built: Dict[str, Optional[torch.nn.Module]] = {}
-        for name, (ctor, cfg) in specs.items():
+        for name, cfg in cfgs.items():
             kw = {"remat": remat} if name in ("flux", "controlnet") else {}
             built[name] = None if cfg is None else build_module(
-                ctor, cfg, device, dtype, None if params is None else params[name], generator,
-                **kw)
+                MODULES[name], cfg, device, dtype, None if params is None else params[name],
+                generator, **kw)
         return cls(built["flux"], built["controlnet"], built["vae"], pipe_cfg,
                    clip=built["clip"], t5=built["t5"], compute_dtype=dtype)
 
@@ -129,6 +158,17 @@ class FluxRepTextPipeline:
         clone = copy.copy(self)
         clone.pipe_cfg = pipe_cfg
         return clone
+
+    def with_resolution(self, height: int, width: int) -> "FluxRepTextPipeline":
+        """A view at ``height`` x ``width`` over the same modules (serving's
+        resolution buckets); both must be multiples of 16 (VAE f=8, 2x2
+        packing)."""
+        if height % 16 or width % 16:
+            raise ValueError(f"height/width must be x16 (VAE f=8, 2x2 packing), "
+                             f"got {height}x{width}")
+        if (height, width) == (self.pipe_cfg.height, self.pipe_cfg.width):
+            return self
+        return self.with_config(dataclasses.replace(self.pipe_cfg, height=height, width=width))
 
     def shard_for_sp(self, group, backend: str = "ring") -> "FluxRepTextPipeline":
         """Sequence-parallel sampling over ``group`` (an ``SPGroup``): the
@@ -288,7 +328,17 @@ class FluxRepTextPipeline:
         else:
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
         clock.mark("prepare")
+        latents = self._sample(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
+                               steps, gscale)
+        clock.mark("sample")
+        return self.finish(latents, output_type, clock)
 
+    def _sample(self, latents: torch.Tensor, cond_tokens: torch.Tensor,
+                token_masks: torch.Tensor, prompt_embeds: torch.Tensor,
+                pooled_embeds: torch.Tensor, steps: int, gscale: float) -> torch.Tensor:
+        """The denoise loop over ``steps`` steps of this pipeline's schedule
+        (sequence-parallel after ``shard_for_sp``)."""
+        cfg = self.pipe_cfg
         schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
                                   cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
                                   cfg.use_dynamic_shifting)
@@ -301,10 +351,72 @@ class FluxRepTextPipeline:
                                               self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((prompt_embeds.shape[1], 3), device=self.device)
-        guidance = (torch.full((num_images,), gscale, dtype=torch.float32, device=self.device)
+        guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
+                               device=self.device)
                     if self.flux.config.guidance_embeds else None)
-        latents = sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
-                          txt_ids, img_ids, guidance)
+        return sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
+                       txt_ids, img_ids, guidance)
+
+    # ------------------------------------------------------- batched serving
+
+    @torch.inference_mode()
+    def generate_batch(self, conditions_list: Sequence, clip_ids=None, t5_ids=None,
+                       seeds: Sequence[int] = (), guidance_scale: Optional[float] = None,
+                       num_inference_steps: Optional[int] = None, output_type: str = "np",
+                       ip_adapter_images=None, ip_adapter_scales=None,
+                       prompt_embeds: Optional[torch.Tensor] = None,
+                       pooled_embeds: Optional[torch.Tensor] = None,
+                       timings: Optional[Dict[str, float]] = None):
+        """One image per request, B requests in one sampler call.
+
+        Row i has its own conditions, prompt (ids [B, ...] or embeds
+        [B, S_txt, D] with pooled [B, D]) and seed; its noise, condition and
+        glyph posteriors come from ``self.generators(seeds[i])`` exactly as
+        ``__call__`` draws them for that seed, so a request gives the same
+        image alone and in a batch (up to the rounding of the batched
+        products). The conditions ride the sampler as [N, B, S, F]; all
+        requests must share the number of text lines. ``ip_adapter_images``
+        with any image fails: no IP-Adapter is ported.
+        """
+        cfg = self.pipe_cfg
+        if self.sp_group is not None:
+            raise NotImplementedError("generate_batch under sequence parallelism is not "
+                                      "ported yet")
+        if ip_adapter_images is not None and any(im is not None for im in ip_adapter_images):
+            raise ValueError("ip_adapter_images given but no adapter attached")
+        n_lines = {c.num_lines for c in conditions_list}
+        if len(n_lines) != 1:
+            raise ValueError(f"batch requests must share num_lines, got {n_lines}")
+        if (prompt_embeds is None) != (pooled_embeds is None):
+            raise ValueError("prompt_embeds and pooled_embeds must be given together")
+        pre_encoded = prompt_embeds is not None
+        leads = ((prompt_embeds, pooled_embeds) if pre_encoded
+                 else (np.asarray(clip_ids), np.asarray(t5_ids)))
+        if not len(conditions_list) == len(seeds) == leads[0].shape[0] == leads[1].shape[0]:
+            raise ValueError("conditions_list, seeds, and prompt inputs lengths differ")
+        steps = num_inference_steps or cfg.num_inference_steps
+        gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        clock = _StageClock(timings, self.device)
+
+        if not pre_encoded:
+            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+        prompt_embeds = prompt_embeds.to(self.device)
+        pooled_embeds = pooled_embeds.to(self.device)
+        clock.mark("encode_prompt")
+
+        cond_l, mask_l, lat_l = [], [], []
+        for conds, seed in zip(conditions_list, seeds):
+            g_lat, g_cond, g_glyph, _ = self.generators(int(seed))
+            ct, tm = self.prepare_control_tokens(conds, g_cond)
+            cond_l.append(ct)
+            mask_l.append(tm)
+            lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
+        cond_tokens = torch.stack(cond_l, dim=1)      # [N, B, S, F] per-image conditions
+        token_masks = torch.stack(mask_l, dim=1)      # [N, B, S, 1]
+        latents = torch.cat(lat_l, dim=0)             # [B, S, C]
+        clock.mark("prepare")
+        latents = self._sample(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
+                               steps, gscale)
         clock.mark("sample")
         return self.finish(latents, output_type, clock)
 

@@ -128,8 +128,10 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     pooled_embeds, txt_ids, img_ids, guidance) -> latents``.
 
     latents: [B, S, C] packed (float32 out); cond_tokens [N, S, F] and
-    token_masks [N, S, 1] are shared by the B images. ``signal_mean``: see
-    :func:`velocity_cache_select`.
+    token_masks [N, S, 1] are shared by the B images, or [N, B, S, F] and
+    [N, B, S, 1] carry one condition set per image (serving's coalesced
+    batch of requests), tiled line-major as the ControlNet's batch is.
+    ``signal_mean``: see :func:`velocity_cache_select`.
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
@@ -147,8 +149,13 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
         n_lines = cond_tokens.shape[0]
         ctx = prompt_embeds.to(compute_dtype)
         pooled = pooled_embeds.to(compute_dtype)
-        cond = cond_tokens.repeat_interleave(b, dim=0).to(compute_dtype)
-        masks = token_masks[:, None, :, :]                      # [N, 1, S, 1]
+        if cond_tokens.ndim == 4:
+            # line j, image i at j * B + i, as x_model.repeat(n_lines) tiles them
+            cond = cond_tokens.reshape(n_lines * b, *cond_tokens.shape[2:]).to(compute_dtype)
+            masks = token_masks                                  # [N, B, S, 1]
+        else:
+            cond = cond_tokens.repeat_interleave(b, dim=0).to(compute_dtype)
+            masks = token_masks[:, None, :, :]                  # [N, 1, S, 1]
         ctx_nb = ctx.repeat(n_lines, 1, 1)
         pooled_nb = pooled.repeat(n_lines, 1)
         guidance_nb = None if guidance is None else guidance.repeat(n_lines)
@@ -212,6 +219,9 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
                guidance: Optional[torch.Tensor]) -> torch.Tensor:
+        if cond_tokens.ndim == 4:
+            raise NotImplementedError("per-image [N, B, S, F] conditions under sequence "
+                                      "parallelism are not ported yet")
         with sp_context(group, backend):
             lat = base(group.shard(latents, 1), group.shard(cond_tokens, 1),
                        group.shard(token_masks, 1), prompt_embeds, pooled_embeds, txt_ids,

@@ -1,8 +1,13 @@
-"""Token-id helpers, copied from ``reptext_tpu/text``.
+"""Self-contained tokenization, copied from ``reptext_tpu/text``.
 
-The tokenizers (CLIP byte-BPE, SentencePiece unigram) wait until tokenizer
-files are in the repository; the port's CLI uses demo ids.
+A CLIP byte-BPE (vocab.json + merges.txt) and a SentencePiece unigram encoder
+with a protobuf-wire-format reader for spiece.model, both pure Python, read
+from a converted checkpoint's ``tokenizer/`` and ``tokenizer_2/``
+(``cli.py::_tokenize``), and the token-id padding of true CFG.
 """
+
+from reptext_tpu_torch.text.clip_bpe import CLIPBPETokenizer  # noqa: F401
+from reptext_tpu_torch.text.spm import SentencePieceUnigram  # noqa: F401
 
 
 def pad_to_common_length(a, b, pad_id: int = 0):

@@ -1,1 +1,2 @@
-"""Host-side helpers (numpy and PIL), copied from the JAX package's ``utils``."""
+"""Host-side helpers (numpy and PIL images, the metrics registry), copied from
+the JAX package's ``utils``."""

@@ -134,7 +134,7 @@ def test_train_cli_runs_and_reports_a_finite_loss(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "serve"], "not ported"),
+    (["--mode", "serve", "--shard", "sp2"], "not ported"),   # serving under SP
     (["--mode", "inpaint", "--shard", "2x4"], "not ported"),
     (["--mode", "train", "--shard", "2x4"], "--shard is not ported"),
     (["--mode", "train", "--corpus-dir", "corpus"], "--corpus-dir is not ported"),

@@ -8,7 +8,10 @@ inputs in float32. The tree's shapes come from ``jax.eval_shape`` of the
 module's ``init``, which costs a fraction of running the initialisers.
 jax is imported where a helper needs it, so that the tests that run on a CUDA
 card without it (tests/test_torch_cuda.py) can take :func:`emulated_key_loop`
-and :func:`emulated_backward_loop` from here.
+and :func:`emulated_backward_loop` from here. The tokenizer fixtures of
+``tests/test_tokenizers.py`` (``_tiny_clip_files``, ``_serialize_model_proto``,
+``TINY_PIECES``) are copied here for the port's tests, from the port's own
+writers (``reptext_tpu_torch/io/synthetic.py``).
 """
 
 import dataclasses
@@ -18,6 +21,8 @@ import torch
 
 from reptext_tpu_torch import configs as port_configs
 from reptext_tpu_torch.io.from_jax import load_jax_params
+from reptext_tpu_torch.io.synthetic import serialize_model_proto, write_clip_tokenizer
+from reptext_tpu_torch.text.spm import CONTROL, NORMAL, UNKNOWN
 
 # the default parity tolerance (tests/test_torch_parity_model.py:331)
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -54,6 +59,35 @@ def random_tree(module, *args, seed=0, **kwargs):
         return x.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def tiny_clip_files(path):
+    """vocab.json + merges.txt of ``tests/test_tokenizers.py::_tiny_clip_files``
+    (the byte alphabet, its end-of-word forms, nine merges building "hello",
+    "world" and "12", the two special tokens) into ``path``; returns it."""
+    write_clip_tokenizer(str(path))
+    return path
+
+
+# ``tests/test_tokenizers.py::TINY_PIECES``
+TINY_PIECES = [
+    ("<pad>", 0.0, CONTROL), ("</s>", 0.0, CONTROL), ("<unk>", 0.0, UNKNOWN),
+    ("▁", -4.0, NORMAL), ("▁hello", -1.5, NORMAL), ("▁world", -1.8, NORMAL),
+    ("▁he", -3.0, NORMAL), ("llo", -3.5, NORMAL), ("w", -5.0, NORMAL), ("o", -5.1, NORMAL),
+    ("r", -5.2, NORMAL), ("l", -5.3, NORMAL), ("d", -5.4, NORMAL), ("h", -5.5, NORMAL),
+    ("e", -5.6, NORMAL), ("▁a", -2.5, NORMAL), ("b", -5.7, NORMAL), ("a", -5.8, NORMAL),
+]
+
+
+def write_tokenizer_dirs(root, pieces=TINY_PIECES):
+    """``root/tokenizer`` (:func:`tiny_clip_files`) and
+    ``root/tokenizer_2/spiece.model`` (``pieces``), as a converted checkpoint
+    holds them; returns root."""
+    (root / "tokenizer").mkdir(parents=True, exist_ok=True)
+    tiny_clip_files(root / "tokenizer")
+    (root / "tokenizer_2").mkdir(exist_ok=True)
+    (root / "tokenizer_2" / "spiece.model").write_bytes(serialize_model_proto(pieces))
+    return root
 
 
 def carried(module: torch.nn.Module, tree) -> torch.nn.Module:
