@@ -37,7 +37,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
    request makes (q (1, 24, 8704, 128) against the text block and two image
-   blocks of 8192 keys) against the plain steps, within 2^-6 of max|plain
+   blocks of 8192 keys), and the three one rank of SP inpainting at 1536x1152
+   makes at CFG batch 2 (q (2, 24, 3968, 128) against blocks of 512, 3456 and
+   3456 keys), against the plain steps, within 2^-6 of max|plain
    out|; the step's, the whole ring's and SDPA's times beside the bound;
    Ulysses over 4 thread ranks with logits planted beyond the clamp against
    plain_attention (its local attention is an exact softmax) and against the
@@ -45,8 +47,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    two or more cards, one process per card over NCCL: the K5 ring against the
    plain ring, then the 2048^2 request of phase 10 on each card alone and with
    shard_for_sp over the cards (ring and Ulysses, each called twice: cold,
-   warm), the transfers alone, and a profile of one warm step of each backend
-   (one card: a line says so);
+   warm), the transfers alone, a profile of one warm step of each backend,
+   then SP inpainting at 1536x1152 on each card alone and over the cards the
+   same way (one card: a line says so);
 4. variants: the attention A/B kernels of the study (chunked online softmax,
    exp2, bf16 exp; reptext_tpu_torch/ops/attention_variants.py) against their
    plain versions at (1, 24, 4608, 128), their times beside the plain
@@ -74,6 +77,14 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    bf16, seeded random weights; checks the image shape, finite latents and
    that K1 ran steps * 57 + controlnet_steps * 14 times per image and K2 and
    K3 none;
+6b. surface: on the same pipeline at 1024^2, img2img of a seeded source
+   image at strength 0.6 through cli.generate (t0 = 1: K1 = 3 x 57 + 1 x 14 =
+   185 at the defaults, the ControlNet gated by absolute step), the same
+   request with a callback after every step against none (K1 256 each,
+   latents bit-equal), a callback that returns False after step 2 (K1 142),
+   custom sigmas and custom timesteps of length 3 through --sigmas and
+   --timesteps (K1 199 each), and return_dict=True with output_type="pil";
+   s/image, stage seconds, shapes, finiteness;
 7. large: on the same modules, one 1536x1536 txt2img request through
    cli.generate (joint S = 9728: K3 = steps * 57 + controlnet_steps * 14, K1 =
    K2 = 0), then text inpainting through cli.generate_inpaint with one added
@@ -112,11 +123,19 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    running-max form on 12 heads per rank: 71 per rank and step); each
    gathered latent against the single device's within SP_RTOL, ranks equal;
    ms/step, peak memory. The sharded pipelines are with_config clones over the
-   modules the single-device pipeline goes on using.
+   modules the single-device pipeline goes on using. Then SP inpainting at
+   1536x1152 (S = 7424, CFG batch 2) through cli.generate_inpaint, 2 steps with
+   both ControlNets on both, a seeded inpaint ControlNet: one device (K3 2 x 85
+   = 170), ring over 2 thread ranks (K5 n (n + 1) x 2 x 85 = 1020) and Ulysses
+   (K3 n x 2 x 85 = 340); and generate_batch of the two 1024^2 requests (seeds
+   differ), 2 steps with the ControlNet on both: one device (K1 142) and ring
+   over 2 thread ranks (K5 852); each against its one-device run within
+   SP_RTOL, ranks equal.
 
 Then a JSON line of the eight kernels' results (launches per path, each
-path's counts set to 0 just before it and read just after; times, the bound,
-SDPA's time), the nvidia-smi line, and as the last line {"ok": true,
+path's counts set to 0 just before it and read just after: the surface
+phase's runs and the SP inpaint and batch runs among them; times, the bound,
+SDPA's time; K5 also at CFG batch 2 in its by_shape), the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
 arrays are used only where Pillow or a font is missing (the serve phase's
@@ -182,6 +201,12 @@ RING_RANKS, SP_RANKS, HEADS = 4, 2, 24
 RING_LENGTHS = (4608, 16896)
 SP_SIZE, TXT_LEN = 2048, 512
 S_SP = (SP_SIZE // 16) ** 2
+# SP inpainting (LARGE_FIXTURE's 1536x1152 request: a 4:3 phone photo at the
+# CLI's cap) at CFG batch 2 over SP_RANKS thread ranks, and SP batches at
+# 1024^2; K5 at that batch in the ring phase.
+SP_INPAINT, SP_INPAINT_HW = "inpaint_1536x1152", (1152, 1536)
+S_SP_INPAINT = (SP_INPAINT_HW[0] // 16) * (SP_INPAINT_HW[1] // 16)
+INPAINT_CALLS = DOUBLE_CALLS + 2 * SINGLE_CALLS   # FLUX + both ControlNets, every step
 # SP txt2img against the single-device pipeline, latents after 2 steps:
 # max_abs within 5e-2 of max|single|, the small-model reference's limit. Both
 # runs are bf16 end to end and differ only where they round: the attention's
@@ -1165,6 +1190,112 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     return launches, inp
 
 
+def k1_expected(steps, cn_steps, run):
+    """K1 launches of the txt2img steps ``run`` of a ``steps``-step schedule:
+    57 a step, 14 more where the ControlNet's gate (by absolute step) is on."""
+    gate = min(cn_steps, steps)
+    return sum(DOUBLE_CALLS + (SINGLE_CALLS if i < gate else 0) for i in run)
+
+
+def surface_phase(dev, pipe, steps, cn_steps, seed):
+    """The pipelines' call surface on the e2e pipeline at 1024^2 (K1): img2img
+    of a seeded source image at strength 0.6 through cli.generate; a callback
+    on every step against the same call without one (bit-equal latents: the
+    velocity cache is off); a callback that returns False after step 2;
+    custom sigmas and custom timesteps of length 3 through the CLI's flags;
+    return_dict=True with output_type="pil". Each run's launch counts are
+    set to 0 just before it and read just after."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.pipelines.outputs import FluxPipelineOutput
+
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    cond, source = conditions_for(data, name, text, pos, size, font_size)
+
+    def parse(*extra):
+        return cli.build_parser().parse_args(
+            ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+             str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+             str(font_size), "--random-weights", *extra])
+
+    args = parse()
+    clip_ids, t5_ids = cli.request_ids(args, pipe)
+    kw = dict(clip_ids=clip_ids, t5_ids=t5_ids, seed=seed, num_inference_steps=steps,
+              guidance_scale=args.guidance_scale)
+    launches, runs = {}, {}
+    strength = 0.6
+    t_start = min(int(steps * (1.0 - strength)), steps - 1)
+    custom = [1.0, 0.66, 0.33]
+
+    def run(key, label, call, k1):
+        """``call(timings)`` -> latents or a FluxPipelineOutput of PIL images."""
+        expect = {"K1": k1, "K2": 0, "K3": 0, "K5": 0}
+        torch.cuda.synchronize()
+        reset_launches()
+        timings = {}
+        t0 = time.perf_counter()
+        out = call(timings)
+        if isinstance(out, FluxPipelineOutput):
+            images = np.stack([np.asarray(im) for im in out.images])
+            finite = True
+        else:
+            images = pipe.decode(out)
+            finite = bool(torch.isfinite(out).all())
+            runs[key] = out
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        launches[f"surface_{key}"] = got
+        shape_ok = images.shape == (1, size, size, 3) and images.dtype == np.uint8
+        ok = finite and shape_ok and got == expect
+        phase("surface", f"{label}: {wall:.3f} s/image; stages "
+                         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                         + f"; kernel launches K1 {got['K1']} (expected {k1}) K2 {got['K2']} K3 "
+                         f"{got['K3']} K5 {got['K5']} (expected 0, 0, 0); image {images.shape} "
+                         f"{images.dtype}; finite {finite} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the surface run {key} failed its checks")
+
+    init = source_image(seed, size, size)[None]
+    run("img2img", f"img2img {size}^2 (conditions: {source}) at strength {strength}: t0 = "
+                   f"{t_start}, {steps - t_start} of {steps} steps",
+        lambda t: cli.generate(parse("--strength", str(strength)), pipe, cond, timings=t,
+                               output_type="latent", init_image=init),
+        k1_expected(steps, cn_steps, range(t_start, steps)))
+    run("no_callback", f"{steps} steps, no callback",
+        lambda t: pipe(cond, output_type="latent", timings=t, **kw),
+        k1_expected(steps, cn_steps, range(steps)))
+    seen = []
+
+    def record(i, latents):
+        seen.append((i, bool(torch.isfinite(latents).all())))
+
+    run("callback", f"{steps} steps, a callback after every step",
+        lambda t: pipe(cond, output_type="latent", timings=t, callback=record, **kw),
+        k1_expected(steps, cn_steps, range(steps)))
+    same = bool(torch.equal(runs["callback"], runs["no_callback"]))
+    ok = same and seen == [(i, True) for i in range(1, steps + 1)]
+    phase("surface", f"callback steps {[i for i, _ in seen]}, latents finite at each; latents "
+                     f"with the callback bit-equal to those without {same} -> "
+                     f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the callback changed the result")
+    run("callback_stop", "a callback that returns False after step 2",
+        lambda t: pipe(cond, output_type="latent", timings=t, callback=lambda i, lat: i < 2,
+                       **kw), k1_expected(steps, cn_steps, range(min(2, steps))))
+    for flag in ("sigmas", "timesteps"):
+        values = custom if flag == "sigmas" else [1000.0 * v for v in custom]
+        run(flag, f"custom {flag} {values} through --{flag} (overrides --steps {steps})",
+            lambda t, flag=flag, values=values: cli.generate(
+                parse(f"--{flag}", ",".join(f"{v:g}" for v in values)), pipe, cond, timings=t,
+                output_type="latent"),
+            k1_expected(len(custom), cn_steps, range(len(custom))))
+    run("pil", f"return_dict=True, output_type='pil', {steps} steps",
+        lambda t: pipe(cond, output_type="pil", return_dict=True, timings=t, **kw),
+        k1_expected(steps, cn_steps, range(steps)))
+    return launches
+
+
 def checkpoint_phase(dev, steps, cn_steps, seed):
     """A synthetic diffusers snapshot at full width (cut depth) written with the
     port's writer, converted by io.convert_cli, loaded through
@@ -1851,7 +1982,7 @@ def ring_kernel_phase(dev):
                                                         for n in (TXT_LEN, sk, sk)]
     blocks = ((kt, vt), (k1, v1), (k2, v2))
 
-    def steps(fn):
+    def steps(fn, q, blocks):
         state = None
         for i, (k, v) in enumerate(blocks):
             state = fn(q, k, v, state, i == 0, i == len(blocks) - 1)
@@ -1859,13 +1990,14 @@ def ring_kernel_phase(dev):
 
     label = (f"the {SP_SIZE}^2 SP rank's steps, q (1,{h},{sq},128) x k "
              f"(1,{h},{TXT_LEN}|{sk}|{sk},128)")
-    err = max(err, check_out(label, steps(ra.ring_step), steps(ra.ring_step_plain)))
+    err = max(err, check_out(label, steps(ra.ring_step, q, blocks),
+                             steps(ra.ring_step_plain, q, blocks)))
     state = ra.ring_step(q, kt, vt, None, True, False)
     plain_state = ra.ring_step_plain(q, kt, vt, None, True, False)
     kern, pln, line = alternated_ms(
         lambda: ra.ring_step(q, k1, v1, state, False, False),
         lambda: ra.ring_step_plain(q, k1, v1, plain_state, False, False))
-    rank_steps = cuda_time_ms(lambda: steps(ra.ring_step))[0]
+    rank_steps = cuda_time_ms(lambda: steps(ra.ring_step, q, blocks))[0]
     k_all, v_all = torch.cat([kt, k1, k2], dim=2), torch.cat([vt, v1, v2], dim=2)
     lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k_all, v_all))[0]
     b_ms, b_by = step_bound(1, h, sq, sk)
@@ -1876,6 +2008,39 @@ def ring_kernel_phase(dev):
                   f"(bound {rank_bound:.4f} ms); library (SDPA over the {TXT_LEN + 2 * sk} keys) "
                   f"{lib:.4f} ms")
     del q, blocks, kt, vt, k1, v1, k2, v2, k_all, v_all, state, plain_state
+    torch.cuda.empty_cache()
+
+    # one rank of SP inpainting at 1536x1152 over SP_RANKS ranks, CFG batch 2:
+    # queries [text; image shard] against the text block and the two image blocks
+    b2, sq2, sk2 = 2, TXT_LEN + S_SP_INPAINT // SP_RANKS, S_SP_INPAINT // SP_RANKS
+    q2 = rnd(b2, h, sq2)
+    blocks2 = [(rnd(b2, h, n), rnd(b2, h, n)) for n in (TXT_LEN, sk2, sk2)]
+    label = (f"the {SP_INPAINT_HW[1]}x{SP_INPAINT_HW[0]} SP inpaint rank's steps at CFG batch "
+             f"2, q (2,{h},{sq2},128) x k (2,{h},{TXT_LEN}|{sk2}|{sk2},128)")
+    err2 = check_out(label, steps(ra.ring_step, q2, blocks2), steps(ra.ring_step_plain, q2, blocks2))
+    err = max(err, err2)
+    (kt, vt), (k1, v1) = blocks2[:2]
+    state = ra.ring_step(q2, kt, vt, None, True, False)
+    plain_state = ra.ring_step_plain(q2, kt, vt, None, True, False)
+    kern2, pln2, line = alternated_ms(
+        lambda: ra.ring_step(q2, k1, v1, state, False, False),
+        lambda: ra.ring_step_plain(q2, k1, v1, plain_state, False, False))
+    rank2 = cuda_time_ms(lambda: steps(ra.ring_step, q2, blocks2))[0]
+    k_all = torch.cat([k for k, _ in blocks2], dim=2)
+    v_all = torch.cat([v for _, v in blocks2], dim=2)
+    lib2 = cuda_time_ms(lambda: F.scaled_dot_product_attention(q2, k_all, v_all))[0]
+    b2_ms, b2_by = step_bound(b2, h, sq2, sk2)
+    rank2_bound = sum(step_bound(b2, h, sq2, n)[0] for n in (TXT_LEN, sk2, sk2))
+    by_shape[f"(2,{h},{sq2},128) x (2,{h},{sk2},128)"] = {
+        "ms": kern2[0], "plain_ms": pln2[0], "bound_ms": b2_ms, "bound_by": b2_by,
+        "library_ms": lib2, "rank_steps_ms": rank2, "rank_steps_bound_ms": rank2_bound,
+        "max_abs_err": err2}
+    phase("ring", f"K5 image step at CFG batch 2 (2,{h},{sq2},128) x (2,{h},{sk2},128) time: "
+                  f"{line}; bound {b2_ms:.4f} ms ({b2_by}); "
+                  f"{rate(attention_flop(b2, h, sq2, sk2), kern2[0], b2_ms)}; the rank's 3 steps "
+                  f"{rank2:.4f} ms (bound {rank2_bound:.4f} ms); library (SDPA over the "
+                  f"{TXT_LEN + 2 * sk2} keys) {lib2:.4f} ms")
+    del q2, blocks2, kt, vt, k1, v1, k_all, v_all, state, plain_state
     torch.cuda.empty_cache()
     ulysses_exact_check(dev, gen)
     return {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
@@ -1950,6 +2115,43 @@ def dist_sp_run(dev, group, seed=0, steps=2):
     print(json.dumps({"rank": group.rank, "comm": comm_times(group, dev)}), flush=True)
     for backend in ("ring", "ulysses"):
         dist_sp_profile(big, cond, kw, group, dev, seed, backend)
+    del big, kw
+    torch.cuda.empty_cache()
+    return dist_sp_inpaint_run(dev, group, pipe, seed, steps) and ok
+
+
+def dist_sp_inpaint_run(dev, group, pipe, seed, steps):
+    """SP inpainting at 1536x1152 over the cards, as ``--mode inpaint --shard
+    spN`` runs it: this rank's card alone (the reference), then shard_for_sp
+    over the NCCL group with the ring and the Ulysses backends, each called
+    twice (cold, warm); a JSON line per run."""
+    from reptext_tpu_torch import cli
+
+    args, inp, cond, _, image, mask = sp_inpaint_request(pipe, seed, steps)
+    n, ok, ref = group.size, True, None
+    for backend, call in ((b, c) for b in (None, "ring", "ulysses") for c in ("cold", "warm")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timings = {}
+        run = inp if backend is None else inp.with_config(inp.pipe_cfg).shard_for_sp(group,
+                                                                                     backend)
+        lat = cli.generate_inpaint(args, run, cond, image, mask, timings=timings,
+                                   output_type="latent")
+        torch.cuda.synchronize()
+        got = read_launches()
+        expect = {"K1": 0, "K2": 0, "K3": steps * INPAINT_CALLS, "K5": 0}
+        if backend == "ring":
+            expect.update(K3=0, K5=(n + 1) * steps * INPAINT_CALLS)
+        ref = lat if backend is None else ref
+        rel = (lat - ref).abs().max().item() / ref.abs().max().item()
+        run_ok = got == expect and rel <= SP_RTOL and bool(torch.isfinite(lat).all())
+        ok = ok and run_ok
+        print(json.dumps({"rank": group.rank, "sp_inpaint": backend or "one card", "call": call,
+                          "cards": n, "ms_per_step": 1e3 * timings["sample"] / steps,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": got, "expected": expect, "max_abs_vs_one_card": rel,
+                          "ok": run_ok}), flush=True)
     return ok
 
 
@@ -2019,7 +2221,7 @@ def multi_card_phase():
     outs = []
     for proc in procs:
         try:
-            outs.append(proc.communicate(timeout=300)[0])
+            outs.append(proc.communicate(timeout=420)[0])
         except subprocess.TimeoutExpired:
             for p in procs:
                 p.kill()
@@ -2028,7 +2230,8 @@ def multi_card_phase():
         lines = [ln for ln in out.splitlines() if ln.startswith("{")] or ["no result line"]
         phase("ring", f"NCCL rank {r} of {n} (K5 ring at (1,24,4608,128) vs the plain ring, "
                       f"then txt2img {SP_SIZE}^2 on one card, ring and ulysses over the cards, "
-                      "the transfers alone): " + " | ".join(lines))
+                      "the transfers alone, then inpainting at 1536x1152 the same way): "
+                      + " | ".join(lines))
         for ln in out.splitlines():
             if ln.startswith("[profile]") and (r == 0 or "idle" in ln):
                 print(ln, flush=True)
@@ -2080,73 +2283,187 @@ def sp_request(pipe, dev, seed, steps):
     return big, cond, source, kw
 
 
+def sp_run(dev, label, backend, call, expect, ref, steps, shape):
+    """One SP comparison run: ``call(group)`` -> (latents, timings) on the one
+    device (``backend`` None, group None) or on each of SP_RANKS thread ranks
+    on the card; launch counts set to 0 just before and read just after;
+    ranks equal, finite latents of ``shape``, the launch counts, and (for a
+    sharded run) the latents within SP_RTOL of ``ref``. Returns (latents,
+    launches, ms/step)."""
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [call(None)] if backend is None else run_spmd(LocalSPGroup(SP_RANKS, dev), call)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lat = outs[0][0]
+    same = all(bool(torch.equal(o[0], lat)) for o in outs[1:])
+    finite = bool(torch.isfinite(lat).all()) and tuple(lat.shape) == shape
+    ms_step = 1e3 * statistics.median(o[1]["sample"] for o in outs) / steps
+    n = 1 if backend is None else SP_RANKS
+    line = (f"{label}, " + ("one device" if backend is None else f"{backend} over {n} thread "
+                             f"ranks on one card")
+            + f": {wall:.3f} s for {steps} steps (the first call at this size and backend); "
+            f"sampler {ms_step:.1f} ms/step; peak device memory {peak:.2f} GiB; launches "
+            + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+            + f"; latents finite, shape ok {finite}; ranks equal {same}")
+    ok_tol = True
+    if backend is not None:
+        err = (lat - ref).abs()
+        rel_max = err.max().item() / ref.abs().max().item()
+        rel_mean = err.mean().item() / ref.abs().mean().item()
+        ok_tol = rel_max <= SP_RTOL
+        line += (f"; vs one device: max_abs/max|ref| {rel_max:.3e} (tol {SP_RTOL}), "
+                 f"mean_abs/mean|ref| {rel_mean:.3e} -> {'ok' if ok_tol else 'FAIL'}")
+    phase("sp", line)
+    if not (finite and same and got == expect and ok_tol):
+        raise SystemExit(f"the SP run ({label}, {backend or 'one device'}) failed its checks")
+    return lat, got, ms_step
+
+
+def sp_expect(backend, kernel, calls):
+    """Launches of a run of ``calls`` attention calls per rank: ``kernel`` on
+    one device, or on each Ulysses rank (exact local softmax; K3 past 6144
+    joint tokens); the ring's n + 1 K5 steps per call on each rank."""
+    n = 1 if backend is None else SP_RANKS
+    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    if backend == "ring":
+        expect["K5"] = n * (n + 1) * calls
+    else:
+        expect[kernel] = n * calls
+    return expect
+
+
 def sp_phase(dev, pipe, seed):
     """SP txt2img at 2048^2: the single-device pipeline (K3), then
     shard_for_sp over SP_RANKS thread ranks with the ring (K5) and Ulysses
     (K3 on 24 / SP_RANKS heads) backends, 2 steps with the ControlNet on both,
-    from the same packed noise; latents against the single device's."""
-    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
-
+    from the same packed noise; latents against the single device's. Then
+    SP inpainting at 1536x1152 and an SP batch of two 1024^2 requests
+    (:func:`sp_inpaint_runs`, :func:`sp_batch_runs`)."""
     steps = 2
     big, cond, source, kw = sp_request(pipe, dev, seed, steps)
     s_img = big.pipe_cfg.image_seq_len
     calls = DOUBLE_CALLS + SINGLE_CALLS
-    runs, launches = {}, {}
+    runs, launches, ms = {}, {}, {}
     for label, backend in (("single", None), ("ring", "ring"), ("ulysses", "ulysses")):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        if backend is None:
+        def call(g, backend=backend):
             timings = {}
-            lat = big(cond, timings=timings, **kw)
-            outs = [(lat, timings)]
-        else:
-            def rank(g):
-                timings = {}
-                return big.with_config(big.pipe_cfg).shard_for_sp(g, backend)(
-                    cond, timings=timings, **kw), timings
-            outs = run_spmd(LocalSPGroup(SP_RANKS, dev), rank)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = read_launches()
+            run = big if g is None else big.with_config(big.pipe_cfg).shard_for_sp(g, backend)
+            return run(cond, timings=timings, **kw), timings
+
+        runs[label], got, ms[label] = sp_run(
+            dev, f"txt2img {SP_SIZE}x{SP_SIZE} (S = {TXT_LEN + s_img}, conditions: {source})",
+            backend, call, sp_expect(backend, "K3", steps * calls), runs.get("single"), steps,
+            (1, s_img, 64))
         launches[f"sp_{label}" if backend else "txt2img_2048"] = got
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        n = 1 if backend is None else SP_RANKS
-        expect = {"K1": 0, "K2": 0, "K3": n * steps * calls, "K5": 0}
         if backend == "ring":
-            expect.update(K3=0, K5=n * (n + 1) * steps * calls)
-        lat = outs[0][0]
-        same = all(bool(torch.equal(o[0], lat)) for o in outs[1:])
-        finite = bool(torch.isfinite(lat).all()) and tuple(lat.shape) == (1, s_img, 64)
-        ms_step = 1e3 * statistics.median(o[1]["sample"] for o in outs) / steps
-        runs[label] = lat
-        line = (f"txt2img {SP_SIZE}x{SP_SIZE} (S = {TXT_LEN + s_img}, conditions: {source}), "
-                + ("one device" if backend is None else f"{backend} over {n} thread ranks on one "
-                   f"card") + f": {wall:.3f} s for {steps} steps with the ControlNet on both (the "
-                f"first call at this size and backend); "
-                f"sampler {ms_step:.1f} ms/step; peak device memory {peak:.2f} GiB; launches "
-                + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
-                + (f" (K5 per rank per step {got['K5'] / (n * steps):.0f} = (n + 1) x {calls})"
-                   if backend == "ring" else "")
-                + f"; latents finite, shape ok {finite}; ranks equal {same}")
-        if backend is not None:
-            ref = runs["single"]
-            err = (lat - ref).abs()
-            rel_max = err.max().item() / ref.abs().max().item()
-            rel_mean = err.mean().item() / ref.abs().mean().item()
-            ok_tol = rel_max <= SP_RTOL
-            line += (f"; vs one device: max_abs/max|ref| {rel_max:.3e} (tol {SP_RTOL}), "
-                     f"mean_abs/mean|ref| {rel_mean:.3e} -> {'ok' if ok_tol else 'FAIL'}")
-        else:
-            ok_tol = True
-        phase("sp", line)
-        if not (finite and same and got == expect and ok_tol):
-            raise SystemExit(f"the SP txt2img run ({label}) failed its checks")
+            phase("sp", f"K5 per rank per step {got['K5'] / (SP_RANKS * steps):.0f} = (n + 1) x "
+                        f"{calls}")
     d = (runs["ring"] - runs["ulysses"]).abs().max().item() / runs["single"].abs().max().item()
     phase("sp", f"ring vs ulysses: max_abs/max|single| {d:.3e}")
-    del runs, outs, lat
+    del runs, kw
     torch.cuda.empty_cache()
+    launches.update(sp_inpaint_runs(dev, pipe, seed))
+    launches.update(sp_batch_runs(dev, pipe, seed))
+    return launches
+
+
+def sp_inpaint_request(pipe, seed, steps):
+    """SP inpainting's request: the inpaint pipeline at 1536x1152 over
+    ``pipe``'s modules plus a seeded inpaint ControlNet, the fixture's line,
+    a seeded source image and a box mask, true CFG 3.5 with the default
+    negative prompt, both ControlNets on every step; (args, pipeline,
+    conditions, their source, image, mask)."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
+
+    data = np.load(LARGE_FIXTURE)
+    font_size = int(data["font_size"])
+    text = str(data[f"{SP_INPAINT}.text"])
+    pos = tuple(int(v) for v in data[f"{SP_INPAINT}.position"])
+    width, height = (int(v) for v in data[f"{SP_INPAINT}.size"])
+    args = cli.build_parser().parse_args(
+        ["--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE), "--text", text,
+         "--position", *map(str, pos), "--steps", str(steps), "--controlnet-step", str(steps),
+         "--seed", str(seed), "--font-size", str(font_size), "--random-weights"])
+    cond, source = conditions_for(data, SP_INPAINT, text, pos, (width, height), font_size,
+                                  LARGE_FIXTURE)
+    inp = FluxRepTextInpaintPipeline.from_pipeline(
+        pipe, seed=seed + 7, pipe_cfg=cli.pipeline_config(args, height, width))
+    return args, inp, cond, source, source_image(seed, height, width), box_mask(cond)
+
+
+def sp_inpaint_runs(dev, pipe, seed, steps=2):
+    """SP inpainting at 1536x1152 (S = 7424, CFG batch 2) through
+    cli.generate_inpaint: one device (K3), then shard_for_sp over SP_RANKS
+    thread ranks, ring (K5 at batch 2) and Ulysses (K3 on 12 heads)."""
+    from reptext_tpu_torch import cli
+
+    args, inp, cond, source, image, mask = sp_inpaint_request(pipe, seed, steps)
+    s_img = inp.pipe_cfg.image_seq_len
+    runs, launches = {}, {}
+    for label, backend in (("one_device", None), ("ring", "ring"), ("ulysses", "ulysses")):
+        def call(g, backend=backend):
+            timings = {}
+            run = inp if g is None else inp.with_config(inp.pipe_cfg).shard_for_sp(g, backend)
+            return cli.generate_inpaint(args, run, cond, image, mask, timings=timings,
+                                        output_type="latent"), timings
+
+        runs[label], launches[f"sp_inpaint_{label}"], _ = sp_run(
+            dev, f"inpaint {SP_INPAINT_HW[1]}x{SP_INPAINT_HW[0]} (S = {TXT_LEN + s_img}, CFG "
+                 f"batch 2, true-CFG {TRUE_GUIDANCE}, both ControlNets on every step, mask "
+                 f"{int((mask > 0).sum())} px, conditions: {source})",
+            backend, call, sp_expect(backend, "K3", steps * INPAINT_CALLS),
+            runs.get("one_device"), steps, (1, s_img, 64))
+    d = (runs["ring"] - runs["ulysses"]).abs().max().item() / runs["one_device"].abs().max().item()
+    phase("sp", f"inpaint ring vs ulysses: max_abs/max|one device| {d:.3e}")
+    del runs, inp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sp_batch_runs(dev, pipe, seed, steps=2):
+    """generate_batch of the fixture's two 1024^2 requests (one line each,
+    seeds seed and seed + 1), the ControlNet on both steps: one device (K1),
+    then shard_for_sp over SP_RANKS thread ranks with the ring (K5)."""
+    from reptext_tpu_torch import cli
+
+    data, size, font_size, reqs = load_requests()
+    conds, ids, sources = [], [], set()
+    for name, text, pos in reqs:
+        args = cli.build_parser().parse_args(
+            ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+             str(steps), "--controlnet-step", str(steps), "--seed", str(seed), "--font-size",
+             str(font_size), "--random-weights"])
+        cond, source = conditions_for(data, name, text, pos, size, font_size)
+        conds.append(cond)
+        sources.add(source)
+        ids.append(cli.request_ids(args, pipe))
+    batch = pipe.with_config(cli.pipeline_config(args))
+    kw = dict(clip_ids=np.concatenate([c for c, _ in ids]),
+              t5_ids=np.concatenate([t for _, t in ids]), seeds=[seed, seed + 1],
+              guidance_scale=args.guidance_scale, output_type="latent")
+    s_img = batch.pipe_cfg.image_seq_len
+    calls = steps * (DOUBLE_CALLS + SINGLE_CALLS)
+    ref, launches = None, {}
+    for label, backend in (("one_device", None), ("ring", "ring")):
+        def call(g, backend=backend):
+            timings = {}
+            run = batch if g is None else batch.with_config(batch.pipe_cfg).shard_for_sp(
+                g, backend)
+            return run.generate_batch(conds, timings=timings, **kw), timings
+
+        lat, launches[f"sp_batch_{label}"], _ = sp_run(
+            dev, f"generate_batch of 2 requests at {size}^2 (S = {TXT_LEN + s_img}, conditions: "
+                 f"{', '.join(sorted(sources))})",
+            backend, call, sp_expect(backend, "K1", calls), ref, steps, (2, s_img, 64))
+        ref = lat if ref is None else ref
     return launches
 
 
@@ -2190,6 +2507,7 @@ def main(argv=None):
     by_path = {"txt2img": txt2img}
     # after e2e, so that e2e's first request is still the process's first
     by_path["checkpoint"] = checkpoint_phase(dev, args.steps, args.controlnet_step, args.seed)
+    by_path.update(surface_phase(dev, pipe, args.steps, args.controlnet_step, args.seed))
     large, inp = large_phase(dev, pipe, args.steps, args.controlnet_step, args.seed,
                              args.profile)
     by_path.update(large)

@@ -16,6 +16,10 @@ or seeded random weights):
         --size 64 --train-steps 3 --batch-size 2
     torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --shard sp2 --sp-backend ring \
         --text "مرحبا" --position 740 400 --size 2048 --random-weights
+    torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --mode inpaint --shard sp2 \
+        --image photo.jpg --mask mask.png --text "مرحبا" --position 370 200 --random-weights
+    python -m reptext_tpu_torch.cli --text "مرحبا" --position 370 200 --random-weights \
+        --init-image photo.png --strength 0.6 --sigmas 1.0,0.75,0.5,0.25
 
 ``--device`` (``cuda``, the default, or ``cpu``) says where the modules
 live, as ``JAX_PLATFORMS`` does for the JAX CLI: bf16 on the card, float32 on
@@ -37,12 +41,16 @@ and the mask to match; the negative prompt defaults to the reference's.
 :func:`build_pipeline`, :func:`generate`, :func:`generate_inpaint` and
 :func:`train` are the parts of :func:`main`, for in-process callers.
 Training checkpoints every block (``remat``), which the JAX CLI does not: the
-full geometry needs it to fit one card. ``--shard spN`` (txt2img) shards the
-image tokens over N ranks, one process per card started by ``torchrun
---nproc-per-node N`` (gloo processes on the CPU with ``--device cpu``); every
-rank builds the same seeded pipeline, and rank 0 writes the images. Without N
-ranks it raises. ``--shard DPxTP``/``auto``, sequence-parallel inpainting,
-serving and training are not ported yet.
+full geometry needs it to fit one card. ``--shard spN`` (txt2img and inpaint)
+shards the image tokens over N ranks, one process per card started by
+``torchrun --nproc-per-node N`` (gloo processes on the CPU with ``--device
+cpu``); every rank builds the same seeded pipeline, and rank 0 writes the
+images. Without N ranks it raises. ``--shard DPxTP``/``auto``, and serving
+and training under ``--shard``, are not ported yet. The generation flags of
+the JAX CLI are here (``--color``, ``--no-shape``, ``--prompt-suffix``,
+``--prompt-2``, ``--timesteps``/``--sigmas``, ``--init-image``/``--strength``
+for txt2img, ``--control-guidance-start``/``-end``) but those of modules not
+ported yet (the IP-Adapter, LoRA, union mode, fp8, tiled VAE).
 """
 
 from __future__ import annotations
@@ -83,15 +91,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="txt2img/inpaint: text line to render (repeatable, required)")
     p.add_argument("--position", action="append", nargs=2, type=int,
                    metavar=("X", "Y"), help="txt2img/inpaint: top-left position per text line")
+    p.add_argument("--color", action="append", nargs=3, type=int, metavar=("R", "G", "B"),
+                   default=None, help="text colour per line (repeatable; default white)")
     p.add_argument("--prompt", default="a street sign in city")
+    p.add_argument("--prompt-2", default=None,
+                   help="separate prompt for the T5 encoder (CLIP still sees --prompt); "
+                        "default: the same as --prompt")
+    p.add_argument("--prompt-suffix", default=PROMPT_SUFFIX)
     p.add_argument("--size", type=int, default=1024,
                    help="square image size (inpaint: the image's own, resized)")
     p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--timesteps", default=None, metavar="T1,T2,...",
+                   help="custom model-facing timestep grid in (0,1000] (overrides --steps)")
+    p.add_argument("--sigmas", default=None, metavar="S1,S2,...",
+                   help="custom base sigma ladder in (0,1] (overrides --steps; mutually "
+                        "exclusive with --timesteps)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--guidance-scale", type=float, default=3.5)
     p.add_argument("--controlnet-scale", type=float, default=1.0)
     p.add_argument("--controlnet-step", type=int, default=30,
                    help="ControlNet active for the first N steps")
+    p.add_argument("--control-guidance-start", type=float, default=0.0,
+                   help="step fraction at which the ControlNet turns on")
+    p.add_argument("--control-guidance-end", type=float, default=1.0,
+                   help="step fraction at which the ControlNet turns off")
     p.add_argument("--velocity-cache-interval", type=int, default=1,
                    help="run the transformer every k-th step after warmup, "
                         "reusing the last velocity between (1 = off)")
@@ -112,6 +135,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "siblings saved as <output>_K.png)")
     p.add_argument("--image", default=None,
                    help="inpaint: input image path (resized to x64 dims)")
+    p.add_argument("--init-image", default=None, metavar="PATH",
+                   help="txt2img: img2img init image (paired with --strength; noise blended "
+                        "at the matching schedule point)")
+    p.add_argument("--strength", type=float, default=1.0,
+                   help="img2img denoise strength in (0, 1]; 1.0 = pure txt2img")
     p.add_argument("--mask", default=None, help="inpaint: white-on-black mask image path")
     p.add_argument("--negative-prompt", default=None,
                    help="inpaint: CFG negative prompt (default: the reference's)")
@@ -119,6 +147,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="inpaint: true CFG scale over the negative prompt")
     p.add_argument("--font", default=None, help="TTF font path")
     p.add_argument("--font-size", type=int, default=80)
+    p.add_argument("--no-shape", action="store_true",
+                   help="disable Arabic shaping (the reference's raw behaviour)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="the port's converted checkpoint (python -m "
                         "reptext_tpu_torch.io.convert_cli ... --out DIR)")
@@ -155,8 +185,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(omit for in-memory restore points)")
     p.add_argument("--corpus-dir", default=None, help="train on a photo corpus (not ported yet)")
     p.add_argument("--shard", default=None, metavar="spN",
-                   help="txt2img: shard the image tokens over N ranks, one process per card "
-                        "under torchrun --nproc-per-node N (DPxTP and auto: not ported yet)")
+                   help="txt2img and inpaint: shard the image tokens over N ranks, one process "
+                        "per card under torchrun --nproc-per-node N (DPxTP and auto: not "
+                        "ported yet)")
     p.add_argument("--sp-backend", choices=["ring", "ulysses"], default="ring",
                    help="sequence-parallel attention for --shard spN: the K/V ring, or the "
                         "ulysses all-to-all head swap (needs heads %% N == 0)")
@@ -173,6 +204,8 @@ def pipeline_config(args, height=None, width=None):
         guidance_scale=args.guidance_scale,
         controlnet_conditioning_scale=args.controlnet_scale,
         controlnet_conditioning_step=args.controlnet_step,
+        control_guidance_start=args.control_guidance_start,
+        control_guidance_end=args.control_guidance_end,
         true_guidance_scale=args.true_guidance_scale,
         velocity_cache_interval=args.velocity_cache_interval,
         velocity_cache_warmup=args.velocity_cache_warmup,
@@ -308,14 +341,46 @@ def _prompt_ids(args, pipeline, prompt: str) -> Tuple[np.ndarray, np.ndarray]:
                      pipeline.pipe_cfg.max_sequence_length)
 
 
-def generate(args, pipeline, conditions, timings=None, output_type: str = "np"):
-    """One txt2img request: uint8 images [num_images, H, W, 3] (or ``output_type``)."""
+def request_ids(args, pipeline) -> Tuple[np.ndarray, np.ndarray]:
+    """(CLIP ids, T5 ids) of the request: ``--prompt`` with the render text
+    quoted in and ``--prompt-suffix``; T5's from ``--prompt-2`` when given."""
     clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
-                                                                PROMPT_SUFFIX))
+                                                                args.prompt_suffix))
+    if args.prompt_2 is not None:
+        _, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt_2, args.text,
+                                                             args.prompt_suffix))
+    return clip_ids, t5_ids
+
+
+def schedule_kwargs(args) -> dict:
+    """``timesteps=`` or ``sigmas=`` of ``--timesteps``/``--sigmas`` (comma lists;
+    the pipeline refuses both at once)."""
+    kw = {}
+    if args.timesteps:
+        kw["timesteps"] = [float(t) for t in args.timesteps.split(",")]
+    if args.sigmas:
+        kw["sigmas"] = [float(s) for s in args.sigmas.split(",")]
+    return kw
+
+
+def load_init_image(path: str, width: int, height: int) -> np.ndarray:
+    """``--init-image`` as uint8 [1, height, width, 3]."""
+    from PIL import Image
+
+    init = Image.open(path).convert("RGB").resize((width, height))
+    return np.asarray(init, np.uint8)[None]
+
+
+def generate(args, pipeline, conditions, timings=None, output_type: str = "np",
+             init_image=None):
+    """One txt2img request: uint8 images [num_images, H, W, 3] (or
+    ``output_type``); img2img from ``init_image`` at ``--strength``."""
+    clip_ids, t5_ids = request_ids(args, pipeline)
+    img2img = {} if init_image is None else dict(init_image=init_image, strength=args.strength)
     return pipeline(conditions, clip_ids=clip_ids, t5_ids=t5_ids, seed=args.seed,
                     num_images=args.num_images, num_inference_steps=args.steps,
                     guidance_scale=args.guidance_scale, output_type=output_type,
-                    timings=timings)
+                    timings=timings, **schedule_kwargs(args), **img2img)
 
 
 def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.ndarray,
@@ -325,8 +390,7 @@ def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.nda
     from reptext_tpu_torch.text import pad_to_common_length
     from reptext_tpu_torch.pipelines.inpaint import DEFAULT_NEGATIVE_PROMPT
 
-    clip_ids, t5_ids = _prompt_ids(args, pipeline, build_prompt(args.prompt, args.text,
-                                                                PROMPT_SUFFIX))
+    clip_ids, t5_ids = request_ids(args, pipeline)
     neg_clip, neg_t5 = _prompt_ids(args, pipeline, args.negative_prompt or DEFAULT_NEGATIVE_PROMPT)
     # true CFG concatenates [negative; positive] embeds: one sequence length
     t5_ids, neg_t5 = pad_to_common_length(t5_ids, neg_t5)
@@ -336,7 +400,7 @@ def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.nda
                     num_images=args.num_images, num_inference_steps=args.steps,
                     guidance_scale=args.guidance_scale,
                     true_guidance_scale=args.true_guidance_scale, output_type=output_type,
-                    timings=timings)
+                    timings=timings, **schedule_kwargs(args))
 
 
 def train(args, pipeline, dataset=None, on_event=None):
@@ -401,12 +465,13 @@ def build_server(args):
 
 
 def sp_group(args):
-    """The SP group of ``--shard spN`` (txt2img only): this job's N ranks."""
+    """The SP group of ``--shard spN`` (txt2img and inpaint): this job's N ranks."""
     spec = args.shard.lower()
-    if args.mode != "txt2img":
+    if args.mode not in ("txt2img", "inpaint"):
         raise SystemExit(f"--shard is not ported yet for --mode {args.mode}")
     if not spec.startswith("sp") or (spec[2:] and not spec[2:].isdigit()):
-        raise SystemExit(f"--shard {args.shard}: only spN is ported yet (DPxTP and auto are not)")
+        raise SystemExit(f"--shard {args.shard}: only spN is ported yet (DPxTP and auto are "
+                         "not ported yet)")
     from reptext_tpu_torch.parallel import make_sp_group
 
     n = int(spec[2:]) if spec[2:] else int(os.environ.get("WORLD_SIZE", "1"))
@@ -440,9 +505,17 @@ def main(argv=None) -> int:
         parser.error(f"{args.mode} needs --text and --position")
     if len(args.text) != len(args.position):
         parser.error("--text and --position counts must match")
+    colors = args.color or [(255, 255, 255)] * len(args.text)
+    if len(colors) != len(args.text):
+        parser.error("--color count must match --text")
+    if args.timesteps and args.sigmas:
+        parser.error("--timesteps and --sigmas are mutually exclusive")
     inpaint = args.mode == "inpaint"
     if inpaint and (args.image is None or args.mask is None):
         parser.error("--mode inpaint requires --image and --mask")
+    if args.init_image and not inpaint and args.strength >= 1.0:
+        parser.error("--init-image does nothing at --strength 1.0; pass --strength < 1.0 "
+                     "(fraction of the schedule to re-noise)")
 
     from reptext_tpu_torch.conditioning import TextLine, build_conditions
 
@@ -453,14 +526,16 @@ def main(argv=None) -> int:
     pipeline = build_pipeline(args, height, width)
     if group is not None:
         pipeline.shard_for_sp(group, args.sp_backend)
-    lines = [TextLine(t, tuple(p), font_size=args.font_size)
-             for t, p in zip(args.text, args.position)]
+    lines = [TextLine(t, tuple(p), tuple(c), font_size=args.font_size)
+             for t, p, c in zip(args.text, args.position, colors)]
     conditions = build_conditions(lines, width, height, font_path=args.font,
-                                  font_size=args.font_size)
+                                  font_size=args.font_size, shape_text=not args.no_shape)
     if inpaint:
         images = generate_inpaint(args, pipeline, conditions, image, mask)
     else:
-        images = generate(args, pipeline, conditions)
+        init = (load_init_image(args.init_image, width, height) if args.init_image
+                else None)
+        images = generate(args, pipeline, conditions, init_image=init)
 
     if group is not None:
         import torch.distributed as dist

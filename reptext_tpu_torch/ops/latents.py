@@ -103,6 +103,25 @@ def downsample_region_mask(mask: torch.Tensor, latent_height: int,
     return resize_linear(mask, h2, w2).reshape(h2 * w2, 1)
 
 
+def glyph_latent_blend(noise: torch.Tensor, glyph_latents: torch.Tensor,
+                       glyph_mask: torch.Tensor, scale: float = 0.10) -> torch.Tensor:
+    """Glyph-latent init: ``where(mask, scale * glyph_latents + noise, noise)``.
+
+    noise and glyph_latents [B, C, H, W], glyph_mask [B, 1, H, W] on the
+    latent grid (binarised); ``scale`` is the reference's 0.10.
+    """
+    blended = scale * glyph_latents + noise
+    return torch.where(glyph_mask > 0.5, blended, noise)
+
+
+def binarize_glyph_mask_to_latent(glyph_pixels: torch.Tensor, latent_height: int,
+                                  latent_width: int) -> torch.Tensor:
+    """Glyph canvas pixels [H, W] (any > 0 is ink) -> {0, 1} mask [1, h, w]:
+    the ink mask, linear resize to the latent grid, then ``> 0``."""
+    m = resize_linear((glyph_pixels > 0).float(), latent_height, latent_width)
+    return (m > 0).float()[None]
+
+
 def glyph_ink_mask_to_latent(glyph_canvas: np.ndarray, latent_height: int,
                              latent_width: int) -> np.ndarray:
     """Glyph canvas uint8 [H, W, 3] -> {0, 1} latent-grid mask [h, w] (host).

@@ -9,12 +9,14 @@ its ``rank``, ``size`` and ``device`` and those four collectives.
 :class:`DistSPGroup` is the group over ``torch.distributed``: NCCL with one
 process per card (``cuda:LOCAL_RANK``), gloo on the CPU.
 ``parallel/testing.py`` runs n ranks as threads of one process.
+:func:`decide_on_rank0` gives every rank rank 0's answer to a host question
+(a pipeline callback's), so that the ranks take the same branch.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -57,6 +59,15 @@ class SPGroup:
 def check_divides(length: int, size: int, what: str) -> None:
     if length % size:
         raise ValueError(f"{what} ({length}) must divide the sp group ({size})")
+
+
+def decide_on_rank0(group: SPGroup, decide: Callable[[], bool]) -> bool:
+    """``decide()`` called on rank 0 alone; its answer on every rank (one
+    flag all-gathered from the group), so that no rank leaves a loop that
+    the others go on with and no collective is left waiting."""
+    flag = float(bool(decide())) if group.rank == 0 else 0.0
+    answers = group.all_gather(torch.tensor([flag], device=group.device), 0)
+    return bool(answers[0].item())
 
 
 class _Pending:

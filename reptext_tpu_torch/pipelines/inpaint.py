@@ -17,8 +17,14 @@ ControlNet, the VAE, CLIP and T5 of a built pipeline and adds only the inpaint
 ControlNet (the JAX CLI's tree sharing), so one card holds one FLUX.
 :meth:`FluxRepTextInpaintPipeline.generate_batch` runs several requests, each
 with its own image, mask, conditions, prompts and seed, in one true-CFG
-sampler call (serving's coalesced inpaint batches). ``return_dict`` and
-custom ``timesteps``/``sigmas`` are not ported yet.
+sampler call (serving's coalesced inpaint batches). ``__call__`` takes custom
+``timesteps``/``sigmas`` and ``return_dict`` as the JAX one does (no
+img2img or callbacks: the JAX inpaint pipeline has none).
+:meth:`~FluxRepTextPipeline.shard_for_sp`, inherited, runs the loop
+sequence-parallel (``make_sp_inpaint_sampler``): it writes only this
+pipeline's ``sp_group`` and ``sp_backend``, never the modules it shares with
+the base, whose inpaint ControlNet reads the thread's SP context as the
+other two models do.
 """
 
 from __future__ import annotations
@@ -33,9 +39,17 @@ from reptext_tpu_torch.configs import ControlNetConfig, PipelineConfig
 from reptext_tpu_torch.utils.image import preprocess_images
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
 from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids, resize_nearest
-from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline, _StageClock, build_module
-from reptext_tpu_torch.sampling.flow_match import build_schedule
-from reptext_tpu_torch.sampling.sampler_inpaint import make_inpaint_sampler
+from reptext_tpu_torch.pipelines.txt2img import (
+    FluxRepTextPipeline,
+    _normalize_custom_schedule,
+    _StageClock,
+    build_module,
+)
+from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
+from reptext_tpu_torch.sampling.sampler_inpaint import (
+    make_inpaint_sampler,
+    make_sp_inpaint_sampler,
+)
 
 # the reference's default negative prompt (reptext_tpu/pipelines/inpaint.py)
 DEFAULT_NEGATIVE_PROMPT = (
@@ -58,9 +72,6 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         super().__init__(*args, **kwargs)
         self.inpaint_controlnet = inpaint_controlnet
         self.inpaint_conditioning_scale = inpaint_conditioning_scale
-
-    def shard_for_sp(self, group, backend: str = "ring"):
-        raise NotImplementedError("sequence-parallel inpainting is not ported yet")
 
     # ---------------------------------------------------------------- build
 
@@ -126,18 +137,22 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                  true_guidance_scale: Optional[float] = None,
                  num_inference_steps: Optional[int] = None, output_type: str = "np",
                  latents: Optional[torch.Tensor] = None,
-                 timings: Optional[Dict[str, float]] = None):
+                 timings: Optional[Dict[str, float]] = None, timesteps=None, sigmas=None,
+                 return_dict: bool = False):
         """Edit the text lines of ``conditions`` into ``image`` under ``mask``.
 
         Either embeddings or token ids for both the prompt and the negative
         prompt (:data:`DEFAULT_NEGATIVE_PROMPT` is the reference's); the two
-        must have one sequence length. ``output_type``, ``latents`` and
-        ``timings`` as in :class:`FluxRepTextPipeline`.
+        must have one sequence length. ``output_type``, ``latents``,
+        ``timings``, ``timesteps``/``sigmas`` and ``return_dict`` as in
+        :class:`FluxRepTextPipeline`.
         """
         if image is None or mask is None:
             raise ValueError("the inpaint pipeline needs `image` and `mask`")
         cfg = self.pipe_cfg
-        steps = num_inference_steps or cfg.num_inference_steps
+        custom = _normalize_custom_schedule(timesteps, sigmas)
+        steps = len(custom[1]) if custom is not None else (
+            num_inference_steps or cfg.num_inference_steps)
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
         tscale = cfg.true_guidance_scale if true_guidance_scale is None else true_guidance_scale
         clock = _StageClock(timings, self.device)
@@ -171,21 +186,24 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
         clock.mark("prepare")
         latents = self._sample_inpaint(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
-                                       pooled_cfg, steps, gscale, tscale)
+                                       pooled_cfg, self.schedule(steps, custom), gscale, tscale)
         clock.mark("sample")
-        return self.finish(latents, output_type, clock)
+        return self.finish(latents, output_type, clock, return_dict)
 
     def _sample_inpaint(self, latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
-                        pooled_cfg, steps: int, gscale: float, tscale: float) -> torch.Tensor:
-        """The dual-ControlNet true-CFG loop over ``steps`` steps."""
-        cfg = self.pipe_cfg
-        schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
-                                  cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
-                                  cfg.use_dynamic_shifting)
-        sampler = make_inpaint_sampler(
-            self.flux, self.controlnet, self.inpaint_controlnet, schedule,
-            dataclasses.replace(cfg, true_guidance_scale=tscale),
-            self.inpaint_conditioning_scale, self.compute_dtype)
+                        pooled_cfg, schedule: FlowMatchSchedule, gscale: float,
+                        tscale: float) -> torch.Tensor:
+        """The dual-ControlNet true-CFG loop over ``schedule`` (sequence-parallel
+        after ``shard_for_sp``)."""
+        cfg = dataclasses.replace(self.pipe_cfg, true_guidance_scale=tscale)
+        models = (self.flux, self.controlnet, self.inpaint_controlnet, schedule, cfg)
+        if self.sp_group is None:
+            sampler = make_inpaint_sampler(*models, self.inpaint_conditioning_scale,
+                                           self.compute_dtype)
+        else:
+            sampler = make_sp_inpaint_sampler(*models, self.sp_group, self.sp_backend,
+                                              self.inpaint_conditioning_scale,
+                                              self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((ctx_cfg.shape[1], 3), device=self.device)
         guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
@@ -211,6 +229,8 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         ``__call__``. The CFG embeds are [negatives (B); positives (B)] and
         the conditions ride the sampler as [N, B, S, F]; all requests must
         share the number of text lines, the steps and the true-CFG scale.
+        Under ``shard_for_sp`` the batch's tokens are sharded as
+        ``__call__``'s are.
         """
         cfg = self.pipe_cfg
         n_lines = {c.num_lines for c in conditions_list}
@@ -242,6 +262,6 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         clock.mark("prepare")
         latents = self._sample_inpaint(
             torch.cat(lat_l), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
-            torch.cat(inp_l), ctx_cfg, pooled_cfg, steps, gscale, tscale)
+            torch.cat(inp_l), ctx_cfg, pooled_cfg, self.schedule(steps), gscale, tscale)
         clock.mark("sample")
         return self.finish(latents, output_type, clock)

@@ -18,9 +18,13 @@ its own conditions, prompt and seed, on the batch axis of one sampler call
 view at another size over the same modules (serving's resolution buckets).
 Weights come from seeded random draws, from Flax-named trees
 (``io/convert.py``, the JAX package's trees) or from the port's converted
-checkpoint files (``io/checkpoint.py``). img2img, callbacks, custom
-timesteps/sigmas, the IP-Adapter and tensor parallelism
-(``shard_for_inference``) are not ported yet.
+checkpoint files (``io/checkpoint.py``). ``__call__`` takes the JAX
+package's whole call surface but the IP-Adapter: img2img (``init_image``,
+``strength``), ``callback``/``callback_steps`` (sampling in chunks, stopped
+when the callback returns False), custom ``timesteps``/``sigmas`` and
+``return_dict`` (:class:`~reptext_tpu_torch.pipelines.outputs.FluxPipelineOutput`).
+The IP-Adapter and tensor parallelism (``shard_for_inference``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,16 +56,32 @@ from reptext_tpu_torch.nn.vae import AutoencoderKL
 from reptext_tpu_torch.ops.latents import (
     downsample_region_mask,
     glyph_ink_mask_to_latent,
+    glyph_latent_blend,
     pack_latents,
     prepare_latent_image_ids,
     unpack_latents,
 )
-from reptext_tpu_torch.sampling.flow_match import build_schedule
+from reptext_tpu_torch.parallel.group import decide_on_rank0
+from reptext_tpu_torch.pipelines.outputs import FluxPipelineOutput, to_pil_images
+from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule, build_schedule
 from reptext_tpu_torch.sampling.sampler import make_sp_txt2img_sampler, make_txt2img_sampler
 
 
 def _as_ids(ids, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(ids), dtype=torch.long).to(device)
+
+
+def _normalize_custom_schedule(timesteps, sigmas):
+    """Caller timesteps/sigmas -> ("timesteps"|"sigmas", tuple of floats), or
+    None; both at once raise as ``build_schedule`` does."""
+    if timesteps is None and sigmas is None:
+        return None
+    if timesteps is not None and sigmas is not None:
+        raise ValueError("Only one of `timesteps` or `sigmas` can be passed. "
+                         "Please choose one to set custom values")
+    if timesteps is not None:
+        return ("timesteps", tuple(float(t) for t in np.asarray(timesteps).ravel()))
+    return ("sigmas", tuple(float(s) for s in np.asarray(sigmas).ravel()))
 
 
 # the module class of each pipeline component (and of each converted file)
@@ -277,8 +297,8 @@ class FluxRepTextPipeline:
         if glyph_canvas is not None and cfg.glyph_latent_init:
             glyph_lat = self._encode_scaled(self._images(glyph_canvas), glyph_generator)
             mask = torch.from_numpy(glyph_ink_mask_to_latent(glyph_canvas, h, w)).to(self.device)
-            blended = cfg.glyph_latent_scale * glyph_lat.expand(noise.shape) + noise
-            noise = torch.where(mask[None, None] > 0.5, blended, noise)
+            noise = glyph_latent_blend(noise, glyph_lat.expand(noise.shape), mask[None, None],
+                                       cfg.glyph_latent_scale)
         return pack_latents(noise)
 
     @torch.inference_mode()
@@ -298,18 +318,36 @@ class FluxRepTextPipeline:
                  seed: int = 42, num_images: int = 1, guidance_scale: Optional[float] = None,
                  num_inference_steps: Optional[int] = None, output_type: str = "np",
                  latents: Optional[torch.Tensor] = None,
-                 timings: Optional[Dict[str, float]] = None):
+                 timings: Optional[Dict[str, float]] = None,
+                 init_image: Optional[np.ndarray] = None, strength: float = 1.0,
+                 callback: Optional[Callable] = None, callback_steps: int = 1,
+                 timesteps=None, sigmas=None, return_dict: bool = False):
         """Generate images; either embeddings or token ids must be given.
 
         ``output_type``: "np" (uint8 [B, H, W, 3]), "pil" (list of PIL
-        images) or "latent" (packed float32 latents). ``latents``: packed
-        noise [num_images, S, 4*C] that replaces the seeded noise and the
+        images) or "latent" (packed float32 latents); ``return_dict`` wraps
+        it in :class:`FluxPipelineOutput`. ``latents``: packed noise
+        [num_images, S, 4*C] that replaces the seeded noise and the
         glyph-latent init. ``timings``, when given, receives the seconds of
         each stage (the device is synchronised at stage boundaries).
+
+        ``timesteps``/``sigmas`` (at most one) replace the linspace schedule
+        (``build_schedule``); ``num_inference_steps`` then yields to their
+        length. ``init_image`` (uint8 [H, W, 3] or [1, H, W, 3]) with
+        ``strength`` < 1 is img2img: the image's latent, encoded with the
+        glyph generator, is noised to ``sigmas[t0]``, t0 = min(int(steps *
+        (1 - strength)), steps - 1), and sampling starts at step t0 from
+        there. ``callback(step, latents)`` runs after every ``callback_steps``
+        steps with the packed latents (under ``shard_for_sp`` on rank 0 only,
+        with the gathered latents); returning False stops sampling there.
         """
         cfg = self.pipe_cfg
-        steps = num_inference_steps or cfg.num_inference_steps
+        custom = _normalize_custom_schedule(timesteps, sigmas)
+        steps = len(custom[1]) if custom is not None else (
+            num_inference_steps or cfg.num_inference_steps)
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
+        if callback is not None and callback_steps < 1:
+            raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
         clock = _StageClock(timings, self.device)
 
         if prompt_embeds is None:
@@ -321,27 +359,52 @@ class FluxRepTextPipeline:
             pooled_embeds = pooled_embeds.repeat_interleave(num_images, dim=0)
         clock.mark("encode_prompt")
 
+        schedule = self.schedule(steps, custom)
         g_lat, g_cond, g_glyph, _ = self.generators(seed)
         cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
         if latents is not None:
             latents = self.check_latents(latents, num_images)
-        else:
+        t_start = 0
+        if init_image is not None and strength < 1.0:
+            t_start = min(int(steps * (1.0 - strength)), steps - 1)
+            noise = latents if latents is not None else self.prepare_latents(g_lat, num_images)
+            img_lat = self._encode_scaled(self._images(init_image), g_glyph)
+            img_packed = pack_latents(img_lat.expand(num_images, *img_lat.shape[1:]))
+            latents = schedule.scale_noise(img_packed, noise, t_start)
+        elif latents is None:
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
         clock.mark("prepare")
-        latents = self._sample(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
-                               steps, gscale)
+        sample = self._sampler(schedule, cond_tokens, token_masks, prompt_embeds,
+                               pooled_embeds, gscale, latents.shape[0])
+        if callback is None:
+            latents = sample(latents, t_start)
+        else:
+            i = t_start
+            while i < steps:
+                k = min(callback_steps, steps - i)
+                latents = sample(latents, i, k)
+                i += k
+                if self._callback_stops(callback, i, latents):
+                    break
         clock.mark("sample")
-        return self.finish(latents, output_type, clock)
+        return self.finish(latents, output_type, clock, return_dict)
 
-    def _sample(self, latents: torch.Tensor, cond_tokens: torch.Tensor,
-                token_masks: torch.Tensor, prompt_embeds: torch.Tensor,
-                pooled_embeds: torch.Tensor, steps: int, gscale: float) -> torch.Tensor:
-        """The denoise loop over ``steps`` steps of this pipeline's schedule
+    def schedule(self, steps: int, custom=None) -> FlowMatchSchedule:
+        """This pipeline's schedule of ``steps`` steps, or of the custom one
+        (:func:`_normalize_custom_schedule`'s form)."""
+        cfg = self.pipe_cfg
+        kw = {} if custom is None else {custom[0]: list(custom[1])}
+        return build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
+                              cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
+                              cfg.use_dynamic_shifting, **kw)
+
+    def _sampler(self, schedule: FlowMatchSchedule, cond_tokens: torch.Tensor,
+                 token_masks: torch.Tensor, prompt_embeds: torch.Tensor,
+                 pooled_embeds: torch.Tensor, gscale: float, batch: int) -> Callable:
+        """``sample(latents, start_step=0, num_steps=None)``: the denoise loop
+        over a chunk of ``schedule`` with these conditions and embeds
         (sequence-parallel after ``shard_for_sp``)."""
         cfg = self.pipe_cfg
-        schedule = build_schedule(steps, cfg.image_seq_len, cfg.base_image_seq_len,
-                                  cfg.max_image_seq_len, cfg.base_shift, cfg.max_shift,
-                                  cfg.use_dynamic_shifting)
         if self.sp_group is None:
             sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
                                            self.compute_dtype)
@@ -351,11 +414,24 @@ class FluxRepTextPipeline:
                                               self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((prompt_embeds.shape[1], 3), device=self.device)
-        guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
-                               device=self.device)
+        guidance = (torch.full((batch,), gscale, dtype=torch.float32, device=self.device)
                     if self.flux.config.guidance_embeds else None)
-        return sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
-                       txt_ids, img_ids, guidance)
+
+        def sample(latents: torch.Tensor, start_step: int = 0,
+                   num_steps: Optional[int] = None) -> torch.Tensor:
+            return sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
+                           txt_ids, img_ids, guidance, start_step, num_steps)
+
+        return sample
+
+    def _callback_stops(self, callback: Callable, step: int, latents: torch.Tensor) -> bool:
+        """Whether ``callback(step, latents)`` returned False. Under
+        ``shard_for_sp`` rank 0 alone calls it (the JAX controller's one call,
+        on the gathered latents every rank holds) and every rank takes its
+        answer, so all stop at the same step."""
+        if self.sp_group is None:
+            return callback(step, latents) is False
+        return decide_on_rank0(self.sp_group, lambda: callback(step, latents) is False)
 
     # ------------------------------------------------------- batched serving
 
@@ -376,12 +452,10 @@ class FluxRepTextPipeline:
         image alone and in a batch (up to the rounding of the batched
         products). The conditions ride the sampler as [N, B, S, F]; all
         requests must share the number of text lines. ``ip_adapter_images``
-        with any image fails: no IP-Adapter is ported.
+        with any image fails: no IP-Adapter is ported. Under ``shard_for_sp``
+        the batch's tokens are sharded as ``__call__``'s are.
         """
         cfg = self.pipe_cfg
-        if self.sp_group is not None:
-            raise NotImplementedError("generate_batch under sequence parallelism is not "
-                                      "ported yet")
         if ip_adapter_images is not None and any(im is not None for im in ip_adapter_images):
             raise ValueError("ip_adapter_images given but no adapter attached")
         n_lines = {c.num_lines for c in conditions_list}
@@ -415,22 +489,23 @@ class FluxRepTextPipeline:
         token_masks = torch.stack(mask_l, dim=1)      # [N, B, S, 1]
         latents = torch.cat(lat_l, dim=0)             # [B, S, C]
         clock.mark("prepare")
-        latents = self._sample(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
-                               steps, gscale)
+        latents = self._sampler(self.schedule(steps), cond_tokens, token_masks, prompt_embeds,
+                                pooled_embeds, gscale, latents.shape[0])(latents)
         clock.mark("sample")
         return self.finish(latents, output_type, clock)
 
-    def finish(self, latents: torch.Tensor, output_type: str, clock: "_StageClock"):
-        """Sampled latents -> the requested ``output_type``."""
+    def finish(self, latents: torch.Tensor, output_type: str, clock: "_StageClock",
+               return_dict: bool = False):
+        """Sampled latents -> the requested ``output_type``, wrapped in
+        :class:`FluxPipelineOutput` with ``return_dict``."""
         if output_type == "latent":
-            return latents
-        images = self.decode(latents)
-        clock.mark("decode")
-        if output_type == "pil":
-            from PIL import Image
-
-            return [Image.fromarray(im) for im in images]
-        return images
+            out = latents
+        else:
+            out = self.decode(latents)
+            clock.mark("decode")
+            if output_type == "pil":
+                out = to_pil_images(out)
+        return FluxPipelineOutput(images=out) if return_dict else out
 
 
 class _StageClock:

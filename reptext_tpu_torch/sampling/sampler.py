@@ -13,6 +13,12 @@ step:
 - runs the FLUX base with the residuals injected index-on-read;
 - advances the float32 latents by one Euler update.
 
+``sample(..., start_step, num_steps)`` runs a chunk of the schedule, the JAX
+``sample.chunked``: img2img starts past step 0, and a callback runs between
+chunks. The ControlNet gate reads the absolute step; the velocity cache's
+registers start empty in every chunk and its first step always runs, as the
+JAX scan's ``local == 0`` forces it.
+
 The timestep is built in the compute dtype, so it is rounded to bf16 before
 the embedding, as in the JAX sampler. The velocity cache
 (``PipelineConfig.velocity_cache_*``) is :func:`velocity_cache_select`, shared
@@ -119,32 +125,46 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
     return v, (v_prev, v_prev2, s_prev, s_prev2, lat_ref, skips + 1)
 
 
+def chunk_steps(num_steps: int, start_step: int, chunk: Optional[int]) -> range:
+    """The absolute steps of a chunk of ``chunk`` steps (None: to the end)
+    from ``start_step``, checked against the schedule's ``num_steps``."""
+    stop = num_steps if chunk is None else start_step + chunk
+    if not 0 <= start_step < stop <= num_steps:
+        raise ValueError(f"chunk of steps [{start_step}, {stop}) is not inside the "
+                         f"schedule's {num_steps} steps")
+    return range(start_step, stop)
+
+
 def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                          schedule: FlowMatchSchedule, pipe_cfg: PipelineConfig,
                          compute_dtype: torch.dtype = torch.float32,
                          signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                          ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, prompt_embeds,
-    pooled_embeds, txt_ids, img_ids, guidance) -> latents``.
+    pooled_embeds, txt_ids, img_ids, guidance, start_step=0, num_steps=None)
+    -> latents``.
 
     latents: [B, S, C] packed (float32 out); cond_tokens [N, S, F] and
     token_masks [N, S, 1] are shared by the B images, or [N, B, S, F] and
     [N, B, S, 1] carry one condition set per image (serving's coalesced
     batch of requests), tiled line-major as the ControlNet's batch is.
-    ``signal_mean``: see :func:`velocity_cache_select`.
+    ``start_step``/``num_steps``: the chunk of the schedule to run (None: to
+    its end). ``signal_mean``: see :func:`velocity_cache_select`.
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
     vc["signal_mean"] = signal_mean
-    num_steps = schedule.num_steps
-    gate_step = min(pipe_cfg.controlnet_conditioning_step, num_steps)
-    cn_active = cn_active_mask(pipe_cfg, num_steps, gate_step)
+    total = schedule.num_steps
+    cn_active = cn_active_mask(pipe_cfg, total,
+                               min(pipe_cfg.controlnet_conditioning_step, total))
     cond_scale = pipe_cfg.controlnet_conditioning_scale
 
     def sample(latents: torch.Tensor, cond_tokens: torch.Tensor, token_masks: torch.Tensor,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
-               guidance: Optional[torch.Tensor]) -> torch.Tensor:
+               guidance: Optional[torch.Tensor], start_step: int = 0,
+               num_steps: Optional[int] = None) -> torch.Tensor:
+        steps = chunk_steps(schedule.num_steps, start_step, num_steps)
         b = latents.shape[0]
         n_lines = cond_tokens.shape[0]
         ctx = prompt_embeds.to(compute_dtype)
@@ -167,7 +187,7 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
 
         lat = latents.float()
         regs = empty_cache_regs()
-        for i in range(num_steps):
+        for i in steps:
             t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
             t_b = torch.full((b,), t_i, dtype=compute_dtype, device=lat.device)
             x_model = lat.to(compute_dtype)
@@ -184,7 +204,7 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                             controlnet_single_block_samples=single_res).float()
 
             if vc_enabled:
-                always = i < vc["vc_warmup"] or i >= num_steps - 1 or i == 0
+                always = i < vc["vc_warmup"] or i >= total - 1 or i == steps.start
                 velocity, regs = velocity_cache_select(
                     compute_velocity, regs, lat, schedule.sigmas[i], i, always, **vc)
             else:
@@ -205,10 +225,11 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     blocks (what the JAX sampler's clones carry in their
     ``attention_backend``). The
     returned ``sample`` takes the same global tensors as
-    :func:`make_txt2img_sampler`'s on every rank, runs the loop on the rank's
-    shard of the latents, conditions, token masks and ``img_ids`` under the
-    group's SP context (every other op is per token), and returns the
-    gathered latents on every rank.
+    :func:`make_txt2img_sampler`'s on every rank, and its chunk arguments,
+    runs the loop on the rank's shard of the latents, conditions, token
+    masks and ``img_ids`` under the group's SP context (every other op is per
+    token), and returns the gathered latents on every rank. Rank-4 [N, B, S,
+    F] conditions and masks shard on dim 2, as the JAX ``_specs`` do.
     """
     if backend not in JOINT_SP_ATTENTION:
         raise ValueError(f"the SP sampler needs the backend ring|ulysses, got {backend!r}")
@@ -218,14 +239,18 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     def sample(latents: torch.Tensor, cond_tokens: torch.Tensor, token_masks: torch.Tensor,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
-               guidance: Optional[torch.Tensor]) -> torch.Tensor:
-        if cond_tokens.ndim == 4:
-            raise NotImplementedError("per-image [N, B, S, F] conditions under sequence "
-                                      "parallelism are not ported yet")
+               guidance: Optional[torch.Tensor], start_step: int = 0,
+               num_steps: Optional[int] = None) -> torch.Tensor:
         with sp_context(group, backend):
-            lat = base(group.shard(latents, 1), group.shard(cond_tokens, 1),
-                       group.shard(token_masks, 1), prompt_embeds, pooled_embeds, txt_ids,
-                       group.shard(img_ids, 0), guidance)
+            lat = base(group.shard(latents, 1), shard_tokens(group, cond_tokens),
+                       shard_tokens(group, token_masks), prompt_embeds, pooled_embeds, txt_ids,
+                       group.shard(img_ids, 0), guidance, start_step, num_steps)
         return group.all_gather(lat, 1)
 
     return sample
+
+
+def shard_tokens(group: SPGroup, x: torch.Tensor) -> torch.Tensor:
+    """This rank's token shard of [N, S, F] (dim 1) or [N, B, S, F] (dim 2)
+    conditions and masks."""
+    return group.shard(x, x.ndim - 2)

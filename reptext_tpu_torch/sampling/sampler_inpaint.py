@@ -16,6 +16,10 @@ The JAX ``lax.scan`` becomes a Python loop; each step:
 - zeroes the velocity of step 0 after the cache, so a skipped later step
   never reuses the zeroed value;
 - advances the float32 latents by one Euler update.
+
+:func:`make_sp_inpaint_sampler` runs the same loop with the image tokens
+sharded over an SP group (the JAX ``shard_map`` over the scan), as
+``make_sp_txt2img_sampler`` does for txt2img.
 """
 
 from __future__ import annotations
@@ -26,26 +30,33 @@ import numpy as np
 import torch
 
 from reptext_tpu_torch.configs import PipelineConfig
+from reptext_tpu_torch.parallel.group import SPGroup
+from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION, sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 from reptext_tpu_torch.sampling.sampler import (
-    cn_active_mask, empty_cache_regs, velocity_cache_select, velocity_cache_settings,
+    cn_active_mask, empty_cache_regs, shard_tokens, velocity_cache_select,
+    velocity_cache_settings,
 )
 
 
 def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Module,
                          inpaint_controlnet: torch.nn.Module, schedule: FlowMatchSchedule,
                          pipe_cfg: PipelineConfig, inpaint_conditioning_scale: float = 1.0,
-                         compute_dtype: torch.dtype = torch.float32) -> Callable:
+                         compute_dtype: torch.dtype = torch.float32,
+                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                         ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, inpaint_cond,
     prompt_embeds_cfg, pooled_embeds_cfg, txt_ids, img_ids, guidance) -> latents``.
 
     latents [B, S, C] packed (float32 out); cond_tokens [N, S, F] shared by
     the B images or [N, B, S, F] per image, token_masks [N, S, 1] or
     [N, B, S, 1] to match; inpaint_cond [B, S, F_inpaint]; the embeds [2B, ...]
-    ordered [negative; positive]; guidance [B] or None.
+    ordered [negative; positive]; guidance [B] or None. ``signal_mean`` (the
+    JAX ``signal_axis``): see ``sampler.velocity_cache_select``.
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
+    vc["signal_mean"] = signal_mean
     num_steps = schedule.num_steps
     cn_active = cn_active_mask(pipe_cfg, num_steps,
                                min(pipe_cfg.controlnet_conditioning_step, num_steps))
@@ -114,5 +125,40 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
             v = v_cfg if i > 0 else torch.zeros_like(v_cfg)
             lat = schedule.step(lat, v, i)
         return lat
+
+    return sample
+
+
+def make_sp_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Module,
+                            inpaint_controlnet: torch.nn.Module, schedule: FlowMatchSchedule,
+                            pipe_cfg: PipelineConfig, group: SPGroup, backend: str,
+                            inpaint_conditioning_scale: float = 1.0,
+                            compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """The inpaint loop with the image tokens sharded over ``group``.
+
+    ``sample`` takes the same global tensors as :func:`make_inpaint_sampler`'s
+    on every rank, runs the dual-ControlNet true-CFG loop on the rank's shard
+    of the latents, ``inpaint_cond``, the conditions and masks (rank 3 on dim
+    1, rank 4 on dim 2, before the loop repeats them per CFG half) and
+    ``img_ids`` under the group's SP context with ``backend`` ('ring' |
+    'ulysses'), the adaptive cache's drift taken over the group, and returns
+    the gathered latents on every rank.
+    """
+    if backend not in JOINT_SP_ATTENTION:
+        raise ValueError(f"the SP sampler needs the backend ring|ulysses, got {backend!r}")
+    base = make_inpaint_sampler(flux, reptext_controlnet, inpaint_controlnet, schedule,
+                                pipe_cfg, inpaint_conditioning_scale, compute_dtype,
+                                signal_mean=group.all_reduce_mean)
+
+    def sample(latents: torch.Tensor, cond_tokens: torch.Tensor, token_masks: torch.Tensor,
+               inpaint_cond: torch.Tensor, prompt_embeds_cfg: torch.Tensor,
+               pooled_embeds_cfg: torch.Tensor, txt_ids: torch.Tensor, img_ids: torch.Tensor,
+               guidance: Optional[torch.Tensor]) -> torch.Tensor:
+        with sp_context(group, backend):
+            lat = base(group.shard(latents, 1), shard_tokens(group, cond_tokens),
+                       shard_tokens(group, token_masks), group.shard(inpaint_cond, 1),
+                       prompt_embeds_cfg, pooled_embeds_cfg, txt_ids, group.shard(img_ids, 0),
+                       guidance)
+        return group.all_gather(lat, 1)
 
     return sample

@@ -579,6 +579,31 @@ def test_ring_step_matches_plain_at_every_step(dev, sq, sks):
         state = got
 
 
+def test_ring_step_at_cfg_batch_2(dev):
+    """One rank of SP inpainting at 1536x1152 over 2 ranks (true CFG: batch
+    2): queries [512 text; 3456 image] against the text block and two image
+    blocks, step by step against the plain steps; then the second image's
+    output against its rows run at batch 1, bit for bit (no B = 1 assumption
+    in the grid or the tensor maps)."""
+    q, blocks = _ring_inputs(dev, 2, 24, 3968, (512, 3456, 3456), seed=29)
+    got = want = None
+    for i, (k, v) in enumerate(blocks):
+        first, last = i == 0, i == len(blocks) - 1
+        plain_in = None if first else tuple(x.clone() for x in want)
+        got = ra.ring_step(q, k, v, got, first, last)
+        torch.cuda.synchronize()
+        want = ra.ring_step_plain(q, k, v, plain_in, first, last)
+        if not last:
+            assert _out_err_ok(got[0] / got[2][..., None], want[0] / want[2][..., None])
+            assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert got.shape == q.shape and _out_err_ok(got, want)
+    one = None
+    for i, (k, v) in enumerate(blocks):
+        one = ra.ring_step(q[1:], k[1:], v[1:], one, i == 0, i == len(blocks) - 1)
+    torch.cuda.synchronize()
+    assert torch.equal(one, got[1:])
+
+
 def test_ring_step_in_one_launch_is_attention(dev):
     """first and last together: one softmax over the block, no state."""
     q, [(k, v)] = _ring_inputs(dev, 2, 2, 300, (1000,), seed=3)

@@ -337,12 +337,6 @@ def test_shard_for_sp_refuses(pipes, n, backend, match):
     assert tpipe.sp_group is None and tpipe.sp_backend is None
 
 
-def test_sp_inpainting_is_not_ported(pipes):
-    inp = FluxRepTextInpaintPipeline.from_pipeline(pipes[1])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        inp.shard_for_sp(LocalSPGroup(2).member(0))
-
-
 # ---------------------------------------------------- DistSPGroup and the CLI
 
 # Run by every rank of a DistSPGroup (gloo processes) and of a LocalSPGroup:

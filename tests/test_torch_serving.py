@@ -597,21 +597,6 @@ def test_per_image_conditions_match_the_jax_sampler(kind):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_sp_sampler_refuses_per_image_conditions():
-    from reptext_tpu_torch.parallel.testing import LocalSPGroup
-    from reptext_tpu_torch.sampling.flow_match import build_schedule
-    from reptext_tpu_torch.sampling.sampler import make_sp_txt2img_sampler
-
-    cfg = port_config(PipelineConfig(height=32, width=32, num_inference_steps=2))
-    sample = make_sp_txt2img_sampler(_stub_flux, lambda *x: _stub_cn((1, 1), *x),
-                                     build_schedule(2, cfg.image_seq_len), cfg,
-                                     LocalSPGroup(2, torch.device("cpu")).member(0), "ring")
-    t = {k: torch.from_numpy(v) for k, v in _sampler_args().items()}
-    with pytest.raises(NotImplementedError, match="per-image"):
-        sample(t["latents"], t["cond_tokens"], t["token_masks"], t["ctx"][B:], t["pooled"][B:],
-               t["txt_ids"], t["img_ids"], None)
-
-
 def test_with_resolution_checks_and_shares(server):
     pipe = server.worker.pipeline
     with pytest.raises(ValueError, match="x16"):
