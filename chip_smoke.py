@@ -4,8 +4,8 @@
     python3 chip_smoke.py                 # 4 steps, ControlNet on for the first 2; 3 train steps
     python3 chip_smoke.py --steps 30 --controlnet-step 30   # the reference op-point
     python3 chip_smoke.py --profile       # adds device profiles of two inpaint steps at
-                                          # 1536x1152, two ControlNet steps at 1024^2
-                                          # and one train step
+                                          # 1536x1152, two ControlNet steps at 1024^2,
+                                          # one train step and one OCR train step
 
 Needs one CUDA device (an H100; the kernels are built for sm_90a) and exits
 non-zero without one. Phases, one line each, and any failure ends the run:
@@ -115,6 +115,27 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    losses, nonzero heads and exactly-zero block gradients after step 1, a
    bit-identical base, and K1 = 141, K4 = 70, K2 = K3 = 0 launches per step;
    with --profile, then torch.profiler over one more train step;
+9b. ocr: the OCR judge (reptext_tpu_torch/eval/ocr.py, benchmarks/ocr_judge.npz) on the
+   card against the CPU on the fixture's two glyph-canvas crops, both polarities
+   (cuDNN's TF32 convolutions as the card runs them, and with TF32 off for the
+   contrast): logits within JUDGE_RTOL of max|CPU|, the same greedy strings;
+   char_accuracy of the crops on the card and the CPU;
+9c. train_ocr: the OCR text-perceptual term on the same pipeline: one loss +
+   backward at batch 2 with the plain decode (its peak, or the out-of-memory error),
+   the loss at weight 0 and 0.3 on one fixed batch and draw (their difference
+   against 0.3 x the term, the heads' gradients apart), then the CLI's train path
+   with --ocr-loss-weight 0.3 for 3 steps at batch 2, 1024^2, remat (the decoder's
+   blocks recomputed), the labels those of the fixture's texts: per step the loss,
+   the term's share, seconds cold and warm, K1 = 141, K4 = 70, K2 = K3 = 0; the
+   base, the VAE and the judge bit-identical; peak memory; with --profile, one more
+   OCR step's device time by class;
+9d. train_corpus: the CLI's train path with --corpus-dir over CORPUS_SIZES seeded
+   PNGs (annotations in each photo's pixels) and the OCR term, 2 steps: launches as
+   in 9c, the sample specs used equal to a CPU dataset's over the same corpus;
+9e. train_joint and train_base: make_joint_train_step (one AdamW over the base and
+   the ControlNet) and make_train_step (the base alone) at full width, depth cut to
+   FLUX CUT_FLUX and ControlNet CUT_CN, 2 steps each at batch 2: K1 twice and K4 once
+   per block, the base's gradients finite and nonzero, its parameters changed;
 10. sp: on the same modules, txt2img at 2048x2048 (S = 16896) for 2 steps with
    the ControlNet on both, from the same packed noise: the single-device
    pipeline (K3: 142 launches), then FluxRepTextPipeline.shard_for_sp over 2
@@ -134,7 +155,8 @@ non-zero without one. Phases, one line each, and any failure ends the run:
 
 Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
-phase's runs and the SP inpaint and batch runs among them; times, the bound,
+phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
+among them; times, the bound,
 SDPA's time; K5 also at CFG batch 2 in its by_shape), the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
@@ -221,11 +243,34 @@ SP_RTOL = REF_RTOL
 FWD_CALLS = DOUBLE_CALLS + SINGLE_CALLS
 TRAIN_K4 = FWD_CALLS - 1
 TRAIN_K1 = FWD_CALLS + TRAIN_K4
+# The OCR term's weight in the OCR and corpus train phases (the RepText
+# recipe's 0.3; the CLI's default is 0, the term off).
+OCR_WEIGHT = 0.3
+# The OCR judge on the card against the CPU, float32 logits on the same crops:
+# cuDNN runs the card's float32 convolutions in TF32 (torch.backends.cudnn.
+# allow_tf32, on by default, and left on: the pipeline's numbers must not
+# move), whose products keep 10 mantissa bits against 23. Each rounding is a
+# relative 2^-11; through six convolutions and two dense layers the logits
+# move by well under 2^-7 of max|logits|, the limit; the greedy decode must be
+# the same string.
+JUDGE_RTOL = 2.0 ** -7
+# The loss at weight 0.3 minus the loss at 0 on one batch and draw against 0.3
+# x the OCR term of the same forward: the two forwards run the same kernels on
+# the same inputs, so only the fp32 sum's rounding is left; limit 1e-3 of the loss.
+OCR_EFFECT_RTOL = 1e-3
+# The corpus phase's photos (h, w): a 4:3 phone photo, a smaller one, a
+# square one and a portrait one, all resized to 1024^2 by the loader.
+CORPUS_SIZES = ((1152, 1536), (600, 800), (1024, 1024), (960, 640))
 # The checkpoint phase's synthetic snapshot: full widths, depth cut to (double,
 # single) blocks of FLUX and the ControlNet and T5 layers, ~4.5 GB of bf16
 # written and ~4.5 GB converted; written under SCRATCH (git-ignored), removed
 # after the phase.
 CKPT_FLUX, CKPT_CN, CKPT_T5 = (2, 2), (1, 1), 2
+# Joint and base-only training cut depth as the checkpoint phase does: at full
+# depth the 12B base's bf16 parameters, gradients and AdamW moments (24 + 24 +
+# 48 GB) do not fit one card. With remat, a step runs each block's attention
+# twice (forward, recompute) and its backward once.
+CUT_FLUX, CUT_CN = CKPT_FLUX, CKPT_CN
 SCRATCH = ".chip_smoke"
 # The serve phase: the worker lingers this long after a request arrives so
 # that a burst sent by 4 client threads at once lands in one batch.
@@ -1645,14 +1690,7 @@ def train_phase(dev, pipe, seed, profile=False):
     # the texts drawn per sample are rendered by the fixture's two conditions
     dataset.conditions = lambda spec, step, index: conds[(step + index) % len(conds)][0]
 
-    def checksums(module):
-        sums = []
-        for p in module.parameters():
-            bits = p.detach().view(torch.int16).long()
-            sums.append(torch.stack([bits.sum(), (bits * bits).sum()]))
-        return torch.stack(sums).tolist()
-
-    base_before = checksums(pipe.flux)
+    base_before = param_checksums(pipe.flux)
     counters = (fa.flash_attention_rope, fa.flash_attention, fa.flash_attention_backward,
                 fa.flash_attention_streaming)
     per_step, fails = [], []
@@ -1694,7 +1732,7 @@ def train_phase(dev, pipe, seed, profile=False):
                        f"K2 {n2} K3 {n3} (expected 0 and 0)")
         if not (np.isfinite(loss) and (n1, n2, n4, n3) == (TRAIN_K1, 0, TRAIN_K4, 0)):
             fails.append(f"step {step}")
-    same = checksums(pipe.flux) == base_before
+    same = param_checksums(pipe.flux) == base_before
     phase("train", f"3 steps at batch {args.batch_size}, {size}^2, lr {args.learning_rate}, "
                    f"weight decay {args.weight_decay}: {wall:.3f} s in all (restore points "
                    f"included); faults {len(trainer.faults)}; base parameters bit-identical "
@@ -1721,12 +1759,451 @@ def train_phase(dev, pipe, seed, profile=False):
     return {key: sum(s[3][i] for s in per_step) for i, key in enumerate(("K1", "K2", "K4", "K3"))}
 
 
+
+def train_launches():
+    from reptext_tpu_torch.ops import flash_attention as fa
+
+    return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
+            "K3": fa.flash_attention_streaming, "K4": fa.flash_attention_backward}
+
+
+def reset_train_launches():
+    for entry in train_launches().values():
+        entry.launches = 0
+
+
+def read_train_launches():
+    return {key: entry.launches for key, entry in train_launches().items()}
+
+
+def param_checksums(module):
+    """Per parameter, the sum and sum of squares of its bits read as int16."""
+    sums = []
+    for p in module.parameters():
+        bits = p.detach().contiguous().view(torch.int16).long()
+        sums.append(torch.stack([bits.sum(), (bits * bits).sum()]))
+    return torch.stack(sums).tolist()
+
+
+def glyph_crops(data, reqs, margin=8):
+    """The fixture's glyph canvases cut to their ink (a margin of ``margin``)."""
+    from reptext_tpu_torch.sampling.ocr_loss import glyph_ink_bbox
+
+    crops = []
+    for name, _, _ in reqs:
+        canvas = data[f"{name}.glyph_canvas"]
+        y0, x0, y1, x1 = glyph_ink_bbox(canvas)
+        crops.append(canvas[max(y0 - margin, 0):y1 + margin, max(x0 - margin, 0):x1 + margin])
+    return crops
+
+
+def ocr_phase(dev):
+    """The OCR judge on the card against the CPU on the fixture's two glyph
+    crops (TF32 convolutions, as the card runs them, and with TF32 off for
+    the contrast); char_accuracy of the crops on both."""
+    from reptext_tpu_torch.eval import ocr
+
+    data, _, _, reqs = load_requests()
+    crops = glyph_crops(data, reqs)
+    texts = [text for _, text, _ in reqs]
+    judge, judge_cpu = ocr.load_judge(device=dev), ocr.load_judge(device="cpu")
+    x = np.stack([ocr.prepare_crop(c) for c in crops])
+    x = np.concatenate([x, -x])   # both polarities, as char_accuracy reads them
+    with torch.no_grad():
+        want = judge_cpu(ocr.to_nchw(x)).numpy()
+        got = judge(ocr.to_nchw(x, dev)).float().cpu().numpy()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            got_fp32 = judge(ocr.to_nchw(x, dev)).float().cpu().numpy()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    scale = float(np.abs(want).max())
+    err, err_fp32 = float(np.abs(got - want).max()), float(np.abs(got_fp32 - want).max())
+    same_text = ocr.decode_logits(got) == ocr.decode_logits(want)
+    acc = ocr.char_accuracy(crops, texts, judge)
+    acc_cpu = ocr.char_accuracy(crops, texts, judge_cpu)
+    phase("ocr", f"judge logits [{x.shape[0]}, {ocr.FRAMES}, {len(ocr.CHARSET) + 1}] on the "
+                 f"fixture's glyph crops {[c.shape[:2] for c in crops]} (both polarities): "
+                 f"card (cuDNN TF32 {tf32}) vs CPU max_abs {err:.3e}, with TF32 off "
+                 f"{err_fp32:.3e}; limit {JUDGE_RTOL * scale:.3e} ({JUDGE_RTOL:.3g} of "
+                 f"max|CPU| {scale:.2f}); greedy decode equal {same_text} "
+                 f"({ocr.decode_logits(got)[:2]}); char_accuracy card {acc:.4f}, CPU {acc_cpu:.4f}")
+    if not (err <= JUDGE_RTOL * scale and same_text):
+        raise SystemExit("the OCR judge on the card failed its checks")
+
+
+def fixture_dataset(pipe, seed, batch_size=2):
+    """A training dataset whose samples are the fixture's two requests: the
+    card's machine has no font, so the conditions are the fixture's arrays
+    and each sample's text (its OCR label and its prompt's quote) is the text
+    those arrays render."""
+    from reptext_tpu_torch.data import GlyphTextDataset
+
+    data, size, font_size, reqs = load_requests()
+    conds = [conditions_for(data, name, text, pos, size, font_size)[0]
+             for name, text, pos in reqs]
+    ds = GlyphTextDataset(pipe, batch_size=batch_size, seed=seed)
+    real_spec = ds.sample_spec
+
+    def sample_spec(step, index):
+        spec = dict(real_spec(step, index))
+        _, text, _ = reqs[(step + index) % len(reqs)]
+        spec["prompt"] = spec["prompt"].replace(spec["text"], text)
+        spec["text"] = text
+        return spec
+
+    ds.sample_spec = sample_spec
+    ds.conditions = lambda spec, step, index: conds[(step + index) % len(conds)]
+    return ds
+
+
+def train_ocr_phase(dev, pipe, seed, profile=False):
+    """The CLI's train path with the OCR term (--ocr-loss-weight 0.3) on the
+    full-geometry pipeline, 3 steps at batch 2, after a probe of one OCR step
+    with the plain (not recomputed) decode and the term's effect on one fixed
+    batch; with ``profile``, a device profile of one more OCR step."""
+    import gc
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.eval import ocr
+    from reptext_tpu_torch.sampling import train_controlnet as ttrain
+
+    _, size, _, _ = load_requests()
+    args = cli.build_parser().parse_args(
+        ["--mode", "train", "--random-weights", "--size", str(size), "--train-steps", "3",
+         "--batch-size", "2", "--seed", str(seed), "--ocr-loss-weight", str(OCR_WEIGHT)])
+    pipe.flux.remat = pipe.controlnet.remat = True
+    pipe.controlnet.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dataset = fixture_dataset(pipe, args.seed)
+    judge = ocr.load_judge(device=dev)
+    perceptual = {"decode": pipe.decode_images, "judge": judge, "weight": OCR_WEIGHT}
+    terms = []
+    real_term = ttrain.perceptual_term
+
+    def recorded_term(*a, **kw):
+        term = real_term(*a, **kw)
+        terms.append(term.detach())
+        return term
+
+    ttrain.perceptual_term = recorded_term
+    try:
+        batch = dataset.batch(0)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t = torch.sigmoid(torch.randn((2,), generator=g, device=dev))
+        noise = torch.randn(batch["x0"].shape, generator=g, device=dev)
+        heads = [layer.proj.weight for layer in
+                 list(pipe.controlnet.double_blocks) + list(pipe.controlnet.single_blocks)]
+
+        def loss_and_heads(weight, remat=True):
+            pipe.vae.decoder.remat = remat
+            pipe.controlnet.zero_grad(set_to_none=True)
+            loss = ttrain.controlnet_flow_match_loss(
+                pipe.flux, pipe.controlnet, batch, t=t, noise=noise,
+                perceptual=dict(perceptual, weight=weight))
+            loss.backward()
+            return float(loss.detach()), [h.grad.float().clone() for h in heads]
+
+        # the plain decode keeps every decoder block's activations: measured, not trained
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            loss_and_heads(OCR_WEIGHT, remat=False)
+            torch.cuda.synchronize()
+            probe = (f"finished in {time.perf_counter() - t0:.3f} s, peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        except torch.OutOfMemoryError as e:
+            probe = f"out of memory ({str(e).splitlines()[0][:160]})"
+        pipe.vae.decoder.remat = True
+        pipe.controlnet.zero_grad(set_to_none=True)
+        terms.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase("train_ocr", f"one OCR loss + backward at batch 2 with the plain decode "
+                           f"(decoder blocks not recomputed): {probe}")
+
+        loss_0, g0 = loss_and_heads(0.0)
+        loss_w, gw = loss_and_heads(OCR_WEIGHT)
+        term = float(terms[-1])
+        diff = float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(gw, g0))))
+        norm = float(torch.sqrt(sum((b ** 2).sum() for b in g0)))
+        effect_ok = (len(terms) == 1 and np.isfinite(term) and term > 0
+                     and abs((loss_w - loss_0) - OCR_WEIGHT * term)
+                     <= OCR_EFFECT_RTOL * abs(loss_w) and diff > 0)
+        phase("train_ocr", f"one fixed batch and draw (t {[round(v, 4) for v in t.tolist()]}): "
+                           f"loss at weight 0 {loss_0:.6f}, at {OCR_WEIGHT} {loss_w:.6f}; "
+                           f"difference {loss_w - loss_0:.6f} against {OCR_WEIGHT} x the OCR "
+                           f"term {term:.6f} = {OCR_WEIGHT * term:.6f} (limit "
+                           f"{OCR_EFFECT_RTOL:.0e} of the loss); the 14 heads' gradients "
+                           f"differ by {diff:.4e} (norm at weight 0 {norm:.4e})")
+        pipe.controlnet.zero_grad(set_to_none=True)
+        del batch, g0, gw
+        terms.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not effect_ok:
+            raise SystemExit("the OCR term's effect on the loss failed its checks")
+
+        sums = {name: param_checksums(m) for name, m in
+                (("base", pipe.flux), ("VAE", pipe.vae), ("judge", judge))}
+        per_step, clock = [], {"t": None}
+
+        def on_event(kind, info):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if kind == "step":
+                counts = read_train_launches()
+                reset_train_launches()
+                per_step.append((info["step"], info["loss"], now - clock["t"], counts,
+                                 float(terms[-1]) if terms else float("nan")))
+                terms.clear()
+            else:
+                phase("train_ocr", f"[{kind}] {info} ({now - (clock['t'] or now):.3f} s)")
+            clock["t"] = now
+
+        loaded, real_load = [], ocr.load_judge
+
+        def load_judge(*a, **kw):   # the judge the CLI loads, kept to check it after
+            loaded.append(real_load(*a, **kw))
+            return loaded[-1]
+
+        reset_train_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ocr.load_judge = load_judge
+        try:
+            t0 = time.perf_counter()
+            trainer = cli.train(args, pipe, dataset=dataset, on_event=on_event)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ocr.load_judge = real_load
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fails = []
+        expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
+        for step, loss, sec, counts, term in per_step:
+            phase("train_ocr", f"step {step}: loss {loss:.6f}, OCR term {term:.6f} (x "
+                               f"{OCR_WEIGHT}: {100 * OCR_WEIGHT * term / loss:.1f} % of the "
+                               f"loss), {sec:.3f} s ({'cold' if step == 1 else 'warm'}); "
+                               f"launches K1 {counts['K1']} K4 {counts['K4']} K2 {counts['K2']} "
+                               f"K3 {counts['K3']} (expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
+            if not (np.isfinite(loss) and np.isfinite(term) and counts == expect):
+                fails.append(f"step {step}")
+        same = {name: param_checksums(m) == before for name, m, before in
+                (("base", pipe.flux, sums["base"]), ("VAE", pipe.vae, sums["VAE"]),
+                 ("judge", loaded[0], sums["judge"]))}
+        phase("train_ocr", f"3 steps at batch {args.batch_size}, {size}^2, OCR weight "
+                           f"{OCR_WEIGHT}, decoder blocks recomputed: {wall:.3f} s in all "
+                           f"(restore points included); faults {len(trainer.faults)}; "
+                           f"bit-identical {same}; peak device memory {peak:.2f} GiB")
+        if len(per_step) != 3 or trainer.faults or not all(same.values()) or fails:
+            raise SystemExit(f"the OCR training run failed its checks: {fails}")
+        if profile:
+            from reptext_tpu_torch.ops import flash_attention as fa
+
+            step = ttrain.bind_frozen_base(ttrain.make_controlnet_train_step(
+                pipe.controlnet, trainer.state["optimizer"], args.text_loss_weight,
+                perceptual=perceptual), pipe.flux, pipe.vae, judge)
+            batch = dataset.batch(len(per_step))
+
+            def run():
+                step(batch, torch.Generator(device=dev).manual_seed(seed))
+                torch.cuda.synchronize()
+
+            device_profile(f"one OCR train step at batch {args.batch_size} (its batch built "
+                           "before)", run, {fa.flash_attention_rope: TRAIN_K1,
+                                            fa.flash_attention_backward: TRAIN_K4,
+                                            fa.flash_attention: 0})
+    finally:
+        ttrain.perceptual_term = real_term
+    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+
+
+
+def write_corpus(root, reqs, seed):
+    """CORPUS_SIZES seeded numpy photos as PNGs and annotations.jsonl: the
+    fixture's texts at its position and font size, rescaled to each photo's
+    pixels; the last record has both lines."""
+    from PIL import Image
+
+    _, size, font_size, _ = load_requests()
+    os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(root, "annotations.jsonl"), "w", encoding="utf-8") as f:
+        for i, (h, w) in enumerate(CORPUS_SIZES):
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                os.path.join(root, "imgs", f"{i}.png"))
+            picks = range(len(reqs)) if i == len(CORPUS_SIZES) - 1 else [i % len(reqs)]
+            lines = [{"text": reqs[k][1], "font_size": font_size * h / size,
+                      "position": [reqs[k][2][0] * w / size, reqs[k][2][1] * h / size]}
+                     for k in picks]
+            f.write(json.dumps({"image": f"imgs/{i}.png", "prompt": "a photo of a street sign",
+                                "lines": lines}, ensure_ascii=False) + "\n")
+
+
+def train_corpus_phase(dev, pipe, seed):
+    """The CLI's train path on a photo corpus (--corpus-dir) with the OCR
+    term: 2 steps at batch 2; the sample specs it used against a dataset over
+    the same corpus on the CPU."""
+    import gc
+    import shutil
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch import data_disk
+
+    data, size, font_size, reqs = load_requests()
+    conds = {text: conditions_for(data, name, text, pos, size, font_size)[0]
+             for name, text, pos in reqs}
+    root = os.path.join(ROOT, SCRATCH, "corpus")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_corpus(root, reqs, seed)
+    written = time.perf_counter() - t0
+    args = cli.build_parser().parse_args(
+        ["--mode", "train", "--random-weights", "--size", str(size), "--train-steps", "2",
+         "--batch-size", "2", "--seed", str(seed), "--ocr-loss-weight", str(OCR_WEIGHT),
+         "--corpus-dir", root])
+    cls = data_disk.DiskImageTextDataset
+    real_spec, specs, per_step, clock = cls.sample_spec, {}, [], {"t": None}
+
+    def sample_spec(self, step, index):
+        specs[(step, index)] = real_spec(self, step, index)
+        return specs[(step, index)]
+
+    def on_event(kind, info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if kind == "step":
+            per_step.append((info["step"], info["loss"], now - clock["t"], read_train_launches()))
+            reset_train_launches()
+        clock["t"] = now
+
+    pipe.controlnet.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_train_launches()
+    torch.cuda.reset_peak_memory_stats()
+    # no font on the card's machine: each line's conditions are the fixture's arrays of its text
+    cls.sample_spec = sample_spec
+    cls.conditions = lambda self, spec, step, index: conds[spec["text"]]
+    try:
+        t0 = time.perf_counter()
+        trainer = cli.train(args, pipe, on_event=on_event)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = cls(types.SimpleNamespace(pipe_cfg=pipe.pipe_cfg), root, batch_size=2,
+                  seed=args.seed, tokenize=lambda prompt: (None, None))
+        same = all(cpu.sample_spec(*key) == spec for key, spec in specs.items())
+    finally:
+        cls.sample_spec = real_spec
+        del cls.conditions
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
+    fails = []
+    for step, loss, sec, counts in per_step:
+        phase("train_corpus", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches K1 "
+                              f"{counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 "
+                              f"{counts['K3']} (expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
+        if not (np.isfinite(loss) and counts == expect):
+            fails.append(f"step {step}")
+    used = sorted({os.path.basename(s["image_path"]) for s in specs.values()})
+    phase("train_corpus", f"a corpus of {len(CORPUS_SIZES)} seeded PNGs {CORPUS_SIZES} "
+                          f"(written in {written:.2f} s), 2 steps at batch 2 with OCR weight "
+                          f"{OCR_WEIGHT}: {wall:.3f} s in all; photos used {used}; "
+                          f"{len(specs)} sample specs, equal to a CPU dataset's {same}; "
+                          f"faults {len(trainer.faults)}; peak device memory {peak:.2f} GiB")
+    if len(per_step) != 2 or trainer.faults or not same or fails:
+        raise SystemExit(f"the corpus training run failed its checks: {fails}")
+    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+
+
+def cut_train_phase(dev, pipe, seed, joint):
+    """Joint (base + ControlNet, one AdamW) or base-only training at full width,
+    depth cut to CUT_FLUX / CUT_CN (the whole 12B base with its gradients and
+    moments does not fit one card), 2 steps at batch 2 through
+    make_joint_train_step / make_train_step on the fixture's batches."""
+    import dataclasses
+    import gc
+
+    from reptext_tpu_torch.models.controlnet import params_from_transformer
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, FluxRepTextPipeline, build_module
+    from reptext_tpu_torch.sampling.elastic import step_generator
+    from reptext_tpu_torch.sampling.train_controlnet import decay_param_groups, make_joint_train_step
+    from reptext_tpu_torch.sampling.training import make_train_step
+
+    label = "train_joint" if joint else "train_base"
+    flux_cfg = dataclasses.replace(pipe.flux.config, num_layers=CUT_FLUX[0],
+                                   num_single_layers=CUT_FLUX[1])
+    cn_cfg = dataclasses.replace(pipe.controlnet.config, num_layers=CUT_CN[0],
+                                 num_single_layers=CUT_CN[1])
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    flux = build_module(MODULES["flux"], flux_cfg, dev, pipe.compute_dtype, None, gen, remat=True)
+    cn = (build_module(MODULES["controlnet"], cn_cfg, dev, pipe.compute_dtype, None, gen,
+                       remat=True) if joint else None)
+    cut = FluxRepTextPipeline(flux, cn if joint else pipe.controlnet, pipe.vae, pipe.pipe_cfg,
+                              clip=pipe.clip, t5=pipe.t5, compute_dtype=pipe.compute_dtype)
+    dataset = fixture_dataset(cut, seed)
+    flux.requires_grad_(True)
+    groups = decay_param_groups(flux, 0.01)
+    if joint:
+        params_from_transformer(flux, cn, *CUT_CN)
+        cn.requires_grad_(True)
+        groups += decay_param_groups(cn, 0.01)
+    opt = torch.optim.AdamW(groups, lr=1e-5, betas=(0.9, 0.999), eps=1e-8)
+    step = make_joint_train_step(flux, cn, opt) if joint else make_train_step(flux, opt)
+    n_params = sum(p.numel() for g in groups for p in g["params"])
+    fwd = sum(CUT_FLUX) + (sum(CUT_CN) if joint else 0)
+    expect = {"K1": 2 * fwd, "K2": 0, "K3": 0, "K4": fwd}
+    before = param_checksums(flux)
+    torch.cuda.reset_peak_memory_stats()
+    totals, fails = {key: 0 for key in expect}, []
+    for s in range(2):
+        batch = dataset.batch(s)
+        torch.cuda.synchronize()
+        reset_train_launches()
+        t0 = time.perf_counter()
+        loss = float(step(batch, step_generator(seed, s, dev)))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = read_train_launches()
+        totals = {key: totals[key] + counts[key] for key in totals}
+        grads = [p.grad for p in flux.parameters()]
+        got_grad = sum(g is not None and bool(torch.isfinite(g).all()) and bool(g.any())
+                       for g in grads)
+        phase(label, f"step {s + 1}: loss {loss:.6f}, {sec:.3f} s ({'cold' if s == 0 else 'warm'})"
+                     f"; launches K1 {counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 "
+                     f"{counts['K3']} (expected {expect['K1']}, {expect['K4']}, 0, 0); base "
+                     f"tensors with a finite nonzero gradient {got_grad} of {len(grads)}")
+        if not (np.isfinite(loss) and counts == expect and got_grad > 0):
+            fails.append(f"step {s + 1}")
+    after = param_checksums(flux)
+    changed = sum(a != b for a, b in zip(after, before))
+    phase(label, f"FLUX {CUT_FLUX[0]} + {CUT_FLUX[1]}"
+                 + (f", ControlNet {CUT_CN[0]} + {CUT_CN[1]}" if joint else "")
+                 + f" at full width (depth cut: the 12B base, its gradients and AdamW "
+                 f"moments do not fit one card), bf16, AdamW lr 1e-5 over {n_params / 1e9:.3f}B "
+                 f"parameters, batch 2, {pipe.pipe_cfg.height}^2, remat: base tensors changed "
+                 f"by the 2 steps {changed} of {len(after)}; peak device memory "
+                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del cut, dataset, flux, cn, opt, step, groups
+    gc.collect()
+    torch.cuda.empty_cache()
+    if fails or changed == 0:
+        raise SystemExit(f"the {label} run failed its checks: {fails}")
+    return totals
+
+
 def kernel_class(name):
     if "attn_fwd_kernel" in name or "rope_rotate_kernel" in name:
         return "attention kernel (attn_fwd_kernel + rope_rotate_kernel; K1, K2, K3)"
     if "attn_bwd_" in name:
         return ("attention backward kernel (attn_bwd_preprocess_kernel + attn_bwd_kernel + "
                 "attn_bwd_epilogue_kernel; K4)")
+    if any(tag in name.lower() for tag in ("conv", "fprop", "dgrad", "wgrad")):
+        return "convolutions (cuDNN: the VAE decoder's and the OCR judge's, and their gradients)"
     if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
         return "GEMMs (cuBLAS kernels behind nn.Linear)"
     if "nccl" in name.lower():
@@ -2487,6 +2964,7 @@ def main(argv=None):
     if args.nccl_worker:
         return nccl_worker(*args.nccl_worker)
 
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2517,8 +2995,13 @@ def main(argv=None):
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
     by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)
+    ocr_phase(dev)
+    by_path["train_ocr"] = train_ocr_phase(dev, pipe, args.seed, args.profile)
+    by_path["train_corpus"] = train_corpus_phase(dev, pipe, args.seed)
+    by_path["train_joint"] = cut_train_phase(dev, pipe, args.seed, joint=True)
+    by_path["train_base"] = cut_train_phase(dev, pipe, args.seed, joint=False)
     pipe.controlnet.requires_grad_(False).zero_grad(set_to_none=True)
-    pipe.flux.remat = pipe.controlnet.remat = False
+    pipe.flux.remat = pipe.controlnet.remat = pipe.vae.decoder.remat = False
     by_path.update(sp_phase(dev, pipe, args.seed))
     del pipe
 
@@ -2564,6 +3047,7 @@ def main(argv=None):
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})
         entry[key].update(results[key])
+    phase("done", f"every phase passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": list(entry.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,16 @@ sub-package names:
 - ``models``: the FLUX transformer and the RepText ControlNet (with remat and
   the warm-start weight surgery);
 - ``sampling``: the FlowMatch Euler schedule, the txt2img loop with the
-  velocity cache, the dual-ControlNet true-CFG inpaint loop, the ControlNet
-  training recipe and the elastic training loop;
+  velocity cache, the dual-ControlNet true-CFG inpaint loop, the ControlNet,
+  joint and base-only training steps, the OCR text-perceptual loss and the
+  elastic training loop;
+- ``eval``: the OCR judge (CTC recognizer on ``benchmarks/ocr_judge.npz``);
 - ``pipelines``: the txt2img and text-inpainting pipelines;
 - ``parallel``: sequence parallelism (SP groups over ``torch.distributed``,
   the ring, all-gather and Ulysses attention, the SP forward; ranks as
   threads of one process for the tests);
-- ``data``: step-indexed synthetic glyph training batches and their prefetcher;
+- ``data``, ``data_disk``: step-indexed synthetic glyph and photo-corpus
+  training batches and their prefetcher;
 - ``io``: Flax-tree -> module weight carry (``load_jax_params``);
 - ``cli``: the txt2img, inpaint and train command line;
 - ``benchmarks``: the attention A/B study on the card (``sweep_attention``,

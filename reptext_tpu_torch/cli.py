@@ -13,7 +13,7 @@ or seeded random weights):
         --text "مرحبا" --position 370 200 --true-guidance-scale 3.5 \
         --random-weights --output results/edited.png
     python -m reptext_tpu_torch.cli --mode train --random-weights --tiny --device cpu \
-        --size 64 --train-steps 3 --batch-size 2
+        --size 64 --train-steps 3 --batch-size 2 [--ocr-loss-weight 0.3] [--corpus-dir DIR]
     torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --shard sp2 --sp-backend ring \
         --text "مرحبا" --position 740 400 --size 2048 --random-weights
     torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --mode inpaint --shard sp2 \
@@ -41,7 +41,11 @@ and the mask to match; the negative prompt defaults to the reference's.
 :func:`build_pipeline`, :func:`generate`, :func:`generate_inpaint` and
 :func:`train` are the parts of :func:`main`, for in-process callers.
 Training checkpoints every block (``remat``), which the JAX CLI does not: the
-full geometry needs it to fit one card. ``--shard spN`` (txt2img and inpaint)
+full geometry needs it to fit one card. ``--ocr-loss-weight > 0`` adds the
+OCR text-perceptual term (the VAE decoder with gradients, its blocks
+checkpointed too, and the frozen judge of ``--ocr-judge``, by default
+``benchmarks/ocr_judge.npz`` beside the package); ``--corpus-dir`` trains on
+an annotated photo corpus (``data_disk.py``). ``--shard spN`` (txt2img and inpaint)
 shards the image tokens over N ranks, one process per card started by
 ``torchrun --nproc-per-node N`` (gloo processes on the CPU with ``--device
 cpu``); every rank builds the same seeded pipeline, and rank 0 writes the
@@ -177,13 +181,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--text-loss-weight", type=float, default=2.0,
                    help="train: extra loss weight inside text-region tokens")
     p.add_argument("--ocr-loss-weight", type=float, default=0.0,
-                   help="train: OCR text-perceptual loss weight (not ported yet; 0 only)")
+                   help="train: OCR text-perceptual loss weight (0 = off)")
+    p.add_argument("--ocr-judge", default=None, metavar="NPZ",
+                   help="train: OCR judge weights (default benchmarks/ocr_judge.npz)")
     p.add_argument("--checkpoint-every", type=int, default=50,
                    help="train: steps between restore points")
     p.add_argument("--train-dir", default=None,
                    help="train: directory for restore points and controlnet_final.pt "
                         "(omit for in-memory restore points)")
-    p.add_argument("--corpus-dir", default=None, help="train on a photo corpus (not ported yet)")
+    p.add_argument("--corpus-dir", default=None,
+                   help="train on an annotated photo corpus (annotations.jsonl + images)")
     p.add_argument("--shard", default=None, metavar="spN",
                    help="txt2img and inpaint: shard the image tokens over N ranks, one process "
                         "per card under torchrun --nproc-per-node N (DPxTP and auto: not "
@@ -405,8 +412,11 @@ def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.nda
 
 def train(args, pipeline, dataset=None, on_event=None):
     """ControlNet training (``--mode train``): warm start from the base, AdamW,
-    ``GlyphTextDataset`` batches (or ``dataset``) through a ``PrefetchLoader``
-    and the ``ElasticTrainer``. Returns the trainer (its ``losses``)."""
+    ``GlyphTextDataset`` batches (``DiskImageTextDataset`` with
+    ``--corpus-dir``, or ``dataset``) through a ``PrefetchLoader`` and the
+    ``ElasticTrainer``; with ``--ocr-loss-weight > 0`` the step adds the OCR
+    term through the pipeline's differentiable decode and the frozen judge.
+    Returns the trainer (its ``losses``)."""
     import torch
 
     from reptext_tpu_torch.data import GlyphTextDataset, PrefetchLoader
@@ -419,14 +429,30 @@ def train(args, pipeline, dataset=None, on_event=None):
     controlnet, optimizer = init_controlnet_training(
         pipeline.flux, pipeline.controlnet, cn_cfg.num_layers, cn_cfg.num_single_layers,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay)
-    if dataset is None:
+    # the checkpoint's tokenizers, when it has them, tokenize the training prompts too
+    tokenize = functools.partial(_prompt_ids, args, pipeline)
+    if dataset is None and args.corpus_dir:
+        from reptext_tpu_torch.data_disk import DiskImageTextDataset
+
+        dataset = DiskImageTextDataset(pipeline, args.corpus_dir, batch_size=args.batch_size,
+                                       font_path=args.font, seed=args.seed, tokenize=tokenize)
+    elif dataset is None:
         dataset = GlyphTextDataset(pipeline, batch_size=args.batch_size, font_path=args.font,
-                                   seed=args.seed)
+                                   seed=args.seed, tokenize=tokenize)
+    perceptual, frozen = None, ()
+    if args.ocr_loss_weight > 0.0:
+        from reptext_tpu_torch.eval.ocr import load_judge
+
+        judge = load_judge(args.ocr_judge, pipeline.device)
+        perceptual = {"decode": pipeline.decode_images, "judge": judge,
+                      "weight": args.ocr_loss_weight}
+        frozen = (pipeline.vae, judge)
     step = make_controlnet_train_step(controlnet, optimizer,
-                                      text_loss_weight=args.text_loss_weight)
+                                      text_loss_weight=args.text_loss_weight,
+                                      perceptual=perceptual)
     loader = PrefetchLoader(dataset.batch, depth=2)  # host build overlaps the device step
     trainer = ElasticTrainer(
-        bind_frozen_base(step, pipeline.flux), loader,
+        bind_frozen_base(step, pipeline.flux, *frozen), loader,
         state={"controlnet": controlnet, "optimizer": optimizer}, device=pipeline.device,
         checkpoint_dir=args.train_dir, checkpoint_every=args.checkpoint_every,
         on_event=on_event or (lambda kind, info: print(f"[{kind}] {info}", flush=True)))
@@ -495,10 +521,6 @@ def main(argv=None) -> int:
             server.shutdown()
         return 0
     if args.mode == "train":
-        for flag, unported in (("--corpus-dir", args.corpus_dir),
-                               ("--ocr-loss-weight > 0", args.ocr_loss_weight > 0.0)):
-            if unported:
-                raise SystemExit(f"{flag} is not ported yet")
         train(args, build_pipeline(args))
         return 0
     if not args.text or not args.position:

@@ -12,8 +12,10 @@ Prompts become the CLI's demo token ids, with T5 ids padded to the pipeline's
 Batches are addressed by step and every draw comes from ``(seed, step,
 index)``, so ``ElasticTrainer``'s rollback replays exactly. The conditions of
 a sample come from :meth:`GlyphTextDataset.conditions`, which a caller may
-replace (as ``_target_image`` is replaced for a photo corpus). The OCR box and
-label fields wait for the OCR perceptual term's port.
+replace (as ``_target_image`` is replaced for a photo corpus,
+``data_disk.py``). Each batch also carries the OCR perceptual term's fields:
+the judge's crop window around the glyph canvas's ink (``ocr_boxes``) and the
+case-sensitive label of the sample's text (``ocr_labels``, ``ocr_paddings``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 import torch
 
 from reptext_tpu_torch.conditioning import TextLine, build_conditions
+from reptext_tpu_torch.eval.ocr import MAX_LABEL, label_ids
+from reptext_tpu_torch.sampling.ocr_loss import aspect_box, glyph_ink_bbox
 from reptext_tpu_torch.utils.image import preprocess_images
 from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids
 
@@ -126,6 +130,9 @@ class GlyphTextDataset:
         stacking or cloning them outside it gives tensors autograd may save."""
         pipe, cfg = self.pipe, self.pipe.pipe_cfg
         cond_l, mask_l, target_l, clip_l, t5_l = [], [], [], [], []
+        ocr_boxes = np.zeros((self.batch_size, 4), np.float32)
+        ocr_labels = np.zeros((self.batch_size, MAX_LABEL), np.int64)
+        ocr_paddings = np.ones((self.batch_size, MAX_LABEL), np.float32)
         for i in range(self.batch_size):
             spec = self.sample_spec(step, i)
             conds = self.conditions(spec, step, i)
@@ -138,6 +145,14 @@ class GlyphTextDataset:
             cids, tids = self.tokenize(spec["prompt"])
             clip_l.append(np.asarray(cids)[0])
             t5_l.append(np.asarray(tids)[0])
+            # the judge's crop window from the known glyph bbox (the whole
+            # image when the canvas is blank) and the text's label
+            bbox = glyph_ink_bbox(conds.glyph_canvas)
+            ocr_boxes[i] = (aspect_box(bbox, cfg.height, cfg.width) if bbox
+                            else np.asarray([0, 0, 1, 1], np.float32))
+            ids = label_ids(spec["text"])
+            ocr_labels[i, : len(ids)] = ids
+            ocr_paddings[i, : len(ids)] = 0.0
 
         def pad_stack(rows):
             out = np.zeros((len(rows), max(r.shape[0] for r in rows)), np.int64)
@@ -158,6 +173,9 @@ class GlyphTextDataset:
             "img_ids": prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, dev),
             "txt_ids": torch.zeros((prompt_embeds.shape[1], 3), device=dev),
             "guidance": guidance,
+            "ocr_boxes": torch.from_numpy(ocr_boxes).to(dev),
+            "ocr_labels": torch.from_numpy(ocr_labels).to(dev),
+            "ocr_paddings": torch.from_numpy(ocr_paddings).to(dev),
         }
 
     __call__ = batch

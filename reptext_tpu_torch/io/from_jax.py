@@ -5,7 +5,8 @@ mechanical:
 
 - ``{"params": ...}`` is unwrapped;
 - a Dense ``kernel`` [in, out] becomes ``Linear.weight`` [out, in];
-- a Conv ``kernel`` HWIO becomes ``Conv2d.weight`` OIHW;
+- a Conv ``kernel`` HWIO becomes ``Conv2d.weight`` OIHW, and a 1-D Conv
+  ``kernel`` (k, I, O) becomes ``Conv1d.weight`` (O, I, k);
 - LayerNorm/GroupNorm ``scale`` and Embed ``embedding`` become ``weight``;
 - ``nn.scan`` stacks under ``double_blocks``/``single_blocks`` are sliced
   along their leading layer axis into the matching ``ModuleList`` entries.
@@ -49,6 +50,8 @@ def _to_torch_layout(leaf: str, arr: Leaf) -> Leaf:
     if leaf == "kernel":
         if arr.ndim == 2:
             return arr.T
+        if arr.ndim == 3:
+            return (arr.permute if isinstance(arr, torch.Tensor) else arr.transpose)(2, 1, 0)
         if arr.ndim == 4:
             return (arr.permute if isinstance(arr, torch.Tensor) else arr.transpose)(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
@@ -58,7 +61,7 @@ def _to_torch_layout(leaf: str, arr: Leaf) -> Leaf:
 def flax_leaf_kinds(module: torch.nn.Module) -> Dict[str, str]:
     """{parameter name: the Flax leaf it carries: kernel, scale, bias or embedding}.
 
-    Linear and Conv2d weights are ``kernel``s, Embedding weights
+    Linear, Conv1d and Conv2d weights are ``kernel``s, Embedding weights
     ``embedding``s, other weights (LayerNorm, GroupNorm, and the RMS norms,
     whose Flax leaf is named ``weight``) ``scale``s, and biases ``bias``.
     """
@@ -67,7 +70,7 @@ def flax_leaf_kinds(module: torch.nn.Module) -> Dict[str, str]:
         for leaf, _ in mod.named_parameters(recurse=False):
             if leaf == "bias":
                 kind = "bias"
-            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+            elif isinstance(mod, (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d)):
                 kind = "kernel"
             elif isinstance(mod, torch.nn.Embedding):
                 kind = "embedding"

@@ -6,7 +6,11 @@ Counterpart of ``reptext_tpu/nn/vae.py`` (which is NHWC): encoder conv_in ->
 conv_out to 2 * latent moments; the decoder mirrors it with nearest x2
 upsampling. GroupNorm runs in float32. Submodule names follow the Flax tree
 (``down_{i}_block_{j}``, ``mid_attn``, ``norm1.norm``, ...). Scaling and
-shift factors are applied by the pipeline.
+shift factors are applied by the pipeline. ``remat`` recomputes each of the
+decoder's resnet and attention blocks in the backward pass
+(``torch.utils.checkpoint``) when autograd records: a decode with gradients
+(the OCR training term) at 1024^2 would otherwise keep every block's
+activations, several GiB a block at the last stage.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from reptext_tpu_torch.configs import VAEConfig
 
@@ -117,8 +122,9 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig, device=None, dtype=None):
+    def __init__(self, cfg: VAEConfig, device=None, dtype=None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         kw = dict(device=device, dtype=dtype)
         ch, g = cfg.block_out_channels, cfg.norm_num_groups
         self.n_stages, self.layers_per_block = len(ch), cfg.layers_per_block
@@ -136,11 +142,18 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm32(g, ch[0], **kw)
         self.conv_out = _conv3(ch[0], cfg.out_channels, **kw)
 
+    def _run(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
+
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block_2(self.mid_attn(self.mid_block_1(self.conv_in(z))))
+        x = self.conv_in(z)
+        for block in (self.mid_block_1, self.mid_attn, self.mid_block_2):
+            x = self._run(block, x)
         for i in range(self.n_stages):
             for j in range(self.layers_per_block + 1):
-                x = getattr(self, f"up_{i}_block_{j}")(x)
+                x = self._run(getattr(self, f"up_{i}_block_{j}"), x)
             if i < self.n_stages - 1:
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
                 x = getattr(self, f"up_{i}_upsample")(x)
@@ -148,13 +161,14 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Encode images to diagonal-Gaussian latents and decode back (NCHW)."""
+    """Encode images to diagonal-Gaussian latents and decode back (NCHW);
+    ``remat`` is the decoder's."""
 
-    def __init__(self, config: VAEConfig, device=None, dtype=None):
+    def __init__(self, config: VAEConfig, device=None, dtype=None, remat: bool = False):
         super().__init__()
         self.config = config
         self.encoder = Encoder(config, device, dtype)
-        self.decoder = Decoder(config, device, dtype)
+        self.decoder = Decoder(config, device, dtype, remat)
 
     def encode_moments(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """images [B, 3, H, W] in [-1, 1] -> (mean, logvar) each [B, C, H/8, W/8]."""

@@ -150,9 +150,9 @@ class FluxRepTextPipeline:
         taken over as they are) the weights come from there; without, they
         are drawn on the device from one generator seeded with ``seed``.
         Modules are first built on the meta device, so no extra host copy of
-        the weights is made. ``remat`` checkpoints the blocks of FLUX
-        and the ControlNet for training; a training caller makes the
-        ControlNet trainable (``init_controlnet_training``).
+        the weights is made. ``remat`` checkpoints the blocks of FLUX,
+        the ControlNet and the VAE decoder for training; a training caller
+        makes the ControlNet trainable (``init_controlnet_training``).
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -165,7 +165,7 @@ class FluxRepTextPipeline:
         generator = torch.Generator(device=device).manual_seed(seed) if params is None else None
         built: Dict[str, Optional[torch.nn.Module]] = {}
         for name, cfg in cfgs.items():
-            kw = {"remat": remat} if name in ("flux", "controlnet") else {}
+            kw = {"remat": remat} if name in ("flux", "controlnet", "vae") else {}
             built[name] = None if cfg is None else build_module(
                 MODULES[name], cfg, device, dtype, None if params is None else params[name],
                 generator, **kw)
@@ -300,6 +300,14 @@ class FluxRepTextPipeline:
             noise = glyph_latent_blend(noise, glyph_lat.expand(noise.shape), mask[None, None],
                                        cfg.glyph_latent_scale)
         return pack_latents(noise)
+
+    def decode_images(self, packed_latents: torch.Tensor) -> torch.Tensor:
+        """Packed latents [B, S, 4*C] -> images [B, 3, H, W] in about [-1, 1],
+        in the VAE's dtype, differentiable (the OCR training term's decode):
+        unpack, undo the latent scaling and shift, decode."""
+        cfg, vcfg = self.pipe_cfg, self.vae.config
+        lat = unpack_latents(packed_latents, cfg.latent_height, cfg.latent_width)
+        return self.vae.decode(lat / vcfg.scaling_factor + vcfg.shift_factor)
 
     @torch.inference_mode()
     def decode(self, packed_latents: torch.Tensor) -> np.ndarray:

@@ -137,8 +137,6 @@ def test_train_cli_runs_and_reports_a_finite_loss(capsys):
     (["--mode", "serve", "--shard", "sp2"], "not ported"),   # serving under SP
     (["--mode", "inpaint", "--shard", "2x4"], "not ported"),
     (["--mode", "train", "--shard", "2x4"], "--shard is not ported"),
-    (["--mode", "train", "--corpus-dir", "corpus"], "--corpus-dir is not ported"),
-    (["--mode", "train", "--ocr-loss-weight", "0.5"], "ocr-loss-weight"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -280,8 +280,3 @@ def test_zero_weight_decay_means_no_decay():
     for n, p in cn.named_parameters():
         assert torch.equal(p, before[n]), n
 
-
-def test_perceptual_term_is_not_ported_yet():
-    flux, cn = _port_models()
-    with pytest.raises(NotImplementedError, match="perceptual"):
-        ttrain.controlnet_flow_match_loss(flux, cn, {}, perceptual={"weight": 1.0})
