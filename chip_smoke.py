@@ -31,8 +31,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    clamp; errors and median times (kernel and plain version, with the
    achieved TFLOP/s and the bound's share of the time), K1's and K3's clamped
    against their online softmax, and K4 called twice on the same inputs
-   (max|dq1 - dq2| beside its limit: the adds into dq land in another order
-   each run; dk and dv must be bit-equal);
+   (dq, dk and dv must be bit-equal: dq's adds land in key order); K1 and K4
+   at the union ControlNet's joint length 4609 and at 5121 (partial last
+   tiles) against their plain versions, K4 bit-equal over two calls there;
    then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
@@ -106,9 +107,34 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    calls), each served PNG against the decode of those latents; seconds from
    first submit to last answer, images/s, p50/p95 latency, peak memory; then
    frees the inpaint ControlNet;
+7c. union: a seeded union ControlNet (RepText geometry, UNION_MODES modes) at
+   mode UNION_MODE: one 1024^2 request beside the plain one (plain, union,
+   union, plain; ms/step), one 1280x960 inpaint request with it in the
+   RepText slot; launches exact;
+7d. multi: MultiControlNet([RepText, union]) on one step's full-width inputs,
+   a region mask on one, a guidance window on the other, at a step outside
+   and one inside the window: bit-equal to the sum of each net's own
+   masked, gated, spread residuals;
+7e. lora: a seeded rank-LORA_RANK LoRA on every attention projection of every
+   FLUX block merged into the resident FLUX at scale 0 (image bit-equal to
+   none) and 1 (different, finite), restored each time (checksums equal the
+   originals'); merge seconds, the GiB of the kept originals;
+7f. single_file: a synthetic BFL single file of FLUX (full width, depth cut
+   to CKPT_FLUX) through convert_cli --flux-single-file, bit-equal to the
+   diffusers path, then one 1024^2 request through it;
+7g. ip: a seeded CLIP ViT-L/14 and IP-Adapter written as files, converted by
+   convert_cli --ip-adapter --image-encoder-dir and attached from that
+   directory: the image prompt's encode time; 1024^2 without the adapter, at
+   IP_SCALE, at 0 (bit-equal to without); 1536^2 (K3); a served batch of one
+   request with the image and one without over HTTP; SP txt2img at 2048^2
+   over SP_RANKS thread ranks (ring) against one card; the adapter's
+   projections are taken off FLUX after;
 8. with --profile: torch.profiler over two inpaint steps at 1536x1152 (in the
    large phase) and over two ControlNet steps of the txt2img sampler at 1024^2,
    device (kernel) time by class, the device's idle share and the top kernels;
+8b. union_train: 2 steps of cli.train --controlnet-mode UNION_MODE on the
+   union ControlNet (before the RepText net trains): K1 = 141, K4 = 70 a
+   step, the mode embedding's gradient in the mode's row alone;
 9. train: on the same pipeline, the CLI's train path (reptext_tpu_torch.cli.
    train: warm start, AdamW at the CLI defaults, ElasticTrainer +
    PrefetchLoader) for 3 steps at batch 2, 1024^2, with remat; checks finite
@@ -125,7 +151,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    the loss at weight 0 and 0.3 on one fixed batch and draw (their difference
    against 0.3 x the term, the heads' gradients apart), then the CLI's train path
    with --ocr-loss-weight 0.3 for 3 steps at batch 2, 1024^2, remat (the decoder's
-   blocks recomputed), the labels those of the fixture's texts: per step the loss,
+   blocks recomputed), after the OCR loss and backward twice on one batch and
+   draw (whether the step repeats bit for bit, reported with the ops that have
+   no deterministic implementation when it does not), the labels those of the fixture's texts: per step the loss,
    the term's share, seconds cold and warm, K1 = 141, K4 = 70, K2 = K3 = 0; the
    base, the VAE and the judge bit-identical; peak memory; with --profile, one more
    OCR step's device time by class;
@@ -136,6 +164,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    the ControlNet) and make_train_step (the base alone) at full width, depth cut to
    FLUX CUT_FLUX and ControlNet CUT_CN, 2 steps each at batch 2: K1 twice and K4 once
    per block, the base's gradients finite and nonzero, its parameters changed;
+9f. train_repeat: the joint step of 9e, 3 steps from one seed, twice, then
+   with a NaN planted in step 2 and rolled back by the ElasticTrainer: the
+   losses, the ControlNet's state_dict and the base's bit-equal;
 10. sp: on the same modules, txt2img at 2048x2048 (S = 16896) for 2 steps with
    the ControlNet on both, from the same packed noise: the single-device
    pipeline (K3: 142 launches), then FluxRepTextPipeline.shard_for_sp over 2
@@ -166,6 +197,7 @@ worker takes them through its ``conditions`` method, replaced on the instance).
 
 import argparse
 import base64
+import gc
 import io
 import json
 import os
@@ -266,6 +298,19 @@ CORPUS_SIZES = ((1152, 1536), (600, 800), (1024, 1024), (960, 640))
 # written and ~4.5 GB converted; written under SCRATCH (git-ignored), removed
 # after the phase.
 CKPT_FLUX, CKPT_CN, CKPT_T5 = (2, 2), (1, 1), 2
+# A union ControlNet at RepText geometry (4 + 10) with the mode count of the
+# public InstantX FLUX.1-dev-Controlnet-Union config, run at mode 2. Its joint
+# sequence at 1024^2 is 4609 tokens (its mode token in front of 512 text and
+# 4096 image tokens): K1 and K4 take their bounds-masked tails there, checked
+# against their plain versions at 4609 and at 5121.
+UNION_MODES, UNION_MODE = 10, 2
+UNION_LENGTHS = (4609, 5121)
+# The LoRA phase: rank 16 on every attention projection of every double and
+# single block of FLUX (io/synthetic.py::lora_state), merged at scale 0 and 1.
+LORA_RANK = 16
+# The IP-Adapter phase: the published adapter's geometry (CLIP ViT-L/14 at
+# 224^2, 4 tokens of 4096), an image prompt at this scale.
+IP_SCALE = 0.8
 # Joint and base-only training cut depth as the checkpoint phase does: at full
 # depth the 12B base's bf16 parameters, gradients and AdamW moments (24 + 24 +
 # 48 GB) do not fit one card. With remat, a step runs each block's attention
@@ -622,15 +667,38 @@ def backward_kernel_phase(dev):
         raise SystemExit("the backward's preprocess pass disagrees with its plain version")
     first, second = fa.flash_attention_backward(*keep), fa.flash_attention_backward(*keep)
     dq_diff = (first[0].float() - second[0].float()).abs().max().item()
-    dq_lim = GRAD_MAX_RTOL * first[0].float().abs().max().item()
-    same = bool(torch.equal(first[1], second[1])) and bool(torch.equal(first[2], second[2]))
-    phase("kernels", f"K4 (2,24,4608,128) two calls on the same inputs: max|dq1 - dq2| "
-                     f"{dq_diff:.3e} (limit {dq_lim:.3e} = 2^-5 x max|dq|); dk and dv bit-equal "
-                     f"{same} -> {'ok' if same and dq_diff <= dq_lim else 'FAIL'}")
-    if not (same and dq_diff <= dq_lim):
-        raise SystemExit("the backward kernel is not reproducible where it must be")
+    same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+    phase("kernels", f"K4 (2,24,4608,128) two calls on the same inputs: dq, dk, dv bit-equal "
+                     f"{same} (max|dq1 - dq2| {dq_diff:.3e}; the dq adds of a query tile land "
+                     f"in key order) -> {'ok' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise SystemExit("the backward kernel does not repeat bit for bit")
     del q, k, v, keep, out, lse, do, first, second
     torch.cuda.empty_cache()
+
+    # a union ControlNet's joint sequence at 1024^2 (its mode token in front of
+    # 512 text and 4096 image tokens) and 5121: partial last tiles, K1's and
+    # K4's bounds-masked tails; K1 against its plain version, K4 against its
+    # plain version and bit-equal over two calls
+    for s_tail in UNION_LENGTHS:
+        q, k, v = qkv(1, 24, s_tail)
+        cos, sin = rope_tables(s_tail - 4096, 64, 64, dev)
+        n1 = fa.flash_attention_rope.launches
+        got = fa.flash_attention_rope(q, k, v, cos, sin)
+        if fa.flash_attention_rope.launches != n1 + 1:
+            raise SystemExit(f"the RoPE entry did not take K1 at {s_tail} tokens")
+        compare(f"K1 (1,24,{s_tail},128)", got, fa.flash_attention_rope_plain(q, k, v, cos, sin))
+        args = inputs(q, k, v, cos, sin, None)
+        first = fa.flash_attention_backward(*args)
+        err = max(err, compare_grads(f"K4 (1,24,{s_tail},128)", first,
+                                     plain_backward_by_heads(fa, args, None)))
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, fa.flash_attention_backward(*args))]
+        phase("kernels", f"K4 (1,24,{s_tail},128) two calls: dq, dk, dv bit-equal {same} -> "
+                         f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise SystemExit(f"the backward kernel does not repeat bit for bit at {s_tail}")
+        del q, k, v, args, first, got
+        torch.cuda.empty_cache()
 
     q, k, v = qkv(2, 24, 4106)
     cos, sin = rope_tables(10, 64, 64, dev)
@@ -1142,9 +1210,11 @@ def box_mask(cond, margin=24):
     return mask
 
 
-def run_request(label, call, pipe, expect, shape, steps):
+def run_request(label, call, pipe, expect, shape, steps, tag="large", out=None):
     """One request (``call(timings)`` -> latents) with its launch counts set
-    to 0 just before and read just after; checks and prints it."""
+    to 0 just before and read just after; checks and prints it under
+    ``tag``; ``out`` (a dict), when given, receives the latents, the image
+    and the sampler's ms/step."""
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     timings = {}
@@ -1157,7 +1227,7 @@ def run_request(label, call, pipe, expect, shape, steps):
     peak = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(lat).all())
     shape_ok = images.shape == shape and images.dtype == np.uint8
-    phase("large", f"{label}: {wall:.3f} s/image (cold for its size); stages "
+    phase(tag, f"{label}: {wall:.3f} s/image (cold for its size); stages "
                    + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
                    + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; kernel launches "
                    + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
@@ -1165,6 +1235,8 @@ def run_request(label, call, pipe, expect, shape, steps):
                    f"finite {finite}; peak device memory {peak:.2f} GiB")
     if not (finite and shape_ok and got == expect):
         raise SystemExit(f"the {label} request failed its checks")
+    if out is not None:
+        out.update(latents=lat, image=images, ms_step=1e3 * timings["sample"] / steps, peak=peak)
     return got
 
 
@@ -1947,6 +2019,32 @@ def train_ocr_phase(dev, pipe, seed, profile=False):
         if not effect_ok:
             raise SystemExit("the OCR term's effect on the loss failed its checks")
 
+        # the OCR step's loss and backward twice on one batch and draw: does it
+        # repeat? Reported, not required; the ops without a deterministic
+        # implementation are named by torch's deterministic-algorithms check
+        def ocr_grads():
+            pipe.controlnet.zero_grad(set_to_none=True)
+            loss = ttrain.controlnet_flow_match_loss(pipe.flux, pipe.controlnet, batch, t=t,
+                                                     noise=noise, perceptual=perceptual)
+            loss.backward()
+            return loss.detach(), [p.grad.clone() for p in pipe.controlnet.parameters()]
+
+        batch = dataset.batch(0)
+        (l1, g1), (l2, g2) = ocr_grads(), ocr_grads()
+        differ = sum(not torch.equal(a, b) for a, b in zip(g1, g2))
+        repeats = bool(torch.equal(l1, l2)) and differ == 0
+        del g1, g2
+        culprits = [] if repeats else nondeterministic_ops(ocr_grads)
+        pipe.controlnet.zero_grad(set_to_none=True)
+        phase("train_ocr", f"the OCR step (loss and backward) twice on one batch and draw: loss "
+                           f"{float(l1):.9f} / {float(l2):.9f}, ControlNet gradients that differ "
+                           f"{differ} of {len(list(pipe.controlnet.parameters()))}: repeats bit "
+                           f"for bit {repeats}" + ("" if repeats else
+                           f"; ops with no deterministic implementation in the step: {culprits}"))
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
         sums = {name: param_checksums(m) for name, m in
                 (("base", pipe.flux), ("VAE", pipe.vae), ("judge", judge))}
         per_step, clock = [], {"t": None}
@@ -2194,6 +2292,605 @@ def cut_train_phase(dev, pipe, seed, joint):
     if fails or changed == 0:
         raise SystemExit(f"the {label} run failed its checks: {fails}")
     return totals
+
+
+def train_repeat_phase(dev, pipe, seed):
+    """The cut-depth joint train step (train_joint's: FLUX CUT_FLUX, ControlNet
+    CUT_CN, full width) 3 steps from one seed, twice, then a third time with
+    a NaN planted in step 2's batch and rolled back by the ElasticTrainer:
+    the losses, the ControlNet's state_dict and the base's must be bit-equal
+    across the three runs (the JAX step repeats bit for bit; K4's dq adds in
+    key order make the port's do)."""
+    import dataclasses
+
+    from reptext_tpu_torch.models.controlnet import params_from_transformer
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, FluxRepTextPipeline, build_module
+    from reptext_tpu_torch.sampling.elastic import ElasticTrainer
+    from reptext_tpu_torch.sampling.train_controlnet import decay_param_groups, make_joint_train_step
+
+    flux_cfg = dataclasses.replace(pipe.flux.config, num_layers=CUT_FLUX[0],
+                                   num_single_layers=CUT_FLUX[1])
+    cn_cfg = dataclasses.replace(pipe.controlnet.config, num_layers=CUT_CN[0],
+                                 num_single_layers=CUT_CN[1])
+
+    def run(plant):
+        gen = torch.Generator(device=dev).manual_seed(seed + 11)
+        flux = build_module(MODULES["flux"], flux_cfg, dev, pipe.compute_dtype, None, gen,
+                            remat=True)
+        cn = build_module(MODULES["controlnet"], cn_cfg, dev, pipe.compute_dtype, None, gen,
+                          remat=True)
+        cut = FluxRepTextPipeline(flux, cn, pipe.vae, pipe.pipe_cfg, clip=pipe.clip, t5=pipe.t5,
+                                  compute_dtype=pipe.compute_dtype)
+        dataset = fixture_dataset(cut, seed)
+        params_from_transformer(flux, cn, *CUT_CN)
+        flux.requires_grad_(True)
+        cn.requires_grad_(True)
+        opt = torch.optim.AdamW(decay_param_groups(flux, 0.01) + decay_param_groups(cn, 0.01),
+                                lr=1e-5, betas=(0.9, 0.999), eps=1e-8)
+        planted = {"done": not plant}
+
+        def batch_fn(step):
+            batch = dataset.batch(step)
+            if step == 1 and not planted["done"]:
+                planted["done"] = True
+                batch = dict(batch, x0=batch["x0"] * float("nan"))
+            return batch
+
+        trainer = ElasticTrainer(make_joint_train_step(flux, cn, opt), batch_fn,
+                                 {"flux": flux, "controlnet": cn, "optimizer": opt},
+                                 device=dev, checkpoint_every=3)
+        t0 = time.perf_counter()
+        losses = list(trainer.run(3, seed=seed))
+        torch.cuda.synchronize()
+        out = (losses, {k: v.clone() for k, v in cn.state_dict().items()},
+               param_checksums(flux), len(trainer.faults), time.perf_counter() - t0)
+        del cut, dataset, flux, cn, opt, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    runs = [run(False), run(False), run(True)]
+    ref = runs[0]
+    checks = []
+    for i, (losses, cn_state, flux_sums, faults, sec) in enumerate(runs):
+        same = (losses == ref[0] and flux_sums == ref[2]
+                and all(torch.equal(cn_state[k], ref[1][k]) for k in ref[1]))
+        checks.append(same and faults == (1 if i == 2 else 0) and all(np.isfinite(losses)))
+        phase("train_repeat", f"run {i + 1}{' (NaN planted in step 2, rolled back)' if i == 2 else ''}"
+                              f": losses {[float(x) for x in losses]} ({sec:.3f} s), faults "
+                              f"{faults}; losses, the ControlNet's {len(cn_state)} tensors and the "
+                              f"base's {len(flux_sums)} bit-equal to run 1: {same}")
+    del runs, ref
+    if not all(checks):
+        raise SystemExit("the cut-depth train step does not repeat bit for bit")
+
+
+def nondeterministic_ops(fn):
+    """The ops with no deterministic implementation that ``fn()`` runs, by
+    name: the warnings of torch.use_deterministic_algorithms(warn_only=True)."""
+    import warnings
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    names = []
+    for w in caught:
+        msg = str(w.message).split(" does not have a deterministic")[0]
+        if "deterministic" in str(w.message) and msg not in names:
+            names.append(msg)
+    return names
+
+
+def union_phase(dev, pipe, inp, steps, cn_steps, seed):
+    """A seeded union ControlNet (UNION_MODES modes, RepText geometry) at mode
+    UNION_MODE: a 1024^2 txt2img request beside the plain one (plain, union,
+    union, plain), and a 1280x960 inpaint request with it in the RepText
+    slot. Returns (launches by path, the union ControlNet)."""
+    import dataclasses
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, build_module
+
+    cfg = dataclasses.replace(pipe.controlnet.config, num_mode=UNION_MODES)
+    t0 = time.perf_counter()
+    union = build_module(MODULES["controlnet"], cfg, dev, pipe.compute_dtype, None,
+                         torch.Generator(device=dev).manual_seed(seed + 21))
+    torch.cuda.synchronize()
+    phase("union", f"union ControlNet built in {time.perf_counter() - t0:.1f} s: "
+                   f"{cfg.num_layers} + {cfg.num_single_layers} blocks, {UNION_MODES} modes, "
+                   f"{sum(p.numel() for p in union.parameters()) / 1e9:.2f}B parameters, seeded")
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    base = ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+            str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+            str(font_size), "--random-weights"]
+    args = cli.build_parser().parse_args(base)
+    uargs = cli.build_parser().parse_args(base + ["--controlnet-mode", str(UNION_MODE)])
+    cond, source = conditions_for(data, name, text, pos, size, font_size)
+    upipe = pipe.with_config(cli.pipeline_config(uargs))
+    upipe.controlnet = union
+    gate = min(cn_steps, steps)
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    launches, ms = {}, {"plain": [], "union": []}
+    for label in ("plain", "union", "union", "plain"):
+        p, a = (pipe, args) if label == "plain" else (upipe, uargs)
+        out = {}
+        got = run_request(
+            f"txt2img {size}^2 {label}" + (f" (mode {UNION_MODE}, the ControlNet's S = 4609)"
+                                           if label == "union" else " (S = 4608)"),
+            lambda timings: cli.generate(a, p, cond, timings=timings, output_type="latent"),
+            p, expect, (1, size, size, 3), steps, tag="union", out=out)
+        ms[label].append(out["ms_step"])
+        if label == "union":
+            launches["union_txt2img"] = got
+    phase("union", f"sampler ms/step, union {ms['union']} against plain {ms['plain']} in this "
+                   f"call (one more ControlNet token out of 4608)")
+
+    large = np.load(LARGE_FIXTURE)
+    name = "inpaint_1280x960"
+    text, pos = str(large[f"{name}.text"]), tuple(int(v) for v in large[f"{name}.position"])
+    width, height = (int(v) for v in large[f"{name}.size"])
+    iargs = cli.build_parser().parse_args(
+        ["--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE), "--text", text,
+         "--position", *map(str, pos), "--size", str(width), "--steps", str(steps),
+         "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+         str(int(large["font_size"])), "--random-weights", "--controlnet-mode", str(UNION_MODE)])
+    icond, isource = conditions_for(large, name, text, pos, (width, height),
+                                    int(large["font_size"]), LARGE_FIXTURE)
+    uinp = inp.with_config(cli.pipeline_config(iargs, height, width))
+    uinp.controlnet = union
+    image, mask = source_image(seed, height, width), box_mask(icond)
+    expect = {"K1": steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS, "K2": 0, "K3": 0,
+              "K5": 0}
+    launches["union_inpaint"] = run_request(
+        f"inpaint {width}x{height} with the union net in the RepText slot (mode {UNION_MODE}, "
+        f"CFG batch 2, conditions: {isource})",
+        lambda timings: cli.generate_inpaint(iargs, uinp, icond, image, mask, timings=timings,
+                                             output_type="latent"),
+        uinp, expect, (1, height, width, 3), steps, tag="union")
+    return launches, union
+
+
+def union_train_phase(dev, pipe, union, seed):
+    """2 full-width train steps of cli.train --controlnet-mode UNION_MODE on
+    the union ControlNet (warm-started from the base, as the CLI does), batch
+    2 at 1024^2, remat: K1 TRAIN_K1 and K4 TRAIN_K4 a step, the mode
+    embedding's gradient in row UNION_MODE alone."""
+    from reptext_tpu_torch import cli
+
+    _, size, _, _ = load_requests()
+    args = cli.build_parser().parse_args(
+        ["--mode", "train", "--random-weights", "--size", str(size), "--train-steps", "2",
+         "--batch-size", "2", "--seed", str(seed), "--controlnet-mode", str(UNION_MODE)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2**30
+    pipe.flux.remat = union.remat = True
+    upipe = pipe.with_config(cli.pipeline_config(args))
+    upipe.controlnet = union
+    dataset = fixture_dataset(upipe, seed)
+    per_step, clock = [], {"t": None}
+
+    def on_event(kind, info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if kind == "step":
+            per_step.append((info["step"], info["loss"], now - clock["t"], read_train_launches()))
+            reset_train_launches()
+        clock["t"] = now
+
+    reset_train_launches()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = cli.train(args, upipe, dataset=dataset, on_event=on_event)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grad = union.controlnet_mode_embedder.weight.grad
+    rows = [] if grad is None else [i for i in range(UNION_MODES) if bool(grad[i].any())]
+    expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
+    fails = []
+    for step, loss, sec, counts in per_step:
+        phase("union_train", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches K1 "
+                             f"{counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 {counts['K3']} "
+                             f"(expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
+        if not (np.isfinite(loss) and counts == expect):
+            fails.append(f"step {step}")
+    phase("union_train", f"2 steps at batch 2, {size}^2, mode {UNION_MODE}: faults "
+                         f"{len(trainer.faults)}; mode-embedding rows with a gradient {rows} "
+                         f"(expected [{UNION_MODE}]); peak device memory {peak:.2f} GiB "
+                         f"({resident:.2f} GiB resident before the run: the pipeline, both "
+                         f"ControlNets)")
+    union.requires_grad_(False).zero_grad(set_to_none=True)
+    union.remat = False
+    if len(per_step) != 2 or trainer.faults or rows != [UNION_MODE] or fails:
+        raise SystemExit(f"the union training run failed its checks: {fails}")
+    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+
+
+@torch.inference_mode()
+def multi_phase(dev, pipe, union, seed):
+    """MultiControlNet([RepText, union]) on one step's full-width inputs, a
+    region mask on the RepText net and a guidance window (0.5, 1.0) on the
+    union net, at a step outside the window and one inside: bit-equal to the
+    sum of each net's own masked, gated residuals spread to the base depth."""
+    from reptext_tpu_torch.models.multi_controlnet import (
+        ControlNetEntry, MultiControlNet, spread_residuals,
+    )
+    from reptext_tpu_torch.ops.latents import prepare_latent_image_ids
+
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    cfg, dt = pipe.controlnet.config, pipe.compute_dtype
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+    x = rnd(1, 4096, cfg.in_channels)
+    cond = rnd(1, 4096, cfg.in_channels + cfg.extra_condition_channels)
+    ctx, pooled = rnd(1, TXT_LEN, cfg.joint_attention_dim), rnd(1, cfg.pooled_projection_dim)
+    t, guid = torch.full((1,), 0.75, dtype=dt, device=dev), torch.full((1,), 3.5, device=dev)
+    img_ids, txt_ids = prepare_latent_image_ids(128, 128, dev), torch.zeros(TXT_LEN, 3, device=dev)
+    mask = torch.zeros(4096, 1, device=dev)
+    mask[:2048] = 1.0
+    mode = torch.tensor([UNION_MODE], device=dev)
+    layers = (pipe.flux.config.num_layers, pipe.flux.config.num_single_layers)
+    multi = MultiControlNet([ControlNetEntry(pipe.controlnet, 1.0),
+                             ControlNetEntry(union, 0.8, uses_mode=True, guidance_start=0.5,
+                                             guidance_end=1.0)], *layers)
+    launches, ok = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}, True
+    for step in (1, 3):
+        reset_launches()
+        blocks, singles = multi(x, [cond, cond], ctx, pooled, t, img_ids, txt_ids, guid,
+                                token_masks=[mask, None], modes=[None, mode], step_index=step,
+                                num_steps=4)
+        got = read_launches()
+        launches = {k: launches[k] + got[k] for k in launches}
+        b1, s1 = pipe.controlnet(x, cond, ctx, pooled, t, img_ids, txt_ids, guid, 1.0)
+        b2, s2 = union(x, cond, ctx, pooled, t, img_ids, txt_ids, guid, 0.8, mode=mode)
+        keep = float(step / 4 >= 0.5)
+        want = [spread_residuals(a * mask.to(a.dtype), n) + spread_residuals(
+                    b * torch.tensor(keep, dtype=b.dtype, device=dev), n)
+                for a, b, n in ((b1, b2, layers[0]), (s1, s2, layers[1]))]
+        same = bool(torch.equal(blocks, want[0])) and bool(torch.equal(singles, want[1]))
+        ok &= same and got["K1"] == 2 * SINGLE_CALLS
+        phase("multi", f"step {step} of 4 (union window 0.5-1.0 {'on' if keep else 'off'}): "
+                       f"block stacks {tuple(blocks.shape)}, single {tuple(singles.shape)}; "
+                       f"bit-equal to each net's own masked, gated, spread residuals summed: "
+                       f"{same}; K1 launches {got['K1']} (expected {2 * SINGLE_CALLS})")
+    if not ok:
+        raise SystemExit("the multi-ControlNet composite failed its checks")
+    return launches
+
+
+def lora_phase(dev, pipe, steps, cn_steps, seed):
+    """A seeded rank-LORA_RANK LoRA on every attention projection of every
+    FLUX block merged into the resident FLUX: at scale 0 the image is
+    bit-equal to the unmerged one, at scale 1 it differs and is finite; the
+    touched weights restored after each, FLUX's checksums equal the
+    originals'. Merge seconds and the GiB the kept originals cost."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.io import synthetic
+    from reptext_tpu_torch.io.lora import apply_lora, restore_weights
+
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    args = cli.build_parser().parse_args(
+        ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps", str(steps),
+         "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size", str(font_size),
+         "--random-weights"])
+    cond, source = conditions_for(data, name, text, pos, size, font_size)
+    lora = synthetic.lora_state(pipe.flux.config, rank=LORA_RANK, seed=seed + 41, device=dev,
+                                dtype=pipe.compute_dtype)
+    head_dim = pipe.flux.config.attention_head_dim
+    before = param_checksums(pipe.flux)
+    gate = min(cn_steps, steps)
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    outs, launches = {}, {}
+
+    def request(label):
+        outs[label] = {}
+        return run_request(f"txt2img {size}^2, {label}", lambda timings: cli.generate(
+            args, pipe, cond, timings=timings, output_type="latent"), pipe, expect,
+            (1, size, size, 3), steps, tag="lora", out=outs[label])
+
+    request("no LoRA")
+    fails = []
+    for scale in (0.0, 1.0):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        kept = apply_lora(pipe.flux, lora, scale=scale, head_dim=head_dim, keep_originals=True)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        extra = (torch.cuda.memory_allocated() - mem0) / 2**30
+        label = f"LoRA scale {scale:g}"
+        launches["lora"] = request(label)
+        restore_weights(pipe.flux, kept)
+        del kept
+        torch.cuda.empty_cache()
+        lat, ref = outs[label]["latents"], outs["no LoRA"]["latents"]
+        if scale == 0.0:
+            ok = bool(torch.equal(lat, ref)) and np.array_equal(outs[label]["image"],
+                                                                outs["no LoRA"]["image"])
+            what = f"latents and image bit-equal to no LoRA: {ok}"
+        else:
+            d = (lat - ref).abs().max().item()
+            ok = d > 0 and bool(torch.isfinite(lat).all())
+            what = f"max|latents - no LoRA| {d:.4f} (must differ), finite"
+        phase("lora", f"rank {LORA_RANK} on {len(lora) // 2} attention projections, merged at "
+                      f"scale {scale:g} in {sec:.3f} s; the kept originals {extra:.2f} GiB; {what}")
+        if not ok:
+            fails.append(label)
+    same = param_checksums(pipe.flux) == before
+    phase("lora", f"FLUX restored: checksums equal the originals' {same}")
+    if fails or not same:
+        raise SystemExit(f"the LoRA phase failed its checks: {fails}")
+    return launches
+
+
+def single_file_phase(dev, pipe, steps, cn_steps, seed):
+    """A synthetic BFL single file of FLUX at full width, depth cut to
+    CKPT_FLUX, through convert_cli --flux-single-file: bit-equal to the same
+    weights converted from diffusers naming, its inferred geometry the
+    model's; then one 1024^2 request through it."""
+    import dataclasses
+    import shutil
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.io import checkpoint as ck
+    from reptext_tpu_torch.io import convert as conv
+    from reptext_tpu_torch.io import convert_cli, synthetic
+    from reptext_tpu_torch.io.safetensors import load_file, save_file
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, build_module
+
+    cfg = dataclasses.replace(pipe.flux.config, num_layers=CKPT_FLUX[0],
+                              num_single_layers=CKPT_FLUX[1])
+    root = os.path.join(ROOT, SCRATCH, "single_file")
+    os.makedirs(root, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        state = synthetic.flux_state(cfg, seed=seed + 51, device=dev, dtype=pipe.compute_dtype)
+        path = os.path.join(root, "flux1-dev.safetensors")
+        written = save_file(synthetic.bfl_flux_state(state), path)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if convert_cli.main(["--flux-single-file", path, "--out", os.path.join(root, "out")]):
+            raise SystemExit("convert_cli --flux-single-file failed")
+        t_conv = time.perf_counter() - t0
+        got = load_file(ck.component_path(os.path.join(root, "out"), "flux"))
+        saved = ck.load_saved_configs(os.path.join(root, "out"))["flux"]
+        want = convert_cli.module_state("flux", conv.convert_flux_transformer(state, cfg), cfg)
+        same = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+        del state, want
+        phase("single_file", f"BFL file, FLUX {cfg.num_layers} + {cfg.num_single_layers} at full "
+                             f"width, {written / 1e9:.3f} GB written in {t_write:.1f} s, converted "
+                             f"in {t_conv:.1f} s; bit-equal to the diffusers naming's conversion "
+                             f"{same}; inferred geometry the model's {saved == cfg}")
+        if not (same and saved == cfg):
+            raise SystemExit("the single-file conversion failed its checks")
+        flux = build_module(MODULES["flux"], saved, dev, pipe.compute_dtype, got)
+        del got
+        data, size, font_size, reqs = load_requests()
+        name, text, pos = reqs[0]
+        args = cli.build_parser().parse_args(
+            ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+             str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed),
+             "--font-size", str(font_size), "--random-weights"])
+        cond, source = conditions_for(data, name, text, pos, size, font_size)
+        spipe = pipe.with_config(pipe.pipe_cfg)
+        spipe.flux = flux
+        gate = min(cn_steps, steps)
+        expect = {"K1": steps * sum(CKPT_FLUX) + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+        got = run_request(f"txt2img {size}^2 through the converted single file (FLUX "
+                          f"{cfg.num_layers} + {cfg.num_single_layers})",
+                          lambda timings: cli.generate(args, spipe, cond, timings=timings,
+                                                       output_type="latent"),
+                          spipe, expect, (1, size, size, 3), steps, tag="single_file")
+        del spipe, flux
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return got
+
+
+def ip_phase(dev, pipe, steps, cn_steps, seed):
+    """The IP-Adapter at the published geometry: a seeded CLIP ViT-L/14 and a
+    seeded adapter (to_v_ip nonzero) written as files, converted by
+    convert_cli --ip-adapter --image-encoder-dir and attached from that
+    directory (cli --ip-adapter-dir) to a view of the pipeline; a 224^2 image
+    prompt: its encode time; 1024^2 without the adapter, with the image at
+    IP_SCALE, and at scale 0 (bit-equal to without); 1536^2 (K3); a served
+    batch of one request with the image and one without over HTTP; SP
+    txt2img at 2048^2 over SP_RANKS thread ranks (ring) against one card.
+    The adapter's projections are taken off FLUX afterwards."""
+    import http.client
+    import shutil
+    import threading
+
+    from PIL import Image
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.configs import CLIPVisionConfig, IPAdapterConfig
+    from reptext_tpu_torch.io import convert_cli, synthetic
+    from reptext_tpu_torch.io.safetensors import save_file
+    from reptext_tpu_torch.serving import GenerationServer
+    from reptext_tpu_torch.utils.metrics import Metrics
+
+    root = os.path.join(ROOT, SCRATCH, "ip")
+    os.makedirs(root, exist_ok=True)
+    launches, fails = {}, []
+    gate = min(cn_steps, steps)
+    per_request = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
+    try:
+        vcfg, ipcfg = CLIPVisionConfig(), IPAdapterConfig()
+        t0 = time.perf_counter()
+        vdir = os.path.join(root, "image_encoder")
+        synthetic.write_component(vdir, synthetic.clip_vision_state(
+            vcfg, seed=seed + 61, device=dev, dtype=pipe.compute_dtype),
+            synthetic.clip_vision_hf_config(vcfg))
+        ip_path = os.path.join(root, "ip-adapter.safetensors")
+        save_file(synthetic.ip_adapter_state(ipcfg, pipe.flux.config.num_layers,
+                                             pipe.flux.config.inner_dim, seed=seed + 62,
+                                             device=dev, dtype=pipe.compute_dtype), ip_path)
+        if convert_cli.main(["--ip-adapter", ip_path, "--image-encoder-dir", vdir, "--out",
+                             os.path.join(root, "out")]):
+            raise SystemExit("convert_cli --ip-adapter failed")
+        t_conv = time.perf_counter() - t0
+        style = os.path.join(root, "style.png")
+        Image.fromarray(np.random.default_rng(seed + 63).integers(
+            0, 256, (224, 224, 3)).astype(np.uint8)).save(style)
+        data, size, font_size, reqs = load_requests()
+        name, text, pos = reqs[0]
+        base = ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+                str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed),
+                "--font-size", str(font_size), "--random-weights"]
+        args = cli.build_parser().parse_args(
+            base + ["--ip-adapter-image", style, "--ip-adapter-scale", str(IP_SCALE),
+                    "--ip-adapter-dir", os.path.join(root, "out", "ip_adapter")])
+        cond, source = conditions_for(data, name, text, pos, size, font_size)
+        plain = pipe.with_config(pipe.pipe_cfg)
+        ipipe = pipe.with_config(pipe.pipe_cfg)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cli.attach_ip_adapter(args, ipipe)
+        torch.cuda.synchronize()
+        t_attach, extra = time.perf_counter() - t0, (torch.cuda.memory_allocated() - mem0) / 2**30
+        image = cli.load_ip_image(style)
+        enc = cuda_time_ms(lambda: ipipe.encode_ip_image(image), repeats=5, warmup=2)
+        phase("ip", f"CLIP ViT-L/14 ({vcfg.num_layers} x {vcfg.hidden_size}) and the adapter "
+                    f"({ipcfg.num_tokens} tokens of {ipcfg.cross_attention_dim}, to_k_ip/to_v_ip "
+                    f"on {pipe.flux.config.num_layers} double blocks) written and converted in "
+                    f"{t_conv:.1f} s, attached from the converter's directory in {t_attach:.1f} s: "
+                    f"+{extra:.2f} GiB on the card; a 224^2 image prompt encodes in {enc[0]:.3f} "
+                    f"ms (median of 5)")
+        expect = {"K1": per_request, "K2": 0, "K3": 0, "K5": 0}
+        outs = {}
+
+        def request(label, p, a):
+            outs[label] = {}
+            return run_request(label, lambda timings: cli.generate(
+                a, p, cond, timings=timings, output_type="latent"), p, expect,
+                (1, size, size, 3), steps, tag="ip", out=outs[label])
+
+        request(f"txt2img {size}^2 without the adapter", plain,
+                cli.build_parser().parse_args(base))
+        launches["ip_txt2img"] = request(f"txt2img {size}^2, image prompt at {IP_SCALE}",
+                                         ipipe, args)
+        args.ip_adapter_scale = 0.0
+        request(f"txt2img {size}^2, image prompt at 0", ipipe, args)
+        args.ip_adapter_scale = IP_SCALE
+        a, b = outs[f"txt2img {size}^2 without the adapter"], outs[f"txt2img {size}^2, image prompt at 0"]
+        w = outs[f"txt2img {size}^2, image prompt at {IP_SCALE}"]
+        zero_ok = bool(torch.equal(a["latents"], b["latents"])) and np.array_equal(a["image"],
+                                                                                   b["image"])
+        d = (w["latents"] - a["latents"]).abs().max().item()
+        phase("ip", f"scale 0 bit-equal to no adapter: {zero_ok}; at {IP_SCALE} the latents move "
+                    f"by max {d:.4f}; sampler ms/step with the prompt {w['ms_step']:.1f} against "
+                    f"{a['ms_step']:.1f} without ({100 * (w['ms_step'] / a['ms_step'] - 1):+.2f} "
+                    f"%); peak {w['peak']:.2f} GiB against {a['peak']:.2f}")
+        if not (zero_ok and d > 0):
+            fails.append("scale 0 / scale")
+
+        large = np.load(LARGE_FIXTURE)
+        lname = "txt2img_1536"
+        ltext, lpos = str(large[f"{lname}.text"]), tuple(int(v) for v in large[f"{lname}.position"])
+        lw, lh = (int(v) for v in large[f"{lname}.size"])
+        largs = cli.build_parser().parse_args(
+            ["--text", ltext, "--position", *map(str, lpos), "--size", str(lw), "--steps",
+             str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+             str(int(large["font_size"])), "--random-weights", "--ip-adapter-image", style,
+             "--ip-adapter-scale", str(IP_SCALE)])
+        lcond, _ = conditions_for(large, lname, ltext, lpos, (lw, lh), int(large["font_size"]),
+                                  LARGE_FIXTURE)
+        big = ipipe.with_config(cli.pipeline_config(largs, lh, lw))
+        launches["ip_txt2img_1536"] = run_request(
+            f"txt2img {lw}x{lh}, image prompt at {IP_SCALE}",
+            lambda timings: cli.generate(largs, big, lcond, timings=timings, output_type="latent"),
+            big, {"K1": 0, "K2": 0, "K3": per_request, "K5": 0}, (1, lh, lw, 3), steps, tag="ip")
+        del big
+
+        server = GenerationServer(ipipe, host="127.0.0.1", port=0, max_batch=2,
+                                  batch_window_s=BATCH_WINDOW_S, metrics=Metrics(),
+                                  request_timeout_s=600)
+        server.worker.conditions = lambda req, width, height: cond
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        host, port = server.address[:2]
+        with open(style, "rb") as f:
+            style_b64 = base64.b64encode(f.read()).decode()
+        payloads = [{"prompt": "a street sign in city", "lines": [{"text": text, "position": list(pos)}],
+                     "seed": seed, "num_steps": steps, "ip_image_png_base64": style_b64,
+                     "ip_scale": IP_SCALE},
+                    {"prompt": "a street sign in city", "lines": [{"text": text, "position": list(pos)}],
+                     "seed": seed + 1, "num_steps": steps}]
+        answers = [None, None]
+
+        def client(i):
+            conn = http.client.HTTPConnection(host, port, timeout=600)
+            conn.request("POST", "/generate", body=json.dumps(payloads[i]),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answers[i] = (resp.status, json.loads(resp.read()))
+            conn.close()
+
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        launches["ip_serve"] = got
+        batches = server.worker.metrics.snapshot()["counters"].get("serving.batches", 0)
+        server.shutdown()
+        thread.join(timeout=30)
+        pngs = [png_array(ans[1]["image_png_base64"]) if ans and ans[0] == 200 else (False, None)
+                for ans in answers]
+        served_ok = (all(p[0] and p[1].shape == (size, size, 3) for p in pngs) and batches == 1
+                     and got == expect)
+        phase("ip", f"served over HTTP: a request with the image prompt and one without, "
+                    f"{wall:.3f} s, {batches} batch (expected 1); launches "
+                    + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                    + f"; PNGs {[None if p[1] is None else p[1].shape for p in pngs]} -> "
+                    + ("ok" if served_ok else f"FAIL {answers if not served_ok else ''}"))
+        if not served_ok:
+            fails.append("serve")
+
+        sp_steps = 2
+        big, scond, ssource, kw = sp_request(ipipe, dev, seed, sp_steps)
+        kw.update(ip_adapter_image=image, ip_adapter_scale=IP_SCALE)
+        s_img = big.pipe_cfg.image_seq_len
+        calls = DOUBLE_CALLS + SINGLE_CALLS
+        ref = None
+        for label, backend in (("single", None), ("ring", "ring")):
+            def call(g, backend=backend):
+                timings = {}
+                run = big if g is None else big.with_config(big.pipe_cfg).shard_for_sp(g, backend)
+                return run(scond, timings=timings, **kw), timings
+
+            lat, got, _ = sp_run(dev, f"txt2img {SP_SIZE}x{SP_SIZE} with the image prompt at "
+                                      f"{IP_SCALE} (ip tokens whole on every rank)", backend, call,
+                                 sp_expect(backend, "K3", sp_steps * calls), ref, sp_steps,
+                                 (1, s_img, 64))
+            launches["ip_sp_ring" if backend else "ip_txt2img_2048"] = got
+            ref = lat if ref is None else ref
+        del big, kw, ref, lat
+    finally:
+        for layer in pipe.flux.double_blocks:
+            for attr in ("to_k_ip", "to_v_ip"):
+                if hasattr(layer.block, attr):
+                    delattr(layer.block, attr)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    if fails:
+        raise SystemExit(f"the IP-Adapter phase failed its checks: {fails}")
+    return launches
 
 
 def kernel_class(name):
@@ -2990,16 +3687,29 @@ def main(argv=None):
                              args.profile)
     by_path.update(large)
     by_path.update(serve_phase(dev, pipe, inp, args.steps, args.controlnet_step, args.seed))
+    union_paths, union = union_phase(dev, pipe, inp, args.steps, args.controlnet_step, args.seed)
+    by_path.update(union_paths)
+    by_path["multi"] = multi_phase(dev, pipe, union, args.seed)
     del inp
     torch.cuda.empty_cache()
+    by_path.update(lora_phase(dev, pipe, args.steps, args.controlnet_step, args.seed))
+    by_path["single_file"] = single_file_phase(dev, pipe, args.steps, args.controlnet_step,
+                                               args.seed)
+    by_path.update(ip_phase(dev, pipe, args.steps, args.controlnet_step, args.seed))
     if args.profile:
         profile_phase(dev, pipe, cond, args.seed)
+    # the union net trains first, while the RepText net holds no gradients
+    by_path["union_train"] = union_train_phase(dev, pipe, union, args.seed)
+    del union
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path["train"] = train_phase(dev, pipe, args.seed, args.profile)
     ocr_phase(dev)
     by_path["train_ocr"] = train_ocr_phase(dev, pipe, args.seed, args.profile)
     by_path["train_corpus"] = train_corpus_phase(dev, pipe, args.seed)
     by_path["train_joint"] = cut_train_phase(dev, pipe, args.seed, joint=True)
     by_path["train_base"] = cut_train_phase(dev, pipe, args.seed, joint=False)
+    train_repeat_phase(dev, pipe, args.seed)
     pipe.controlnet.requires_grad_(False).zero_grad(set_to_none=True)
     pipe.flux.remat = pipe.controlnet.remat = pipe.vae.decoder.remat = False
     by_path.update(sp_phase(dev, pipe, args.seed))

@@ -53,8 +53,14 @@ images. Without N ranks it raises. ``--shard DPxTP``/``auto``, and serving
 and training under ``--shard``, are not ported yet. The generation flags of
 the JAX CLI are here (``--color``, ``--no-shape``, ``--prompt-suffix``,
 ``--prompt-2``, ``--timesteps``/``--sigmas``, ``--init-image``/``--strength``
-for txt2img, ``--control-guidance-start``/``-end``) but those of modules not
-ported yet (the IP-Adapter, LoRA, union mode, fp8, tiled VAE).
+for txt2img, ``--control-guidance-start``/``-end``), and the adapters':
+``--controlnet-mode`` (a union ControlNet's conditioning type, also in
+training), ``--lora``/``--lora-scale`` (merged into ``--checkpoint-dir``'s
+transformer at load time, ``io/lora.py``), ``--ip-adapter-dir`` (the
+converter's ``ip_adapter/`` directory; without it a txt2img image prompt
+attaches an untrained, no-op adapter), ``--ip-adapter-image`` and
+``--ip-adapter-scale``; a server started with ``--ip-adapter-dir`` serves
+image prompts. Those of modules not ported yet (fp8, tiled VAE) are not here.
 """
 
 from __future__ import annotations
@@ -119,6 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="step fraction at which the ControlNet turns on")
     p.add_argument("--control-guidance-end", type=float, default=1.0,
                    help="step fraction at which the ControlNet turns off")
+    p.add_argument("--controlnet-mode", type=int, default=None,
+                   help="union-mode conditioning-type index (required when the loaded "
+                        "ControlNet is a union model)")
     p.add_argument("--velocity-cache-interval", type=int, default=1,
                    help="run the transformer every k-th step after warmup, "
                         "reusing the last velocity between (1 = off)")
@@ -158,6 +167,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "reptext_tpu_torch.io.convert_cli ... --out DIR)")
     p.add_argument("--random-weights", action="store_true",
                    help="seeded random weights (demo; without --checkpoint-dir)")
+    p.add_argument("--lora", action="append", default=None, metavar="PATH",
+                   help="LoRA safetensors (diffusers FLUX naming) merged into the transformer "
+                        "at load time; repeatable")
+    p.add_argument("--lora-scale", action="append", type=float, default=None, metavar="S",
+                   help="merge scale for the matching --lora (default 1.0 each)")
+    p.add_argument("--ip-adapter-image", default=None, metavar="PATH",
+                   help="image-prompt (FLUX IP-Adapter) reference image")
+    p.add_argument("--ip-adapter-scale", type=float, default=1.0)
+    p.add_argument("--ip-adapter-dir", default=None, metavar="DIR",
+                   help="the converter's ip_adapter/ directory (convert_cli --ip-adapter); "
+                        "without it the adapter is untrained (an exact no-op)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model geometry (demo and tests; with --device cpu)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -211,6 +231,7 @@ def pipeline_config(args, height=None, width=None):
         guidance_scale=args.guidance_scale,
         controlnet_conditioning_scale=args.controlnet_scale,
         controlnet_conditioning_step=args.controlnet_step,
+        control_mode=args.controlnet_mode,
         control_guidance_start=args.control_guidance_start,
         control_guidance_end=args.control_guidance_end,
         true_guidance_scale=args.true_guidance_scale,
@@ -275,13 +296,62 @@ def build_pipeline(args, height=None, width=None):
     elif not args.random_weights:
         raise SystemExit("pass --checkpoint-dir or --random-weights")
     flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args, height, width)
+    if args.lora:
+        merge_loras(args, params, flux_cfg)
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     pipeline = FluxRepTextPipeline.create(
         flux_cfg, cn_cfg, vae_cfg, pipe_cfg, params=params, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
         seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train")
+    if (args.mode == "serve" and args.ip_adapter_dir) or (
+            args.mode == "txt2img" and args.ip_adapter_image):
+        attach_ip_adapter(args, pipeline)
     if args.mode == "inpaint":
         return add_inpaint(args, pipeline)
     return pipeline
+
+
+def merge_loras(args, params, flux_cfg) -> None:
+    """``--lora``/``--lora-scale``: each LoRA merged into ``params["flux"]``
+    (the checkpoint's transformer state, in place) at its scale, 1.0 where
+    none is given; the JAX CLI's errors."""
+    if params is None or "flux" not in params:
+        raise SystemExit("--lora requires --checkpoint-dir with a flux component")
+    from reptext_tpu_torch.io.convert import load_safetensors_state
+    from reptext_tpu_torch.io.lora import apply_lora
+
+    scales = list(args.lora_scale or [])
+    if len(scales) > len(args.lora):
+        raise SystemExit("more --lora-scale values than --lora paths")
+    scales += [1.0] * (len(args.lora) - len(scales))
+    for path, scale in zip(args.lora, scales):
+        apply_lora(params["flux"], load_safetensors_state(path, dtype=None), scale=scale,
+                   head_dim=flux_cfg.attention_head_dim)
+        print(f"merged LoRA {path} (scale {scale})")
+
+
+def attach_ip_adapter(args, pipeline):
+    """The IP-Adapter on ``pipeline``: ``--ip-adapter-dir``'s weights and
+    geometry (its configs.json, else the checkpoint's), or an untrained one
+    (``--tiny``: the tiny vision tower)."""
+    from reptext_tpu_torch.configs import CLIPVisionConfig
+    from reptext_tpu_torch.io.checkpoint import load_pipeline_params, load_saved_configs
+
+    saved = load_saved_configs(args.checkpoint_dir) if args.checkpoint_dir else {}
+    params = None
+    if args.ip_adapter_dir:
+        saved = {**saved, **load_saved_configs(args.ip_adapter_dir)}
+        params = load_pipeline_params(args.ip_adapter_dir, ("vision", "proj", "blocks", "flux"))
+    default = CLIPVisionConfig().tiny() if args.tiny else CLIPVisionConfig()
+    return pipeline.attach_ip_adapter(vision_cfg=saved.get("clip_vision", default),
+                                      ip_cfg=saved.get("ip_adapter"), params=params,
+                                      seed=args.seed)
+
+
+def load_ip_image(path: str) -> np.ndarray:
+    """``--ip-adapter-image`` as uint8 [H, W, 3]."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"), np.uint8)
 
 
 def add_inpaint(args, pipeline):
@@ -384,6 +454,9 @@ def generate(args, pipeline, conditions, timings=None, output_type: str = "np",
     ``output_type``); img2img from ``init_image`` at ``--strength``."""
     clip_ids, t5_ids = request_ids(args, pipeline)
     img2img = {} if init_image is None else dict(init_image=init_image, strength=args.strength)
+    if args.ip_adapter_image:
+        img2img.update(ip_adapter_image=load_ip_image(args.ip_adapter_image),
+                       ip_adapter_scale=args.ip_adapter_scale)
     return pipeline(conditions, clip_ids=clip_ids, t5_ids=t5_ids, seed=args.seed,
                     num_images=args.num_images, num_inference_steps=args.steps,
                     guidance_scale=args.guidance_scale, output_type=output_type,
@@ -426,6 +499,9 @@ def train(args, pipeline, dataset=None, on_event=None):
     )
 
     cn_cfg = pipeline.controlnet.config
+    if cn_cfg.union and args.controlnet_mode is None:
+        # a union checkpoint trains on one conditioning type, as it samples
+        raise SystemExit("training a union-mode ControlNet requires --controlnet-mode")
     controlnet, optimizer = init_controlnet_training(
         pipeline.flux, pipeline.controlnet, cn_cfg.num_layers, cn_cfg.num_single_layers,
         learning_rate=args.learning_rate, weight_decay=args.weight_decay)
@@ -449,7 +525,7 @@ def train(args, pipeline, dataset=None, on_event=None):
         frozen = (pipeline.vae, judge)
     step = make_controlnet_train_step(controlnet, optimizer,
                                       text_loss_weight=args.text_loss_weight,
-                                      perceptual=perceptual)
+                                      perceptual=perceptual, control_mode=args.controlnet_mode)
     loader = PrefetchLoader(dataset.batch, depth=2)  # host build overlaps the device step
     trainer = ElasticTrainer(
         bind_frozen_base(step, pipeline.flux, *frozen), loader,

@@ -2,8 +2,7 @@
 
 The port's own copy of ``reptext_tpu/configs.py`` (fields, defaults and
 ``tiny()`` presets unchanged; ``tests/test_torch_host.py`` holds them equal),
-so that the port never imports the JAX package. ``CLIPVisionConfig`` and
-``IPAdapterConfig`` wait for the adapters.
+so that the port never imports the JAX package.
 
 The reference configures models through diffusers' ``register_to_config`` kwargs
 (reference: RepText/controlnet_flux.py:44-59) and hardcoded script variables
@@ -167,6 +166,56 @@ class CLIPConfig:
         return dataclasses.replace(
             self, vocab_size=256, hidden_size=32, intermediate_size=64,
             num_layers=2, num_heads=2, max_position_embeddings=16, eos_token_id=255,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP ViT-L/14 vision encoder (IP-Adapter image-prompt source).
+
+    The reference README advertises compatibility with the published FLUX
+    IP-Adapter (RepText/README.md:183); diffusers wires that adapter through
+    a ``CLIPVisionModelWithProjection`` image encoder. Defaults mirror
+    openai/clip-vit-large-patch14."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    intermediate_size: int = 4096
+    num_layers: int = 24
+    num_heads: int = 16
+    projection_dim: int = 768
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    def tiny(self) -> "CLIPVisionConfig":
+        return dataclasses.replace(
+            self, image_size=28, patch_size=14, hidden_size=32,
+            intermediate_size=64, num_layers=2, num_heads=2, projection_dim=32,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class IPAdapterConfig:
+    """FLUX IP-Adapter geometry (decoupled image-prompt attention).
+
+    diffusers' FLUX IP-Adapter: a linear ``ImageProjection`` maps the CLIP
+    image embedding (768) to ``num_tokens`` pseudo-text tokens of width
+    ``cross_attention_dim`` (the T5 joint width, 4096); every DOUBLE block
+    gains ``to_k_ip``/``to_v_ip`` projections and the image stream attends
+    to the image tokens with its own (RoPE-free) queries. Single blocks are
+    untouched (diffusers behavior)."""
+
+    image_embed_dim: int = 768            # CLIPVisionConfig.projection_dim
+    cross_attention_dim: int = 4096       # FluxConfig.joint_attention_dim
+    num_tokens: int = 4
+
+    def tiny(self) -> "IPAdapterConfig":
+        return dataclasses.replace(
+            self, image_embed_dim=32, cross_attention_dim=32, num_tokens=2,
         )
 
 

@@ -55,14 +55,17 @@
 //     channels (m64n64k16 with A transposed, i.e. MN-major from shared
 //     memory, and B = the resident K tile, MN-major). The ds tile is double
 //     buffered, so one barrier per query tile is enough. The partial dq goes
-//     from the fragment to a swizzled fp32 staging tile in shared memory and
-//     from there into an fp32 [B, H, S, D] buffer in device memory by TMA
-//     reduce-add (cp.reduce.async.bulk.tensor, one thread per warpgroup, two
-//     boxes of 64 queries x 32 channels); rows past S are dropped by the
-//     map's bounds. The key tile is the fastest grid index, so one head's 36
-//     CTAs (S = 4608) run together and its 2.4 MB slice of the buffer stays
-//     in L2 while they add 85 MB into it (2.0 GB per call at batch 1). Five
-//     products per tile, nothing of size S^2 leaves the chip.
+//     from the fragment to a swizzled fp32 staging tile in shared memory (two
+//     per consumer warpgroup, taken in turn) and from there into an fp32 [B,
+//     H, S, D] buffer in device memory by TMA reduce-add
+//     (cp.reduce.async.bulk.tensor, two boxes of 64 queries x 32 channels);
+//     rows past S are dropped by the map's bounds. The adds are issued by two
+//     threads of the producer warpgroup, one per consumer warpgroup (the dq
+//     writers), in a fixed order: see "Run-to-run order" below. The key tile
+//     is the fastest grid index, so one head's 36 CTAs (S = 4608) run
+//     together and its 2.4 MB slice of the buffer stays in L2 while they add
+//     85 MB into it (2.0 GB per call at batch 1). Five products per tile,
+//     nothing of size S^2 leaves the chip.
 // (3) attn_bwd_epilogue_kernel multiplies the fp32 dq buffer by scale and
 //     writes bf16 dq.
 // Queries and keys past S are zero-filled by the tensor maps' bounds and
@@ -89,11 +92,29 @@
 // ptxas spill; peeled, no gain); adding dq under the next tile's logit
 // products (spills). ptxas: 168 registers at launch, no spills.
 //
-// Run-to-run order: the adds into the dq buffer land in the order the CTAs
-// reach them, which changes from run to run, so dq's last bits do (fp32 sums
-// of 36 partials before the bf16 rounding). dk and dv are summed in one
-// CTA's registers in a fixed order and are bit-equal across runs. The Pallas
-// kernels' order is fixed throughout.
+// Run-to-run order: dq is a sum of one fp32 partial per key tile, and fp32
+// sums depend on their order. The Pallas _dq_kernel walks the key blocks in
+// grid order into one accumulator, so its dq repeats bit for bit; so does
+// this one's. Every (b, h, query tile, channel half) has an int32 counter in
+// device memory, zeroed with the dq buffer by the caller. The dq writer of
+// key tile x waits until its counter equals x (an acquire load at GPU scope),
+// issues the add, waits until the add has completed (cp.async.bulk.wait_group
+// 0: its writes are performed, not just its shared-memory reads done), then
+// adds one to the counter with release semantics, as FlashAttention-3's
+// deterministic backward does. So the partials of one query tile land in key
+// order 0, 1, 2, ... in every run. The consumers hand a staged tile to the
+// writer through an mbarrier pair and go on with the next query tile; with
+// two staging tiles per warpgroup a CTA may run two tiles ahead of its adds.
+// Deadlock freedom rests on the launch order: a writer only waits on CTAs of
+// lower key index of the same (b, h), which come earlier in the grid's
+// linear order (the key tile is the fastest index) and are therefore resident
+// or finished when it waits, since CTAs are dispatched in that order. If the
+// grid's order ever changes, a persistent or cluster launch is needed.
+// The cost: the adds of one query tile run one after another, and one
+// head's CTAs start their first adds one add-latency apart (a pipeline fill
+// of up to 36 adds at S = 4608), then march together. dk and dv are summed in
+// one CTA's registers in a fixed order and were bit-equal across runs
+// before this order was fixed.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -124,10 +145,12 @@ constexpr int kStatBytes = 2 * kBlockQ * 4;         // lse log2(e) and delta of 
 constexpr int kStageBytes = 2 * kQTileBytes + kStatBytes;
 constexpr int kDsBufs = 2;           // ds^T tiles: one barrier per query tile is enough
 constexpr int kDqStageBytes = kBlockQ * kHalf * 4;  // a warpgroup's [64 queries][64 ch] fp32
+constexpr int kDqBufs = 2;           // staging tiles per consumer warpgroup
+constexpr int kBars = 1 + 2 * kStages + 2 * kConsumers * kDqBufs;
 constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kKVTileBytes +
                            kStages * kStageBytes + kDsBufs * kDsTileBytes +
-                           kConsumers * kDqStageBytes +
-                           (1 + 2 * kStages) * 8 /* mbarriers */;
+                           kConsumers * kDqBufs * kDqStageBytes + kBars * 8 /* mbarriers */;
+static_assert(kSmemBytes <= 232448, "more shared memory than an sm_90 block may take");
 constexpr int kStatPad = kBlockQ;    // lse log2(e) and delta rows are padded to this
 
 constexpr float kLogitClamp = 43.0f;
@@ -140,6 +163,7 @@ struct BwdParams {
   float* lse2;                // [B, H, S_pad] contiguous: lse * log2(e), 0 past S
   float* delta;               // [B, H, S_pad] contiguous, 0 past S
   float* dq_acc;              // [B, H, S, D] fp32 contiguous, zeroed by the caller
+  int* dq_flags;              // [B, H, ceil(S / 64), 2] int32, zeroed by the caller
   __nv_bfloat16* dq;          // [B, H, S, D] contiguous
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -238,19 +262,33 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
   const uint32_t sm_q = sm_v + kKVTileBytes;               // kStages x 2 x [kBlockQ][64]
   const uint32_t sm_do = sm_q + kStages * kQTileBytes;     // the same
   const uint32_t sm_ds = sm_do + kStages * kQTileBytes;    // kDsBufs x [kBlockKV][kBlockQ]
-  const uint32_t sm_dq = sm_ds + kDsBufs * kDsTileBytes;   // kConsumers x 2 x [kBlockQ][32] fp32
-  const uint32_t sm_stat = sm_dq + kConsumers * kDqStageBytes;  // kStages x (lse2, delta)[kBlockQ]
+  // kConsumers x kDqBufs x 2 x [kBlockQ][32] fp32
+  const uint32_t sm_dq = sm_ds + kDsBufs * kDsTileBytes;
+  const uint32_t sm_stat = sm_dq + kConsumers * kDqBufs * kDqStageBytes;  // kStages x (lse2, delta)
   const uint32_t bars = sm_stat + kStages * kStatBytes;
   uint8_t* const ds_ptr = sm + 2 * kKVTileBytes + 2 * kStages * kQTileBytes;
   uint8_t* const dq_ptr = ds_ptr + kDsBufs * kDsTileBytes;
   const float* const stat_ptr =
-      reinterpret_cast<const float*>(dq_ptr + kConsumers * kDqStageBytes);
+      reinterpret_cast<const float*>(dq_ptr + kConsumers * kDqBufs * kDqStageBytes);
   // tile `it` lives in slot it % kStages; its barriers flip once per round
   const auto slot = [](int it) { return it % kStages; };
   const auto round = [](int it) { return static_cast<uint32_t>(it / kStages) & 1u; };
   const uint32_t full_kv = bars;
   const auto full = [&](int it) { return bars + 8 * (1 + slot(it)); };
   const auto empty = [&](int it) { return bars + 8 * (1 + kStages + slot(it)); };
+  // staging tile `it % kDqBufs` of warpgroup cw: filled by its consumers,
+  // emptied by its dq writer once the add has completed
+  const auto dq_buf = [](int it) { return it % kDqBufs; };
+  const auto dq_round = [](int it) { return static_cast<uint32_t>(it / kDqBufs) & 1u; };
+  const auto dq_stage = [&](int cw, int it) {
+    return sm_dq + (cw * kDqBufs + dq_buf(it)) * kDqStageBytes;
+  };
+  const auto dq_full = [&](int cw, int it) {
+    return bars + 8 * (1 + 2 * kStages + cw * kDqBufs + dq_buf(it));
+  };
+  const auto dq_empty = [&](int cw, int it) {
+    return bars + 8 * (1 + 2 * kStages + (kConsumers + cw) * kDqBufs + dq_buf(it));
+  };
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -264,6 +302,12 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4 * kConsumers);  // one arrival per consumer warp
+    }
+    for (int cw = 0; cw < kConsumers; ++cw) {
+      for (int i = 0; i < kDqBufs; ++i) {
+        mbar_init(dq_full(cw, i), 128);  // every thread of the warpgroup
+        mbar_init(dq_empty(cw, i), 1);   // the dq writer
+      }
     }
     mbar_init_fence();
   }
@@ -293,6 +337,25 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
         tma_load_4d(dot + kQHalfBytes, &map_do, full(it), kHalf, q0, h, b);
         bulk_load(st, lse2_row + q0, kStatBytes / 2, full(it));
         bulk_load(st + kStatBytes / 2, delta_row + q0, kStatBytes / 2, full(it));
+      }
+    } else if (threadIdx.x == 32 || threadIdx.x == 64) {
+      // dq writer of consumer warpgroup cw: add each staged tile once the
+      // key tiles before this one have added theirs
+      const int cw = (threadIdx.x >> 5) - 1;
+      int* const flags = p.dq_flags + bh * n_tiles * kConsumers + cw;
+      for (int it = 0; it < n_tiles; ++it) {
+        const uint32_t stage = dq_stage(cw, it);
+        mbar_wait(dq_full(cw, it), dq_round(it));
+        int* const flag = flags + it * kConsumers;
+        flag_wait_eq(flag, blockIdx.x);
+        fence_proxy_async_global();
+        tma_reduce_add_4d(&map_dq, stage, cw * kHalf, it * kBlockQ, h, b);
+        tma_reduce_add_4d(&map_dq, stage + kDqStageBytes / 2, cw * kHalf + 32, it * kBlockQ, h, b);
+        bulk_commit();
+        bulk_wait<0>();
+        fence_proxy_async_global();
+        flag_release_inc(flag);
+        mbar_arrive(dq_empty(cw, it));
       }
     }
   } else {
@@ -408,17 +471,14 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
       }
     };
 
-    // the partial dq of tile `it` added into the fp32 buffer. The fragment
-    // (rows g and g + 8 of the warp's 16 queries, this warpgroup's 64
-    // channels) goes to the warpgroup's staging tile, two boxes of [64
+    // the partial dq of tile `it` handed to the dq writer. The fragment (rows
+    // g and g + 8 of the warp's 16 queries, this warpgroup's 64 channels)
+    // goes to one of the warpgroup's staging tiles, two boxes of [64
     // queries][32 channels] fp32 with the 128-byte swizzle (16-byte chunk c of
-    // row r at chunk c ^ (r % 8)), and one thread adds both boxes into device
-    // memory by TMA; rows past S are dropped by the map's bounds.
-    const uint32_t stage_addr = sm_dq + cw * kDqStageBytes;
-    uint8_t* const stage_ptr = dq_ptr + cw * kDqStageBytes;
+    // row r at chunk c ^ (r % 8)), once the writer has emptied it.
     const auto add_dq = [&](const float (&dq)[kNS], int it) {
-      if (wtid == 0) bulk_wait_read<0>();     // the previous add has read the tile
-      named_barrier_sync<128>(4 + cw);
+      uint8_t* const stage_ptr = dq_ptr + (cw * kDqBufs + dq_buf(it)) * kDqStageBytes;
+      mbar_wait(dq_empty(cw, it), dq_round(it) ^ 1);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = warp * 16 + g + 8 * r;
@@ -432,13 +492,7 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
         }
       }
       fence_proxy_async();
-      named_barrier_sync<128>(4 + cw);
-      if (wtid == 0) {
-        const int q0 = it * kBlockQ;
-        tma_reduce_add_4d(&map_dq, stage_addr, cw * kHalf, q0, h, b);
-        tma_reduce_add_4d(&map_dq, stage_addr + kDqStageBytes / 2, cw * kHalf + 32, q0, h, b);
-        bulk_commit();
-      }
+      mbar_arrive(dq_full(cw, it));
     };
 
     mbar_wait(full_kv, 0);
@@ -465,8 +519,6 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
       release(empty(it));
       add_dq(dq, it);
     }
-
-    if (wtid == 0) bulk_wait_read<0>();  // the staging tile outlives its last add
 
     // dk (times scale) and dv: rows g and g + 8 of the warp's 16 keys
 #pragma unroll
@@ -497,6 +549,7 @@ BwdParams make_params(const void* out, const void* dout, const void* lse, void* 
   p.lse2 = static_cast<float*>(lse2);
   p.delta = static_cast<float*>(delta);
   p.dq_acc = static_cast<float*>(dq_acc);
+  p.dq_flags = nullptr;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
@@ -542,11 +595,12 @@ extern "C" int reptext_flash_attention_bwd_preprocess(
 
 // The main kernel and the epilogue. q, k, v, dout: bf16 [B, H, S, D] with
 // strides; lse2, delta: the preprocess pass's outputs; dq_acc: fp32 [B, H, S,
-// D] contiguous and zero; dq, dk, dv: bf16 [B, H, S, D] contiguous. All
-// allocated by the caller.
+// D] contiguous and zero; dq_flags: int32 [B, H, ceil(S / 64), 2] contiguous
+// and zero (the order of the dq adds); dq, dk, dv: bf16 [B, H, S, D]
+// contiguous. All allocated by the caller.
 extern "C" int reptext_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* lse2,
-    const void* delta, void* dq_acc, void* dq, void* dk, void* dv,
+    const void* delta, void* dq_acc, void* dq_flags, void* dq, void* dk, void* dv,
     int batch, int heads, int seq, int seq_pad, int head_dim,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -556,9 +610,10 @@ extern "C" int reptext_flash_attention_bwd(
   if (bad_shape(batch, heads, seq, seq_pad, head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const BwdParams p = make_params(nullptr, dout, nullptr, const_cast<void*>(lse2),
-                                  const_cast<void*>(delta), dq_acc, dq, dk, dv, heads, seq,
-                                  seq_pad, 0, 0, 0, d_sb, d_sh, d_ss, scale);
+  BwdParams p = make_params(nullptr, dout, nullptr, const_cast<void*>(lse2),
+                            const_cast<void*>(delta), dq_acc, dq, dk, dv, heads, seq, seq_pad,
+                            0, 0, 0, d_sb, d_sh, d_ss, scale);
+  p.dq_flags = static_cast<int*>(dq_flags);
   CUtensorMap map_q, map_k, map_v, map_do, map_dq;
   // a layout no tensor map takes is refused here
   if (!make_map(&map_q, q, batch, heads, seq, q_sb, q_sh, q_ss, kD, kBlockQ) ||
@@ -574,7 +629,8 @@ extern "C" int reptext_flash_attention_bwd(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the key tile is the fastest index: one head's CTAs run together, so its
-  // slice of dq_acc stays in L2 while they add into it
+  // slice of dq_acc stays in L2 while they add into it, and a CTA's dq
+  // writers wait only on CTAs launched before it (see "Run-to-run order")
   dim3 grid((seq + kBlockKV - 1) / kBlockKV, heads, batch);
   kernel<<<grid, kThreads, kSmemBytes, s>>>(p, map_q, map_k, map_v, map_do, map_dq);
   err = cudaGetLastError();

@@ -98,6 +98,34 @@ __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
+// Wait until all of this thread's bulk groups have completed: their writes
+// to device memory (a reduce-add's too) are performed.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to device memory against its
+// async-proxy (TMA) ones, in both directions.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A flag in device memory shared by the CTAs of a grid: spin until it holds
+// `value` (acquire at GPU scope), or add one to it after everything this
+// thread did before (release at GPU scope), as CUTLASS's generic barrier does.
+__device__ __forceinline__ void flag_wait_eq(const int* flag, int value) {
+  int seen;
+  do {
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(seen) : "l"(flag) : "memory");
+  } while (seen != value);
+}
+
+__device__ __forceinline__ void flag_release_inc(int* flag) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(flag) : "memory");
+}
+
 // Generic-proxy writes to shared memory (st.shared) made visible to the
 // async proxy (wgmma, TMA) of this CTA.
 __device__ __forceinline__ void fence_proxy_async() {

@@ -13,7 +13,10 @@ Written by ``io/convert_cli.py``; per component one file, all optional:
 - ``LAYOUT_VERSION``: the parameter layout (2: the RoPE deinterleave folded
   into the q/k weights), as in ``reptext_tpu/io/checkpoint.py``;
 - ``tokenizer/`` (CLIP's vocab.json, merges.txt) and
-  ``tokenizer_2/spiece.model`` (T5) for the vendored tokenizers.
+  ``tokenizer_2/spiece.model`` (T5) for the vendored tokenizers;
+- ``ip_adapter/`` (``convert_cli --ip-adapter``): ``proj``, ``blocks`` and
+  ``vision.safetensors`` with their own ``configs.json`` and
+  ``LAYOUT_VERSION``, the directory that ``--ip-adapter-dir`` names.
 
 The JAX package stores its components as orbax directories; orbax needs JAX,
 so such a directory does not load into the port: convert the original
@@ -56,17 +59,19 @@ def load_saved_configs(directory: str) -> Dict[str, Any]:
     The converter records each component's checkpoint-derived geometry
     (depths, guidance embeds, extra condition channels) so that loaders build
     the exact model the weights were trained with instead of library
-    defaults. Returns {} when the directory has no configs.json; unknown
-    component names (``clip_vision``: the IP-Adapter, not ported yet) and
-    fields are ignored.
+    defaults (``clip_vision`` and ``ip_adapter``: the IP-Adapter directory's).
+    Returns {} when the directory has no configs.json; unknown component
+    names and fields are ignored.
     """
     path = os.path.join(os.path.abspath(directory), "configs.json")
     if not os.path.isfile(path):
         return {}
     from reptext_tpu_torch.configs import (
         CLIPConfig,
+        CLIPVisionConfig,
         ControlNetConfig,
         FluxConfig,
+        IPAdapterConfig,
         T5Config,
         VAEConfig,
     )
@@ -78,6 +83,8 @@ def load_saved_configs(directory: str) -> Dict[str, Any]:
         "vae": VAEConfig,
         "clip": CLIPConfig,
         "t5": T5Config,
+        "clip_vision": CLIPVisionConfig,
+        "ip_adapter": IPAdapterConfig,
     }
     with open(path) as f:
         raw = json.load(f)

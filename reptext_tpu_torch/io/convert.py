@@ -15,7 +15,8 @@ converter returns the same tree as the JAX one, leaf for leaf:
 Transposes are views, not copies: ``io/from_jax.py::flatten_jax_params``
 transposes them back, so carrying a converted tree into the modules or into
 the port's checkpoint format copies only what the permutation and the stacks
-make. The IP-Adapter converters are not ported yet.
+make. The IP-Adapter's converters (:func:`convert_clip_vision`,
+:func:`convert_ip_adapter`, :func:`merge_ip_adapter_into_flux`) are here too.
 """
 
 from __future__ import annotations
@@ -307,6 +308,67 @@ def convert_clip(state: State, cfg: CLIPConfig) -> Dict:
             "fc2": _lin(state, f"{p}.mlp.fc2"),
         }
     return {"params": params}
+
+
+def convert_clip_vision(state: State, cfg) -> Dict:
+    """transformers ``CLIPVisionModelWithProjection`` -> the
+    ``nn/clip_vision.py`` tree (the IP-Adapter's image encoder)."""
+    vm = "vision_model"
+    params: Dict[str, Any] = {
+        "class_embedding": state[f"{vm}.embeddings.class_embedding"],
+        "patch_embedding": {
+            "kernel": state[f"{vm}.embeddings.patch_embedding.weight"].permute(2, 3, 1, 0)},
+        "position_embedding": {
+            "embedding": state[f"{vm}.embeddings.position_embedding.weight"]},
+        # transformers keeps this historical typo in the checkpoint key
+        "pre_layrnorm": _norm_affine(state, f"{vm}.pre_layrnorm"),
+        "post_layernorm": _norm_affine(state, f"{vm}.post_layernorm"),
+        "visual_projection": {"kernel": state["visual_projection.weight"].t()},
+    }
+    for i in range(cfg.num_layers):
+        p = f"{vm}.encoder.layers.{i}"
+        params[f"layer_{i}"] = {
+            "layer_norm1": _norm_affine(state, f"{p}.layer_norm1"),
+            "layer_norm2": _norm_affine(state, f"{p}.layer_norm2"),
+            "q_proj": _lin(state, f"{p}.self_attn.q_proj"),
+            "k_proj": _lin(state, f"{p}.self_attn.k_proj"),
+            "v_proj": _lin(state, f"{p}.self_attn.v_proj"),
+            "out_proj": _lin(state, f"{p}.self_attn.out_proj"),
+            "fc1": _lin(state, f"{p}.mlp.fc1"),
+            "fc2": _lin(state, f"{p}.mlp.fc2"),
+        }
+    return {"params": params}
+
+
+def convert_ip_adapter(state: State, num_layers: int, head_dim: int = 128) -> Dict[str, Any]:
+    """diffusers FLUX IP-Adapter state dict (``image_proj.proj``,
+    ``image_proj.norm``, ``ip_adapter.{i}.to_k_ip``/``to_v_ip``) ->
+    ``{"proj": <ImageProjection tree>, "blocks": {"to_k_ip", "to_v_ip"}}``,
+    the block leaves stacked [num_layers, ...]. ``to_k_ip`` takes the RoPE
+    half-split permutation of the base q/k projections (:func:`_lin_rope`):
+    the ip attention reuses the image queries, whose head channels carry it;
+    ``to_v_ip`` does not."""
+    proj = {"params": {"proj": _lin(state, "image_proj.proj"),
+                       "norm": _norm_affine(state, "image_proj.norm")}}
+    blocks = _stack([{"to_k_ip": _lin_rope(state, f"ip_adapter.{i}.to_k_ip", head_dim),
+                      "to_v_ip": _lin(state, f"ip_adapter.{i}.to_v_ip")}
+                     for i in range(num_layers)])
+    return {"proj": proj, "blocks": blocks}
+
+
+def merge_ip_adapter_into_flux(flux_variables: Dict, ip_blocks: Dict) -> Dict:
+    """The stacked ``to_k_ip``/``to_v_ip`` inserted into a converted FLUX
+    tree (diffusers stores them in the transformer after
+    ``load_ip_adapter``); only the dicts along the path are copied. The
+    result loads into a ``FluxTransformer2D`` after ``add_ip_adapter``."""
+    out = dict(flux_variables)
+    out["params"] = dict(out["params"])
+    out["params"]["double_blocks"] = dict(out["params"]["double_blocks"])
+    block = dict(out["params"]["double_blocks"]["block"])
+    block["to_k_ip"] = ip_blocks["to_k_ip"]
+    block["to_v_ip"] = ip_blocks["to_v_ip"]
+    out["params"]["double_blocks"]["block"] = block
+    return out
 
 
 def convert_t5(state: State, cfg: T5Config) -> Dict:

@@ -20,8 +20,17 @@ vendored tokenizers); ControlNets are standalone snapshots. Each component's
 geometry comes from its ``config.json`` and is recorded in ``configs.json``
 in the JAX converter's format. Components are converted one at a time, so
 host memory holds one component's state and its stacked blocks at a time
-(a full bf16 FLUX.1-dev is ~24 GB). The JAX converter's single-file FLUX,
-LoRA baking, IP-Adapter and fp8 options are not ported yet and are refused.
+(a full bf16 FLUX.1-dev is ~24 GB). As in the JAX converter,
+``--flux-single-file`` takes the transformer from one BFL (or diffusers)
+safetensors file, its geometry inferred from the weights
+(``io/single_file.py``); ``--lora``/``--lora-scale`` bake LoRAs into the
+converted transformer (``io/lora.py``); ``--ip-adapter`` (with
+``--image-encoder-dir`` for the CLIP vision tower) writes ``ip_adapter/``:
+``proj.safetensors`` (the image projection), ``blocks.safetensors`` (every
+double block's ``to_k_ip``/``to_v_ip``, standalone: they are merged into the
+resident transformer when a pipeline attaches the adapter),
+``vision.safetensors`` and a ``configs.json`` of their geometry. fp8 storage
+is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from typing import Any, Dict
 
 import torch
 
-from reptext_tpu_torch.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+from reptext_tpu_torch.configs import (
+    CLIPConfig, CLIPVisionConfig, ControlNetConfig, FluxConfig, IPAdapterConfig, T5Config, VAEConfig,
+)
 
 
 def _read_config(component_dir: str) -> Dict[str, Any]:
@@ -117,6 +128,21 @@ HF_KEYS = {FluxConfig: _FLUX_MAP,
            VAEConfig: _VAE_MAP, CLIPConfig: _CLIP_MAP, T5Config: _T5_MAP}
 
 
+CLIP_VISION_MAP = {
+    "image_size": "image_size",
+    "patch_size": "patch_size",
+    "hidden_size": "hidden_size",
+    "intermediate_size": "intermediate_size",
+    "num_layers": "num_hidden_layers",
+    "num_heads": "num_attention_heads",
+    "projection_dim": "projection_dim",
+}
+
+
+def clip_vision_config_from_hf(hf: Dict[str, Any]) -> CLIPVisionConfig:
+    return _replace_known(CLIPVisionConfig(), hf, CLIP_VISION_MAP)
+
+
 def vae_config_from_hf(hf: Dict[str, Any]) -> VAEConfig:
     return _replace_known(VAEConfig(), hf, _VAE_MAP)
 
@@ -172,9 +198,57 @@ def module_state(name: str, tree, cfg, dtype=None) -> Dict[str, torch.Tensor]:
 
 
 _STORAGE_DTYPES = {"keep": None, "bf16": torch.bfloat16, "fp32": torch.float32}
-_UNPORTED = (("flux_single_file", "--flux-single-file"), ("lora", "--lora"),
-             ("lora_scale", "--lora-scale"), ("ip_adapter", "--ip-adapter"),
-             ("image_encoder_dir", "--image-encoder-dir"))
+
+
+def flat_state(tree, dtype=None) -> Dict[str, torch.Tensor]:
+    """A Flax-named tree -> {torch parameter name: contiguous tensor}, floating
+    tensors cast to ``dtype`` when given (the adapter's files)."""
+    from reptext_tpu_torch.io.from_jax import flatten_jax_params
+
+    flat = flatten_jax_params(tree)
+    return {k: (v.to(dtype) if dtype is not None and v.is_floating_point() else v).contiguous()
+            for k, v in flat.items()}
+
+
+def write_ip_adapter(out: str, ip_path: str, num_layers: int, head_dim: int,
+                     image_encoder_dir=None, dtype=None) -> Dict[str, Any]:
+    """``out/ip_adapter/``: proj, blocks (and vision) safetensors of module
+    state and ``configs.json`` with ``ip_adapter`` (and ``clip_vision``);
+    returns those configs."""
+    from reptext_tpu_torch.io import convert as C
+    from reptext_tpu_torch.io.checkpoint import _LAYOUT_FILE, LAYOUT_VERSION
+    from reptext_tpu_torch.io.safetensors import save_file
+
+    ip_out = os.path.join(out, "ip_adapter")
+    os.makedirs(ip_out, exist_ok=True)
+    state = C.load_safetensors_state(ip_path, dtype=None)
+    ip = C.convert_ip_adapter(state, num_layers=num_layers, head_dim=head_dim)
+    w_proj = state["image_proj.proj.weight"]
+    cross = state["image_proj.norm.weight"].shape[0]
+    ip_cfg = IPAdapterConfig(image_embed_dim=w_proj.shape[1], cross_attention_dim=cross,
+                             num_tokens=w_proj.shape[0] // cross)
+    del state
+    meta = {"layout_version": str(LAYOUT_VERSION)}
+    save_file(flat_state(ip["proj"], dtype), os.path.join(ip_out, "proj.safetensors"),
+              metadata=dict(meta, component="proj"))
+    save_file(flat_state({"double_blocks": {"block": ip["blocks"]}}, dtype),
+              os.path.join(ip_out, "blocks.safetensors"), metadata=dict(meta, component="blocks"))
+    cfgs = {"ip_adapter": dataclasses.asdict(ip_cfg)}
+    print(f"[ip_adapter] {num_layers}-layer to_k_ip/to_v_ip + projection <- {ip_path}")
+    if image_encoder_dir:
+        vcfg = clip_vision_config_from_hf(_read_config(image_encoder_dir))
+        vstate = C.load_safetensors_state(image_encoder_dir, dtype=None)
+        save_file(flat_state(C.convert_clip_vision(vstate, vcfg), dtype),
+                  os.path.join(ip_out, "vision.safetensors"),
+                  metadata=dict(meta, component="vision"))
+        del vstate
+        cfgs["clip_vision"] = dataclasses.asdict(vcfg)
+        print(f"[ip_adapter/vision] <- {image_encoder_dir}")
+    with open(os.path.join(ip_out, "configs.json"), "w") as f:
+        json.dump(cfgs, f, indent=1, sort_keys=True)
+    with open(os.path.join(ip_out, _LAYOUT_FILE), "w") as f:
+        f.write(f"{LAYOUT_VERSION}\n")
+    return cfgs
 
 
 def main(argv=None) -> int:
@@ -192,23 +266,30 @@ def main(argv=None) -> int:
                         help="RepText ControlNet snapshot (config.json + safetensors)")
     parser.add_argument("--inpaint-controlnet-dir", default=None,
                         help="inpainting ControlNet snapshot (alimama beta)")
+    parser.add_argument("--ip-adapter", default=None, metavar="PATH",
+                        help="FLUX IP-Adapter safetensors file or dir")
+    parser.add_argument("--image-encoder-dir", default=None,
+                        help="CLIP vision tower snapshot for the IP-Adapter")
     parser.add_argument("--flux-dir", default=None,
                         help="override: transformer snapshot dir (else <pipeline-dir>/transformer)")
+    parser.add_argument("--flux-single-file", default=None, metavar="PATH",
+                        help="BFL single-file transformer checkpoint (flux1-dev.safetensors "
+                             "naming, optionally ComfyUI-wrapped, or diffusers naming) instead "
+                             "of a snapshot dir; the geometry is inferred from the weights")
     parser.add_argument("--vae-dir", default=None)
     parser.add_argument("--clip-dir", default=None)
     parser.add_argument("--t5-dir", default=None)
+    parser.add_argument("--lora", action="append", default=None, metavar="PATH",
+                        help="LoRA safetensors (diffusers FLUX naming) baked into the converted "
+                             "transformer; repeatable")
+    parser.add_argument("--lora-scale", action="append", type=float, default=None, metavar="S",
+                        help="merge scale per --lora (default 1.0 each)")
     parser.add_argument("--dtype", choices=["keep", "bf16", "fp32", "fp8"], default="keep",
                         help="storage dtype: keep = as stored in the checkpoint (FLUX publishes "
                              "bf16), bf16/fp32 = force-cast (fp8: not ported yet)")
     parser.add_argument("--out", required=True,
                         help="output directory (becomes --checkpoint-dir)")
-    for dest, flag in _UNPORTED:
-        parser.add_argument(flag, dest=dest, action="append", default=None,
-                            help="not ported yet")
     args = parser.parse_args(argv)
-    for dest, flag in _UNPORTED:
-        if getattr(args, dest):
-            parser.error(f"{flag} is not ported yet")
     if args.dtype == "fp8":
         parser.error("--dtype fp8 is not ported yet")
 
@@ -221,13 +302,15 @@ def main(argv=None) -> int:
         return None
 
     plan = []  # (component_name, source_dir, config_fn, convert_fn)
+    flux_dir = None if args.flux_single_file else comp_dir(args.flux_dir, "transformer")
+    if args.flux_single_file:
+        plan.append(("flux", args.flux_single_file, None, C.convert_flux_transformer))
     for name, override, sub, cfg_fn, conv_fn in (
-            ("flux", args.flux_dir, "transformer", flux_config_from_hf,
-             C.convert_flux_transformer),
+            ("flux", None, None, flux_config_from_hf, C.convert_flux_transformer),
             ("vae", args.vae_dir, "vae", vae_config_from_hf, C.convert_vae),
             ("clip", args.clip_dir, "text_encoder", clip_config_from_hf, C.convert_clip),
             ("t5", args.t5_dir, "text_encoder_2", t5_config_from_hf, C.convert_t5)):
-        src = comp_dir(override, sub)
+        src = flux_dir if name == "flux" else comp_dir(override, sub)
         if src:
             plan.append((name, src, cfg_fn, conv_fn))
     if args.controlnet_dir:
@@ -236,9 +319,16 @@ def main(argv=None) -> int:
     if args.inpaint_controlnet_dir:
         plan.append(("inpaint_controlnet", args.inpaint_controlnet_dir,
                      controlnet_config_from_hf, C.convert_controlnet))
-    if not plan:
+    if not plan and not args.ip_adapter:
         parser.error("nothing to convert: pass --pipeline-dir and/or "
                       "--controlnet-dir / component overrides")
+    if args.lora and not any(entry[0] == "flux" for entry in plan):
+        parser.error("--lora requires a transformer source (--pipeline-dir, --flux-dir or "
+                     "--flux-single-file)")
+    scales = list(args.lora_scale or [])
+    if len(scales) > len(args.lora or []):
+        parser.error("more --lora-scale values than --lora paths")
+    scales += [1.0] * (len(args.lora or []) - len(scales))
 
     dtype = _STORAGE_DTYPES[args.dtype]
     out = os.path.abspath(args.out)
@@ -247,25 +337,55 @@ def main(argv=None) -> int:
     # one component at a time: a full bf16 FLUX.1-dev state is ~24 GB host
     # RAM; converting sequentially keeps peak memory at one component.
     for name, src, cfg_fn, conv_fn in plan:
-        hf_cfg = _read_config(src)
-        cfg = cfg_fn(hf_cfg)
-        if not hf_cfg:
-            print(f"[{name}] no config.json in {src}; using library defaults", file=sys.stderr)
-        state = C.load_safetensors_state(src, dtype=None)
+        if cfg_fn is None:      # --flux-single-file
+            from reptext_tpu_torch.io.single_file import (
+                bfl_flux_to_diffusers, flux_config_from_state, is_bfl_flux, strip_wrapper_prefixes,
+            )
+
+            state = strip_wrapper_prefixes(C.load_safetensors_state(src, dtype=None))
+            if is_bfl_flux(state):
+                state = bfl_flux_to_diffusers(state)
+            cfg = flux_config_from_state(state)
+        else:
+            hf_cfg = _read_config(src)
+            cfg = cfg_fn(hf_cfg)
+            if not hf_cfg:
+                print(f"[{name}] no config.json in {src}; using library defaults",
+                      file=sys.stderr)
+            state = C.load_safetensors_state(src, dtype=None)
         n_params = sum(v.numel() for v in state.values())
-        flat = module_state(name, conv_fn(state, cfg), cfg, dtype)
+        flat = module_state(name, conv_fn(state, cfg), cfg)
+        del state
+        if name == "flux" and args.lora:
+            from reptext_tpu_torch.io.lora import apply_lora
+
+            for lp, sc in zip(args.lora, scales):
+                apply_lora(flat, C.load_safetensors_state(lp, dtype=None), scale=sc,
+                           head_dim=cfg.attention_head_dim)
+                print(f"[flux] baked LoRA {lp} (scale {sc})")
+        if dtype is not None:
+            flat = {k: v.to(dtype) if v.is_floating_point() else v for k, v in flat.items()}
         save_file(flat, component_path(out, name),
                   metadata={"format": "pt", "component": name,
                             "layout_version": str(LAYOUT_VERSION)})
-        del state, flat
+        del flat
         configs_meta[name] = dataclasses.asdict(cfg)
         print(f"[{name}] {n_params / 1e9:.3f}B params <- {src}")
+
+    if args.ip_adapter:
+        flux_meta = configs_meta.get("flux")
+        if flux_meta is None and flux_dir:
+            flux_meta = dataclasses.asdict(flux_config_from_hf(_read_config(flux_dir)))
+        flux_meta = flux_meta or dataclasses.asdict(FluxConfig())
+        write_ip_adapter(out, args.ip_adapter, flux_meta["num_layers"],
+                         flux_meta["attention_head_dim"], args.image_encoder_dir, dtype)
 
     copied = _copy_tokenizers(args.pipeline_dir, out) if args.pipeline_dir else []
     for c in copied:
         print(f"[tokenizer] {c}")
-    with open(os.path.join(out, _LAYOUT_FILE), "w") as f:
-        f.write(f"{LAYOUT_VERSION}\n")
+    if plan:
+        with open(os.path.join(out, _LAYOUT_FILE), "w") as f:
+            f.write(f"{LAYOUT_VERSION}\n")
     # record the checkpoint-derived geometry so loaders can rebuild the
     # exact model configs without re-reading the HF snapshots
     with open(os.path.join(out, "configs.json"), "w") as f:

@@ -9,7 +9,12 @@ with random values drawn by a seeded ``torch.Generator`` on any device
 as HF-layout snapshot directories (config.json + safetensors) with the
 port's writer, so that ``io/convert_cli.py`` reads them as it reads the real
 ones. :func:`write_tokenizers` adds a small CLIP byte-BPE vocabulary and a
-SentencePiece model for the vendored tokenizers.
+SentencePiece model for the vendored tokenizers. The adapters' files are made
+the same way: a LoRA in diffusers naming (:func:`lora_state`), a BFL single
+file of a FLUX state (:func:`bfl_flux_state`, the inverse of
+``io/single_file.py``'s key map), a CLIP vision snapshot
+(:func:`clip_vision_state`) and a FLUX IP-Adapter file
+(:func:`ip_adapter_state`).
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from typing import Dict
 
 import torch
 
-from reptext_tpu_torch.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
+from reptext_tpu_torch.configs import (
+    CLIPConfig, CLIPVisionConfig, ControlNetConfig, FluxConfig, IPAdapterConfig, T5Config, VAEConfig,
+)
 from reptext_tpu_torch.io.safetensors import save_file
 from reptext_tpu_torch.text.clip_bpe import bytes_to_unicode
 
@@ -115,12 +122,15 @@ def flux_state(cfg: FluxConfig, seed: int = 0, device="cpu",
 
 def controlnet_state(cfg: ControlNetConfig, seed: int = 1, device="cpu",
                      dtype: torch.dtype = torch.float32) -> State:
-    """diffusers FluxControlNetModel state dict (RepText layout, not union)."""
+    """diffusers FluxControlNetModel state dict (RepText layout; a union net,
+    ``cfg.num_mode`` set, has the mode embedding too)."""
     d = _Draw(seed, device, dtype)
     inner = cfg.inner_dim
     d.lin("x_embedder", cfg.in_channels, inner)
     d.lin("controlnet_x_embedder", cfg.in_channels + cfg.extra_condition_channels, inner)
     d.lin("context_embedder", cfg.joint_attention_dim, inner)
+    if cfg.union:
+        d.normal("controlnet_mode_embedder.weight", (cfg.num_mode, inner), 1.0)
     _time_text_embed(d, cfg)
     _mmdit_blocks(d, cfg.num_layers, cfg.num_single_layers, inner, cfg.attention_head_dim,
                   controlnet=True)
@@ -217,6 +227,139 @@ def t5_state(cfg: T5Config, seed: int = 4, device="cpu",
         d.lin(f"{p}.layer.1.DenseReluDense.wo", cfg.d_ff, dm, bias=False)
     d.norm("encoder.final_layer_norm", dm, bias=False)
     return d.state
+
+
+# ------------------------------------------------------------ adapters
+
+# the attention projections of a typical published FLUX LoRA
+LORA_DOUBLE = ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj", "add_v_proj",
+               "to_add_out")
+LORA_SINGLE = ("to_q", "to_k", "to_v")
+
+
+def lora_state(cfg: FluxConfig, rank: int = 16, seed: int = 5, device="cpu",
+               dtype: torch.dtype = torch.float32, std_b: float = 0.02) -> State:
+    """A diffusers-named FLUX LoRA (``transformer.<module>.lora_A.weight`` [r,
+    in], ``lora_B.weight`` [out, r]) on every attention projection of every
+    double and single block; B is drawn too (not zero, as a fresh adapter's),
+    with standard deviation ``std_b``, so that the LoRA changes the model."""
+    d = _Draw(seed, device, dtype)
+    inner = cfg.inner_dim
+    mods = [f"transformer_blocks.{i}.attn.{m}" for i in range(cfg.num_layers)
+            for m in LORA_DOUBLE]
+    mods += [f"single_transformer_blocks.{i}.attn.{m}" for i in range(cfg.num_single_layers)
+             for m in LORA_SINGLE]
+    for m in mods:
+        d.normal(f"transformer.{m}.lora_A.weight", (rank, inner), inner ** -0.5)
+        d.normal(f"transformer.{m}.lora_B.weight", (inner, rank), std_b)
+    return d.state
+
+
+def bfl_flux_state(diffusers_state: State) -> State:
+    """A diffusers-named FLUX state in Black Forest Labs' single-file naming
+    (fused qkv and linear1, MLP embedders, the final AdaLN's halves as
+    [shift; scale]): the inverse of ``io/single_file.py::bfl_flux_to_diffusers``."""
+    st = diffusers_state
+    out: State = {}
+
+    def put(dst: str, src: str) -> None:
+        out[f"{dst}.weight"] = st[f"{src}.weight"]
+        if f"{src}.bias" in st:
+            out[f"{dst}.bias"] = st[f"{src}.bias"]
+
+    def fuse(dst: str, srcs) -> None:
+        out[f"{dst}.weight"] = torch.cat([st[f"{s}.weight"] for s in srcs], dim=0)
+        if f"{srcs[0]}.bias" in st:
+            out[f"{dst}.bias"] = torch.cat([st[f"{s}.bias"] for s in srcs], dim=0)
+
+    put("img_in", "x_embedder")
+    put("txt_in", "context_embedder")
+    for dst, src in (("time_in", "timestep_embedder"), ("vector_in", "text_embedder"),
+                     ("guidance_in", "guidance_embedder")):
+        if f"time_text_embed.{src}.linear_1.weight" in st:
+            put(f"{dst}.in_layer", f"time_text_embed.{src}.linear_1")
+            put(f"{dst}.out_layer", f"time_text_embed.{src}.linear_2")
+    n_double = 1 + max((int(k.split(".")[1]) for k in st if k.startswith("transformer_blocks.")),
+                       default=-1)
+    for i in range(n_double):
+        s, p = f"double_blocks.{i}", f"transformer_blocks.{i}"
+        put(f"{s}.img_mod.lin", f"{p}.norm1.linear")
+        put(f"{s}.txt_mod.lin", f"{p}.norm1_context.linear")
+        fuse(f"{s}.img_attn.qkv", [f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v"])
+        fuse(f"{s}.txt_attn.qkv",
+             [f"{p}.attn.add_q_proj", f"{p}.attn.add_k_proj", f"{p}.attn.add_v_proj"])
+        out[f"{s}.img_attn.norm.query_norm.scale"] = st[f"{p}.attn.norm_q.weight"]
+        out[f"{s}.img_attn.norm.key_norm.scale"] = st[f"{p}.attn.norm_k.weight"]
+        out[f"{s}.txt_attn.norm.query_norm.scale"] = st[f"{p}.attn.norm_added_q.weight"]
+        out[f"{s}.txt_attn.norm.key_norm.scale"] = st[f"{p}.attn.norm_added_k.weight"]
+        put(f"{s}.img_attn.proj", f"{p}.attn.to_out.0")
+        put(f"{s}.txt_attn.proj", f"{p}.attn.to_add_out")
+        put(f"{s}.img_mlp.0", f"{p}.ff.net.0.proj")
+        put(f"{s}.img_mlp.2", f"{p}.ff.net.2")
+        put(f"{s}.txt_mlp.0", f"{p}.ff_context.net.0.proj")
+        put(f"{s}.txt_mlp.2", f"{p}.ff_context.net.2")
+    n_single = 1 + max((int(k.split(".")[1]) for k in st
+                        if k.startswith("single_transformer_blocks.")), default=-1)
+    for i in range(n_single):
+        s, p = f"single_blocks.{i}", f"single_transformer_blocks.{i}"
+        put(f"{s}.modulation.lin", f"{p}.norm.linear")
+        fuse(f"{s}.linear1", [f"{p}.attn.to_q", f"{p}.attn.to_k", f"{p}.attn.to_v",
+                              f"{p}.proj_mlp"])
+        put(f"{s}.linear2", f"{p}.proj_out")
+        out[f"{s}.norm.query_norm.scale"] = st[f"{p}.attn.norm_q.weight"]
+        out[f"{s}.norm.key_norm.scale"] = st[f"{p}.attn.norm_k.weight"]
+    for leaf in ("weight", "bias"):
+        if f"norm_out.linear.{leaf}" in st:
+            scale, shift = torch.chunk(st[f"norm_out.linear.{leaf}"], 2, dim=0)
+            out[f"final_layer.adaLN_modulation.1.{leaf}"] = torch.cat([shift, scale], dim=0)
+    put("final_layer.linear", "proj_out")
+    return out
+
+
+def clip_vision_state(cfg: CLIPVisionConfig, seed: int = 6, device="cpu",
+                      dtype: torch.dtype = torch.float32) -> State:
+    """transformers CLIPVisionModelWithProjection state dict."""
+    d = _Draw(seed, device, dtype)
+    h, vm = cfg.hidden_size, "vision_model"
+    d.normal(f"{vm}.embeddings.class_embedding", (h,), 0.02)
+    d.normal(f"{vm}.embeddings.patch_embedding.weight", (h, 3, cfg.patch_size, cfg.patch_size),
+             (3 * cfg.patch_size ** 2) ** -0.5)
+    d.normal(f"{vm}.embeddings.position_embedding.weight", (1 + cfg.num_patches, h), 0.02)
+    d.norm(f"{vm}.pre_layrnorm", h)
+    for i in range(cfg.num_layers):
+        p = f"{vm}.encoder.layers.{i}"
+        d.norm(f"{p}.layer_norm1", h)
+        d.norm(f"{p}.layer_norm2", h)
+        for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            d.lin(f"{p}.self_attn.{nm}", h, h)
+        d.lin(f"{p}.mlp.fc1", h, cfg.intermediate_size)
+        d.lin(f"{p}.mlp.fc2", cfg.intermediate_size, h)
+    d.norm(f"{vm}.post_layernorm", h)
+    d.lin("visual_projection", h, cfg.projection_dim, bias=False)
+    return d.state
+
+
+def ip_adapter_state(ip_cfg: IPAdapterConfig, num_layers: int, inner_dim: int, seed: int = 7,
+                     device="cpu", dtype: torch.dtype = torch.float32) -> State:
+    """A diffusers FLUX IP-Adapter file (``image_proj.*``, ``ip_adapter.{i}.
+    to_k_ip``/``to_v_ip``); ``to_v_ip`` is drawn, not zero, so the adapter
+    acts."""
+    d = _Draw(seed, device, dtype)
+    d.lin("image_proj.proj", ip_cfg.image_embed_dim,
+          ip_cfg.num_tokens * ip_cfg.cross_attention_dim)
+    d.norm("image_proj.norm", ip_cfg.cross_attention_dim)
+    for i in range(num_layers):
+        d.lin(f"ip_adapter.{i}.to_k_ip", ip_cfg.cross_attention_dim, inner_dim)
+        d.lin(f"ip_adapter.{i}.to_v_ip", ip_cfg.cross_attention_dim, inner_dim)
+    return d.state
+
+
+def clip_vision_hf_config(cfg: CLIPVisionConfig) -> Dict[str, object]:
+    """The config.json of a CLIP vision snapshot: the inverse of
+    ``io/convert_cli.py::clip_vision_config_from_hf``."""
+    from reptext_tpu_torch.io.convert_cli import CLIP_VISION_MAP
+
+    return {theirs: getattr(cfg, ours) for ours, theirs in CLIP_VISION_MAP.items()}
 
 
 # ------------------------------------------------------ HF snapshot layout

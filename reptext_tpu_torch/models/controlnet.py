@@ -7,8 +7,10 @@ and one zero-initialised ``proj`` head per block whose output is the
 residual for the base model, multiplied by ``conditioning_scale``.
 ``remat`` checkpoints each block and the thread's SP context switches the
 blocks to sequence parallelism, as in ``models/flux.py``;
-:func:`params_from_transformer` is the warm-start weight surgery. Union mode
-is not ported yet.
+:func:`params_from_transformer` is the warm-start weight surgery. A union
+ControlNet (``config.num_mode`` set) embeds its conditioning-type index with
+``controlnet_mode_embedder`` into one token in front of the context, with
+``txt_ids[:1]`` in front of the text ids, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -52,8 +54,6 @@ class RepTextControlNet(nn.Module):
 
     def __init__(self, config: ControlNetConfig, device=None, dtype=None, remat: bool = False):
         super().__init__()
-        if config.union:
-            raise NotImplementedError("union-mode ControlNet is not ported yet")
         cfg = config
         kw = dict(device=device, dtype=dtype)
         self.config = cfg
@@ -65,6 +65,8 @@ class RepTextControlNet(nn.Module):
             cfg.inner_dim, cfg.pooled_projection_dim, cfg.time_embed_dim,
             cfg.guidance_embeds, **kw)
         self.context_embedder = nn.Linear(cfg.joint_attention_dim, cfg.inner_dim, **kw)
+        if cfg.union:
+            self.controlnet_mode_embedder = nn.Embedding(cfg.num_mode, cfg.inner_dim, **kw)
         self.double_blocks = nn.ModuleList(
             _ControlDoubleLayer(cfg, **kw) for _ in range(cfg.num_layers))
         self.single_blocks = nn.ModuleList(
@@ -74,14 +76,23 @@ class RepTextControlNet(nn.Module):
                 encoder_hidden_states: torch.Tensor, pooled_projections: torch.Tensor,
                 timestep: torch.Tensor, img_ids: torch.Tensor, txt_ids: torch.Tensor,
                 guidance: Optional[torch.Tensor] = None,
-                conditioning_scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (block_samples [L, B, S_img, D], single_block_samples [L1, B, S_img, D])."""
+                conditioning_scale: float = 1.0,
+                mode: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Returns (block_samples [L, B, S_img, D], single_block_samples [L1, B, S_img, D]).
+
+        ``mode``: [B] int conditioning-type indices, required by a union net."""
         cfg = self.config
         dtype = self.x_embedder.weight.dtype
         x = self.x_embedder(hidden_states.to(dtype))
         x = x + self.controlnet_x_embedder(controlnet_cond.to(dtype))
         temb = self.time_text_embed(timestep, pooled_projections, guidance)
         ctx = self.context_embedder(encoder_hidden_states.to(dtype))
+        if cfg.union:
+            if mode is None:
+                raise ValueError("union-mode ControlNet requires a `mode` index array")
+            mode_tok = self.controlnet_mode_embedder(mode.reshape(-1, 1).to(ctx.device))
+            ctx = torch.cat([mode_tok.expand(ctx.shape[0], -1, -1).to(ctx.dtype), ctx], dim=1)
+            txt_ids = torch.cat([txt_ids[:1], txt_ids], dim=0)
         cos, sin = rope_cos_sin_half(torch.cat([txt_ids, img_ids], dim=0),
                                      cfg.axes_dims_rope, cfg.rope_theta)
         backend = active_backend()

@@ -21,8 +21,11 @@ pipelines share one set of module instances.
 ``remat=True`` runs each block under ``torch.utils.checkpoint`` (non-reentrant)
 when autograd records, the counterpart of ``nn.remat`` on the JAX layer
 stacks: a block keeps only its inputs, and its activations are recomputed
-(attention forward included) when the backward reaches it. ``weight_quant``
-and the IP-Adapter are not ported yet.
+(attention forward included) when the backward reaches it.
+:meth:`FluxTransformer2D.add_ip_adapter` gives every double block the
+IP-Adapter's ``to_k_ip``/``to_v_ip``; ``ip_tokens`` and ``ip_scale`` then
+reach them (JAX ``ip_adapter=True``, :200-248).
+``weight_quant`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -111,13 +114,31 @@ class FluxTransformer2D(nn.Module):
         self.norm_out = AdaLayerNormContinuous(cfg.inner_dim, **kw)
         self.proj_out = nn.Linear(cfg.inner_dim, cfg.out_channels, **kw)
 
+    @property
+    def ip_adapter(self) -> bool:
+        """Whether the double blocks carry the IP-Adapter's projections."""
+        return hasattr(self.double_blocks[0].block, "to_k_ip")
+
+    def add_ip_adapter(self, ip_dim: int) -> "FluxTransformer2D":
+        """Graft uninitialised ``to_k_ip``/``to_v_ip`` onto every double
+        block; returns self."""
+        for layer in self.double_blocks:
+            layer.block.add_ip_adapter(ip_dim)
+        return self
+
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 pooled_projections: torch.Tensor, timestep: torch.Tensor,
                 img_ids: torch.Tensor, txt_ids: torch.Tensor,
                 guidance: Optional[torch.Tensor] = None,
                 controlnet_block_samples: Stacks = None,
-                controlnet_single_block_samples: Stacks = None) -> torch.Tensor:
+                controlnet_single_block_samples: Stacks = None,
+                ip_tokens: Optional[torch.Tensor] = None,
+                ip_scale=None) -> torch.Tensor:
+        """``ip_tokens`` [B or 1, N_ip, ip_dim] and ``ip_scale`` (a scalar or
+        [B]): the IP-Adapter's image prompt, for a model that has one."""
         cfg = self.config
+        if ip_tokens is not None and not self.ip_adapter:
+            raise ValueError("ip_tokens given to a FLUX transformer without the IP-Adapter")
         dtype = self.x_embedder.weight.dtype
         x = self.x_embedder(hidden_states.to(dtype))
         temb = self.time_text_embed(timestep, pooled_projections, guidance)
@@ -131,7 +152,7 @@ class FluxTransformer2D(nn.Module):
             inject_index(s.shape[0], cfg.num_layers) for s in double_stacks]
         for i, layer in enumerate(self.double_blocks):
             ctx, x = run_block(layer.block, self.remat, x, ctx, temb, cos, sin,
-                               backend)
+                               backend, ip_tokens, ip_scale)
             if double_stacks is not None:
                 x = x + read_inject(double_stacks, [ix[i] for ix in double_idx]).to(x.dtype)
 

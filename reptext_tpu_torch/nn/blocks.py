@@ -8,7 +8,18 @@ together). Per-head RMS q/k norm in both. With ``attention_backend`` 'ring'
 or 'ulysses' (JAX :131-151, :225-245) a block runs sequence-parallel: text
 tokens on every rank, image tokens sharded, q and k rotated with the rank's
 tables before the joint ring or Ulysses attention of ``parallel/sequence.py``
-over the group of the thread's SP context. The IP-Adapter is not ported yet.
+over the group of the thread's SP context.
+
+A double block given the IP-Adapter
+(:meth:`JointTransformerBlock.add_ip_adapter`) carries its ``to_k_ip`` /
+``to_v_ip`` (JAX ``ip_adapter=True``, :61-67, :106-123, :165-166): the image
+stream's post-q-norm, RoPE-free queries attend over the projected
+image-prompt tokens (no k-norm on those keys) in plain PyTorch, XLA's
+``xla_attention`` in the JAX package (no Pallas kernel's counterpart: 4
+keys), and the result, times ``ip_scale``, is added after the FF residual.
+Under SP the queries are the rank's own image tokens and the ip tokens are
+whole on every rank. Given no ``ip_tokens`` such a block skips the path, so
+pipelines that share the module and pass none run as before.
 """
 
 from __future__ import annotations
@@ -59,6 +70,13 @@ def sp_joint_attention(backend: str, q: torch.Tensor, k: torch.Tensor, v: torch.
     return merge_heads(attn_t), merge_heads(attn_i)
 
 
+def ip_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``xla_attention``: [B, H, S, D] q over a few keys, fp32 logits and
+    softmax, probabilities in v's dtype."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+
+
 class JointTransformerBlock(nn.Module):
     """Double-stream MMDiT block over (image tokens, text tokens)."""
 
@@ -85,9 +103,22 @@ class JointTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, mlp_ratio, **kw)
         self.ff_context = FeedForward(dim, mlp_ratio, **kw)
 
+    def add_ip_adapter(self, ip_dim: int) -> None:
+        """Graft ``to_k_ip``/``to_v_ip`` ([ip_dim] -> heads x head dim),
+        uninitialised, on the block's device and dtype."""
+        w = self.to_q.weight
+        for name in ("to_k_ip", "to_v_ip"):
+            setattr(self, name, nn.Linear(ip_dim, w.shape[0], device="meta", dtype=w.dtype)
+                    .to_empty(device=w.device))
+
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 temb: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                attention_backend: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                attention_backend: Optional[str] = None,
+                ip_tokens: Optional[torch.Tensor] = None,
+                ip_scale: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``ip_tokens`` [B or 1, N_ip, ip_dim] and ``ip_scale`` (a scalar or
+        [B] per request): the IP-Adapter's image prompt, on a block that has
+        one."""
         h = self.num_heads
         s_txt = encoder_hidden_states.shape[1]
         norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(hidden_states, temb)
@@ -100,6 +131,19 @@ class JointTransformerBlock(nn.Module):
         q_t = self.norm_added_q(split_heads(self.add_q_proj(norm_txt), h))
         k_t = self.norm_added_k(split_heads(self.add_k_proj(norm_txt), h))
         v_t = split_heads(self.add_v_proj(norm_txt), h)
+
+        ip_attn = None
+        if ip_tokens is not None and hasattr(self, "to_k_ip"):
+            ip_tokens = ip_tokens.to(q_i.dtype)
+            k_ip = split_heads(self.to_k_ip(ip_tokens), h)
+            v_ip = split_heads(self.to_v_ip(ip_tokens), h)
+            if k_ip.shape[0] != q_i.shape[0]:
+                k_ip, v_ip = (x.expand(q_i.shape[0], -1, -1, -1) for x in (k_ip, v_ip))
+            ip_attn = merge_heads(ip_attention(q_i, k_ip, v_ip))
+            scale = torch.as_tensor(1.0 if ip_scale is None else ip_scale, device=ip_attn.device)
+            if scale.ndim == 1:        # per-request scale in a served batch
+                scale = scale[:, None, None]
+            ip_attn = scale.to(ip_attn.dtype) * ip_attn
 
         # joint sequence [text; image]; RoPE is applied inside attention
         q = torch.cat([q_t, q_i], dim=2)
@@ -115,6 +159,8 @@ class JointTransformerBlock(nn.Module):
         hidden_states = hidden_states + gate_msa[:, None, :] * self.to_out(img_attn)
         ff_out = self.ff(modulate(hidden_states, shift_mlp, scale_mlp))
         hidden_states = hidden_states + gate_mlp[:, None, :] * ff_out
+        if ip_attn is not None:
+            hidden_states = hidden_states + ip_attn
 
         encoder_hidden_states = (encoder_hidden_states
                                  + c_gate_msa[:, None, :] * self.to_add_out(txt_attn))

@@ -140,7 +140,7 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [c_p] * 5 + [c_i] * 5 + [c_ll] * 6 + [c_p]
             fn.restype = c_i
             fn = lib.reptext_flash_attention_bwd
-            fn.argtypes = ([c_p] * 10 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
+            fn.argtypes = ([c_p] * 11 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_p])
             fn.restype = c_i
             fn = lib.reptext_ring_attention_step
             fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p]

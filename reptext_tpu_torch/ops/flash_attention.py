@@ -30,9 +30,9 @@ sum(dO * O) and lse * log2(e), :func:`backward_preprocess`), one TMA +
 ``wgmma`` kernel in which a CTA owns 128 keys, streams the queries and makes
 all five products from one set of logits (exp2 on log2 units, as the
 forward), adding its partial dq into an fp32 buffer, and an epilogue that
-scales and rounds dq. The adds land in an order that changes from run to run,
-so dq's last bits do; dk and dv are bit-equal across runs (the JAX package's
-backward is fixed throughout).
+scales and rounds dq. The adds of one query tile land in key order behind a
+counter per tile, so dq, like dk and dv, repeats bit for bit from run to run,
+as the JAX package's backward does.
 
 A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
@@ -332,14 +332,20 @@ def _launch_backward(q, k, v, out, lse, do, online: bool
                          f"{tuple(q.shape)} on {q.device}")
     delta, lse2 = backward_preprocess(out, lse, do)
     lib = _build.load()
-    # the key-tile CTAs add their partial dq into this fp32 buffer (see the source note)
-    dq_acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    # the key-tile CTAs add their partial dq into an fp32 buffer, in key order
+    # behind one int32 counter per (b, h, 64-query tile, channel half); both
+    # zeroed by one fill (see the source note)
+    n_acc, n_flags = b * h * s * d, b * h * (_round_up(s, _STAT_PAD) // _STAT_PAD) * 2
+    scratch = torch.zeros(n_acc + n_flags, dtype=torch.int32, device=q.device)
+    dq_acc = scratch[:n_acc].view(torch.float32).view(b, h, s, d)
+    dq_flags = scratch[n_acc:]
     dq, dk, dv = (torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.reptext_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
-        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dq_flags.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
         b, h, s, lse2.shape[-1], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         1.0 / math.sqrt(d), int(online), stream)

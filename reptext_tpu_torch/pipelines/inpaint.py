@@ -60,8 +60,12 @@ DEFAULT_NEGATIVE_PROMPT = (
 def default_inpaint_controlnet_config(base: Optional[ControlNetConfig] = None) -> ControlNetConfig:
     """The FLUX inpainting ControlNet's geometry: ``base`` (default the
     RepText ControlNet's) with 17-channel conditioning, 68 packed features =
-    in_channels + 4 extra."""
-    return dataclasses.replace(base or ControlNetConfig(), extra_condition_channels=4)
+    in_channels + 4 extra, and no mode embedding: the inpainting net is never
+    a union net, and the samplers give it no mode (the JAX CLI's
+    ``replace(cn_cfg, extra_condition_channels=4)`` keeps a union base's
+    ``num_mode``, and that net then refuses its mode-less call)."""
+    return dataclasses.replace(base or ControlNetConfig(), extra_condition_channels=4,
+                               num_mode=None)
 
 
 class FluxRepTextInpaintPipeline(FluxRepTextPipeline):

@@ -19,12 +19,14 @@ view at another size over the same modules (serving's resolution buckets).
 Weights come from seeded random draws, from Flax-named trees
 (``io/convert.py``, the JAX package's trees) or from the port's converted
 checkpoint files (``io/checkpoint.py``). ``__call__`` takes the JAX
-package's whole call surface but the IP-Adapter: img2img (``init_image``,
+package's whole call surface: img2img (``init_image``,
 ``strength``), ``callback``/``callback_steps`` (sampling in chunks, stopped
-when the callback returns False), custom ``timesteps``/``sigmas`` and
-``return_dict`` (:class:`~reptext_tpu_torch.pipelines.outputs.FluxPipelineOutput`).
-The IP-Adapter and tensor parallelism (``shard_for_inference``) are not
-ported yet.
+when the callback returns False), custom ``timesteps``/``sigmas``,
+``return_dict`` (:class:`~reptext_tpu_torch.pipelines.outputs.FluxPipelineOutput`)
+and, after :meth:`FluxRepTextPipeline.attach_ip_adapter`, an image prompt
+(``ip_adapter_image``, ``ip_adapter_scale``). A union ControlNet takes
+``PipelineConfig.control_mode`` (the samplers pass it). Tensor parallelism
+(``shard_for_inference``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,16 +41,20 @@ import torch
 
 from reptext_tpu_torch.configs import (
     CLIPConfig,
+    CLIPVisionConfig,
     ControlNetConfig,
     FluxConfig,
+    IPAdapterConfig,
     PipelineConfig,
     T5Config,
     VAEConfig,
 )
 from reptext_tpu_torch.utils.image import postprocess_images, preprocess_images
-from reptext_tpu_torch.io.from_jax import load_jax_params
+from reptext_tpu_torch.io.from_jax import flatten_jax_params, load_jax_params
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
 from reptext_tpu_torch.models.flux import FluxTransformer2D
+from reptext_tpu_torch.models.ip_adapter import ImageProjection, IPAdapterEncoder
+from reptext_tpu_torch.nn.clip_vision import CLIPVisionEncoder
 from reptext_tpu_torch.nn.clip import CLIPTextEncoder
 from reptext_tpu_torch.nn.init import random_init_
 from reptext_tpu_torch.nn.t5 import T5Encoder
@@ -129,6 +135,7 @@ class FluxRepTextPipeline:
         self.compute_dtype = compute_dtype
         self.device = next(flux.parameters()).device
         self.sp_group = self.sp_backend = None
+        self.ip_encoder: Optional[IPAdapterEncoder] = None
 
     # ---------------------------------------------------------------- build
 
@@ -215,6 +222,104 @@ class FluxRepTextPipeline:
                              f"({self.flux.config.num_attention_heads} % {n})")
         self.sp_group, self.sp_backend = group, backend
         return self
+
+    # ----------------------------------------------------------- ip-adapter
+
+    @torch.no_grad()
+    def attach_ip_adapter(self, vision_cfg: Optional[CLIPVisionConfig] = None,
+                          ip_cfg: Optional[IPAdapterConfig] = None,
+                          params: Optional[Dict[str, Any]] = None,
+                          seed: int = 0) -> "FluxRepTextPipeline":
+        """Image prompts (the FLUX IP-Adapter) on this pipeline.
+
+        Installs the CLIP vision encoder and the ``ImageProjection`` and gives
+        every double block of ``self.flux`` its ``to_k_ip``/``to_v_ip``
+        (``nn/blocks.py``), as the JAX method does. ``params`` may carry
+        "vision" and "proj" (Flax trees from ``io/convert.py`` or module state
+        dicts), and "blocks" (the converter's stacked ``to_k_ip``/``to_v_ip``
+        tree, or the ``blocks.safetensors`` state that ``convert_cli`` writes)
+        or "flux" (the whole transformer with them). What is missing is
+        drawn from ``seed``, with ``to_v_ip`` zero, so an adapter without
+        weights is an exact no-op. The FLUX module is shared with the
+        pipelines over it (``with_config`` views, an inpaint pipeline), which
+        run as before: a block given no ip tokens skips the path.
+        """
+        if vision_cfg is None:
+            vision_cfg = CLIPVisionConfig()
+        if ip_cfg is None:
+            ip_cfg = IPAdapterConfig(image_embed_dim=vision_cfg.projection_dim,
+                                     cross_attention_dim=self.flux.config.joint_attention_dim)
+        params = params or {}
+        dtype = self.flux.x_embedder.weight.dtype
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        encoder = IPAdapterEncoder(vision_cfg, ip_cfg, device="meta", dtype=dtype)
+        encoder.vision = build_module(CLIPVisionEncoder, vision_cfg, self.device, dtype,
+                                      params.get("vision"), gen)
+        encoder.proj = build_module(ImageProjection, ip_cfg, self.device, dtype,
+                                    params.get("proj"), gen)
+        if not self.flux.ip_adapter:
+            self.flux.add_ip_adapter(ip_cfg.cross_attention_dim)
+        weights = dict(self.flux.named_parameters())
+        if "flux" in params:
+            flux = params["flux"]
+            if is_state_dict(flux):
+                self.flux.load_state_dict(flux, strict=True)
+            else:
+                load_jax_params(self.flux, flux)
+        else:
+            blocks = params.get("blocks")
+            if blocks is None:
+                # random to_k_ip, zero to_v_ip: the untrained adapter adds 0
+                blocks = {}
+                for name, p in weights.items():
+                    if ".to_k_ip.weight" in name:
+                        blocks[name] = torch.randn(p.shape, generator=gen, device=self.device,
+                                                   dtype=torch.float32) * p.shape[1] ** -0.5
+                    elif "_ip." in name:
+                        blocks[name] = torch.zeros(p.shape, device=self.device)
+            elif not is_state_dict(blocks):
+                blocks = flatten_jax_params(
+                    {"double_blocks": {"block": blocks.get("params", blocks)}})
+            for name, value in blocks.items():
+                if name not in weights or "_ip." not in name:
+                    raise KeyError(f"{name} is no IP-Adapter parameter of the transformer")
+                if not isinstance(value, torch.Tensor):      # a numpy leaf
+                    value = torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+                weights[name].copy_(value)
+        self.flux.requires_grad_(False)
+        self.ip_encoder = encoder.eval().requires_grad_(False)
+        return self
+
+    @torch.inference_mode()
+    def encode_ip_image(self, image: np.ndarray) -> torch.Tensor:
+        """uint8 image [H, W, 3] (or a batch) -> ip tokens [B, N, cross_dim]
+        through the attached adapter, in the compute dtype."""
+        if self.ip_encoder is None:
+            raise ValueError("call attach_ip_adapter() first")
+        return self.ip_encoder(image).to(self.compute_dtype)
+
+    def _ip_extra(self, images: Optional[Sequence], scales: Sequence[float]
+                  ) -> Optional[Dict[str, torch.Tensor]]:
+        """The samplers' ``flux_extra`` for one image prompt per row (None
+        where a row has none: zero tokens at scale 0, as the JAX pipeline
+        passes with the adapter attached); None without an adapter, which
+        refuses a prompt."""
+        given = images is not None and any(im is not None for im in images)
+        if self.ip_encoder is None:
+            if given:
+                raise ValueError("ip_adapter_image given but no adapter attached "
+                                 "(call attach_ip_adapter() first)")
+            return None
+        ipc = self.ip_encoder.ip_cfg
+        zeros = torch.zeros((1, ipc.num_tokens, ipc.cross_attention_dim),
+                            dtype=self.compute_dtype, device=self.device)
+        images = images if images is not None else [None] * len(scales)
+        tokens = [zeros if im is None else self.encode_ip_image(im) for im in images]
+        scale = [0.0 if im is None else float(s) for im, s in zip(images, scales)]
+        # one row: a scalar scale, as ``__call__``'s; a batch: one scale per row
+        return {"ip_tokens": torch.cat(tokens, dim=0),
+                "ip_scale": torch.tensor(scale if len(scale) > 1 else scale[0],
+                                         dtype=torch.float32, device=self.device)}
 
     def generators(self, seed: int) -> Tuple[torch.Generator, ...]:
         """(latent noise, condition posterior, glyph posterior, inpaint
@@ -329,7 +434,9 @@ class FluxRepTextPipeline:
                  timings: Optional[Dict[str, float]] = None,
                  init_image: Optional[np.ndarray] = None, strength: float = 1.0,
                  callback: Optional[Callable] = None, callback_steps: int = 1,
-                 timesteps=None, sigmas=None, return_dict: bool = False):
+                 timesteps=None, sigmas=None, return_dict: bool = False,
+                 ip_adapter_image: Optional[np.ndarray] = None,
+                 ip_adapter_scale: float = 1.0):
         """Generate images; either embeddings or token ids must be given.
 
         ``output_type``: "np" (uint8 [B, H, W, 3]), "pil" (list of PIL
@@ -348,6 +455,9 @@ class FluxRepTextPipeline:
         there. ``callback(step, latents)`` runs after every ``callback_steps``
         steps with the packed latents (under ``shard_for_sp`` on rank 0 only,
         with the gathered latents); returning False stops sampling there.
+        ``ip_adapter_image`` (uint8 [H, W, 3]) is an image prompt at
+        ``ip_adapter_scale`` through the attached IP-Adapter; with the
+        adapter attached and no image, zero tokens at scale 0 go in.
         """
         cfg = self.pipe_cfg
         custom = _normalize_custom_schedule(timesteps, sigmas)
@@ -381,9 +491,10 @@ class FluxRepTextPipeline:
             latents = schedule.scale_noise(img_packed, noise, t_start)
         elif latents is None:
             latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
+        flux_extra = self._ip_extra([ip_adapter_image], [ip_adapter_scale])
         clock.mark("prepare")
         sample = self._sampler(schedule, cond_tokens, token_masks, prompt_embeds,
-                               pooled_embeds, gscale, latents.shape[0])
+                               pooled_embeds, gscale, latents.shape[0], flux_extra)
         if callback is None:
             latents = sample(latents, t_start)
         else:
@@ -408,10 +519,12 @@ class FluxRepTextPipeline:
 
     def _sampler(self, schedule: FlowMatchSchedule, cond_tokens: torch.Tensor,
                  token_masks: torch.Tensor, prompt_embeds: torch.Tensor,
-                 pooled_embeds: torch.Tensor, gscale: float, batch: int) -> Callable:
+                 pooled_embeds: torch.Tensor, gscale: float, batch: int,
+                 flux_extra: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
         """``sample(latents, start_step=0, num_steps=None)``: the denoise loop
-        over a chunk of ``schedule`` with these conditions and embeds
-        (sequence-parallel after ``shard_for_sp``)."""
+        over a chunk of ``schedule`` with these conditions and embeds, and
+        the IP-Adapter's ``flux_extra`` (sequence-parallel after
+        ``shard_for_sp``)."""
         cfg = self.pipe_cfg
         if self.sp_group is None:
             sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
@@ -428,7 +541,7 @@ class FluxRepTextPipeline:
         def sample(latents: torch.Tensor, start_step: int = 0,
                    num_steps: Optional[int] = None) -> torch.Tensor:
             return sampler(latents, cond_tokens, token_masks, prompt_embeds, pooled_embeds,
-                           txt_ids, img_ids, guidance, start_step, num_steps)
+                           txt_ids, img_ids, guidance, start_step, num_steps, flux_extra)
 
         return sample
 
@@ -460,12 +573,13 @@ class FluxRepTextPipeline:
         image alone and in a batch (up to the rounding of the batched
         products). The conditions ride the sampler as [N, B, S, F]; all
         requests must share the number of text lines. ``ip_adapter_images``
-        with any image fails: no IP-Adapter is ported. Under ``shard_for_sp``
-        the batch's tokens are sharded as ``__call__``'s are.
+        (one per row, None for none) with ``ip_adapter_scales`` (default 1.0
+        each) are the rows' image prompts through the attached IP-Adapter
+        ([B, N, D] tokens and [B] scales; a row without one gets zero tokens
+        at scale 0); an image without an adapter raises. Under
+        ``shard_for_sp`` the batch's tokens are sharded as ``__call__``'s are.
         """
         cfg = self.pipe_cfg
-        if ip_adapter_images is not None and any(im is not None for im in ip_adapter_images):
-            raise ValueError("ip_adapter_images given but no adapter attached")
         n_lines = {c.num_lines for c in conditions_list}
         if len(n_lines) != 1:
             raise ValueError(f"batch requests must share num_lines, got {n_lines}")
@@ -496,9 +610,12 @@ class FluxRepTextPipeline:
         cond_tokens = torch.stack(cond_l, dim=1)      # [N, B, S, F] per-image conditions
         token_masks = torch.stack(mask_l, dim=1)      # [N, B, S, 1]
         latents = torch.cat(lat_l, dim=0)             # [B, S, C]
+        b = latents.shape[0]
+        scales = [1.0] * b if ip_adapter_scales is None else list(ip_adapter_scales)
+        flux_extra = self._ip_extra(ip_adapter_images, scales)
         clock.mark("prepare")
         latents = self._sampler(self.schedule(steps), cond_tokens, token_masks, prompt_embeds,
-                                pooled_embeds, gscale, latents.shape[0])(latents)
+                                pooled_embeds, gscale, b, flux_extra)(latents)
         clock.mark("sample")
         return self.finish(latents, output_type, clock)
 

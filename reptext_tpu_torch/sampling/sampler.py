@@ -10,7 +10,8 @@ step:
   ``control_guidance_start/end`` window); gated-off steps skip it entirely;
 - multiplies each line's residuals by its regional token mask and sums over
   lines;
-- runs the FLUX base with the residuals injected index-on-read;
+- runs the FLUX base with the residuals injected index-on-read (and the
+  IP-Adapter's image-prompt tokens, ``flux_extra``, when given);
 - advances the float32 latents by one Euler update.
 
 ``sample(..., start_step, num_steps)`` runs a chunk of the schedule, the JAX
@@ -18,6 +19,10 @@ step:
 chunks. The ControlNet gate reads the absolute step; the velocity cache's
 registers start empty in every chunk and its first step always runs, as the
 JAX scan's ``local == 0`` forces it.
+
+A union ControlNet (``config.num_mode`` set) gets ``PipelineConfig.control_mode``
+as its mode on every row (the JAX pipelines' ``cn_apply``); without one the
+sampler raises, as they do.
 
 The timestep is built in the compute dtype, so it is rounded to bf16 before
 the embedding, as in the JAX sampler. The velocity cache
@@ -44,6 +49,19 @@ from reptext_tpu_torch.configs import PipelineConfig
 from reptext_tpu_torch.parallel.group import SPGroup
 from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION, sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
+
+
+def controlnet_mode(controlnet: torch.nn.Module, pipe_cfg: PipelineConfig, batch: int,
+                    device) -> dict:
+    """The ControlNet's ``mode`` keyword for a batch of ``batch`` rows: empty
+    for a net that is not union; for a union net ``control_mode`` on every
+    row, which must be set."""
+    if not getattr(getattr(controlnet, "config", None), "union", False):
+        return {}
+    if pipe_cfg.control_mode is None:
+        raise ValueError("union-mode ControlNet loaded; set PipelineConfig.control_mode "
+                         "(CLI: --controlnet-mode)")
+    return {"mode": torch.full((batch,), pipe_cfg.control_mode, dtype=torch.long, device=device)}
 
 
 def cn_active_mask(pipe_cfg: PipelineConfig, num_steps: int, gate_step: int) -> List[bool]:
@@ -141,8 +159,8 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                          signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                          ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, prompt_embeds,
-    pooled_embeds, txt_ids, img_ids, guidance, start_step=0, num_steps=None)
-    -> latents``.
+    pooled_embeds, txt_ids, img_ids, guidance, start_step=0, num_steps=None,
+    flux_extra=None) -> latents``.
 
     latents: [B, S, C] packed (float32 out); cond_tokens [N, S, F] and
     token_masks [N, S, 1] are shared by the B images, or [N, B, S, F] and
@@ -150,6 +168,8 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     batch of requests), tiled line-major as the ControlNet's batch is.
     ``start_step``/``num_steps``: the chunk of the schedule to run (None: to
     its end). ``signal_mean``: see :func:`velocity_cache_select`.
+    ``flux_extra``: keywords for every FLUX call (the IP-Adapter's
+    ``ip_tokens`` and ``ip_scale``).
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
@@ -163,10 +183,13 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
                guidance: Optional[torch.Tensor], start_step: int = 0,
-               num_steps: Optional[int] = None) -> torch.Tensor:
+               num_steps: Optional[int] = None,
+               flux_extra: Optional[dict] = None) -> torch.Tensor:
         steps = chunk_steps(schedule.num_steps, start_step, num_steps)
         b = latents.shape[0]
         n_lines = cond_tokens.shape[0]
+        mode_kw = controlnet_mode(controlnet, pipe_cfg, n_lines * b, latents.device)
+        extra = flux_extra or {}
         ctx = prompt_embeds.to(compute_dtype)
         pooled = pooled_embeds.to(compute_dtype)
         if cond_tokens.ndim == 4:
@@ -197,11 +220,11 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                 if cn_active[i]:
                     block, single = controlnet(
                         x_model.repeat(n_lines, 1, 1), cond, ctx_nb, pooled_nb,
-                        t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale)
+                        t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale, **mode_kw)
                     block_res, single_res = mask_and_sum(block), mask_and_sum(single)
                 return flux(x_model, ctx, pooled, t_b, img_ids, txt_ids, guidance,
                             controlnet_block_samples=block_res,
-                            controlnet_single_block_samples=single_res).float()
+                            controlnet_single_block_samples=single_res, **extra).float()
 
             if vc_enabled:
                 always = i < vc["vc_warmup"] or i >= total - 1 or i == steps.start
@@ -229,7 +252,9 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     runs the loop on the rank's shard of the latents, conditions, token
     masks and ``img_ids`` under the group's SP context (every other op is per
     token), and returns the gathered latents on every rank. Rank-4 [N, B, S,
-    F] conditions and masks shard on dim 2, as the JAX ``_specs`` do.
+    F] conditions and masks shard on dim 2, as the JAX ``_specs`` do. The
+    IP-Adapter's tokens (``flux_extra``) are whole on every rank: the ip
+    attention of a rank's image queries needs no exchange.
     """
     if backend not in JOINT_SP_ATTENTION:
         raise ValueError(f"the SP sampler needs the backend ring|ulysses, got {backend!r}")
@@ -240,11 +265,12 @@ def make_sp_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                prompt_embeds: torch.Tensor, pooled_embeds: torch.Tensor,
                txt_ids: torch.Tensor, img_ids: torch.Tensor,
                guidance: Optional[torch.Tensor], start_step: int = 0,
-               num_steps: Optional[int] = None) -> torch.Tensor:
+               num_steps: Optional[int] = None,
+               flux_extra: Optional[dict] = None) -> torch.Tensor:
         with sp_context(group, backend):
             lat = base(group.shard(latents, 1), shard_tokens(group, cond_tokens),
                        shard_tokens(group, token_masks), prompt_embeds, pooled_embeds, txt_ids,
-                       group.shard(img_ids, 0), guidance, start_step, num_steps)
+                       group.shard(img_ids, 0), guidance, start_step, num_steps, flux_extra)
         return group.all_gather(lat, 1)
 
     return sample

@@ -5,7 +5,8 @@ The JAX ``lax.scan`` becomes a Python loop; each step:
 
 - duplicates the latents for true classifier-free guidance, with embeds
   ``[negative; positive]`` (batch 2B);
-- runs the RepText ControlNet on the text lines stacked line-major on the
+- runs the RepText ControlNet (with ``PipelineConfig.control_mode`` when it
+  is a union net) on the text lines stacked line-major on the
   batch axis, only where :func:`cn_active_mask` allows, multiplies its
   residuals by each line's region mask and sums over lines;
 - runs the inpaint ControlNet on every step, unmasked, at its own scale;
@@ -34,7 +35,7 @@ from reptext_tpu_torch.parallel.group import SPGroup
 from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION, sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
 from reptext_tpu_torch.sampling.sampler import (
-    cn_active_mask, empty_cache_regs, shard_tokens, velocity_cache_select,
+    cn_active_mask, controlnet_mode, empty_cache_regs, shard_tokens, velocity_cache_select,
     velocity_cache_settings,
 )
 
@@ -73,6 +74,7 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
         ctx = prompt_embeds_cfg.to(compute_dtype)
         pooled = pooled_embeds_cfg.to(compute_dtype)
         guidance2 = None if guidance is None else guidance.repeat(2)
+        mode_kw = controlnet_mode(reptext_controlnet, pipe_cfg, n_lines * b2, latents.device)
         if cond_tokens.ndim == 4:
             # per-image conditions, repeated per CFG half in the [lat; lat] order
             cond_rt = cond_tokens.repeat(1, 2, 1, 1).reshape(
@@ -103,7 +105,7 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
                 if cn_active[i]:
                     block, single = reptext_controlnet(
                         x2.repeat(n_lines, 1, 1), cond_rt, ctx_n, pooled_n, t2.repeat(n_lines),
-                        img_ids, txt_ids, guidance_n, cond_scale)
+                        img_ids, txt_ids, guidance_n, cond_scale, **mode_kw)
                     blocks, singles = (mask_and_sum(block),), (mask_and_sum(single),)
                 blk_i, sgl_i = inpaint_controlnet(x2, cond_inp, ctx, pooled, t2, img_ids, txt_ids,
                                                   guidance2, inpaint_conditioning_scale)

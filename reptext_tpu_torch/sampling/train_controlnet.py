@@ -47,7 +47,8 @@ def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextContr
                                noise: Optional[torch.Tensor] = None,
                                text_loss_weight: float = 2.0,
                                conditioning_scale: float = 1.0,
-                               perceptual: Optional[dict] = None) -> torch.Tensor:
+                               perceptual: Optional[dict] = None,
+                               control_mode: Optional[int] = None) -> torch.Tensor:
     """Region-weighted conditional flow-matching MSE with ControlNet injection.
 
     batch: ``x0`` [B, S, C] packed clean latents, ``cond_tokens`` [B, S, F],
@@ -75,9 +76,18 @@ def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextContr
     target = noise - x0
     mask = batch["token_mask"].float()
 
+    mode_kw = {}
+    if controlnet.config.union:
+        # a union net trains on one conditioning type, as it samples (the JAX
+        # CLI's cn_apply)
+        if control_mode is None:
+            raise ValueError("training a union-mode ControlNet requires a control mode")
+        mode_kw["mode"] = torch.full((x0.shape[0],), control_mode, dtype=torch.long,
+                                     device=x0.device)
     block_res, single_res = controlnet(
         x_t, batch["cond_tokens"], batch["prompt_embeds"], batch["pooled"], t,
-        batch["img_ids"], batch["txt_ids"], batch.get("guidance"), conditioning_scale)
+        batch["img_ids"], batch["txt_ids"], batch.get("guidance"), conditioning_scale,
+        **mode_kw)
     # regional masking exactly as the sampler applies it ([L, B, S, D] stacks)
     block_res = block_res * mask[None].to(block_res.dtype)
     single_res = single_res * mask[None].to(single_res.dtype)
@@ -116,7 +126,8 @@ def check_frozen(modules: Iterable[Optional[torch.nn.Module]], what: str = "modu
 
 def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.optim.Optimizer,
                                text_loss_weight: float = 2.0, conditioning_scale: float = 1.0,
-                               perceptual: Optional[dict] = None) -> Callable:
+                               perceptual: Optional[dict] = None,
+                               control_mode: Optional[int] = None) -> Callable:
     """Returns ``step(flux, batch, generator, *frozen) -> loss``: one optimizer
     update of the ControlNet, in place; ``loss`` is the detached scalar.
 
@@ -125,7 +136,8 @@ def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.o
     perceptual term's VAE and judge, as the JAX step's trailing trees). None
     of them, nor ``perceptual["judge"]``, may hold a parameter that requires
     a gradient: the step raises otherwise, so they can never receive
-    gradients or enter the optimizer.
+    gradients or enter the optimizer. ``control_mode``: the mode of a union
+    ControlNet (required by one).
     """
 
     def step(flux: FluxTransformer2D, batch: Batch, generator: Optional[torch.Generator],
@@ -133,7 +145,7 @@ def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.o
         check_frozen([flux], "base transformer")
         check_frozen([*frozen, (perceptual or {}).get("judge")])
         return _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-                       conditioning_scale, perceptual)
+                       conditioning_scale, perceptual, control_mode)
 
     return step
 
@@ -141,7 +153,8 @@ def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.o
 def make_joint_train_step(flux: FluxTransformer2D, controlnet: RepTextControlNet,
                           optimizer: torch.optim.Optimizer, text_loss_weight: float = 2.0,
                           conditioning_scale: float = 1.0,
-                          perceptual: Optional[dict] = None) -> Callable:
+                          perceptual: Optional[dict] = None,
+                          control_mode: Optional[int] = None) -> Callable:
     """Full-model training: the same region-weighted loss with gradients
     through both the base and the ControlNet, one ``optimizer`` over both.
     Returns ``step(batch, generator, *frozen) -> loss`` (the ElasticTrainer
@@ -152,19 +165,19 @@ def make_joint_train_step(flux: FluxTransformer2D, controlnet: RepTextControlNet
              *frozen: torch.nn.Module) -> torch.Tensor:
         check_frozen([*frozen, (perceptual or {}).get("judge")])
         return _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-                       conditioning_scale, perceptual)
+                       conditioning_scale, perceptual, control_mode)
 
     return step
 
 
 def _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-            conditioning_scale, perceptual) -> torch.Tensor:
+            conditioning_scale, perceptual, control_mode) -> torch.Tensor:
     """One optimizer update on the loss of ``batch``; returns the detached loss."""
     optimizer.zero_grad(set_to_none=True)
     loss = controlnet_flow_match_loss(flux, controlnet, batch, generator,
                                       text_loss_weight=text_loss_weight,
                                       conditioning_scale=conditioning_scale,
-                                      perceptual=perceptual)
+                                      perceptual=perceptual, control_mode=control_mode)
     loss.backward()
     optimizer.step()
     return loss.detach()

@@ -21,9 +21,11 @@ Counterpart of ``reptext_tpu/serving.py``:
 
 Unlike the JAX worker, a batch is not padded to a power of two: XLA pads so
 that it compiles one graph per bucket, while an eager sampler compiles
-nothing and would pay for every padded row in full. There is no IP-Adapter
-in the port, so a request that carries an image prompt fails as the JAX
-worker's does without an attached adapter. A request must carry
+nothing and would pay for every padded row in full. A request may carry an
+image prompt (``ip_image_png_base64`` and ``ip_scale``) for the pipeline's
+IP-Adapter (``cli --ip-adapter-dir``): image prompts do not split a batch,
+a row without one rides as zero tokens at scale 0, and without an attached
+adapter such a request fails as the JAX worker's does. A request must carry
 ``prompt_embeds`` and ``pooled_embeds`` both or neither.
 """
 
@@ -61,7 +63,7 @@ class GenerationRequest:
     image_b64: Optional[str] = None        # inpaint: base64 PNG input image
     mask_b64: Optional[str] = None         # inpaint: base64 PNG white-on-black mask
     negative_prompt: Optional[str] = None  # inpaint true-CFG negative
-    ip_image_b64: Optional[str] = None     # image prompt (IP-Adapter: not ported)
+    ip_image_b64: Optional[str] = None     # image-prompt (IP-Adapter) PNG
     ip_scale: float = 1.0
     # pre-encoded prompt ([S_txt, D] and [D] arrays), both or neither; a
     # batch coalesces only requests that carry them with each other
@@ -246,11 +248,21 @@ class GenerationWorker:
         self._pending = rest
         return batch
 
+    @staticmethod
+    def _decode_ip_image(req: GenerationRequest) -> Optional[np.ndarray]:
+        """base64 PNG -> uint8 RGB array (None if the request has none)."""
+        if not req.ip_image_b64:
+            return None
+        from PIL import Image
+
+        img = Image.open(io.BytesIO(base64.b64decode(req.ip_image_b64)))
+        return np.asarray(img.convert("RGB"), np.uint8)
+
     def _run_single(self, req: GenerationRequest) -> None:
         """A lone txt2img request through ``__call__``."""
-        if req.ip_image_b64:
-            raise ValueError(NO_ADAPTER)
         pipe = self._pipeline_for(req)
+        if req.ip_image_b64 and getattr(pipe, "ip_encoder", None) is None:
+            raise ValueError(NO_ADAPTER)
         cfg = pipe.pipe_cfg
         conds = self.conditions(req, cfg.width, cfg.height)
         if req.prompt_embeds is not None:
@@ -259,6 +271,9 @@ class GenerationWorker:
         else:
             clip_ids, t5_ids = self._tokenize(req.prompt)
             prompt_kwargs = {"clip_ids": clip_ids, "t5_ids": t5_ids}
+        if req.ip_image_b64:
+            prompt_kwargs.update(ip_adapter_image=self._decode_ip_image(req),
+                                 ip_adapter_scale=req.ip_scale)
         images = pipe(conds, seed=req.seed, num_inference_steps=req.num_steps,
                       guidance_scale=req.guidance_scale, **prompt_kwargs)
         req._result = np.asarray(images[0])
@@ -278,10 +293,16 @@ class GenerationWorker:
             kwargs = {"clip_ids": _pad_rows([np.asarray(c)[0] for c, _ in ids]),
                       "t5_ids": _pad_rows([np.asarray(t)[0] for _, t in ids])}
         lead = batch[0]
+        if any(r.ip_image_b64 for r in batch):
+            # per-request image prompts coalesce with plain requests: a row
+            # without one rides as zero tokens at scale 0
+            if getattr(pipe, "ip_encoder", None) is None:
+                raise ValueError(NO_ADAPTER)
+            kwargs.update(ip_adapter_images=[self._decode_ip_image(r) for r in batch],
+                          ip_adapter_scales=[r.ip_scale for r in batch])
         images = pipe.generate_batch(
             conds_list, seeds=[r.seed for r in batch], num_inference_steps=lead.num_steps,
-            guidance_scale=lead.guidance_scale,
-            ip_adapter_images=[r.ip_image_b64 for r in batch], **kwargs)
+            guidance_scale=lead.guidance_scale, **kwargs)
         for i, req in enumerate(batch):
             req._result = np.asarray(images[i])
 

@@ -211,8 +211,9 @@ def test_saved_configs_are_read_across_packages(tmp_path):
     meta["clip_vision"] = {"image_size": 224}
     (tmp_path / "configs.json").write_text(json.dumps(meta, indent=1, sort_keys=True))
     got, want = tck.load_saved_configs(str(tmp_path)), j_load_saved_configs(str(tmp_path))
-    assert sorted(got) == sorted(JCFGS)
-    for name in JCFGS:
+    # the IP-Adapter's vision tower is read by both packages since it is ported
+    assert sorted(got) == sorted(want) == sorted([*JCFGS, "clip_vision"])
+    for name in want:
         assert dataclasses.asdict(got[name]) == dataclasses.asdict(want[name])
     assert tck.load_saved_configs(str(tmp_path / "missing")) == {}
 
@@ -380,8 +381,7 @@ def test_converter_dtype_and_what_it_refuses(converted, tmp_path):
                      "bf16"]) == 0
     state = tst.load_file(tck.component_path(str(tmp_path / "b"), "controlnet"))
     assert all(v.dtype == torch.bfloat16 for v in state.values())
-    for bad in (["--lora", "x.safetensors"], ["--ip-adapter", "x"], ["--dtype", "fp8"],
-                ["--flux-single-file", "x"], []):
+    for bad in (["--dtype", "fp8"], []):
         with pytest.raises(SystemExit):
             tcc.main(([] if bad == [] else ["--controlnet-dir", cn]) + bad
                      + ["--out", str(tmp_path / "c")])

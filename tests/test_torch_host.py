@@ -29,7 +29,8 @@ from reptext_tpu_torch.utils import image as timage
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BIDI_CASES = json.load(open(os.path.join(ROOT, "tests", "fixtures", "bidi_cases.json"),
                             encoding="utf-8"))
-CONFIGS = ["FluxConfig", "ControlNetConfig", "VAEConfig", "CLIPConfig", "T5Config",
+CONFIGS = ["FluxConfig", "ControlNetConfig", "VAEConfig", "CLIPConfig", "CLIPVisionConfig",
+           "IPAdapterConfig", "T5Config",
            "PipelineConfig"]
 
 REQUESTS = {

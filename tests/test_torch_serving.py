@@ -310,7 +310,8 @@ def test_inpaint_without_pipeline_errors(server):
 def test_ip_adapter_request_fails_as_without_an_adapter(server):
     """An image-prompt request coalesces with a plain one as in the JAX
     worker, and the batch fails as the JAX worker's does when no adapter is
-    attached (the port has none); a lone one fails the same way."""
+    attached (this server's pipeline has none; tests/test_torch_ip_adapter.py
+    serves one that has); a lone one fails the same way."""
     from PIL import Image
 
     style = np.random.default_rng(0).integers(0, 256, (32, 32, 3)).astype(np.uint8)
