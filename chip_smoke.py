@@ -152,8 +152,10 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    against 0.3 x the term, the heads' gradients apart), then the CLI's train path
    with --ocr-loss-weight 0.3 for 3 steps at batch 2, 1024^2, remat (the decoder's
    blocks recomputed), after the OCR loss and backward twice on one batch and
-   draw (whether the step repeats bit for bit, reported with the ops that have
-   no deterministic implementation when it does not), the labels those of the fixture's texts: per step the loss,
+   draw through the step's own loss_and_backward (a gate: bit-equal losses and
+   all OCR_GRADS ControlNet gradients, the cuDNN flags restored after; the ops
+   that have no deterministic implementation are named when it fails), the
+   labels those of the fixture's texts: per step the loss,
    the term's share, seconds cold and warm, K1 = 141, K4 = 70, K2 = K3 = 0; the
    base, the VAE and the judge bit-identical; peak memory; with --profile, one more
    OCR step's device time by class;
@@ -182,7 +184,22 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    (K3 n x 2 x 85 = 340); and generate_batch of the two 1024^2 requests (seeds
    differ), 2 steps with the ControlNet on both: one device (K1 142) and ring
    over 2 thread ranks (K5 852); each against its one-device run within
-   SP_RTOL, ranks equal.
+   SP_RTOL, ranks equal;
+11. fp8, in a process of its own (``--fp8-worker``) once this one holds no
+   pipeline: a full-geometry bf16 pipeline, one 1024^2 request with latents=
+   given (cold, warm), quantize_weights() (the Linears quantized, the GiB
+   freed, quantized_bytes), the same request in fp8 (ms/step, peak, the
+   latents' max difference relative to bf16's); enable_vae_tiling() and the
+   same latents decoded tiled and untiled at 1024^2, seeded ones at 2048^2
+   (seconds, each decode's own peak, the pixels apart); the eager
+   dequantization of the largest Linears timed (GB/s); a 1280x960 inpaint
+   request through an inpaint pipeline made from the quantized one (K1 312);
+   a full-width, depth-cut snapshot converted with --dtype fp8, its FLUX and
+   ControlNet state bit-equal to quantize_weights() of the bf16 modules, one
+   1024^2 request through it; cli.build_pipeline(--random-weights
+   --weight-dtype fp8) at full geometry (seconds, peak, no bf16 Linear left in
+   the stacks) and one request through it. Every time and size with the
+   card's name and power limit.
 
 Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
@@ -278,6 +295,10 @@ TRAIN_K1 = FWD_CALLS + TRAIN_K4
 # The OCR term's weight in the OCR and corpus train phases (the RepText
 # recipe's 0.3; the CLI's default is 0, the term off).
 OCR_WEIGHT = 0.3
+# The RepText ControlNet's parameter tensors, every one with a gradient in an
+# OCR step: 4 double blocks of 34 (with their heads), 10 single of 16, and
+# 18 of the embedders.
+OCR_GRADS = 314
 # The OCR judge on the card against the CPU, float32 logits on the same crops:
 # cuDNN runs the card's float32 convolutions in TF32 (torch.backends.cudnn.
 # allow_tf32, on by default, and left on: the pipeline's numbers must not
@@ -317,6 +338,8 @@ IP_SCALE = 0.8
 # twice (forward, recompute) and its backward once.
 CUT_FLUX, CUT_CN = CKPT_FLUX, CKPT_CN
 SCRATCH = ".chip_smoke"
+# The fp8 child process's last line: this prefix, then its launches by path.
+FP8_RESULT = "FP8_LAUNCHES "
 # The serve phase: the worker lingers this long after a request arrives so
 # that a burst sent by 4 client threads at once lands in one batch.
 BATCH_WINDOW_S = 0.25
@@ -2019,31 +2042,37 @@ def train_ocr_phase(dev, pipe, seed, profile=False):
         if not effect_ok:
             raise SystemExit("the OCR term's effect on the loss failed its checks")
 
-        # the OCR step's loss and backward twice on one batch and draw: does it
-        # repeat? Reported, not required; the ops without a deterministic
-        # implementation are named by torch's deterministic-algorithms check
+        # the OCR step's loss and backward twice on one batch and draw, through
+        # the train step's own loss_and_backward: losses and every ControlNet
+        # gradient must be bit-equal (the CTC and the crop are fixed-order
+        # sums, the convolutions run deterministic cuDNN algorithms)
         def ocr_grads():
             pipe.controlnet.zero_grad(set_to_none=True)
-            loss = ttrain.controlnet_flow_match_loss(pipe.flux, pipe.controlnet, batch, t=t,
-                                                     noise=noise, perceptual=perceptual)
-            loss.backward()
-            return loss.detach(), [p.grad.clone() for p in pipe.controlnet.parameters()]
+            loss = ttrain.loss_and_backward(pipe.flux, pipe.controlnet, batch, t=t, noise=noise,
+                                            perceptual=perceptual)
+            return loss, [p.grad.clone() for p in pipe.controlnet.parameters()]
 
         batch = dataset.batch(0)
+        cudnn_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
         (l1, g1), (l2, g2) = ocr_grads(), ocr_grads()
         differ = sum(not torch.equal(a, b) for a, b in zip(g1, g2))
-        repeats = bool(torch.equal(l1, l2)) and differ == 0
+        repeats = bool(torch.equal(l1, l2)) and differ == 0 and len(g1) == OCR_GRADS
+        restored = cudnn_flags == (torch.backends.cudnn.deterministic,
+                                   torch.backends.cudnn.benchmark)
         del g1, g2
         culprits = [] if repeats else nondeterministic_ops(ocr_grads)
         pipe.controlnet.zero_grad(set_to_none=True)
         phase("train_ocr", f"the OCR step (loss and backward) twice on one batch and draw: loss "
                            f"{float(l1):.9f} / {float(l2):.9f}, ControlNet gradients that differ "
-                           f"{differ} of {len(list(pipe.controlnet.parameters()))}: repeats bit "
-                           f"for bit {repeats}" + ("" if repeats else
+                           f"{differ} of {len(list(pipe.controlnet.parameters()))} (expected "
+                           f"{OCR_GRADS}): repeats bit for bit {repeats}; cuDNN flags restored "
+                           f"after {restored}" + ("" if repeats else
                            f"; ops with no deterministic implementation in the step: {culprits}"))
         del batch
         gc.collect()
         torch.cuda.empty_cache()
+        if not (repeats and restored):
+            raise SystemExit("the OCR train step does not repeat bit for bit")
 
         sums = {name: param_checksums(m) for name, m in
                 (("base", pipe.flux), ("VAE", pipe.vae), ("judge", judge))}
@@ -2092,6 +2121,9 @@ def train_ocr_phase(dev, pipe, seed, profile=False):
         same = {name: param_checksums(m) == before for name, m, before in
                 (("base", pipe.flux, sums["base"]), ("VAE", pipe.vae, sums["VAE"]),
                  ("judge", loaded[0], sums["judge"]))}
+        warm = [sec for step, _, sec, _, _ in per_step if step > 1]
+        phase("train_ocr", f"warm s/step {[round(x, 3) for x in warm]} against 2.900-3.171 before "
+                           "the deterministic CTC, crop and convolutions (PR 10's runs)")
         phase("train_ocr", f"3 steps at batch {args.batch_size}, {size}^2, OCR weight "
                            f"{OCR_WEIGHT}, decoder blocks recomputed: {wall:.3f} s in all "
                            f"(restore points included); faults {len(trainer.faults)}; "
@@ -3641,6 +3673,294 @@ def sp_batch_runs(dev, pipe, seed, steps=2):
     return launches
 
 
+def fp8_phase(dev, steps, cn_steps, seed):
+    """fp8 weight-only storage and the tiled VAE at full width and depth, in
+    its own process (``--fp8-worker``), so that its peak memory is its own:
+    one 1024^2 request in bf16 (twice: cold, warm), then quantize_weights()
+    on the same pipeline and the same request with the same latents= (twice);
+    the latents' difference against bf16; enable_vae_tiling() and the same
+    latents decoded tiled and untiled at 1024^2, and seeded latents at 2048^2;
+    one 1280x960 inpaint request through an inpaint pipeline made from the
+    quantized one; a full-width, depth-cut synthetic snapshot converted with
+    --dtype fp8, its loaded state bit-equal to quantize_weights() of the bf16
+    modules, one 1024^2 request through it; cli.build_pipeline(--random-weights
+    --weight-dtype fp8) at full geometry. Returns the launches by path."""
+    import dataclasses
+    import shutil
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.configs import (
+        CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig,
+    )
+    from reptext_tpu_torch.io import convert as C
+    from reptext_tpu_torch.io import convert_cli, synthetic
+    from reptext_tpu_torch.io.quantize import quantized_bytes
+    from reptext_tpu_torch.models.flux import quantized_copy
+    from reptext_tpu_torch.nn.layers import QuantLinear
+    from reptext_tpu_torch.pipelines.inpaint import FluxRepTextInpaintPipeline
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, build_module
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    base = ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+            str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+            str(font_size)]
+    args = cli.build_parser().parse_args([*base, "--random-weights"])
+    gate = min(cn_steps, steps)
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    launches = {}
+    cond, source = conditions_for(data, name, text, pos, size, font_size)
+    GiB = 2 ** 30
+
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    torch.cuda.synchronize()
+    phase("fp8", f"bf16 pipeline built in {time.perf_counter() - t0:.1f} s (FLUX 19 + 38, "
+                 f"ControlNet 4 + 10, T5-XXL, CLIP-L, VAE; seeded random weights) [{card}]")
+    noise = torch.randn((1, pipe.pipe_cfg.image_seq_len, 64),
+                        generator=torch.Generator(device=dev).manual_seed(seed + 5), device=dev)
+
+    def request(label, p, key):
+        outs = []
+        for run in ("cold", "warm"):
+            out = {}
+            launches[key] = run_request(
+                f"{label} 1024^2, {run} ({name}, conditions: {source}; latents= given)",
+                lambda timings: p(cond, clip_ids=ids[0], t5_ids=ids[1], latents=noise,
+                                  num_inference_steps=steps, timings=timings,
+                                  output_type="latent"),
+                p, expect, (1, size, size, 3), steps, tag="fp8", out=out)
+            outs.append(out)
+        return outs[-1]
+
+    ids = cli.request_ids(args, pipe)
+    bf16 = request("bf16", pipe, "fp8_bf16_request")
+    before = torch.cuda.memory_allocated()
+    dense_bytes = sum(p.numel() * p.element_size() for m in (pipe.flux, pipe.controlnet)
+                      for p in m.parameters())
+    t0 = time.perf_counter()
+    pipe.quantize_weights()
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = before - torch.cuda.memory_allocated()
+    stored = sum(quantized_bytes(m)[0] for m in (pipe.flux, pipe.controlnet))
+    n_quant = sum(isinstance(m, QuantLinear) for mod in (pipe.flux, pipe.controlnet)
+                  for m in mod.modules())
+    phase("fp8", f"quantize_weights() in {quant_s:.3f} s: {n_quant} Linears of the block stacks "
+                 f"to fp8; FLUX + ControlNet {dense_bytes / GiB:.2f} GiB in bf16 -> {stored / GiB:.2f} "
+                 f"GiB stored (quantized_bytes); {freed / GiB:.2f} GiB of device memory freed "
+                 f"[{card}]")
+    fp8 = request("fp8", pipe, "fp8_request")
+    rel = float((fp8["latents"] - bf16["latents"]).abs().max()
+                / bf16["latents"].abs().max())
+    phase("fp8", f"fp8 against bf16, warm: {fp8['ms_step']:.1f} against {bf16['ms_step']:.1f} "
+                 f"ms/step ({100 * (fp8['ms_step'] / bf16['ms_step'] - 1):+.1f} %), peak "
+                 f"{fp8['peak']:.2f} against {bf16['peak']:.2f} GiB; max|dlatents| / max|latents| "
+                 f"{rel:.4f}; image mean {fp8['image'].mean():.2f} against "
+                 f"{bf16['image'].mean():.2f} [{card}]")
+    if not (n_quant == 494 + 130 and freed > 0 and stored < dense_bytes):
+        raise SystemExit("quantize_weights() failed its checks")
+
+    # the tiled VAE: the same latents tiled and untiled at 1024^2, seeded ones at 2048^2
+    pipe.enable_vae_tiling()
+    ok = True
+    for res, packed in ((size, fp8["latents"]), (2 * size, None)):
+        tiled = pipe.with_resolution(res, res)
+        if packed is None:
+            packed = torch.randn((1, tiled.pipe_cfg.image_seq_len, 64), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(seed + 6))
+        plain = tiled.with_config(tiled.pipe_cfg)
+        plain.vae_tiling = None
+        got = {}
+        for label, view in (("untiled", plain), ("tiled", tiled), ("untiled", plain),
+                            ("tiled", tiled)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            img = view.decode(packed)
+            torch.cuda.synchronize()
+            got[label] = (img, time.perf_counter() - t0,
+                          (torch.cuda.max_memory_allocated() - base_mem) / GiB)
+        d = np.abs(got["tiled"][0].astype(int) - got["untiled"][0].astype(int))
+        grid = tiled.pipe_cfg.latent_height
+        n_tiles = len(range(0, grid - 72, 56)) + 1 if grid > 72 else 1
+        phase("fp8", f"VAE decode {res}^2 ({n_tiles} x {n_tiles} tiles of 72 latents, overlap 16): "
+                     f"tiled {got['tiled'][1]:.3f} s, its own peak {got['tiled'][2]:.2f} GiB; "
+                     f"untiled {got['untiled'][1]:.3f} s, {got['untiled'][2]:.2f} GiB (warm "
+                     f"calls); max |tiled - untiled| {d.max()} levels, mean {d.mean():.3f} "
+                     f"[{card}]")
+        ok = ok and got["tiled"][0].shape == (1, res, res, 3) and d.mean() < 24.0
+        del tiled, plain, view, got, img
+    if not ok:
+        raise SystemExit("the tiled decode failed its checks")
+
+    # the eager dequantization alone, at the block stacks' largest Linear shapes
+    rates = []
+    for shape in ((12288, 3072), (3072, 15360)):
+        layer = next(m for m in pipe.flux.modules() if isinstance(m, QuantLinear)
+                     and tuple(m.kernel_q8.shape) == shape)
+        ms = cuda_time_ms(layer.dequantized)[0]
+        nbytes = shape[0] * shape[1] * 3 + shape[0] * 2      # codes in, bf16 out, scales
+        rates.append(shape[0] * shape[1] / ms)
+        phase("fp8", f"dequantize one {shape[0]} x {shape[1]} Linear (q.to(bf16) * scale, two "
+                     f"kernels): {ms:.4f} ms, {nbytes / ms / 1e6:.0f} GB/s of its codes in and "
+                     f"bf16 out, against {nbytes / 3.35e9:.4f} ms at 3.35 TB/s [{card}]")
+    n_flux = sum(m.kernel_q8.numel() for m in pipe.flux.modules() if isinstance(m, QuantLinear))
+    n_cn = sum(m.kernel_q8.numel() for m in pipe.controlnet.modules()
+               if isinstance(m, QuantLinear))
+    per_step = (n_flux + n_cn) / min(rates)
+    phase("fp8", f"{n_flux / 1e9:.2f}B + {n_cn / 1e9:.2f}B fp8 weights (FLUX, ControlNet): their "
+                 f"dequantization alone is {per_step:.1f} ms of a ControlNet step at the slower "
+                 f"rate above, against the {fp8['ms_step'] - bf16['ms_step']:.1f} ms measured")
+
+    # an inpaint request through an inpaint pipeline made from the quantized one
+    ldata = np.load(LARGE_FIXTURE)
+    iname = "inpaint_1280x960"
+    itext, ipos = str(ldata[f"{iname}.text"]), tuple(int(v) for v in ldata[f"{iname}.position"])
+    width, height = (int(v) for v in ldata[f"{iname}.size"])
+    iargs = cli.build_parser().parse_args(
+        ["--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE), "--text", itext,
+         "--position", *map(str, ipos), "--size", str(width), "--steps", str(steps),
+         "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+         str(int(ldata["font_size"])), "--random-weights"])
+    icond, isource = conditions_for(ldata, iname, itext, ipos, (width, height),
+                                    int(ldata["font_size"]), LARGE_FIXTURE)
+    inp = FluxRepTextInpaintPipeline.from_pipeline(
+        pipe, seed=seed + 7, pipe_cfg=cli.pipeline_config(iargs, height, width)).quantize_weights()
+    shared = inp.flux is pipe.flux and inp.controlnet is pipe.controlnet
+    image, mask = source_image(seed, height, width), box_mask(icond)
+    iexpect = dict(expect, K1=steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS)
+    launches["fp8_inpaint"] = run_request(
+        f"fp8 inpaint {width}x{height} (inpaint ControlNet quantized, FLUX and the RepText net "
+        f"shared: {shared}; tiled VAE; conditions: {isource})",
+        lambda timings: cli.generate_inpaint(iargs, inp, icond, image, mask, timings=timings,
+                                             output_type="latent"),
+        inp, iexpect, (1, height, width, 3), steps, tag="fp8")
+    if not (shared and inp.inpaint_controlnet.weight_quant):
+        raise SystemExit("the fp8 inpaint pipeline does not share the quantized modules")
+    del pipe, inp, bf16, fp8, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a full-width, depth-cut snapshot converted with --dtype fp8
+    flux_cfg = dataclasses.replace(FluxConfig(), num_layers=CKPT_FLUX[0],
+                                   num_single_layers=CKPT_FLUX[1])
+    cn_cfg = dataclasses.replace(ControlNetConfig(), num_layers=CKPT_CN[0],
+                                 num_single_layers=CKPT_CN[1])
+    t5_cfg = dataclasses.replace(T5Config(), num_layers=CKPT_T5)
+    work = os.path.join(ROOT, SCRATCH, "fp8")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    snap, out = os.path.join(work, "snapshot"), os.path.join(work, "converted")
+    try:
+        t0 = time.perf_counter()
+        synthetic.write_pipeline_snapshot(os.path.join(snap, "pipeline"), flux_cfg, VAEConfig(),
+                                          CLIPConfig(), t5_cfg, seed=seed, device=dev,
+                                          dtype=torch.bfloat16)
+        synthetic.write_controlnet_snapshot(os.path.join(snap, "controlnet"), cn_cfg,
+                                            seed=seed + 1, device=dev, dtype=torch.bfloat16)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = convert_cli.main(["--pipeline-dir", os.path.join(snap, "pipeline"),
+                               "--controlnet-dir", os.path.join(snap, "controlnet"),
+                               "--dtype", "fp8", "--out", out])
+        convert_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+        cargs = cli.build_parser().parse_args([*base, "--checkpoint-dir", out])
+        t0 = time.perf_counter()
+        cpipe = cli.build_pipeline(cargs)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = True
+        for key, ctor_cfg, conv, src in (
+                ("flux", flux_cfg, C.convert_flux_transformer, ("pipeline", "transformer")),
+                ("controlnet", cn_cfg, C.convert_controlnet, ("controlnet",))):
+            tree = conv(C.load_safetensors_state(os.path.join(snap, *src), dtype=None), ctor_cfg)
+            dense = build_module(MODULES[key], ctor_cfg, dev, torch.bfloat16, tree)
+            want = quantized_copy(dense).state_dict()
+            got_state = getattr(cpipe, key).state_dict()
+            same = same and sorted(want) == sorted(got_state) and all(
+                want[k].dtype == got_state[k].dtype
+                and torch.equal(want[k].view(torch.uint8), got_state[k].view(torch.uint8))
+                for k in want)
+            del tree, dense, want
+        cexpect = dict(expect, K1=steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN))
+        launches["fp8_checkpoint"] = run_request(
+            f"1024^2 through the fp8 checkpoint (auto-detected: {cpipe.flux.weight_quant}; VAE "
+            f"tiling auto: {cpipe.vae_tiling})",
+            lambda timings: cli.generate(cargs, cpipe, cond, timings=timings,
+                                         output_type="latent"),
+            cpipe, cexpect, (1, size, size, 3), steps, tag="fp8")
+        phase("fp8", f"synthetic snapshot (FLUX {CKPT_FLUX}, ControlNet {CKPT_CN}, T5-XXL "
+                     f"{CKPT_T5} layers, full widths) written in {write_s:.1f} s, converted with "
+                     f"--dtype fp8 in {convert_s:.3f} s (exit {rc}, {nbytes / 1e9:.3f} GB), "
+                     f"loaded in {load_s:.3f} s; FLUX and ControlNet state bit-equal to "
+                     f"quantize_weights() of the bf16 load: {same} [{card}]")
+        if not (rc == 0 and same and cpipe.flux.weight_quant and cpipe.vae_tiling):
+            raise SystemExit("the fp8 checkpoint failed its checks")
+        del cpipe
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --random-weights --weight-dtype fp8 at full geometry: drawn in fp8 storage
+    # the build's peak is its own only when nothing of the pipelines above is left
+    held = torch.cuda.memory_allocated() / GiB
+    if held > 1.0:
+        live = {}
+        for obj in gc.get_objects():
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                key = (tuple(obj.shape), str(obj.dtype))
+                live[key] = live.get(key, 0) + obj.numel() * obj.element_size()
+        top = sorted(live.items(), key=lambda kv: -kv[1])[:6]
+        raise SystemExit(f"{held:.2f} GiB still allocated before the fp8 build; largest live "
+                         "tensors: " + ", ".join(f"{k} {v / GiB:.2f} GiB" for k, v in top))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rpipe = cli.build_pipeline(cli.build_parser().parse_args(
+        [*base, "--random-weights", "--weight-dtype", "fp8"]))
+    torch.cuda.synchronize()
+    build_s, build_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / GiB
+    dense = [n for m in (rpipe.flux, rpipe.controlnet) for n, p in m.named_parameters()
+             if n.startswith(("double_blocks", "single_blocks")) and n.endswith(".weight")
+             and p.ndim == 2]
+    launches["fp8_random"] = run_request(
+        "1024^2 through --random-weights --weight-dtype fp8",
+        lambda timings: cli.generate(args, rpipe, cond, timings=timings, output_type="latent"),
+        rpipe, expect, (1, size, size, 3), steps, tag="fp8")
+    phase("fp8", f"cli.build_pipeline(--random-weights --weight-dtype fp8) at full geometry in "
+                 f"{build_s:.1f} s, peak {build_peak:.2f} GiB while building ({held:.2f} GiB held "
+                 f"before); bf16 Linear weights "
+                 f"in the block stacks: {len(dense)}; VAE tiling auto: {rpipe.vae_tiling} [{card}]")
+    if dense or not (rpipe.flux.weight_quant and rpipe.controlnet.weight_quant
+                     and rpipe.vae_tiling == (72, 16)):
+        raise SystemExit("the fp8 random-weights build failed its checks")
+    return launches
+
+
+def fp8_child(args):
+    """fp8_phase in a child process of its own (``--fp8-worker``), its lines
+    passed through; returns its launches by path."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--fp8-worker", "--steps", str(args.steps),
+           "--controlnet-step", str(args.controlnet_step), "--seed", str(args.seed)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    launches = None
+    for line in proc.stdout:
+        if line.startswith(FP8_RESULT):
+            launches = json.loads(line[len(FP8_RESULT):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or launches is None:
+        raise SystemExit(f"the fp8 phase failed (exit {proc.returncode})")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=4)
@@ -3648,6 +3968,7 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--nccl-worker", nargs=3, type=int, metavar=("RANK", "WORLD", "PORT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--fp8-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also profile two inpaint steps at 1536x1152, two ControlNet "
                          "steps at 1024^2 and one train step "
@@ -3660,6 +3981,11 @@ def main(argv=None):
     from reptext_tpu_torch.ops import _build  # noqa: F401 (fails outside the repository)
     if args.nccl_worker:
         return nccl_worker(*args.nccl_worker)
+    if args.fp8_worker:
+        _build.build()
+        launches = fp8_phase(torch.device("cuda", 0), args.steps, args.controlnet_step, args.seed)
+        print(FP8_RESULT + json.dumps(launches), flush=True)
+        return 0
 
     started = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -3714,6 +4040,10 @@ def main(argv=None):
     pipe.flux.remat = pipe.controlnet.remat = pipe.vae.decoder.remat = False
     by_path.update(sp_phase(dev, pipe, args.seed))
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # in a process of its own, once this one holds no pipeline
+    by_path.update(fp8_child(args))
 
     by_path["attention_study"] = study_launches
     src = "reptext_tpu_torch/csrc/flash_attention.cu"

@@ -60,7 +60,15 @@ transformer at load time, ``io/lora.py``), ``--ip-adapter-dir`` (the
 converter's ``ip_adapter/`` directory; without it a txt2img image prompt
 attaches an untrained, no-op adapter), ``--ip-adapter-image`` and
 ``--ip-adapter-scale``; a server started with ``--ip-adapter-dir`` serves
-image prompts. Those of modules not ported yet (fp8, tiled VAE) are not here.
+image prompts. ``--weight-dtype fp8`` stores FLUX's and the ControlNets'
+block stacks in fp8 (``io/quantize.py``; with ``--random-weights`` they are
+drawn in fp8 directly, no bf16 copy of them is made), and a checkpoint
+converted with ``convert_cli --dtype fp8`` is detected and loaded so;
+``--vae-tiling auto|on|off`` tiles the VAE (``ops/vae_tiling.py``), auto
+meaning on for fp8 weights at full geometry. As in the JAX CLI, training
+with fp8 weights and ``--lora`` on an fp8-stored checkpoint are refused, and
+the IP-Adapter is attached before the stacks are quantized (an fp8-stored
+checkpoint cannot take one: convert it with ``--dtype keep`` or ``bf16``).
 """
 
 from __future__ import annotations
@@ -178,6 +186,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ip-adapter-dir", default=None, metavar="DIR",
                    help="the converter's ip_adapter/ directory (convert_cli --ip-adapter); "
                         "without it the adapter is untrained (an exact no-op)")
+    p.add_argument("--weight-dtype", choices=["bf16", "fp8"], default="bf16",
+                   help="fp8 = weight-only fp8-e4m3 storage of the transformer/ControlNet "
+                        "block stacks (half their memory; the products stay bf16)")
+    p.add_argument("--vae-tiling", choices=["auto", "on", "off"], default="auto",
+                   help="tiled VAE encode/decode (bounded VAE activation memory); auto = on "
+                        "whenever fp8 weights are used at full geometry")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model geometry (demo and tests; with --device cpu)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -279,9 +293,11 @@ def build_pipeline(args, height=None, width=None):
     device, float32 on the CPU): the weights of ``--checkpoint-dir``, mapped
     from its files into modules built on the meta device, or seeded random
     ones. ``--mode inpaint`` adds the inpaint ControlNet to the same modules
-    (:func:`add_inpaint`)."""
+    (:func:`add_inpaint`). Then ``--weight-dtype`` and ``--vae-tiling``
+    (:func:`deploy`)."""
     import torch
 
+    from reptext_tpu_torch.io.quantize import is_quantized
     from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 
     params = None
@@ -296,17 +312,44 @@ def build_pipeline(args, height=None, width=None):
     elif not args.random_weights:
         raise SystemExit("pass --checkpoint-dir or --random-weights")
     flux_cfg, cn_cfg, vae_cfg, clip_cfg, t5_cfg, pipe_cfg = make_configs(args, height, width)
+    pre_quantized = params is not None and any(is_quantized(params[n])
+                                               for n in ("flux", "controlnet"))
+    fp8 = args.weight_dtype == "fp8" or pre_quantized
     if args.lora:
+        if pre_quantized:
+            raise SystemExit("--lora cannot merge into an fp8-stored checkpoint; bake it at "
+                             "conversion time (convert_cli --lora) or convert with --dtype "
+                             "keep/bf16")
         merge_loras(args, params, flux_cfg)
+    if args.mode == "train" and fp8:
+        raise SystemExit("training needs dense weights: convert with --dtype keep/bf16 and drop "
+                         "--weight-dtype fp8")
+    ip = (args.mode == "serve" and args.ip_adapter_dir) or (
+        args.mode == "txt2img" and args.ip_adapter_image)
+    if ip and pre_quantized:
+        raise SystemExit("the IP-Adapter is attached before the block stacks are quantized, and "
+                         "this checkpoint stores them in fp8: convert it with --dtype keep/bf16")
     dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     pipeline = FluxRepTextPipeline.create(
         flux_cfg, cn_cfg, vae_cfg, pipe_cfg, params=params, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
-        seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train")
-    if (args.mode == "serve" and args.ip_adapter_dir) or (
-            args.mode == "txt2img" and args.ip_adapter_image):
+        seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train",
+        weight_quant=fp8 and params is None and not ip)
+    if ip:
         attach_ip_adapter(args, pipeline)
     if args.mode == "inpaint":
-        return add_inpaint(args, pipeline)
+        pipeline = add_inpaint(args, pipeline)
+    return deploy(args, pipeline, fp8)
+
+
+def deploy(args, pipeline, fp8: bool):
+    """``pipeline`` quantized when ``fp8`` (``--weight-dtype fp8`` or an
+    fp8-stored checkpoint; a no-op for what is stored so already) and tiled
+    as ``--vae-tiling`` says: on, off, or auto = on for fp8 at full
+    geometry."""
+    if fp8:
+        pipeline.quantize_weights()
+    if args.vae_tiling == "on" or (args.vae_tiling == "auto" and fp8 and not args.tiny):
+        pipeline.enable_vae_tiling()
     return pipeline
 
 
@@ -554,7 +597,13 @@ def build_server(args):
     from reptext_tpu_torch.serving import GenerationServer
 
     pipeline = build_pipeline(args)
-    inpaint = add_inpaint(args, pipeline) if args.serve_inpaint else None
+    inpaint = None
+    if args.serve_inpaint:
+        # over the served pipeline's (quantized) modules; only a dense inpaint
+        # ControlNet is quantized here
+        inpaint = add_inpaint(args, pipeline)
+        if pipeline.flux.weight_quant:
+            inpaint.quantize_weights()
     clip_cfg, t5_cfg = pipeline.clip.config, pipeline.t5.config
     t5_length = pipeline.pipe_cfg.max_sequence_length
 

@@ -328,18 +328,49 @@ def to_nchw(images: np.ndarray, device=None) -> torch.Tensor:
 # ------------------------------------------------------------------ training
 
 
+# log(0) of an unreachable CTC state: finite, so that a logsumexp over
+# unreachable states only has a gradient of 0 (with -inf it would be NaN)
+_LOG_ZERO = -1e30
+
+
 def ctc_losses(logits: torch.Tensor, labels: torch.Tensor,
                label_paddings: torch.Tensor) -> torch.Tensor:
     """Per-sample CTC loss of raw logits [B, T, K] against left-packed labels
     [B, L] (0-padded; ``label_paddings`` 1.0 at a pad), blank 0, every frame
     valid: ``optax.ctc_loss`` without logit paddings. Every label that fits
-    (2L - 1 <= T) gives the same value; an empty label gives -log P(all blank)."""
-    log_probs = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)   # [T, B, K]
-    b, frames = logits.shape[0], logits.shape[1]
-    target_lengths = (1.0 - label_paddings.float()).sum(dim=-1).round().long()
-    input_lengths = torch.full((b,), frames, dtype=torch.long, device=logits.device)
-    return F.ctc_loss(log_probs, labels.long(), input_lengths, target_lengths, blank=0,
-                      reduction="none", zero_infinity=False)
+    the frames gives the same value; an empty label gives -log P(all blank).
+
+    The alpha recursion in log space over the T frames, in plain PyTorch, so
+    that the backward is products, sums over fixed axes and elementwise ops,
+    and repeats bit for bit on the card (``F.ctc_loss``'s CUDA backward adds
+    with atomics). The extended label (a blank around every character) has
+    2L + 1 states; each state's log-probabilities are picked from the
+    frames' by a one-hot product (``gather``'s backward would scatter-add),
+    and the two final states of each sample are read through a mask.
+    """
+    log_probs = torch.log_softmax(logits.float(), dim=-1)                 # [B, T, K]
+    b, frames, classes = log_probs.shape
+    dev = log_probs.device
+    lengths = (1.0 - label_paddings.float()).sum(dim=-1).round().long()  # [B]
+    n_states = 2 * labels.shape[1] + 1
+    ext = torch.zeros((b, n_states), dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels.long()
+    onehot = (ext[:, :, None] == torch.arange(classes, device=dev)).float()  # [B, S, K]
+    picked = (log_probs[:, :, None, :] * onehot[:, None]).sum(dim=-1)        # [B, T, S]
+    state = torch.arange(n_states, device=dev)
+    # a character state may be entered from the one two back unless it repeats it
+    skip = torch.zeros((b, n_states), dtype=torch.bool, device=dev)
+    skip[:, 3::2] = ext[:, 3::2] != ext[:, 1:-2:2]
+    log_zero = torch.tensor(_LOG_ZERO, device=dev)
+    alpha = torch.where(state < 2, picked[:, 0], log_zero)
+    pad1 = torch.full((b, 1), _LOG_ZERO, device=dev)
+    pad2 = torch.full((b, 2), _LOG_ZERO, device=dev)
+    for t in range(1, frames):
+        from_prev = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        from_skip = torch.where(skip, torch.cat([pad2, alpha[:, :-2]], dim=1), log_zero)
+        alpha = torch.logsumexp(torch.stack([alpha, from_prev, from_skip]), dim=0) + picked[:, t]
+    final = (state == 2 * lengths[:, None]) | (state == 2 * lengths[:, None] - 1)
+    return -torch.logsumexp(torch.where(final, alpha, log_zero), dim=1)
 
 
 def cosine_decay(step: int, decay_steps: int, alpha: float) -> float:

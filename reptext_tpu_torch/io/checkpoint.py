@@ -7,7 +7,10 @@ Written by ``io/convert_cli.py``; per component one file, all optional:
   ``clip.safetensors``, ``t5.safetensors``: the module's own ``state_dict``
   (its parameter names, torch layout, the RoPE permutation folded in), so
   loading is ``load_state_dict(..., assign=True)`` on the mapped file with no
-  transposes;
+  transposes; written with ``--dtype fp8``, FLUX's and the ControlNets' files
+  hold their block stacks' ``kernel_q8``/``kernel_scale`` pairs
+  (``io/quantize.py``), and ``pipelines/txt2img.py::build_module`` then builds
+  the module with ``weight_quant`` before taking the state over;
 - ``configs.json``: each component's geometry, in the JAX converter's format,
   so that either package reads the other's;
 - ``LAYOUT_VERSION``: the parameter layout (2: the RoPE deinterleave folded

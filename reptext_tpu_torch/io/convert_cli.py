@@ -29,8 +29,12 @@ converted transformer (``io/lora.py``); ``--ip-adapter`` (with
 ``proj.safetensors`` (the image projection), ``blocks.safetensors`` (every
 double block's ``to_k_ip``/``to_v_ip``, standalone: they are merged into the
 resident transformer when a pipeline attaches the adapter),
-``vision.safetensors`` and a ``configs.json`` of their geometry. fp8 storage
-is not ported yet and is refused.
+``vision.safetensors`` and a ``configs.json`` of their geometry. ``--dtype
+fp8`` follows the JAX converter: every component is stored in bf16, and the
+block stacks of FLUX and the ControlNets as fp8 codes and scales
+(``io/quantize.py``, the state of a module built with ``weight_quant``),
+quantized after any ``--lora`` is merged in bf16; the IP-Adapter's files stay
+bf16 (a pipeline attaches it, then quantizes).
 """
 
 from __future__ import annotations
@@ -197,7 +201,10 @@ def module_state(name: str, tree, cfg, dtype=None) -> Dict[str, torch.Tensor]:
     return flat
 
 
-_STORAGE_DTYPES = {"keep": None, "bf16": torch.bfloat16, "fp32": torch.float32}
+_STORAGE_DTYPES = {"keep": None, "bf16": torch.bfloat16, "fp32": torch.float32,
+                   "fp8": torch.bfloat16}
+# the components whose block stacks --dtype fp8 stores in fp8
+_QUANTIZED = ("flux", "controlnet", "inpaint_controlnet")
 
 
 def flat_state(tree, dtype=None) -> Dict[str, torch.Tensor]:
@@ -286,12 +293,11 @@ def main(argv=None) -> int:
                         help="merge scale per --lora (default 1.0 each)")
     parser.add_argument("--dtype", choices=["keep", "bf16", "fp32", "fp8"], default="keep",
                         help="storage dtype: keep = as stored in the checkpoint (FLUX publishes "
-                             "bf16), bf16/fp32 = force-cast (fp8: not ported yet)")
+                             "bf16), bf16/fp32 = force-cast, fp8 = bf16 with the transformer/"
+                             "ControlNet block stacks as fp8-e4m3 codes + per-channel scales")
     parser.add_argument("--out", required=True,
                         help="output directory (becomes --checkpoint-dir)")
     args = parser.parse_args(argv)
-    if args.dtype == "fp8":
-        parser.error("--dtype fp8 is not ported yet")
 
     def comp_dir(override, sub):
         if override:
@@ -365,6 +371,10 @@ def main(argv=None) -> int:
                 print(f"[flux] baked LoRA {lp} (scale {sc})")
         if dtype is not None:
             flat = {k: v.to(dtype) if v.is_floating_point() else v for k, v in flat.items()}
+        if args.dtype == "fp8" and name in _QUANTIZED:
+            from reptext_tpu_torch.io.quantize import quantize_state
+
+            flat = quantize_state(flat)
         save_file(flat, component_path(out, name),
                   metadata={"format": "pt", "component": name,
                             "layout_version": str(LAYOUT_VERSION)})

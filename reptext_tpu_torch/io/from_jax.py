@@ -4,7 +4,10 @@ The port names its parameters after the Flax tree, so the mapping is
 mechanical:
 
 - ``{"params": ...}`` is unwrapped;
-- a Dense ``kernel`` [in, out] becomes ``Linear.weight`` [out, in];
+- a Dense ``kernel`` [in, out] becomes ``Linear.weight`` [out, in], and an
+  fp8 pair (``io/quantize.py``) ``kernel_q8`` [in, out] / ``kernel_scale``
+  [1, out] becomes ``QuantLinear.kernel_q8`` [out, in] / ``.kernel_scale``
+  [out, 1];
 - a Conv ``kernel`` HWIO becomes ``Conv2d.weight`` OIHW, and a 1-D Conv
   ``kernel`` (k, I, O) becomes ``Conv1d.weight`` (O, I, k);
 - LayerNorm/GroupNorm ``scale`` and Embed ``embedding`` become ``weight``;
@@ -30,6 +33,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 import numpy as np
 import torch
 
+from reptext_tpu_torch.io.quantize import QUANT_KEY, SCALE_KEY
+
 _STACKED = ("double_blocks", "single_blocks")
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 
@@ -47,6 +52,8 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def _to_torch_layout(leaf: str, arr: Leaf) -> Leaf:
+    if leaf in (QUANT_KEY, SCALE_KEY):
+        return arr.T
     if leaf == "kernel":
         if arr.ndim == 2:
             return arr.T

@@ -12,8 +12,9 @@ format itself, so that bf16 stays bf16 with torch alone:
 
 :func:`load_file` maps the file (copy on write) and returns CPU tensors that
 view the mapping, so a tensor's bytes are read when it is first used.
-F8_E4M3 and the other fp8 and sub-byte dtypes are refused: fp8 storage is not
-ported yet.
+F8_E4M3 (the fp8 weight-only storage of ``io/quantize.py``) is read as bytes
+and viewed as ``torch.float8_e4m3fn``; the other fp8 and sub-byte dtypes are
+refused.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 DTYPES = {
     "BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32,
     "F64": torch.float64, "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
-    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+    "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool, "F8_E4M3": torch.float8_e4m3fn,
 }
 _NAMES = {v: k for k, v in DTYPES.items()}
 _MAX_HEADER = 100 * 2**20
@@ -53,7 +54,8 @@ def read_metadata(path: str) -> Dict[str, str]:
 
 def load_file(path: str, dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """{name: CPU tensor} of one safetensors file, in the stored dtype unless
-    ``dtype`` is given (then floating tensors are cast to it, integer ones kept).
+    ``dtype`` is given (then floating tensors are cast to it; integer ones and
+    fp8 codes, whose scales are stored beside them, are kept).
 
     The tensors view a copy-on-write mapping of the file: nothing is read
     until it is used, and writing to a tensor never reaches the file.
@@ -72,7 +74,7 @@ def load_file(path: str, dtype: Optional[torch.dtype] = None) -> Dict[str, torch
         code = info["dtype"]
         if code not in DTYPES:
             raise ValueError(f"{path}: tensor {name!r} has dtype {code}, which the port does "
-                             "not read (fp8 storage is not ported yet)")
+                             "not read (of the fp8 codes only F8_E4M3)")
         tdtype, shape = DTYPES[code], [int(s) for s in info["shape"]]
         begin, end = (int(o) for o in info["data_offsets"])
         count = 1
@@ -85,9 +87,12 @@ def load_file(path: str, dtype: Optional[torch.dtype] = None) -> Dict[str, torch
         if count == 0:
             t = torch.empty(shape, dtype=tdtype)
         else:
-            t = torch.frombuffer(mm, dtype=tdtype, count=count, offset=start + begin)
-            t = t.reshape(shape)
-        if dtype is not None and t.is_floating_point() and t.dtype != dtype:
+            # frombuffer takes no fp8 dtype: one-byte codes are read as bytes
+            raw = torch.uint8 if tdtype == torch.float8_e4m3fn else tdtype
+            t = torch.frombuffer(mm, dtype=raw, count=count, offset=start + begin)
+            t = t.view(tdtype).reshape(shape)
+        if (dtype is not None and t.is_floating_point() and t.dtype != dtype
+                and t.dtype != torch.float8_e4m3fn):
             t = t.to(dtype)
         out[name] = t
     return out

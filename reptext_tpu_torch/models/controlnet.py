@@ -11,6 +11,9 @@ blocks to sequence parallelism, as in ``models/flux.py``;
 ControlNet (``config.num_mode`` set) embeds its conditioning-type index with
 ``controlnet_mode_embedder`` into one token in front of the context, with
 ``txt_ids[:1]`` in front of the text ids, as the JAX module does.
+``weight_quant`` stores the block stacks in fp8 as ``models/flux.py`` does;
+the per-block ``proj`` heads sit inside the stacks (inside the JAX scanned
+layer too) and are quantized with them, and a zero head stays zero.
 """
 
 from __future__ import annotations
@@ -21,9 +24,12 @@ import torch
 from torch import nn
 
 from reptext_tpu_torch.configs import ControlNetConfig
-from reptext_tpu_torch.models.flux import FluxTransformer2D, run_block
+from reptext_tpu_torch.models.flux import (
+    BLOCK_STACKS, FluxTransformer2D, has_quant_blocks, run_block,
+)
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
+from reptext_tpu_torch.nn.layers import quantize_linears_
 from reptext_tpu_torch.ops.rope import rope_cos_sin_half
 from reptext_tpu_torch.parallel.sequence import active_backend
 
@@ -52,7 +58,8 @@ class RepTextControlNet(nn.Module):
     # parameters that start at zero (the fresh ControlNet is a no-op)
     zero_init = ("controlnet_x_embedder.weight", ".proj.weight")
 
-    def __init__(self, config: ControlNetConfig, device=None, dtype=None, remat: bool = False):
+    def __init__(self, config: ControlNetConfig, device=None, dtype=None, remat: bool = False,
+                 weight_quant: bool = False):
         super().__init__()
         cfg = config
         kw = dict(device=device, dtype=dtype)
@@ -71,6 +78,13 @@ class RepTextControlNet(nn.Module):
             _ControlDoubleLayer(cfg, **kw) for _ in range(cfg.num_layers))
         self.single_blocks = nn.ModuleList(
             _ControlSingleLayer(cfg, **kw) for _ in range(cfg.num_single_layers))
+        if weight_quant:
+            for name in BLOCK_STACKS:
+                quantize_linears_(getattr(self, name))
+
+    @property
+    def weight_quant(self) -> bool:
+        return has_quant_blocks(self)
 
     def forward(self, hidden_states: torch.Tensor, controlnet_cond: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, pooled_projections: torch.Tensor,

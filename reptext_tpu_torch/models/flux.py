@@ -25,11 +25,18 @@ stacks: a block keeps only its inputs, and its activations are recomputed
 :meth:`FluxTransformer2D.add_ip_adapter` gives every double block the
 IP-Adapter's ``to_k_ip``/``to_v_ip``; ``ip_tokens`` and ``ip_scale`` then
 reach them (JAX ``ip_adapter=True``, :200-248).
-``weight_quant`` is not ported yet.
+
+``weight_quant=True`` builds the block stacks with fp8 weight-only storage
+(every Linear of ``double_blocks``/``single_blocks`` a ``QuantLinear``,
+``io/quantize.py``; JAX ``weight_quant``, :180-187, 231-234, 265-268): a
+layer dequantizes its own weight in its forward. :func:`quantized_copy`
+makes such a module from a bf16 one without touching it, over the same
+embedders, norms and heads.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -40,7 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from reptext_tpu_torch.configs import FluxConfig
 from reptext_tpu_torch.nn.blocks import JointTransformerBlock, SingleTransformerBlock
 from reptext_tpu_torch.nn.embeddings import CombinedTimestepTextEmbed
-from reptext_tpu_torch.nn.layers import AdaLayerNormContinuous
+from reptext_tpu_torch.nn.layers import AdaLayerNormContinuous, QuantLinear, quantize_linears_
 from reptext_tpu_torch.ops.rope import rope_cos_sin_half
 from reptext_tpu_torch.parallel.sequence import active_backend
 
@@ -71,6 +78,45 @@ def run_block(block: nn.Module, remat: bool, *args):
     return block(*args)
 
 
+BLOCK_STACKS = ("double_blocks", "single_blocks")
+
+
+def has_quant_blocks(model: nn.Module) -> bool:
+    """Whether ``model``'s block stacks hold fp8 storage (``QuantLinear``s)."""
+    return any(isinstance(m, QuantLinear) for name in BLOCK_STACKS
+               for m in getattr(model, name).modules())
+
+
+def _structural_copy(module: nn.Module) -> nn.Module:
+    """New module objects all the way down over the same parameter and
+    buffer tensors: a change of the copy's structure leaves ``module`` as it is."""
+    new = copy.copy(module)
+    new._parameters = dict(module._parameters)
+    new._buffers = dict(module._buffers)
+    new._modules = {k: None if v is None else _structural_copy(v)
+                    for k, v in module._modules.items()}
+    return new
+
+
+@torch.no_grad()
+def quantized_copy(model: nn.Module) -> nn.Module:
+    """``model`` with fp8 weight-only block stacks, as a new module: every
+    Linear of its ``double_blocks`` and ``single_blocks`` quantized (its
+    bias shared); the embedders, norms and the heads outside the stacks are
+    the same module objects. ``model`` itself, which other pipelines may
+    share, is not changed, and once nothing holds it its bf16 block weights
+    are freed. A quantized model is returned as it is."""
+    if has_quant_blocks(model):
+        return model
+    new = copy.copy(model)
+    new._parameters = dict(model._parameters)
+    new._buffers = dict(model._buffers)
+    new._modules = dict(model._modules)
+    for name in BLOCK_STACKS:
+        new._modules[name] = quantize_linears_(_structural_copy(model._modules[name]))
+    return new
+
+
 def as_stack_tuple(samples: Stacks) -> Optional[Tuple[torch.Tensor, ...]]:
     if samples is None:
         return None
@@ -97,7 +143,8 @@ def read_inject(stacks: Tuple[torch.Tensor, ...], idx: Sequence[int]) -> torch.T
 class FluxTransformer2D(nn.Module):
     """The base FLUX diffusion transformer."""
 
-    def __init__(self, config: FluxConfig, device=None, dtype=None, remat: bool = False):
+    def __init__(self, config: FluxConfig, device=None, dtype=None, remat: bool = False,
+                 weight_quant: bool = False):
         super().__init__()
         cfg = config
         kw = dict(device=device, dtype=dtype)
@@ -113,6 +160,13 @@ class FluxTransformer2D(nn.Module):
             _SingleLayer(cfg, **kw) for _ in range(cfg.num_single_layers))
         self.norm_out = AdaLayerNormContinuous(cfg.inner_dim, **kw)
         self.proj_out = nn.Linear(cfg.inner_dim, cfg.out_channels, **kw)
+        if weight_quant:
+            for name in BLOCK_STACKS:
+                quantize_linears_(getattr(self, name))
+
+    @property
+    def weight_quant(self) -> bool:
+        return has_quant_blocks(self)
 
     @property
     def ip_adapter(self) -> bool:
@@ -121,7 +175,12 @@ class FluxTransformer2D(nn.Module):
 
     def add_ip_adapter(self, ip_dim: int) -> "FluxTransformer2D":
         """Graft uninitialised ``to_k_ip``/``to_v_ip`` onto every double
-        block; returns self."""
+        block; returns self. A model with fp8 block stacks refuses: the
+        adapter is attached first, then quantized with the stacks."""
+        if self.weight_quant:
+            raise ValueError("attach_ip_adapter() must run BEFORE quantize_weights(); attach "
+                             "first, then quantize (the adapter kernels are then quantized "
+                             "with the rest of the double-block stack)")
         for layer in self.double_blocks:
             layer.block.add_ip_adapter(ip_dim)
         return self

@@ -4,7 +4,9 @@ Counterpart of ``reptext_tpu/nn/layers.py``. Parameter names follow the Flax
 tree (``linear``, ``in_proj``/``out_proj``, ``weight``) so that
 ``io/from_jax.py`` maps them mechanically. Norms and the AdaLN modulation run
 in float32 and cast back to the activation dtype; projections run in the
-parameters' dtype (bf16 on the card).
+parameters' dtype (bf16 on the card). :class:`QuantLinear` is the Linear of
+fp8 weight-only storage (``io/quantize.py``), and :func:`quantize_linears_`
+swaps a module tree's Linears for it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ from typing import Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from reptext_tpu_torch.io.quantize import (
+    QUANT_KEY, SCALE_KEY, quantize_kernel, random_q8, random_scale,
+)
 
 
 class RMSNorm(nn.Module):
@@ -105,3 +111,99 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out_proj(gelu_tanh(self.in_proj(x)))
+
+
+# the storage dtypes of QuantLinear's two tensors, and same-size integer views
+# that a module-wide cast leaves alone
+_RAW_VIEWS = {QUANT_KEY: (torch.float8_e4m3fn, torch.uint8),
+              SCALE_KEY: (torch.bfloat16, torch.int16)}
+
+
+class QuantLinear(nn.Module):
+    """A Linear whose weight is stored as e4m3 codes (``kernel_q8`` [out, in])
+    and per-output-channel bf16 scales (``kernel_scale`` [out, 1]), both
+    frozen, plus a bias in the module's dtype. The forward dequantizes the
+    layer's own weight into the input's dtype, ``q.to(dtype) * scale``, and
+    runs ``F.linear``, as the JAX models' dequantization of one scanned layer
+    does (``nn.map_variables`` on the layer; XLA does that work there, plain
+    PyTorch here). In bf16 that is ``io.quantize.dequantize_kernel``, rounded
+    to bf16; in float32 the product is exact, which is what the jitted JAX
+    models compute on the CPU (XLA keeps the bf16 product in float32 there:
+    ``tests/test_torch_quantize.py`` holds the two equal). A module-wide cast
+    (``.to(dtype)``, ``.float()``) moves the codes and scales and casts the
+    bias only."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.kernel_q8 = nn.Parameter(torch.empty((out_features, in_features), device=device,
+                                                  dtype=torch.float8_e4m3fn),
+                                      requires_grad=False)
+        self.kernel_scale = nn.Parameter(torch.empty((out_features, 1), device=device,
+                                                     dtype=torch.bfloat16), requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device, dtype=dtype))
+                     if bias else None)
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear) -> "QuantLinear":
+        """``linear``'s weight quantized (``io.quantize.quantize_kernel``), its
+        bias shared; an empty layer when ``linear`` is on the meta device."""
+        w = linear.weight
+        out = cls(w.shape[1], w.shape[0], linear.bias is not None, device="meta", dtype=w.dtype)
+        if w.is_meta:
+            return out
+        q, scale = quantize_kernel(w.detach())
+        out.kernel_q8 = nn.Parameter(q, requires_grad=False)
+        out.kernel_scale = nn.Parameter(scale, requires_grad=False)
+        out.bias = linear.bias
+        return out
+
+    @torch.no_grad()
+    def random_init_(self, generator: torch.Generator, zero: bool = False) -> None:
+        """Draw the storage directly: random codes and 1 / (448 sqrt(in))
+        scales (``io.quantize.random_params_like``'s rule), zero bias; with
+        ``zero``, the quantization of a zero weight (codes 0, scale 1e-12)."""
+        dev = self.kernel_q8.device
+        if zero:
+            self.kernel_q8.copy_(torch.zeros(self.kernel_q8.shape, device=dev))
+            self.kernel_scale.fill_(1e-12)
+        else:
+            self.kernel_q8.copy_(random_q8(self.kernel_q8.shape, generator, dev))
+            self.kernel_scale.copy_(random_scale(self.kernel_scale.shape, self.in_features, dev))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def dequantized(self, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+        """The weight [out, in] in ``dtype``: ``q.to(dtype) * scale``, which in
+        bf16 is ``io.quantize.dequantize_kernel``."""
+        return self.kernel_q8.to(dtype) * self.kernel_scale.to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.dequantized(x.dtype), self.bias)
+
+    def _apply(self, fn, recurse=True):
+        stored = {k: self._parameters.pop(k) for k in _RAW_VIEWS}
+        try:
+            super()._apply(fn, recurse)
+        finally:
+            for k, p in stored.items():
+                dtype, raw = _RAW_VIEWS[k]
+                self._parameters[k] = nn.Parameter(fn(p.detach().view(raw)).view(dtype),
+                                                   requires_grad=False)
+        return self
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features={self.out_features}, "
+                f"bias={self.bias is not None}, fp8 e4m3 weight")
+
+
+def quantize_linears_(module: nn.Module) -> nn.Module:
+    """Every ``nn.Linear`` under ``module`` replaced by
+    :meth:`QuantLinear.from_linear` of it, in place; returns ``module``."""
+    for name, child in list(module.named_children()):
+        if isinstance(child, nn.Linear):
+            setattr(module, name, QuantLinear.from_linear(child))
+        else:
+            quantize_linears_(child)
+    return module

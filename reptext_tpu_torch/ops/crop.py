@@ -3,12 +3,29 @@
 Counterpart of ``reptext_tpu/ops/crop.py``: the OCR text-perceptual loss
 (``sampling/ocr_loss.py``) crops each sample's text region out of the decoded
 image inside the training step, with gradients flowing back through the crop
-into the image and the box. The port's images are NCHW.
+into the image and the box. The port's images are NCHW. The crop is two
+per-sample interpolation-matrix products, ``Wy[B, oh, H] @ img @ Wx[B, ow, W]^T``
+(the idiom of ``ops/latents.py::linear_resize_matrix``): their backward is
+matrix products too, where an indexed gather's would add into the image with
+atomics on the card, in no fixed order.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _interp_matrix(coords: torch.Tensor, size: int) -> torch.Tensor:
+    """[B, n] sample positions, clamped to [0, size - 1] -> [B, n, size]
+    linear interpolation weights: 1 - frac at the floor index, frac at the
+    next one (the same index at the last row or column)."""
+    floor = coords.floor()
+    frac = coords - floor
+    i0 = floor.long()
+    i1 = (i0 + 1).clamp(max=size - 1)
+    grid = torch.arange(size, device=coords.device)
+    return ((i0[..., None] == grid).to(coords.dtype) * (1 - frac)[..., None]
+            + (i1[..., None] == grid).to(coords.dtype) * frac[..., None])
 
 
 def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_h: int,
@@ -23,9 +40,9 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_h: int,
 
     Returns [B, C, out_h, out_w]. The output grid's pixel centres sample the
     box interior (the align_corners=False convention); coordinates are clamped
-    at the image border (edge padding). One batched gather per corner.
+    at the image border (edge padding).
     """
-    b, _, h, w = images.shape
+    _, _, h, w = images.shape
     boxes = boxes.to(torch.float32)
     y0, x0, y1, x1 = boxes.unbind(dim=1)
     dev = images.device
@@ -33,20 +50,6 @@ def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_h: int,
     gx = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) / out_w
     ys = (y0[:, None] + gy[None] * (y1 - y0)[:, None]) * h - 0.5      # [B, oh]
     xs = (x0[:, None] + gx[None] * (x1 - x0)[:, None]) * w - 0.5      # [B, ow]
-    ys = ys.clamp(0.0, h - 1.0)
-    xs = xs.clamp(0.0, w - 1.0)
-    yf, xf = ys.floor(), xs.floor()
-    wy = (ys - yf)[:, None, :, None]                                   # [B, 1, oh, 1]
-    wx = (xs - xf)[:, None, None, :]                                   # [B, 1, 1, ow]
-    yi0, xi0 = yf.long(), xf.long()
-    yi1 = (yi0 + 1).clamp(max=h - 1)
-    xi1 = (xi0 + 1).clamp(max=w - 1)
-    nhwc = images.permute(0, 2, 3, 1)
-    bi = torch.arange(b, device=dev)[:, None, None]
-
-    def at(yi, xi):   # [B, C, oh, ow]
-        return nhwc[bi, yi[:, :, None], xi[:, None, :]].permute(0, 3, 1, 2)
-
-    top = at(yi0, xi0) * (1 - wx) + at(yi0, xi1) * wx
-    bot = at(yi1, xi0) * (1 - wx) + at(yi1, xi1) * wx
-    return top * (1 - wy) + bot * wy
+    wy = _interp_matrix(ys.clamp(0.0, h - 1.0), h).to(images.dtype)   # [B, oh, H]
+    wx = _interp_matrix(xs.clamp(0.0, w - 1.0), w).to(images.dtype)   # [B, ow, W]
+    return torch.matmul(torch.matmul(wy[:, None], images), wx[:, None].transpose(-1, -2))

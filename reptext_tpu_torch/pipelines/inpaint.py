@@ -85,16 +85,21 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                       params: Optional[Dict[str, Any]] = None, seed: int = 7,
                       pipe_cfg: Optional[PipelineConfig] = None) -> "FluxRepTextInpaintPipeline":
         """An inpaint pipeline on ``base``'s modules (shared, not copied) plus
-        a new inpaint ControlNet: ``params`` (its Flax tree) or weights drawn
-        on the device from a generator seeded with ``seed``."""
+        a new inpaint ControlNet: ``params`` (its Flax tree or module state,
+        fp8 storage included) or weights drawn on the device from a generator
+        seeded with ``seed``. It takes ``base``'s VAE tiling; a quantized base
+        gives it quantized FLUX and RepText nets, and its ``quantize_weights``
+        then quantizes the inpaint ControlNet alone."""
         cfg = inpaint_cn_cfg or default_inpaint_controlnet_config(base.controlnet.config)
         generator = None if params is not None else torch.Generator(
             device=base.device).manual_seed(seed)
         inpaint_cn = build_module(RepTextControlNet, cfg, base.device, base.compute_dtype,
                                   params, generator)
-        return cls(base.flux, base.controlnet, base.vae, pipe_cfg or base.pipe_cfg,
+        pipe = cls(base.flux, base.controlnet, base.vae, pipe_cfg or base.pipe_cfg,
                    clip=base.clip, t5=base.t5, compute_dtype=base.compute_dtype,
                    inpaint_controlnet=inpaint_cn)
+        pipe.vae_tiling = base.vae_tiling
+        return pipe
 
     @classmethod
     def create_inpaint(cls, inpaint_cn_cfg: Optional[ControlNetConfig] = None,

@@ -9,7 +9,10 @@ with the velocity cache), and the VAE decode, at any size the
 training data path
 (``reptext_tpu_torch/data.py``). Randomness comes from ``torch.Generator``s
 derived from ``seed``; there is no global RNG. The JAX package's residency and fp8
-staging code exists for a 16 GB chip and has no counterpart here.
+staging code exists for a 16 GB chip and has no counterpart here; its fp8
+weight-only storage (:meth:`FluxRepTextPipeline.quantize_weights`,
+``io/quantize.py``) and tiled VAE (:meth:`FluxRepTextPipeline.enable_vae_tiling`,
+``ops/vae_tiling.py``) do.
 :meth:`FluxRepTextPipeline.shard_for_sp` runs the denoise loop
 sequence-parallel over an SP group (``parallel/``).
 :meth:`FluxRepTextPipeline.generate_batch` puts several requests, each with
@@ -51,8 +54,9 @@ from reptext_tpu_torch.configs import (
 )
 from reptext_tpu_torch.utils.image import postprocess_images, preprocess_images
 from reptext_tpu_torch.io.from_jax import flatten_jax_params, load_jax_params
+from reptext_tpu_torch.io.quantize import is_quantized
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
-from reptext_tpu_torch.models.flux import FluxTransformer2D
+from reptext_tpu_torch.models.flux import FluxTransformer2D, quantized_copy
 from reptext_tpu_torch.models.ip_adapter import ImageProjection, IPAdapterEncoder
 from reptext_tpu_torch.nn.clip_vision import CLIPVisionEncoder
 from reptext_tpu_torch.nn.clip import CLIPTextEncoder
@@ -67,6 +71,7 @@ from reptext_tpu_torch.ops.latents import (
     prepare_latent_image_ids,
     unpack_latents,
 )
+from reptext_tpu_torch.ops.vae_tiling import tiled_apply
 from reptext_tpu_torch.parallel.group import decide_on_rank0
 from reptext_tpu_torch.pipelines.outputs import FluxPipelineOutput, to_pil_images
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule, build_schedule
@@ -108,7 +113,11 @@ def build_module(ctor, cfg, device: torch.device, dtype: torch.dtype, params=Non
     """``ctor(cfg)`` built on the meta device, then materialised on ``device``
     in ``dtype``: from ``params``, a module state dict (taken over with
     ``load_state_dict(assign=True)``, then moved and cast) or a Flax tree, or
-    drawn from ``generator``; frozen."""
+    drawn from ``generator``; frozen. ``params`` in fp8 storage (``kernel_q8``
+    leaves, ``io/quantize.py``) build the module with ``weight_quant``
+    first."""
+    if params is not None and is_quantized(params):
+        kw = dict(kw, weight_quant=True)
     module = ctor(cfg, device="meta", dtype=dtype, **kw)
     if params is not None and is_state_dict(params):
         module.load_state_dict(params, strict=True, assign=True)
@@ -136,6 +145,8 @@ class FluxRepTextPipeline:
         self.device = next(flux.parameters()).device
         self.sp_group = self.sp_backend = None
         self.ip_encoder: Optional[IPAdapterEncoder] = None
+        # (tile, overlap) in latent units after enable_vae_tiling, else None
+        self.vae_tiling: Optional[Tuple[int, int]] = None
 
     # ---------------------------------------------------------------- build
 
@@ -144,7 +155,7 @@ class FluxRepTextPipeline:
                pipe_cfg: PipelineConfig, params: Optional[Dict[str, Any]] = None,
                clip_cfg: Optional[CLIPConfig] = None, t5_cfg: Optional[T5Config] = None,
                seed: int = 0, device="cuda", dtype: Optional[torch.dtype] = None,
-               remat: bool = False) -> "FluxRepTextPipeline":
+               remat: bool = False, weight_quant: bool = False) -> "FluxRepTextPipeline":
         """Build the modules on ``device`` in ``dtype``, every one frozen.
 
         The card unless the caller asks for the CPU (``device="cpu"``); a CUDA
@@ -160,6 +171,9 @@ class FluxRepTextPipeline:
         the weights is made. ``remat`` checkpoints the blocks of FLUX,
         the ControlNet and the VAE decoder for training; a training caller
         makes the ControlNet trainable (``init_controlnet_training``).
+        ``weight_quant`` builds FLUX's and the ControlNet's block stacks in fp8
+        storage, drawn directly in it when no ``params`` are given (no bf16
+        copy of them is made); ``params`` in fp8 storage build them so anyway.
         """
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -173,6 +187,8 @@ class FluxRepTextPipeline:
         built: Dict[str, Optional[torch.nn.Module]] = {}
         for name, cfg in cfgs.items():
             kw = {"remat": remat} if name in ("flux", "controlnet", "vae") else {}
+            if weight_quant and name in ("flux", "controlnet"):
+                kw["weight_quant"] = True
             built[name] = None if cfg is None else build_module(
                 MODULES[name], cfg, device, dtype, None if params is None else params[name],
                 generator, **kw)
@@ -223,6 +239,39 @@ class FluxRepTextPipeline:
         self.sp_group, self.sp_backend = group, backend
         return self
 
+    # ------------------------------------------------- fp8 storage, tiled VAE
+
+    def quantize_weights(self) -> "FluxRepTextPipeline":
+        """fp8 weight-only storage for this pipeline's FLUX and ControlNet(s)
+        (``io/quantize.py``): every Linear of their block stacks keeps e4m3
+        codes and per-channel bf16 scales, half the bytes, and dequantizes
+        its own weight in its forward; embedders, heads, the VAE and the text
+        encoders stay bf16. The quantized modules are new ones
+        (``models/flux.py::quantized_copy``): every pipeline that shares the
+        bf16 modules (``with_config``/``with_resolution`` views and inpaint
+        pipelines made before, a server's views) keeps them, and a pipeline
+        derived after this call shares the quantized ones, as the JAX method
+        gives this pipeline a new params dict. A model already quantized is
+        kept. Attach an IP-Adapter first. In place; returns self."""
+        self.flux = quantized_copy(self.flux)
+        self.controlnet = quantized_copy(self.controlnet)
+        if getattr(self, "inpaint_controlnet", None) is not None:
+            self.inpaint_controlnet = quantized_copy(self.inpaint_controlnet)
+        return self
+
+    def enable_vae_tiling(self, tile_latent: int = 72,
+                          overlap_latent: int = 16) -> "FluxRepTextPipeline":
+        """Run VAE encodes and decodes in overlapping tiles
+        (``ops/vae_tiling.py``), capping the VAE's activation memory at a
+        tile's. ``tile_latent``/``overlap_latent`` are in latent units (x8
+        in pixels); an input no larger than a tile takes the untiled path.
+        The default 72/16 tiles a 1024^2 image (128^2 latents) 2 x 2. In
+        place; returns self."""
+        if overlap_latent >= tile_latent:
+            raise ValueError(f"overlap ({overlap_latent}) must be < tile ({tile_latent})")
+        self.vae_tiling = (int(tile_latent), int(overlap_latent))
+        return self
+
     # ----------------------------------------------------------- ip-adapter
 
     @torch.no_grad()
@@ -244,6 +293,11 @@ class FluxRepTextPipeline:
         pipelines over it (``with_config`` views, an inpaint pipeline), which
         run as before: a block given no ip tokens skips the path.
         """
+        if self.flux.weight_quant:
+            # dense adapter kernels would join a block stack stored in fp8
+            raise ValueError("attach_ip_adapter() must run BEFORE quantize_weights(); attach "
+                             "first, then quantize (the adapter kernels are then quantized "
+                             "with the rest of the double-block stack)")
         if vision_cfg is None:
             vision_cfg = CLIPVisionConfig()
         if ip_cfg is None:
@@ -352,9 +406,22 @@ class FluxRepTextPipeline:
 
     def _encode_scaled(self, images_nchw: torch.Tensor,
                        generator: Optional[torch.Generator]) -> torch.Tensor:
-        """VAE-encode and apply (x - shift) * scale, in the compute dtype."""
+        """VAE-encode and apply (x - shift) * scale, in the compute dtype;
+        after :meth:`enable_vae_tiling`, an image larger than a tile is
+        encoded in tiles (float32, as the JAX pipeline's), 4 images at a time,
+        ``generator`` drawing once per tile in tile order."""
         vcfg = self.vae.config
-        lat = self.vae.encode(images_nchw.to(self.compute_dtype), generator)
+        images = images_nchw.to(self.compute_dtype)
+        tiling, f = self.vae_tiling, vcfg.scale_factor
+        if tiling is not None and max(images.shape[2:]) > f * tiling[0]:
+            def tile_fn(tile, _index):
+                return self.vae.encode(tile, generator)
+
+            lat = torch.cat([tiled_apply(tile_fn, images[i:i + 4], f * tiling[0], f * tiling[1],
+                                         1, f, vcfg.latent_channels)
+                             for i in range(0, images.shape[0], 4)])
+        else:
+            lat = self.vae.encode(images, generator)
         return (lat - vcfg.shift_factor) * vcfg.scaling_factor
 
     def _images(self, nhwc: np.ndarray) -> torch.Tensor:
@@ -406,21 +473,37 @@ class FluxRepTextPipeline:
                                        cfg.glyph_latent_scale)
         return pack_latents(noise)
 
+    def _decode_unpacked(self, lat: torch.Tensor) -> torch.Tensor:
+        """Scaled latents [B, C, h, w] -> pixels [B, 3, H, W]: undo the
+        latent scaling and shift, decode; after :meth:`enable_vae_tiling`, a
+        grid larger than a tile is decoded in tiles (float32; a failed tile
+        raises, nothing is retried untiled)."""
+        vcfg = self.vae.config
+
+        def run(z, _index=0):
+            return self.vae.decode(z / vcfg.scaling_factor + vcfg.shift_factor)
+
+        tiling = self.vae_tiling
+        if tiling is not None and max(lat.shape[2:]) > tiling[0]:
+            return tiled_apply(run, lat, tiling[0], tiling[1], vcfg.scale_factor, 1,
+                               vcfg.out_channels)
+        return run(lat)
+
     def decode_images(self, packed_latents: torch.Tensor) -> torch.Tensor:
         """Packed latents [B, S, 4*C] -> images [B, 3, H, W] in about [-1, 1],
-        in the VAE's dtype, differentiable (the OCR training term's decode):
-        unpack, undo the latent scaling and shift, decode."""
-        cfg, vcfg = self.pipe_cfg, self.vae.config
-        lat = unpack_latents(packed_latents, cfg.latent_height, cfg.latent_width)
-        return self.vae.decode(lat / vcfg.scaling_factor + vcfg.shift_factor)
+        in the VAE's dtype (float32 when tiled), differentiable (the OCR
+        training term's decode, tiled or not): unpack, undo the latent scaling
+        and shift, decode."""
+        cfg = self.pipe_cfg
+        return self._decode_unpacked(
+            unpack_latents(packed_latents, cfg.latent_height, cfg.latent_width))
 
     @torch.inference_mode()
     def decode(self, packed_latents: torch.Tensor) -> np.ndarray:
         """Packed latents -> uint8 images [B, H, W, 3]."""
-        cfg, vcfg = self.pipe_cfg, self.vae.config
-        lat = unpack_latents(packed_latents.to(self.compute_dtype),
-                             cfg.latent_height, cfg.latent_width)
-        pixels = self.vae.decode(lat / vcfg.scaling_factor + vcfg.shift_factor)
+        cfg = self.pipe_cfg
+        pixels = self._decode_unpacked(unpack_latents(packed_latents.to(self.compute_dtype),
+                                                      cfg.latent_height, cfg.latent_width))
         return postprocess_images(pixels.permute(0, 2, 3, 1).float().cpu().numpy())
 
     # --------------------------------------------------------------- call

@@ -13,11 +13,18 @@ glyph bbox, widened or heightened to the judge's 4:1 aspect) and the step
 does crop -> grayscale -> per-crop standardisation, which matches
 ``prepare_crop`` on exact-box crops. Images are NCHW here (the port's VAE
 layout), [B, 3, H, W]; crops [B, 1, 48, 256].
+
+The term's backward repeats bit for bit on the card: the CTC and the crop
+are built of products and fixed-axis sums (``eval/ocr.py::ctc_losses``,
+``ops/crop.py``), and :func:`deterministic_convolutions`, which the train
+step holds around the loss and its backward, keeps cuDNN to deterministic
+algorithms for the judge's and the decoder's convolutions.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +34,23 @@ from reptext_tpu_torch.ops.crop import crop_and_resize
 
 # judge input aspect (W/H = 4): boxes are extended to it before cropping
 _ASPECT = IMG_W / IMG_H
+
+
+@contextlib.contextmanager
+def deterministic_convolutions() -> Iterator[None]:
+    """cuDNN held to deterministic algorithms inside (its deterministic flag
+    on, its benchmark flag off), both restored after. The default algorithms of the judge's convolution backward add in
+    no fixed order on the card, so two runs of the term differed in the
+    gradient of the crops (``python -m reptext_tpu_torch.benchmarks.ocr_repeat``
+    bisects the term); held to deterministic ones, every gradient repeats at
+    the same time. The flags are global: the context must span the backward
+    as well as the forward."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def aspect_box(ink_bbox: Tuple[int, int, int, int], height: int, width: int,

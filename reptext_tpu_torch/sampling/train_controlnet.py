@@ -29,6 +29,7 @@ the steps raise otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -170,17 +171,33 @@ def make_joint_train_step(flux: FluxTransformer2D, controlnet: RepTextControlNet
     return step
 
 
+def loss_and_backward(flux: FluxTransformer2D, controlnet: RepTextControlNet, batch: Batch,
+                      generator: Optional[torch.Generator] = None, **loss_kw) -> torch.Tensor:
+    """:func:`controlnet_flow_match_loss` of ``batch`` (``loss_kw`` are its
+    keywords) and its backward into the parameters' ``.grad``; returns the
+    detached loss. With the OCR term on, both run under
+    ``ocr_loss.deterministic_convolutions``, so the step repeats bit for bit
+    on the card."""
+    from reptext_tpu_torch.sampling.ocr_loss import deterministic_convolutions
+
+    perceptual = loss_kw.get("perceptual")
+    ocr = perceptual is not None and perceptual.get("weight", 0.0) > 0.0
+    with deterministic_convolutions() if ocr else contextlib.nullcontext():
+        loss = controlnet_flow_match_loss(flux, controlnet, batch, generator, **loss_kw)
+        loss.backward()
+    return loss.detach()
+
+
 def _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
             conditioning_scale, perceptual, control_mode) -> torch.Tensor:
     """One optimizer update on the loss of ``batch``; returns the detached loss."""
     optimizer.zero_grad(set_to_none=True)
-    loss = controlnet_flow_match_loss(flux, controlnet, batch, generator,
-                                      text_loss_weight=text_loss_weight,
-                                      conditioning_scale=conditioning_scale,
-                                      perceptual=perceptual, control_mode=control_mode)
-    loss.backward()
+    loss = loss_and_backward(flux, controlnet, batch, generator,
+                             text_loss_weight=text_loss_weight,
+                             conditioning_scale=conditioning_scale,
+                             perceptual=perceptual, control_mode=control_mode)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def bind_frozen_base(step: Callable, flux: FluxTransformer2D, *frozen: torch.nn.Module

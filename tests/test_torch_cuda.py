@@ -700,3 +700,56 @@ def test_ring_step_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="k_blk has shape"):
         ra.ring_step(q, k[:, :1], v, state, False, True)
     assert ra.ring_step.launches == n + 1
+
+
+# ---------------------------------------- fp8 storage and the OCR term on the card
+
+
+def test_quant_linear_is_f_linear_on_the_dequantized_weight(dev):
+    """QuantLinear in bf16 is F.linear on io.quantize.dequantize_kernel of its
+    storage, bit for bit, at a FLUX block's width."""
+    from reptext_tpu_torch.io.quantize import dequantize_kernel
+    from reptext_tpu_torch.nn.layers import QuantLinear
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    lin = torch.nn.Linear(3072, 12288, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn(lin.weight.shape, generator=g, device=dev) * 0.02)
+    q = QuantLinear.from_linear(lin)
+    x = torch.randn(2, 512, 3072, generator=g, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        want = torch.nn.functional.linear(x, dequantize_kernel(q.kernel_q8, q.kernel_scale),
+                                          lin.bias)
+        got = q(x)
+    assert q.kernel_q8.dtype == torch.float8_e4m3fn and torch.equal(got, want)
+    # the card's quantization is the CPU's, bit for bit
+    qc, sc = QuantLinear.from_linear(lin.cpu()).kernel_q8, QuantLinear.from_linear(
+        lin.cpu()).kernel_scale
+    assert torch.equal(q.kernel_q8.cpu().view(torch.uint8), qc.view(torch.uint8))
+    assert torch.equal(q.kernel_scale.cpu(), sc)
+
+
+def test_crop_and_ctc_gradients_repeat_bit_for_bit(dev):
+    """The OCR term's crop (interpolation-matrix products) and CTC (the alpha
+    recursion) give bit-equal gradients over two calls on the card."""
+    from reptext_tpu_torch.eval.ocr import ctc_losses
+    from reptext_tpu_torch.ops.crop import crop_and_resize
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randn(2, 1, 1024, 1024, generator=g, device=dev)
+    boxes = torch.tensor([[0.3, 0.2, 0.42, 0.7], [-0.05, 0.6, 0.1, 1.1]], device=dev)
+    logits = torch.randn(2, 64, 99, generator=g, device=dev)
+    labels = torch.tensor([[5, 7, 7, 9] + [0] * 20, [3] + [0] * 23], device=dev)
+    paddings = (labels == 0).float()
+
+    def run():
+        im, bx, lg = (x.clone().requires_grad_(True) for x in (images, boxes, logits))
+        crops = crop_and_resize(im, bx, 48, 256)
+        loss = (crops * torch.linspace(-1, 1, 256, device=dev)).sum() + ctc_losses(
+            lg, labels, paddings).sum()
+        loss.backward()
+        return loss.detach(), im.grad, bx.grad, lg.grad
+
+    first, second = run(), run()
+    assert all(torch.isfinite(a).all() for a in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

