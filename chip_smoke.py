@@ -34,6 +34,11 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    (dq, dk and dv must be bit-equal: dq's adds land in key order); K1 and K4
    at the union ControlNet's joint length 4609 and at 5121 (partial last
    tiles) against their plain versions, K4 bit-equal over two calls there;
+   then K1-K4 at head dim 64 in bf16 and fp32 (the trained-weights demo's
+   models): K2 and K4 at the demo's (16, 4, 69, 64) and (1, 4, 69, 64), K1 at
+   (1, 24, 4608, 64), K4 there too and K3 at (1, 24, 9728, 64), each against
+   its plain version (fp32: lse within 2^-6, the operands rounded to bf16),
+   K4 bit-equal over two calls, times beside the bound and SDPA's;
    then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
@@ -63,6 +68,18 @@ non-zero without one. Phases, one line each, and any failure ends the run:
 5. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
+5a. demo: the trained-weights demo (reptext_tpu_torch/examples/overfit_e2e.py,
+   FLUX 2 + 4 and ControlNet 1 + 2 at 4 heads x 64, fp32, 128^2, the holdout
+   set; its conditions from tests/fixtures/overfit_conditions_128.npz where no
+   font is) at DEMO_STEPS: finite flow losses, the last below the first, K2 and
+   K4 DEMO_BLOCKS per flow step and K2 DEMO_BLOCKS per sampled step, the
+   --params-cache bit-equal to the trained modules; then gates:
+   reptext_tpu_torch/benchmarks/trained_gates.py on that checkpoint with
+   --allow-low-accuracy at GATES_STEPS: per variant (uncached, fixed and
+   adaptive velocity cache, fp8 weights) the char accuracy, ms/step and
+   launches, the fixed cache's launches as its schedule says, the adaptive
+   cache's no more than uncached; every path checks first that the attention
+   backend is the default, auto;
 5b. checkpoint: a synthetic diffusers snapshot (FLUX.1-dev transformer, VAE,
    CLIP-L, T5-XXL, a RepText ControlNet, tokenizer files) at full width with
    the depth cut (CKPT_FLUX, CKPT_CN, CKPT_T5), bf16 from a seed, written by
@@ -204,8 +221,9 @@ non-zero without one. Phases, one line each, and any failure ends the run:
 Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
 phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
-among them; times, the bound,
-SDPA's time; K5 also at CFG batch 2 in its by_shape), the nvidia-smi line, and as the last line {"ok": true,
+and the demo and gates paths among them; times, the bound, SDPA's time;
+K5 also at CFG batch 2 in its by_shape; K1-K4 at head dim 64 under "d64"),
+the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
 arrays are used only where Pillow or a font is missing (the serve phase's
@@ -218,6 +236,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -370,7 +389,18 @@ def forward_counters():
             "K3": fa.flash_attention_streaming, "K5": ra.ring_step}
 
 
+def check_attention_backend():
+    """Every path runs the attention backend it would run for a user: the
+    default, 'auto' (the kernels on the card), never the plain version
+    unasked (``ops.attention.set_default_backend``)."""
+    from reptext_tpu_torch.ops.attention import get_default_backend
+
+    if get_default_backend() != "auto":
+        raise SystemExit(f"the attention backend is {get_default_backend()!r}, not 'auto'")
+
+
 def reset_launches():
+    check_attention_backend()
     for entry in forward_counters().values():
         entry.launches = 0
 
@@ -417,27 +447,29 @@ def attention_flop(b, h, sq, sk, d=128):
     return 4 * b * h * sq * sk * d
 
 
-def rope_tables(txt_len, grid_h, grid_w, device):
-    """FLUX RoPE tables for [txt_len zeros; (0, row, col) grid] ids."""
+def rope_tables(txt_len, grid_h, grid_w, device, axes=(16, 56, 56)):
+    """FLUX RoPE tables for [txt_len zeros; (0, row, col) grid] ids (``axes``:
+    FLUX.1-dev's at head dim 128; the demo's (8, 28, 28) at 64)."""
     from reptext_tpu_torch.ops.latents import prepare_latent_image_ids
     from reptext_tpu_torch.ops.rope import rope_cos_sin_half
 
     ids = torch.cat([torch.zeros(txt_len, 3, device=device),
                      prepare_latent_image_ids(2 * grid_h, 2 * grid_w, device)])
-    return rope_cos_sin_half(ids, (16, 56, 56), 10000)
+    return rope_cos_sin_half(ids, axes, 10000)
 
 
-def compare(name, got, want):
+def compare(name, got, want, lse_atol=LSE_ATOL):
     (o, l), (po, pl) = got, want
     out_err = (o.float() - po.float()).abs().max().item()
     lse_err = (l - pl).abs().max().item()
     out_max = po.float().abs().max().item()
     out_lim = OUT_RTOL * out_max
     lse_rel = lse_err / max(pl.abs().max().item(), 1e-30)
-    ok = out_err <= out_lim and lse_err <= LSE_ATOL and bool(torch.isfinite(o.float()).all())
+    ok = (out_err <= out_lim and lse_err <= lse_atol and bool(torch.isfinite(o.float()).all())
+          and o.dtype == po.dtype)
     phase("kernels", f"{name}: out max_abs {out_err:.3e} (limit {out_lim:.3e} = 2^-6 x "
                      f"max|plain out| {out_max:.4f}); lse max_abs {lse_err:.3e} max_rel "
-                     f"{lse_rel:.3e} (atol {LSE_ATOL}) -> {'ok' if ok else 'FAIL'}")
+                     f"{lse_rel:.3e} (atol {lse_atol:.3g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"kernel disagrees with its plain version: {name}")
     return max(out_err, lse_err)
@@ -604,7 +636,7 @@ def streaming_kernel_phase(dev):
 def compare_grads(name, got, want):
     worst = 0.0
     parts = []
-    ok = True
+    ok = all(x.dtype == y.dtype for x, y in zip(got, want))
     for tag, x, y in zip(("dq", "dk", "dv"), got, want):
         err = (x.float() - y.float()).abs()
         ref = y.float().abs()
@@ -772,18 +804,132 @@ def bound(flop, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def forward_bound(b, h, s, d=128, lse=True, tables=False):
-    """A forward: both products, 4 B H S^2 D FLOP; q, k, v read and out written
-    once in bf16, the fp32 lse written, the fp32 [S, D] RoPE tables read."""
+def forward_bound(b, h, s, d=128, lse=True, tables=False, elem=2):
+    """A forward: both products, 4 B H S^2 D FLOP at the bf16 rate (an fp32
+    call's products are bf16 too); q, k, v read and out written once in their
+    dtype (``elem`` bytes), the fp32 lse written, the fp32 [S, D] RoPE tables
+    read."""
     return bound(4 * b * h * s * s * d,
-                 4 * b * h * s * d * 2 + (4 * b * h * s if lse else 0) + (2 * s * d * 4 if tables else 0))
+                 4 * b * h * s * d * elem + (4 * b * h * s if lse else 0)
+                 + (2 * s * d * 4 if tables else 0))
 
 
-def backward_bound(b, h, s, d=128):
+def backward_bound(b, h, s, d=128, elem=2):
     """The backward's least work: five S^2 D products (q k^T, dO v^T, dS k,
-    dS^T q, P^T dO: the five K4 makes), 10 B H S^2 D FLOP; q, k, v, out, dO and
-    the lse read, dq, dk, dv written."""
-    return bound(10 * b * h * s * s * d, 8 * b * h * s * d * 2 + 4 * b * h * s)
+    dS^T q, P^T dO: the five K4 makes), 10 B H S^2 D FLOP at the bf16 rate; q,
+    k, v, out, dO and the lse read, dq, dk, dv written, in their dtype
+    (``elem`` bytes)."""
+    return bound(10 * b * h * s * s * d, 8 * b * h * s * d * elem + 4 * b * h * s)
+
+
+# The trained-weights demo's attention (examples/overfit_e2e.py: FLUX 2 + 4
+# and its ControlNet at 4 heads x 64, 128^2, 64 image + 5 text tokens, fp32):
+# K2 and K4 at (16, 4, 69, 64) in training (batch 16) and (1, 4, 69, 64) in
+# sampling. An fp32 call's operands are rounded to bf16 where its plain
+# version keeps fp32: out within 2^-6 of max|plain out| as in bf16, lse within
+# D64_LSE_ATOL_FP32 (a weighted mean of logits that moved by about 2^-9 of
+# |q||k| / sqrt(D)), gradients within the bf16 limits.
+DEMO_SHAPES = ((16, 4, 69), (1, 4, 69))
+D64_LSE_ATOL_FP32 = 2.0 ** -6
+DEMO_ROPE_AXES = (8, 28, 28)
+
+
+def d64_kernel_phase(dev):
+    """K1-K4 at head dim 64, in bf16 and fp32: K2 and K4 at the demo's shapes,
+    K1 at (1, 24, 4608, 64) and K3 at (1, 24, 9728, 64) (the 1024^2 and 1536^2
+    joint lengths), each against its plain version; K4 bit-equal over two calls
+    at (16, 4, 69, 64) and (1, 24, 4608, 64) (both warpgroups add a partial dq
+    over the same channels there); times beside the bound and SDPA's on the
+    same inputs. Returns {kernel: {"shape dtype": {...}}}."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    sdpa = F.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(17)
+    res = {"K1": {}, "K2": {}, "K3": {}, "K4": {}}
+
+    def tensors(b, h, s, dtype, n=4):
+        return [torch.randn(b, h, s, 64, generator=gen, device=dev).to(dtype) for _ in range(n)]
+
+    def timed(key, label, kern, plain, library, b_ms_by, flop, err):
+        k_t, p_t, line = alternated_ms(kern, plain)
+        lib = cuda_time_ms(library)[0]
+        res[key][label] = {"ms": k_t[0], "plain_ms": p_t[0], "library_ms": lib,
+                           "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1], "max_abs_err": err}
+        phase("kernels", f"{key} {label} time: {line}; SDPA {lib:.4f} ms; bound "
+                         f"{b_ms_by[0]:.4f} ms ({b_ms_by[1]}); {rate(flop, k_t[0], b_ms_by[0])}")
+
+    def sdpa_backward(q, k, v, do):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = sdpa(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    def bit_equal(label, args):
+        first, second = fa.flash_attention_backward(*args), fa.flash_attention_backward(*args)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+        phase("kernels", f"K4 {label} two calls: dq, dk, dv bit-equal {same} -> "
+                         f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise SystemExit(f"the backward kernel does not repeat bit for bit at {label}")
+
+    for dtype, tag, elem in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4)):
+        lse_atol = LSE_ATOL if dtype == torch.bfloat16 else D64_LSE_ATOL_FP32
+        for b, h, s in DEMO_SHAPES:
+            label = f"({b},{h},{s},64) {tag}"
+            q, k, v, do = tensors(b, h, s, dtype)
+            got = fa.flash_attention(q, k, v)
+            err = compare(f"K2 {label}", got, fa.flash_attention_plain(q, k, v), lse_atol)
+            timed("K2", label, lambda: fa.flash_attention(q, k, v),
+                  lambda: fa.flash_attention_plain(q, k, v), lambda: sdpa(q, k, v),
+                  forward_bound(b, h, s, 64, elem=elem), attention_flop(b, h, s, s, 64), err)
+            args = (q, k, v, got[0], got[1], do)
+            err = compare_grads(f"K4 {label}", fa.flash_attention_backward(*args),
+                                fa.flash_attention_backward_plain(*args))
+            timed("K4", label, lambda: fa.flash_attention_backward(*args),
+                  lambda: fa.flash_attention_backward_plain(*args), sdpa_backward(q, k, v, do),
+                  backward_bound(b, h, s, 64, elem=elem), 10 * b * h * s * s * 64, err)
+            if b == 16:
+                bit_equal(label, args)
+            del q, k, v, do, got, args
+        # K1 at the 1024^2 joint length (512 text tokens + a 64 x 64 grid)
+        q, k, v = tensors(1, 24, 4608, dtype, 3)
+        cos, sin = rope_tables(512, 64, 64, dev, DEMO_ROPE_AXES)
+        label = f"(1,24,4608,64) {tag}"
+        err = compare(f"K1 {label}", fa.flash_attention_rope(q, k, v, cos, sin),
+                      fa.flash_attention_rope_plain(q, k, v, cos, sin), lse_atol)
+        qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        timed("K1", label, lambda: fa.flash_attention_rope(q, k, v, cos, sin),
+              lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), lambda: sdpa(qr, kr, v),
+              forward_bound(1, 24, 4608, 64, tables=True, elem=elem),
+              attention_flop(1, 24, 4608, 4608, 64), err)
+        # K4 at the same length: more key tiles than CTAs in flight at once
+        out, lse = fa.flash_attention(qr, kr, v)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        args = (qr, kr, v, out, lse, do)
+        err = compare_grads(f"K4 {label}", fa.flash_attention_backward(*args),
+                            plain_backward_by_heads(fa, args, None))
+        timed("K4", label, lambda: fa.flash_attention_backward(*args),
+              lambda: plain_backward_by_heads(fa, args, None), sdpa_backward(qr, kr, v, do),
+              backward_bound(1, 24, 4608, 64, elem=elem), 10 * 24 * 4608 * 4608 * 64, err)
+        bit_equal(label, args)
+        del q, k, v, qr, kr, out, lse, do, args
+        torch.cuda.empty_cache()
+        # K3 at the 1536^2 joint length (512 + 96 x 96), q and k rotated first
+        q, k, v = tensors(1, 24, 9728, dtype, 3)
+        cos, sin = rope_tables(512, 96, 96, dev, DEMO_ROPE_AXES)
+        q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        label = f"(1,24,9728,64) {tag}"
+        err = compare(f"K3 {label}", fa.flash_attention_streaming(q, k, v),
+                      fa.flash_attention_streaming_plain(q, k, v), lse_atol)
+        timed("K3", label, lambda: fa.flash_attention_streaming(q, k, v),
+              lambda: fa.flash_attention_streaming_plain(q, k, v), lambda: sdpa(q, k, v),
+              forward_bound(1, 24, 9728, 64, elem=elem), attention_flop(1, 24, 9728, 9728, 64),
+              err)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return res
 
 
 def variant_counters():
@@ -794,33 +940,62 @@ def variant_counters():
             "K2": fa.flash_attention}
 
 
-FWD_RE = r"attn_fwd_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)EE"
+FWD_RE = r"attn_fwd_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)EE"
+BWD_RE = r"attn_bwd_kernelILi(\d+)ELb(\d)ELb(\d)EE"
+
+
+def width_label(d, f32):
+    """' D128', ' D64 fp32', ...: an instantiation's head dim and output dtype."""
+    return f" D{d}" + (" fp32" if int(f32) else "")
 
 
 def kernel_label(mangled):
     """A readable name for a kernel of the library from its mangled one: the
-    forward template's instantiations by their arguments (ROPE, ONLINE, EXP,
-    CARRY, PIPELINED), the backward's main kernel by its softmax, the others
-    by their function name."""
+    forward template's instantiations by their arguments (D, ROPE, ONLINE,
+    EXP, CARRY, PIPELINED, OUT_F32), the backward's main kernel by its head
+    dim, softmax and output dtype, the others by their function name and
+    template arguments."""
     import re
 
     m = re.search(FWD_RE, mangled)
     if m is None:
-        bwd = re.search(r"attn_bwd_kernelILb(\d)EE", mangled)
+        bwd = re.search(BWD_RE, mangled)
         if bwd:
-            return f"K4 main {'online' if int(bwd.group(1)) else 'clamped'}"
-        other = re.search(r"(rope_rotate_kernel|attn_bwd_\w+?_kernel)", mangled)
-        return other.group(1) if other else mangled[:60]
-    rope, online, exp, carry, overlap = (int(g) for g in m.groups())
+            d, online, f32 = bwd.groups()
+            return f"K4 main {'online' if int(online) else 'clamped'}{width_label(d, f32)}"
+        other = re.search(r"(rope_rotate_kernel|attn_bwd_\w+?_kernel)(I\w*?EE)?", mangled)
+        if other is None:
+            return mangled[:60]
+        args = re.findall(r"L[ib](\d+)E", other.group(2) or "")
+        return other.group(1) + (f"<{','.join(args)}>" if args else "")
+    d, rope, online, exp, carry, overlap, f32 = (int(g) for g in m.groups())
     if carry:
         name = "K5"
     elif rope:
         name = "K1"
     else:
-        name = {0: "chunked (exp)", 1: "K2/K3" + (" and exp2" if online else ""),
+        name = {0: "chunked (exp)",
+                1: "K2/K3" + (" and exp2" if online and d == 128 and not f32 else ""),
                 2: "bf16exp (ex2.approx.ftz.bf16x2)"}[exp]
-    return (f"{name} {'online' if online else 'clamped'} "
+    return (f"{name} {'online' if online else 'clamped'}{width_label(d, f32)} "
             f"[{'overlapped' if overlap else 'one product after the other'}]")
+
+
+def attention_instantiations():
+    """The labels (without the overlap tag) of every K1/K2/K3 instantiation and
+    of every backward main kernel: head dims 64 and 128, bf16 and fp32 out,
+    clamped and online."""
+    fwd, bwd = {"K5 online D128"}, set()
+    for d in (64, 128):
+        for f32 in (0, 1):
+            w = width_label(d, f32)
+            for online in ("clamped", "online"):
+                fwd.add(f"K1 {online}{w}")
+                bwd.add(f"K4 main {online}{w}")
+            fwd.add(f"K2/K3 clamped{w}")
+            fwd.add("K2/K3 and exp2 online D128" if (d, f32) == (128, 0)
+                    else f"K2/K3 online{w}")
+    return fwd, bwd
 
 
 def ptxas_summary(log):
@@ -903,8 +1078,8 @@ def build_phase():
                                 for fn, c in sorted(forward.items())))
     bad = [fn for fn, c in forward.items() if c.get("HMMA", 0) or not c.get("HGMMA", 0)]
     served = {fn.split(" [")[0] for fn in forward}
-    missing = {"K1 clamped", "K1 online", "K2/K3 clamped", "K2/K3 and exp2 online",
-               "K5 online"} - served
+    want_fwd, want_bwd = attention_instantiations()
+    missing = want_fwd - served
     if bad or missing:
         raise SystemExit(f"the forward template is not on wgmma alone: {bad}; missing {missing}")
     backward = {fn: c for fn, c in ops.items() if fn.startswith("K4 main")}
@@ -912,7 +1087,7 @@ def build_phase():
                    + " | ".join(f"{fn}: HGMMA x{c.get('HGMMA', 0)}, HMMA x{c.get('HMMA', 0)}"
                                 for fn, c in sorted(backward.items())))
     bad = [fn for fn, c in backward.items() if c.get("HMMA", 0) or not c.get("HGMMA", 0)]
-    if bad or set(backward) != {"K4 main clamped", "K4 main online"}:
+    if bad or set(backward) != want_bwd:
         raise SystemExit(f"the backward's main kernel is not on wgmma alone: {bad}; found "
                          f"{sorted(backward)}")
     spilled = [fn for fn, (_, st, ld) in summary.items() if fn.startswith("K4 main") and (st or ld)]
@@ -1030,6 +1205,132 @@ def library_yardsticks(dev):
                       + "; K3 "
                       + ", ".join(f"{shape} {ms:.4f} ms" for shape, ms in lib["K3"].items()))
     return lib
+
+
+# The trained-weights demo at cut step counts (the protocol's full run is
+# ``python -m reptext_tpu_torch.examples.overfit_e2e --holdout``): full demo
+# width, fp32, the holdout set. Per model call FLUX 2 + 4 and the ControlNet
+# 1 + 2 blocks make DEMO_BLOCKS attention calls, all K2 at 69 tokens (the
+# route rotates outside at one chunk); a train step is one forward and one
+# backward of both models, a sampled image one call per step (the ControlNet
+# on every step).
+DEMO_STEPS = {"vae": 200, "flux": 300, "sample": 4}
+DEMO_BLOCKS = 2 + 4 + 1 + 2
+GATES_STEPS = 8
+
+
+def demo_phase(dev):
+    """overfit_e2e at DEMO_STEPS with --holdout and a --params-cache under
+    SCRATCH: finite flow losses, the last below the first; K2 and K4 per flow
+    step and K2 per image as the route says, K1 = K3 = 0; the trained and the
+    random char accuracy (not gated at cut steps); the cache bit-equal to the
+    trained modules (save_pipeline_params, then load_pipeline_params), fp32.
+    Returns ({path: launches}, the cache directory)."""
+    from reptext_tpu_torch.examples import overfit_e2e as demo
+    from reptext_tpu_torch.io.checkpoint import load_pipeline_params
+
+    work = os.path.join(ROOT, SCRATCH, "demo")
+    shutil.rmtree(work, ignore_errors=True)
+    cache, out_json = os.path.join(work, "ckpt"), os.path.join(work, "overfit_e2e.json")
+    args = demo.build_parser().parse_args(
+        ["--steps-vae", str(DEMO_STEPS["vae"]), "--steps-flux", str(DEMO_STEPS["flux"]),
+         "--steps-sample", str(DEMO_STEPS["sample"]), "--holdout", "--params-cache", cache,
+         "--output", out_json])
+    phase("demo", f"overfit_e2e --steps-vae {DEMO_STEPS['vae']} "
+                  f"--steps-flux {DEMO_STEPS['flux']} --steps-sample {DEMO_STEPS['sample']} "
+                  f"--holdout; conditions: {demo.conditions_source()}; fp32 with "
+                  f"{demo.precision_settings()}, convolutions TF32 "
+                  f"{torch.backends.cudnn.allow_tf32} (PyTorch's defaults)")
+    reset_train_launches()
+    t0 = time.perf_counter()
+    out, pipe = demo.run(args)
+    wall = time.perf_counter() - t0
+    counts = {key: entry.launches for key, entry in train_launches().items()}
+    timing = out["timing"]
+    per_step = timing["flow_launches_per_step"]
+    per_image = timing["attention_forward_launches_per_image"]
+    n_images = timing["images_sampled"]
+    steps = DEMO_STEPS["flux"]
+    want_k2 = steps * DEMO_BLOCKS + n_images * DEMO_STEPS["sample"] * DEMO_BLOCKS
+    ok_launch = (per_step == {"K2": DEMO_BLOCKS, "K4": DEMO_BLOCKS}
+                 and per_image == DEMO_STEPS["sample"] * DEMO_BLOCKS
+                 and counts["K2"] == want_k2 and counts["K4"] == steps * DEMO_BLOCKS
+                 and counts["K1"] == counts["K3"] == 0)
+    ok_loss = timing["flow_losses_finite"] and timing["flow_loss_last"] < timing["flow_loss_first"]
+    phase("demo", f"{wall:.1f} s (stages {timing['stages_s']}); flow loss "
+                  f"{timing['flow_loss_first']:.5f} -> {timing['flow_loss_last']:.5f}, all finite "
+                  f"{timing['flow_losses_finite']}; {timing['flow_ms_per_step']:.2f} ms per flow "
+                  f"step, sampler {timing['sample_ms_per_step_trained']:.2f} ms/step; VAE PSNR "
+                  f"{out['vae_recon_psnr_db']} dB; char accuracy trained "
+                  f"{out['char_accuracy_trained']}, random {out['char_accuracy_random']}, "
+                  f"holdout {out['char_accuracy_holdout']} (not gated at cut steps); edge IoU "
+                  f"trained {out['mean_edge_iou_trained']}, random {out['mean_edge_iou_random']}")
+    phase("demo", f"launches: per flow step {per_step} (want K2 = K4 = {DEMO_BLOCKS}), per image "
+                  f"{per_image} (want {DEMO_STEPS['sample'] * DEMO_BLOCKS}), in all {counts} "
+                  f"(want K2 {want_k2}, K4 {steps * DEMO_BLOCKS}, K1 = K3 = 0) -> "
+                  f"{'ok' if ok_launch and ok_loss else 'FAIL'}")
+    if not (ok_launch and ok_loss):
+        raise SystemExit("the demo's losses or launches are not what they must be")
+    # the cache holds the trained modules: load it and compare with a save of
+    # the same modules now (the pipeline holds the random FLUX and ControlNet
+    # again; its VAE is the trained one)
+    saved = load_pipeline_params(cache, ("vae", "flux", "controlnet"))
+    vae_state = pipe.vae.state_dict()
+    same = (all(torch.equal(saved["vae"][k], v.cpu()) for k, v in vae_state.items())
+            and all(t.dtype == torch.float32 for state in saved.values() for t in state.values())
+            and set(saved["vae"]) == set(vae_state))
+    for name in ("flux", "controlnet"):
+        module = getattr(pipe, name)
+        module.load_state_dict(saved[name])
+        same = same and all(torch.equal(saved[name][k], v.cpu())
+                            for k, v in module.state_dict().items())
+    phase("demo", f"save_pipeline_params -> load_pipeline_params: the VAE, FLUX and the "
+                  f"ControlNet bit-equal, fp32 -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("the demo's checkpoint does not round-trip bit for bit")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"demo": counts}, cache
+
+
+def fixed_cache_steps(steps):
+    """Steps the fixed-interval cache computes at interval 2 and warmup
+    steps // 3 (sampling/sampler.py::velocity_cache_select): the warmup, every
+    second step after it, and the last."""
+    warm = max(steps // 3, 1)
+    return sum(1 for i in range(steps) if i < warm or i == steps - 1 or (i - warm) % 2 == 0)
+
+
+def gates_phase(dev, cache):
+    """trained_gates on the demo phase's checkpoint with --allow-low-accuracy
+    at GATES_STEPS sample steps: per variant the accuracy, ms/step and forward
+    launches; the fixed cache launches what its schedule says, the adaptive
+    cache no more than the uncached run, fp8 as many."""
+    from reptext_tpu_torch.benchmarks import trained_gates
+
+    out_json = os.path.join(os.path.dirname(cache), "trained_gates.json")
+    reset_train_launches()
+    t0 = time.perf_counter()
+    trained_gates.main(["--params-cache", cache, "--steps-sample", str(GATES_STEPS),
+                        "--allow-low-accuracy", "--output", out_json])
+    wall = time.perf_counter() - t0
+    counts = {key: entry.launches for key, entry in train_launches().items()}
+    with open(out_json) as f:
+        out = json.load(f)
+    per = out["attention_launches_per_image"]
+    want = {"uncached": GATES_STEPS * DEMO_BLOCKS,
+            "vc_fixed": fixed_cache_steps(GATES_STEPS) * DEMO_BLOCKS,
+            "fp8w": GATES_STEPS * DEMO_BLOCKS}
+    ok = (all(per[k] == n for k, n in want.items()) and per["vc_adaptive"] <= per["uncached"]
+          and counts["K4"] == counts["K1"] == counts["K3"] == 0)
+    phase("gates", f"{wall:.1f} s; " + "; ".join(
+        f"{k}: char accuracy {out['char_accuracy_' + k]}, {out['sample_ms_per_step'][k]:.2f} "
+        f"ms/step, {per[k]} launches per image" for k in per)
+        + f"; want {want}, adaptive <= uncached -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the trained gates' launches are not what the cache schedules say")
+    return {"gates": counts}
 
 
 def reference_phase(dev):
@@ -1863,6 +2164,7 @@ def train_launches():
 
 
 def reset_train_launches():
+    check_attention_backend()
     for entry in train_launches().values():
         entry.launches = 0
 
@@ -3999,13 +4301,17 @@ def main(argv=None):
     results = kernel_phase(dev)
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
+    d64 = d64_kernel_phase(dev)
     results["K5"] = ring_kernel_phase(dev)
     multi_card_phase()
     variants, study_launches = variants_phase(dev, sass)
     library = library_yardsticks(dev)
     reference_phase(dev)
+    by_path, demo_cache = demo_phase(dev)
+    by_path.update(gates_phase(dev, demo_cache))
+    shutil.rmtree(os.path.dirname(demo_cache), ignore_errors=True)
     txt2img, pipe, cond = e2e_phase(dev, args.steps, args.controlnet_step, args.seed)
-    by_path = {"txt2img": txt2img}
+    by_path["txt2img"] = txt2img
     # after e2e, so that e2e's first request is still the process's first
     by_path["checkpoint"] = checkpoint_phase(dev, args.steps, args.controlnet_step, args.seed)
     by_path.update(surface_phase(dev, pipe, args.steps, args.controlnet_step, args.seed))
@@ -4083,6 +4389,8 @@ def main(argv=None):
     results["K3"]["library_ms_by_shape"] = library["K3"]
     results["K3"]["bound_ms_by_shape"] = {shape: forward_bound(*bhs)[0]
                                           for shape, bhs in k3_shapes.items()}
+    for key, by_shape in d64.items():
+        results[key]["d64"] = by_shape
     for key in entry:
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})

@@ -196,6 +196,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiny model geometry (demo and tests; with --device cpu)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the modules run: cuda (bf16, the default) or cpu (float32)")
+    p.add_argument("--attention-backend", choices=["auto", "xla", "pallas"], default="auto",
+                   help="attention impl (the JAX names): auto = the hand-written kernels on "
+                        "CUDA tensors, the plain version on the CPU; xla = the plain version "
+                        "everywhere; pallas = the kernels (CUDA only)")
     p.add_argument("--output", default="results/result.png")
     p.add_argument("--host", default="127.0.0.1", help="serve: bind host")
     p.add_argument("--port", type=int, default=8470, help="serve: bind port")
@@ -294,10 +298,14 @@ def build_pipeline(args, height=None, width=None):
     from its files into modules built on the meta device, or seeded random
     ones. ``--mode inpaint`` adds the inpaint ControlNet to the same modules
     (:func:`add_inpaint`). Then ``--weight-dtype`` and ``--vae-tiling``
-    (:func:`deploy`)."""
+    (:func:`deploy`). ``--attention-backend`` sets the process-wide attention
+    backend (``ops.attention.set_default_backend``)."""
     import torch
 
     from reptext_tpu_torch.io.quantize import is_quantized
+    from reptext_tpu_torch.ops.attention import set_default_backend
+
+    set_default_backend(args.attention_backend)
     from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
 
     params = None

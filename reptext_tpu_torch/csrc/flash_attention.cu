@@ -78,6 +78,18 @@
 // the packed bf16 exponential runs its products one after the other (see
 // launch()).
 //
+// Head dim and output dtype. D is a template argument, instantiated at 128
+// (FLUX.1-dev) and 64 (the trained-weights demo's models) for K1-K3: a row of
+// q', K or V is D / 64 blocks of 64 channels, each 128 swizzled bytes, so D =
+// 64 is one block where D = 128 is two; the QK product takes D / 16 k-steps,
+// PV is m64nDk16 and the accumulator D / 2 registers a thread. RoPE's pairs
+// (i, i + D/2) are two blocks apart at D = 128 and inside one block at D = 64,
+// so q is staged in chunk pairs and each chunk placed by its own channel.
+// OUT_F32 writes out in fp32: the fp32 entries of ops/flash_attention.py round
+// q, k and v to bf16 in the wrapper (TMA copies bytes and cannot convert) and
+// keep the fp32 accumulator's quotient, as the JAX kernels return the input's
+// dtype. The tensor-core operands are bf16 either way.
+//
 // RoPE: k is rotated once per call by rope_rotate_kernel into a bf16 scratch
 // copy (k' as above), which a tensor map then streams like an unrotated k;
 // rotating k inside every CTA would re-read the fp32 tables per query tile.
@@ -145,23 +157,31 @@
 
 namespace {
 
-constexpr int kD = 128;              // head dim (FLUX's)
-constexpr int kHalf = kD / 2;        // 64 bf16: one 128-byte swizzled row
+constexpr int kHalf = 64;            // 64 bf16: one 128-byte swizzled row (half of D = 128)
 constexpr int kRowBytes = 128;
 constexpr int kWgRows = 64;          // query rows per consumer warpgroup
 constexpr int kConsumers = 2;        // consumer warpgroups per CTA
 constexpr int kBlockQ = kWgRows * kConsumers;
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kQHalfBytes = kBlockQ * kRowBytes;   // one 64-channel half of q'
+constexpr int kQHalfBytes = kBlockQ * kRowBytes;   // one 64-channel block of q'
 
 // The tiling of the keys: kBlockK keys per K or V tile, kStages tiles in each
 // of the K and V rings.
 constexpr int kBlockK = 128;
 constexpr int kStages = 2;
-constexpr int kHalfBytes = kBlockK * kRowBytes;  // one 64-channel half of a tile
-constexpr int kTileBytes = 2 * kHalfBytes;
-constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kQHalfBytes +
-                           2 * kStages * kTileBytes + 4 * kStages * 8 /* mbarriers */;
+constexpr int kHalfBytes = kBlockK * kRowBytes;  // one 64-channel block of a tile
+
+// The head dim D is a template argument (64 or 128). A row of q', K or V is
+// kBlocks 64-channel blocks of 128 swizzled bytes: two for FLUX's D = 128 (the
+// halves), one for D = 64.
+template <int D>
+struct FwdShape {
+  static_assert(D == 64 || D == 128, "the template is instantiated at head dims 64 and 128");
+  static constexpr int kBlocks = D / kHalf;
+  static constexpr int kTileBytes = kBlocks * kHalfBytes;
+  static constexpr int kSmemBytes = 1024 /* alignment slack */ + kBlocks * kQHalfBytes +
+                                    2 * kStages * kTileBytes + 4 * kStages * 8 /* mbarriers */;
+};
 
 constexpr float kLogitClamp = 43.0f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -178,7 +198,7 @@ struct Params {
   const __nv_bfloat16* v;
   const float* cos;         // [S, D] fp32, rounded to bf16 on read (ROPE only)
   const float* sin;
-  __nv_bfloat16* out;
+  void* out;                // bf16, or fp32 (OUT_F32)
   float* lse;               // [B, H, S] contiguous
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -209,16 +229,16 @@ __device__ __forceinline__ void load8_rounded(const float* p, float (&f)[8]) {
 // partner of the high half (hi, d0 + D/2 ...) of position `row`, then
 // multiply by `mul`. fp32 products and sums are rounded one at a time (no FMA
 // contraction), as the plain PyTorch version computes them.
-template <bool ROPE>
+template <bool ROPE, int D>
 __device__ __forceinline__ void rotate_chunk(float (&lo)[8], float (&hi)[8], const float* cos_t,
                                              const float* sin_t, int row, int d0, float mul) {
   if (ROPE) {
     float c_lo[8], c_hi[8], s_lo[8], s_hi[8];
-    const long long base = (long long)row * kD + d0;
+    const long long base = (long long)row * D + d0;
     load8_rounded(cos_t + base, c_lo);
-    load8_rounded(cos_t + base + kHalf, c_hi);
+    load8_rounded(cos_t + base + D / 2, c_hi);
     load8_rounded(sin_t + base, s_lo);
-    load8_rounded(sin_t + base + kHalf, s_hi);
+    load8_rounded(sin_t + base + D / 2, s_hi);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float x_lo = lo[i], x_hi = hi[i];
@@ -233,22 +253,24 @@ __device__ __forceinline__ void rotate_chunk(float (&lo)[8], float (&hi)[8], con
   }
 }
 
-// k' = bf16(rot(k)) for every row, into a contiguous [B, H, S, D] scratch.
+// k' = bf16(rot(k)) for every row, into a contiguous [B, H, S, D] scratch;
+// one thread per 8-channel chunk pair (d0, d0 + D/2).
+template <int D>
 __global__ void __launch_bounds__(256) rope_rotate_kernel(const Params p, __nv_bfloat16* k_rot) {
-  constexpr int kChunks = kHalf / 8;
+  constexpr int kPairs = D / 16;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = idx / kChunks;
-  const int d0 = (idx % kChunks) * 8;
+  const int row = idx / kPairs;
+  const int d0 = (idx % kPairs) * 8;
   const int h = blockIdx.y, b = blockIdx.z;
   if (row >= p.seq) return;
   const __nv_bfloat16* src = p.k + b * p.k_sb + h * p.k_sh + (long long)row * p.k_ss;
   float lo[8], hi[8];
   unpack8(*reinterpret_cast<const uint4*>(src + d0), lo);
-  unpack8(*reinterpret_cast<const uint4*>(src + d0 + kHalf), hi);
-  rotate_chunk<true>(lo, hi, p.cos, p.sin, row, d0, 1.0f);
-  __nv_bfloat16* dst = k_rot + (((long long)b * p.heads + h) * p.seq + row) * kD;
+  unpack8(*reinterpret_cast<const uint4*>(src + d0 + D / 2), hi);
+  rotate_chunk<true, D>(lo, hi, p.cos, p.sin, row, d0, 1.0f);
+  __nv_bfloat16* dst = k_rot + (((long long)b * p.heads + h) * p.seq + row) * D;
   *reinterpret_cast<uint4*>(dst + d0) = pack8(lo);
-  *reinterpret_cast<uint4*>(dst + d0 + kHalf) = pack8(hi);
+  *reinterpret_cast<uint4*>(dst + d0 + D / 2) = pack8(hi);
 }
 
 template <int EXP>
@@ -316,24 +338,28 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2],
 }
 
 // PIPELINED issues tile j + 1's logits before tile j's exponentials (see the
-// source note).
-template <bool ROPE, bool ONLINE, int EXP, bool CARRY, bool PIPELINED>
+// source note). D: the head dim; OUT_F32: out is written in fp32 (the fp32
+// entries), else in bf16.
+template <int D, bool ROPE, bool ONLINE, int EXP, bool CARRY, bool PIPELINED, bool OUT_F32>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v) {
+  using Shape = FwdShape<D>;
+  constexpr int kBlocks = Shape::kBlocks;
+  constexpr int kTileBytes = Shape::kTileBytes;
   constexpr int kNS = kBlockK / 2;       // logits per thread and tile
-  constexpr int kKSteps = kD / 16;       // wgmma k-steps over the head dim (QK)
+  constexpr int kKSteps = D / 16;        // wgmma k-steps over the head dim (QK)
   constexpr int kPvSteps = kBlockK / 16; // wgmma k-steps over the keys (PV)
   constexpr bool kLog2Units = EXP != kExpE;
   static_assert(EXP == kExp2 || ONLINE, "the study's exponentials keep a running max");
-  static_assert(!CARRY || (ONLINE && EXP == kExp2 && !ROPE),
-                "the ring step is the online form on unrotated inputs");
+  static_assert(!CARRY || (ONLINE && EXP == kExp2 && !ROPE && !OUT_F32),
+                "the ring step is the online form on unrotated bf16 inputs");
 
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes of the shared address
   uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sm_q = smem_addr(sm);                   // q': 2 halves x [kBlockQ][64]
-  const uint32_t sm_k = sm_q + 2 * kQHalfBytes;          // K ring: kStages x 2 x [kBlockK][64]
+  const uint32_t sm_q = smem_addr(sm);                   // q': kBlocks x [kBlockQ][64]
+  const uint32_t sm_k = sm_q + kBlocks * kQHalfBytes;    // K ring: kStages x kBlocks x [kBlockK][64]
   const uint32_t sm_v = sm_k + kStages * kTileBytes;  // V ring, the same
   const uint32_t bars = sm_v + kStages * kTileBytes;
   // tile `it` lives in slot it % kStages; its barriers flip once per round
@@ -370,13 +396,15 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
         const uint32_t kt = sm_k + slot(it) * kTileBytes;
         mbar_wait(empty_k(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full_k(it), kTileBytes);
-        tma_load_4d(kt, &map_k, full_k(it), 0, k0, h, b);
-        tma_load_4d(kt + kHalfBytes, &map_k, full_k(it), kHalf, k0, h, b);
+        for (int blk = 0; blk < kBlocks; ++blk) {
+          tma_load_4d(kt + blk * kHalfBytes, &map_k, full_k(it), blk * kHalf, k0, h, b);
+        }
         const uint32_t vt = sm_v + slot(it) * kTileBytes;
         mbar_wait(empty_v(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full_v(it), kTileBytes);
-        tma_load_4d(vt, &map_v, full_v(it), 0, k0, h, b);
-        tma_load_4d(vt + kHalfBytes, &map_v, full_v(it), kHalf, k0, h, b);
+        for (int blk = 0; blk < kBlocks; ++blk) {
+          tma_load_4d(vt + blk * kHalfBytes, &map_v, full_v(it), blk * kHalf, k0, h, b);
+        }
       }
     }
   } else {
@@ -391,36 +419,44 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
     const int t = lane & 3;   // column pair within the fragment
     const int q0 = blockIdx.x * kBlockQ + cw * kWgRows;  // this warpgroup's first row
 
-    // q' for this warpgroup's 64 rows, rotated and scaled, into the swizzled tile
+    // q' for this warpgroup's 64 rows, rotated and scaled, into the swizzled
+    // tile: each thread takes 8-channel chunk pairs (c, c + D/2), the pairs
+    // the half-split rotation mixes; channel ch of row r lands in block ch / 64
+    // at 16-byte chunk ((ch % 64) / 8) ^ (r % 8)
     {
+      constexpr int kPairs = D / 16;
       const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
       uint8_t* q_tile = sm + cw * kWgRows * kRowBytes;
-      for (int idx = wtid; idx < kWgRows * (kHalf / 8); idx += 128) {
-        const int r = idx >> 3;
-        const int c = idx & 7;
+      const auto store = [&](int r, int ch, const float (&f)[8]) {
+        const int off = (ch / kHalf) * kQHalfBytes + r * kRowBytes +
+                        ((((ch % kHalf) >> 3) ^ (r & 7)) << 4);
+        *reinterpret_cast<uint4*>(q_tile + off) = pack8(f);
+      };
+      for (int idx = wtid; idx < kWgRows * kPairs; idx += 128) {
+        const int r = idx / kPairs;
+        const int c = idx % kPairs;
         const int row = q0 + r;
         float lo[8], hi[8];
         if (row < seq) {
           const __nv_bfloat16* src = qb + (long long)row * p.q_ss;
           unpack8(*reinterpret_cast<const uint4*>(src + c * 8), lo);
-          unpack8(*reinterpret_cast<const uint4*>(src + c * 8 + kHalf), hi);
-          rotate_chunk<ROPE>(lo, hi, p.cos, p.sin, row, c * 8, p.q_mul);
+          unpack8(*reinterpret_cast<const uint4*>(src + c * 8 + D / 2), hi);
+          rotate_chunk<ROPE, D>(lo, hi, p.cos, p.sin, row, c * 8, p.q_mul);
         } else {
 #pragma unroll
           for (int i = 0; i < 8; ++i) lo[i] = hi[i] = 0.0f;
         }
-        const int off = r * kRowBytes + ((c ^ (r & 7)) << 4);
-        *reinterpret_cast<uint4*>(q_tile + off) = pack8(lo);
-        *reinterpret_cast<uint4*>(q_tile + kQHalfBytes + off) = pack8(hi);
+        store(r, c * 8, lo);
+        store(r, c * 8 + D / 2, hi);
       }
       fence_proxy_async();
       named_barrier_sync<128>(1 + cw);
     }
     const uint32_t q_addr = sm_q + cw * kWgRows * kRowBytes;
 
-    float o[kD / 2];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     // Per-thread partial row sums for rows g and g + 8 (reduced over the quad
     // at the end) and, online, the running row maxima (equal across the quad),
     // in the exponential's units.
@@ -437,9 +473,9 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
         if (p.first || row >= seq) continue;
         m_run[r] = p.m_state[state_row[r]] * kLog2e;
         l_part[r] = t == 0 ? p.l_state[state_row[r]] : 0.0f;
-        const float* arow = p.acc + state_row[r] * kD + 2 * t;
+        const float* arow = p.acc + state_row[r] * D + 2 * t;
 #pragma unroll
-        for (int n = 0; n < kD / 8; ++n) {
+        for (int n = 0; n < D / 8; ++n) {
           const float2 a = *reinterpret_cast<const float2*>(arow + n * 8);
           o[4 * n + 2 * r] = a.x;
           o[4 * n + 2 * r + 1] = a.y;
@@ -469,7 +505,7 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kPvSteps; ++kk) {
-        wgmma_rs_n128_bt(o, pa[kk], wgmma_desc(v_addr + kk * 16 * kRowBytes, kHalfBytes, 1024));
+        wgmma_rs_bt<D>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * kRowBytes, kHalfBytes, 1024));
       }
       wgmma_commit();
     };
@@ -499,7 +535,7 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
     const auto rescale = [&](const float (&alpha)[2]) {
       if constexpr (ONLINE) {
 #pragma unroll
-        for (int i = 0; i < kD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       }
     };
 
@@ -585,9 +621,9 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
         for (int r = 0; r < 2; ++r) {
           const int row = q0 + warp * 16 + g + 8 * r;
           if (row >= seq) continue;
-          float* arow = p.acc + state_row[r] * kD + 2 * t;
+          float* arow = p.acc + state_row[r] * D + 2 * t;
 #pragma unroll
-          for (int n = 0; n < kD / 8; ++n) {
+          for (int n = 0; n < D / 8; ++n) {
             *reinterpret_cast<float2*>(arow + n * 8) =
                 make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
           }
@@ -604,12 +640,18 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + warp * 16 + g + 8 * r;
       if (row >= seq) continue;
-      __nv_bfloat16* orow = p.out + b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss;
+      const long long orow = b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss + 2 * t;
       const float inv = __frcp_rn(l_part[r]);
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+      for (int n = 0; n < D / 8; ++n) {
+        const float x0 = o[4 * n + 2 * r] * inv, x1 = o[4 * n + 2 * r + 1] * inv;
+        if constexpr (OUT_F32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + orow + n * 8) =
+              make_float2(x0, x1);
+        } else {
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + orow + n * 8) =
+              pack_bf16(x0, x1);
+        }
       }
       if (t == 0 && p.lse != nullptr) {  // the A/B variants store no lse
         const float m = ONLINE ? m_run[r] * (kLog2Units ? kLn2 : 1.0f) : 0.0f;
@@ -619,25 +661,39 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
   }
 }
 
-template <bool ROPE, bool ONLINE, int EXP = kExp2, bool CARRY = false>
+template <int D, bool ROPE, bool ONLINE, int EXP = kExp2, bool CARRY = false,
+          bool OUT_F32 = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   CUtensorMap map_k, map_v;
   // a layout no tensor map takes (a stride that is not a positive multiple of
   // 16 bytes, a misaligned base) is refused here
-  if (!make_map(&map_k, p.k, batch, p.heads, p.seq_k, p.k_sb, p.k_sh, p.k_ss, kD, kBlockK) ||
-      !make_map(&map_v, p.v, batch, p.heads, p.seq_k, p.v_sb, p.v_sh, p.v_ss, kD, kBlockK)) {
+  if (!make_map(&map_k, p.k, batch, p.heads, p.seq_k, p.k_sb, p.k_sh, p.k_ss, D, kBlockK) ||
+      !make_map(&map_v, p.v, batch, p.heads, p.seq_k, p.v_sb, p.v_sh, p.v_ss, D, kBlockK)) {
     return cudaErrorInvalidValue;
   }
   // the packed bf16 exponential keeps its pairs in the logits' registers, which
   // leaves ptxas too few registers to overlap the two products: it runs them
   // one after the other either way, so this form takes the loop that says so
-  const auto kernel = attn_fwd_kernel<ROPE, ONLINE, EXP, CARRY, EXP != kExp2Bf16>;
+  const auto kernel = attn_fwd_kernel<D, ROPE, ONLINE, EXP, CARRY, EXP != kExp2Bf16, OUT_F32>;
+  constexpr int kSmemBytes = FwdShape<D>::kSmemBytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(p, map_k, map_v);
   return cudaGetLastError();
+}
+
+// K1, K2 and K3 at the call's head dim (64 or 128) and output dtype.
+template <bool ROPE, bool ONLINE>
+cudaError_t launch_attention(const Params& p, int batch, int head_dim, int out_f32,
+                             cudaStream_t stream) {
+  if (head_dim == 64) {
+    return out_f32 ? launch<64, ROPE, ONLINE, kExp2, false, true>(p, batch, stream)
+                   : launch<64, ROPE, ONLINE>(p, batch, stream);
+  }
+  return out_f32 ? launch<128, ROPE, ONLINE, kExp2, false, true>(p, batch, stream)
+                 : launch<128, ROPE, ONLINE>(p, batch, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -651,7 +707,7 @@ Params make_params(const void* q, const void* k, const void* v, void* out, void*
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.cos = nullptr;
   p.sin = nullptr;
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out = out;
   p.lse = static_cast<float*>(lse);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
@@ -678,13 +734,23 @@ void fold_scale(Params& p) {
   p.logit_mul = kLog2e;
 }
 
+// The head dims the attention entries (K1, K2, K3) are instantiated at: FLUX's
+// 128 and the trained-weights demo's 64. The study's variants and K5's ring
+// step are instantiated at FLUX's alone.
+constexpr int kFluxD = 128;
+
+bool attention_head_dim(int head_dim) { return head_dim == 64 || head_dim == 128; }
+
 }  // namespace
 
 // C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
 // Strides are in elements; the head dim must be contiguous, every other stride
 // a multiple of 8 elements and the bases 16-byte aligned (what a tensor map
-// takes). With rope, k_rot is a contiguous [B, H, S, D] bf16 scratch the
-// caller allocates. Returns the cudaError_t of the launches (0 on success).
+// takes). q, k and v are bf16; out is bf16, or fp32 when out_f32 (the fp32
+// entries: the wrapper rounds their inputs to bf16, the kernel writes its fp32
+// accumulator divided by the row sum). With rope, k_rot is a contiguous
+// [B, H, S, D] bf16 scratch the caller allocates. Returns the cudaError_t of
+// the launches (0 on success).
 extern "C" int reptext_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_rot, void* out, void* lse, int batch, int heads, int seq, int head_dim,
@@ -692,9 +758,9 @@ extern "C" int reptext_flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int rope, int online, void* stream) {
-  // FLUX's head dim; other widths get their instantiation when a model needs one
-  if (seq < 1 || batch < 1 || heads < 1 || head_dim != kD || (rope && k_rot == nullptr)) {
+    float scale, int rope, int online, int out_f32, void* stream) {
+  if (seq < 1 || batch < 1 || heads < 1 || !attention_head_dim(head_dim) ||
+      (rope && k_rot == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p = make_params(q, k, v, out, lse, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
@@ -705,24 +771,31 @@ extern "C" int reptext_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rope) {
-    constexpr int kChunks = kD / 16;
-    dim3 grid((seq * kChunks + 255) / 256, heads, batch);
-    rope_rotate_kernel<<<grid, 256, 0, s>>>(p, static_cast<__nv_bfloat16*>(k_rot));
+    dim3 grid((seq * (head_dim / 16) + 255) / 256, heads, batch);
+    __nv_bfloat16* k_out = static_cast<__nv_bfloat16*>(k_rot);
+    if (head_dim == 64) {
+      rope_rotate_kernel<64><<<grid, 256, 0, s>>>(p, k_out);
+    } else {
+      rope_rotate_kernel<128><<<grid, 256, 0, s>>>(p, k_out);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    p.k = static_cast<const __nv_bfloat16*>(k_rot);
-    p.k_ss = kD;
-    p.k_sh = (long long)seq * kD;
-    p.k_sb = (long long)heads * seq * kD;
-    err = online ? launch<true, true>(p, batch, s) : launch<true, false>(p, batch, s);
+    p.k = k_out;
+    p.k_ss = head_dim;
+    p.k_sh = (long long)seq * head_dim;
+    p.k_sb = (long long)heads * seq * head_dim;
+    err = online ? launch_attention<true, true>(p, batch, head_dim, out_f32, s)
+                 : launch_attention<true, false>(p, batch, head_dim, out_f32, s);
   } else {
-    err = online ? launch<false, true>(p, batch, s) : launch<false, false>(p, batch, s);
+    err = online ? launch_attention<false, true>(p, batch, head_dim, out_f32, s)
+                 : launch_attention<false, false>(p, batch, head_dim, out_f32, s);
   }
   return static_cast<int>(err);
 }
 
 // K3: the streaming forward on pre-rotated q and k, with the scale applied to
-// the fp32 logits. Strides in elements, as above; returns the cudaError_t.
+// the fp32 logits. Strides in elements and out_f32, as above; returns the
+// cudaError_t.
 extern "C" int reptext_flash_attention_streaming_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse,
     int batch, int heads, int seq, int head_dim,
@@ -730,15 +803,15 @@ extern "C" int reptext_flash_attention_streaming_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int online, void* stream) {
-  if (seq < 1 || batch < 1 || heads < 1 || head_dim != kD) {
+    float scale, int online, int out_f32, void* stream) {
+  if (seq < 1 || batch < 1 || heads < 1 || !attention_head_dim(head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Params p = make_params(q, k, v, out, lse, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh,
                                k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = online ? launch<false, true>(p, batch, s)
-                                 : launch<false, false>(p, batch, s);
+  const cudaError_t err = online ? launch_attention<false, true>(p, batch, head_dim, out_f32, s)
+                                 : launch_attention<false, false>(p, batch, head_dim, out_f32, s);
   return static_cast<int>(err);
 }
 
@@ -755,7 +828,7 @@ extern "C" int reptext_attention_variant_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int exp_mode, void* stream) {
-  if (seq < 1 || batch < 1 || heads < 1 || head_dim != kD || exp_mode < 0 || exp_mode > 2) {
+  if (seq < 1 || batch < 1 || heads < 1 || head_dim != kFluxD || exp_mode < 0 || exp_mode > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p = make_params(q, k, v, out, nullptr, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh,
@@ -763,9 +836,9 @@ extern "C" int reptext_attention_variant_fwd(
   p.logit_mul = scale;  // the caller's units: natural for exp, log2 for exp2
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (exp_mode == kExpE) err = launch<false, true, kExpE>(p, batch, s);
-  else if (exp_mode == kExp2) err = launch<false, true, kExp2>(p, batch, s);
-  else err = launch<false, true, kExp2Bf16>(p, batch, s);
+  if (exp_mode == kExpE) err = launch<kFluxD, false, true, kExpE>(p, batch, s);
+  else if (exp_mode == kExp2) err = launch<kFluxD, false, true, kExp2>(p, batch, s);
+  else err = launch<kFluxD, false, true, kExp2Bf16>(p, batch, s);
   return static_cast<int>(err);
 }
 
@@ -783,7 +856,7 @@ extern "C" int reptext_ring_attention_step(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int first, int last, void* stream) {
-  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || head_dim != kD ||
+  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || head_dim != kFluxD ||
       (last && out == nullptr) || (!(first && last) && (acc == nullptr || m_state == nullptr ||
                                                         l_state == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -797,5 +870,5 @@ extern "C" int reptext_ring_attention_step(
   p.first = first;
   p.last = last;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch<false, true, kExp2, true>(p, batch, s));
+  return static_cast<int>(launch<kFluxD, false, true, kExp2, true>(p, batch, s));
 }

@@ -92,6 +92,21 @@
 // ptxas spill; peeled, no gain); adding dq under the next tile's logit
 // products (spills). ptxas: 168 registers at launch, no spills.
 //
+// Head dim 64 and fp32 outputs. D is a template argument, instantiated at 128
+// (FLUX.1-dev) and 64 (the trained-weights demo's models). A row of K, V, Q
+// or dO is D / 64 blocks of 64 channels, so D = 64 is one block where D = 128
+// is two: s^T and dp^T take D / 16 k-steps, dv and dk are m64nDk16 products
+// into D / 2 registers a thread. dq changes its split: at D = 128 each
+// consumer warpgroup makes its 64-channel half of dq over all 128 keys of
+// the CTA; at D = 64 there is one channel block, so each makes all 64
+// channels over its own 64 keys (the ds^T rows it wrote and the K rows it
+// owns) and the two partials of a CTA are added one after the other, behind
+// one counter per query tile that counts warpgroups (writer cw of key tile x
+// waits for 2 x + cw), so the order stays fixed. OUT_F32 writes dq (the
+// epilogue), dk and dv in fp32 and reads the forward's fp32 out in the
+// preprocess pass: the fp32 entries round q, k, v and dO to bf16 in the
+// wrapper (TMA copies bytes and cannot convert), and the products stay bf16.
+//
 // Run-to-run order: dq is a sum of one fp32 partial per key tile, and fp32
 // sums depend on their order. The Pallas _dq_kernel walks the key blocks in
 // grid order into one accumulator, so its dq repeats bit for bit; so does
@@ -127,8 +142,7 @@
 
 namespace {
 
-constexpr int kD = 128;              // head dim (FLUX's)
-constexpr int kHalf = kD / 2;        // 64 bf16: one 128-byte swizzled row
+constexpr int kHalf = 64;            // 64 bf16: one 128-byte swizzled row (half of D = 128)
 constexpr int kRowBytes = 128;
 constexpr int kWgKeys = 64;          // keys per consumer warpgroup
 constexpr int kConsumers = 2;        // consumer warpgroups per CTA
@@ -136,37 +150,47 @@ constexpr int kBlockKV = kWgKeys * kConsumers;   // keys a CTA owns
 constexpr int kBlockQ = 64;          // queries per streamed tile
 constexpr int kStages = 2;           // stages of the Q / dO ring
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kKVHalfBytes = kBlockKV * kRowBytes;  // one 64-channel half of K or V
-constexpr int kKVTileBytes = 2 * kKVHalfBytes;
-constexpr int kQHalfBytes = kBlockQ * kRowBytes;    // one 64-channel half of a Q or dO tile
-constexpr int kQTileBytes = 2 * kQHalfBytes;
+constexpr int kKVHalfBytes = kBlockKV * kRowBytes;  // one 64-channel block of K or V
+constexpr int kQHalfBytes = kBlockQ * kRowBytes;    // one 64-channel block of a Q or dO tile
 constexpr int kDsTileBytes = kBlockKV * kRowBytes;  // [128 keys][64 queries] bf16
 constexpr int kStatBytes = 2 * kBlockQ * 4;         // lse log2(e) and delta of one tile
-constexpr int kStageBytes = 2 * kQTileBytes + kStatBytes;
 constexpr int kDsBufs = 2;           // ds^T tiles: one barrier per query tile is enough
 constexpr int kDqStageBytes = kBlockQ * kHalf * 4;  // a warpgroup's [64 queries][64 ch] fp32
 constexpr int kDqBufs = 2;           // staging tiles per consumer warpgroup
 constexpr int kBars = 1 + 2 * kStages + 2 * kConsumers * kDqBufs;
-constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kKVTileBytes +
-                           kStages * kStageBytes + kDsBufs * kDsTileBytes +
-                           kConsumers * kDqBufs * kDqStageBytes + kBars * 8 /* mbarriers */;
-static_assert(kSmemBytes <= 232448, "more shared memory than an sm_90 block may take");
 constexpr int kStatPad = kBlockQ;    // lse log2(e) and delta rows are padded to this
+
+// The head dim D is a template argument (64 or 128): a row of K, V, Q or dO
+// is kBlocks 64-channel blocks of 128 swizzled bytes, two for FLUX's D = 128,
+// one for D = 64 (see "Head dim 64" in the source note).
+template <int D>
+struct BwdShape {
+  static_assert(D == 64 || D == 128, "the backward is instantiated at head dims 64 and 128");
+  static constexpr int kBlocks = D / kHalf;
+  static constexpr int kKVTileBytes = kBlocks * kKVHalfBytes;
+  static constexpr int kQTileBytes = kBlocks * kQHalfBytes;
+  static constexpr int kStageBytes = 2 * kQTileBytes + kStatBytes;
+  static constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kKVTileBytes +
+                                    kStages * kStageBytes + kDsBufs * kDsTileBytes +
+                                    kConsumers * kDqBufs * kDqStageBytes +
+                                    kBars * 8 /* mbarriers */;
+  static_assert(kSmemBytes <= 232448, "more shared memory than an sm_90 block may take");
+};
 
 constexpr float kLogitClamp = 43.0f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
-  const __nv_bfloat16* out;   // the forward's output (preprocess only)
+  const void* out;            // the forward's output, bf16 or fp32 (preprocess only)
   const __nv_bfloat16* dout;  // (preprocess only; the main kernel reads it through its map)
   const float* lse;           // [B, H, S] contiguous, natural units
   float* lse2;                // [B, H, S_pad] contiguous: lse * log2(e), 0 past S
   float* delta;               // [B, H, S_pad] contiguous, 0 past S
   float* dq_acc;              // [B, H, S, D] fp32 contiguous, zeroed by the caller
   int* dq_flags;              // [B, H, ceil(S / 64), 2] int32, zeroed by the caller
-  __nv_bfloat16* dq;          // [B, H, S, D] contiguous
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  void* dq;                   // [B, H, S, D] contiguous, bf16 or fp32 (OUT_F32)
+  void* dk;
+  void* dv;
   long long o_sb, o_sh, o_ss;
   long long d_sb, d_sh, d_ss;
   int heads;
@@ -175,9 +199,36 @@ struct BwdParams {
   float scale;
 };
 
-// delta = rowsum(dO * O) and lse * log2(e): 16 threads per row, 8 channels each.
+// Eight elements of a bf16 or fp32 row, widened to fp32.
+template <bool F32>
+__device__ __forceinline__ void load8(const void* base, long long off, float (&f)[8]) {
+  if constexpr (F32) {
+    const float4 a = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + off);
+    const float4 b = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + off + 4);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  } else {
+    unpack8(*reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + off), f);
+  }
+}
+
+// Eight fp32 values stored as bf16 or fp32.
+template <bool F32>
+__device__ __forceinline__ void store8(void* base, long long off, const float (&f)[8]) {
+  if constexpr (F32) {
+    float* d = static_cast<float*>(base) + off;
+    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  } else {
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(base) + off) = pack8(f);
+  }
+}
+
+// delta = rowsum(dO * O) and lse * log2(e): D / 8 threads per row, 8 channels
+// each; O in the forward's output dtype (fp32 when OUT_F32), dO in bf16.
+template <int D, bool OUT_F32>
 __global__ void __launch_bounds__(256) attn_bwd_preprocess_kernel(const BwdParams p) {
-  constexpr int kChunks = kD / 8;
+  constexpr int kChunks = D / 8;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = idx / kChunks;      // < seq_pad: the grid covers it exactly
   const int d0 = (idx % kChunks) * 8;
@@ -185,8 +236,7 @@ __global__ void __launch_bounds__(256) attn_bwd_preprocess_kernel(const BwdParam
   float sum = 0.0f;
   if (row < p.seq) {
     float o[8], g[8];
-    unpack8(*reinterpret_cast<const uint4*>(p.out + b * p.o_sb + h * p.o_sh +
-                                            (long long)row * p.o_ss + d0), o);
+    load8<OUT_F32>(p.out, b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss + d0, o);
     unpack8(*reinterpret_cast<const uint4*>(p.dout + b * p.d_sb + h * p.d_sh +
                                             (long long)row * p.d_ss + d0), g);
 #pragma unroll
@@ -201,7 +251,8 @@ __global__ void __launch_bounds__(256) attn_bwd_preprocess_kernel(const BwdParam
   }
 }
 
-// dq = bf16(scale * dq_acc), 8 elements a thread.
+// dq = scale * dq_acc in the output dtype, 8 elements a thread.
+template <bool OUT_F32>
 __global__ void __launch_bounds__(256) attn_bwd_epilogue_kernel(const BwdParams p, long long n8) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n8) return;
@@ -209,7 +260,7 @@ __global__ void __launch_bounds__(256) attn_bwd_epilogue_kernel(const BwdParams 
   const float4 c = reinterpret_cast<const float4*>(p.dq_acc)[2 * idx + 1];
   const float f[8] = {a.x * p.scale, a.y * p.scale, a.z * p.scale, a.w * p.scale,
                       c.x * p.scale, c.y * p.scale, c.z * p.scale, c.w * p.scale};
-  reinterpret_cast<uint4*>(p.dq)[idx] = pack8(f);
+  store8<OUT_F32>(p.dq, 8 * idx, f);
 }
 
 // One tile's transposed logits to p^T (in s) and ds^T (in dp), in place. A
@@ -242,24 +293,31 @@ __device__ __forceinline__ void bwd_softmax_tile(float (&s)[kBlockQ / 2], float 
   }
 }
 
-template <bool ONLINE>
+template <int D, bool ONLINE, bool OUT_F32>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do,
                 const __grid_constant__ CUtensorMap map_dq) {
+  using Shape = BwdShape<D>;
+  constexpr int kBlocks = Shape::kBlocks;
+  constexpr int kKVTileBytes = Shape::kKVTileBytes;
+  constexpr int kQTileBytes = Shape::kQTileBytes;
   constexpr int kNS = kBlockQ / 2;         // logits per thread and tile
-  constexpr int kDSteps = kD / 16;         // wgmma k-steps over the head dim (s^T, dp^T)
+  constexpr int kDSteps = D / 16;          // wgmma k-steps over the head dim (s^T, dp^T)
   constexpr int kQSteps = kBlockQ / 16;    // over the tile's queries (dv, dk)
-  constexpr int kKeySteps = kBlockKV / 16; // over the CTA's keys (dq)
+  // D = 128: a warpgroup's dq is its 64-channel half over all 128 keys of the
+  // CTA; D = 64: all 64 channels over its own 64 keys (see "Head dim 64")
+  constexpr bool kSplitKeys = D == 64;
+  constexpr int kKeySteps = (kSplitKeys ? kWgKeys : kBlockKV) / 16;  // over keys (dq)
 
   extern __shared__ uint8_t smem_raw[];
   // the swizzle pattern repeats every 1024 bytes of the shared address
   uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sm_k = smem_addr(sm);                     // 2 halves x [kBlockKV][64]
+  const uint32_t sm_k = smem_addr(sm);                     // kBlocks x [kBlockKV][64]
   const uint32_t sm_v = sm_k + kKVTileBytes;               // the same
-  const uint32_t sm_q = sm_v + kKVTileBytes;               // kStages x 2 x [kBlockQ][64]
+  const uint32_t sm_q = sm_v + kKVTileBytes;               // kStages x kBlocks x [kBlockQ][64]
   const uint32_t sm_do = sm_q + kStages * kQTileBytes;     // the same
   const uint32_t sm_ds = sm_do + kStages * kQTileBytes;    // kDsBufs x [kBlockKV][kBlockQ]
   // kConsumers x kDqBufs x 2 x [kBlockQ][32] fp32
@@ -318,10 +376,10 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_kv, 2 * kKVTileBytes);
-      tma_load_4d(sm_k, &map_k, full_kv, 0, kv0, h, b);
-      tma_load_4d(sm_k + kKVHalfBytes, &map_k, full_kv, kHalf, kv0, h, b);
-      tma_load_4d(sm_v, &map_v, full_kv, 0, kv0, h, b);
-      tma_load_4d(sm_v + kKVHalfBytes, &map_v, full_kv, kHalf, kv0, h, b);
+      for (int blk = 0; blk < kBlocks; ++blk) {
+        tma_load_4d(sm_k + blk * kKVHalfBytes, &map_k, full_kv, blk * kHalf, kv0, h, b);
+        tma_load_4d(sm_v + blk * kKVHalfBytes, &map_v, full_kv, blk * kHalf, kv0, h, b);
+      }
       const float* lse2_row = p.lse2 + bh * p.seq_pad;
       const float* delta_row = p.delta + bh * p.seq_pad;
       for (int it = 0; it < n_tiles; ++it) {
@@ -330,27 +388,32 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
         const uint32_t dot = sm_do + slot(it) * kQTileBytes;
         const uint32_t st = sm_stat + slot(it) * kStatBytes;
         mbar_wait(empty(it), round(it) ^ 1);
-        mbar_arrive_expect_tx(full(it), kStageBytes);
-        tma_load_4d(qt, &map_q, full(it), 0, q0, h, b);
-        tma_load_4d(qt + kQHalfBytes, &map_q, full(it), kHalf, q0, h, b);
-        tma_load_4d(dot, &map_do, full(it), 0, q0, h, b);
-        tma_load_4d(dot + kQHalfBytes, &map_do, full(it), kHalf, q0, h, b);
+        mbar_arrive_expect_tx(full(it), Shape::kStageBytes);
+        for (int blk = 0; blk < kBlocks; ++blk) {
+          tma_load_4d(qt + blk * kQHalfBytes, &map_q, full(it), blk * kHalf, q0, h, b);
+          tma_load_4d(dot + blk * kQHalfBytes, &map_do, full(it), blk * kHalf, q0, h, b);
+        }
         bulk_load(st, lse2_row + q0, kStatBytes / 2, full(it));
         bulk_load(st + kStatBytes / 2, delta_row + q0, kStatBytes / 2, full(it));
       }
     } else if (threadIdx.x == 32 || threadIdx.x == 64) {
       // dq writer of consumer warpgroup cw: add each staged tile once the
-      // key tiles before this one have added theirs
+      // partials before it have landed. D = 128: the key tiles before this
+      // one, on this warpgroup's channel half (a counter per half); D = 64:
+      // the key tiles before this one and, in this CTA, warpgroup 0's keys
+      // before warpgroup 1's (one counter, counting warpgroups)
       const int cw = (threadIdx.x >> 5) - 1;
-      int* const flags = p.dq_flags + bh * n_tiles * kConsumers + cw;
+      int* const flags = p.dq_flags + bh * n_tiles * kConsumers + (kSplitKeys ? 0 : cw);
+      const int turn = kSplitKeys ? kConsumers * blockIdx.x + cw : blockIdx.x;
+      const int ch0 = kSplitKeys ? 0 : cw * kHalf;
       for (int it = 0; it < n_tiles; ++it) {
         const uint32_t stage = dq_stage(cw, it);
         mbar_wait(dq_full(cw, it), dq_round(it));
         int* const flag = flags + it * kConsumers;
-        flag_wait_eq(flag, blockIdx.x);
+        flag_wait_eq(flag, turn);
         fence_proxy_async_global();
-        tma_reduce_add_4d(&map_dq, stage, cw * kHalf, it * kBlockQ, h, b);
-        tma_reduce_add_4d(&map_dq, stage + kDqStageBytes / 2, cw * kHalf + 32, it * kBlockQ, h, b);
+        tma_reduce_add_4d(&map_dq, stage, ch0, it * kBlockQ, h, b);
+        tma_reduce_add_4d(&map_dq, stage + kDqStageBytes / 2, ch0 + 32, it * kBlockQ, h, b);
         bulk_commit();
         bulk_wait<0>();
         fence_proxy_async_global();
@@ -372,15 +435,18 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     const bool key_tail = kv0 + kBlockKV > seq;
     const float mul = p.scale * kLog2e;
 
-    // this warpgroup's 64 keys of K and V (A operands of s^T and dp^T) and its
-    // 64-channel half of all 128 keys of K (B operand of dq)
+    // this warpgroup's 64 keys of K and V (A operands of s^T and dp^T) and the
+    // B operand of dq: its 64-channel half of all 128 keys of K (D = 128), or
+    // all 64 channels of its own 64 keys (D = 64), with the ds^T rows that
+    // go with them (A of dq)
     const uint32_t k_rows = sm_k + cw * kWgKeys * kRowBytes;
     const uint32_t v_rows = sm_v + cw * kWgKeys * kRowBytes;
-    const uint32_t k_cols = sm_k + cw * kKVHalfBytes;
+    const uint32_t k_cols = kSplitKeys ? k_rows : sm_k + cw * kKVHalfBytes;
+    const uint32_t ds_first = kSplitKeys ? cw * kWgKeys * kRowBytes : 0;
 
-    float dk[kD / 2], dv[kD / 2];
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
 
     // One arrival per warp: wgmma.wait_group has made the warp's reads complete.
     const auto release = [&](uint32_t bar) {
@@ -451,18 +517,19 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQSteps; ++kk) {
-        wgmma_rs_n128_bt(dv, pa[kk], wgmma_desc(do_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+        wgmma_rs_bt<D>(dv, pa[kk], wgmma_desc(do_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
       }
 #pragma unroll
       for (int kk = 0; kk < kQSteps; ++kk) {
-        wgmma_rs_n128_bt(dk, da[kk], wgmma_desc(q_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+        wgmma_rs_bt<D>(dk, da[kk], wgmma_desc(q_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
       }
     };
 
-    // dq[64 queries x 64 channels] = ds k over the CTA's 128 keys, from the
-    // shared tile `buf`, issued (not committed)
+    // dq[64 queries x 64 channels] = ds k over the CTA's 128 keys (D = 128)
+    // or this warpgroup's 64 (D = 64), from the shared tile `buf`, issued
+    // (not committed)
     const auto issue_dq = [&](float (&dq)[kNS], int buf) {
-      const uint32_t ds_addr = sm_ds + buf * kDsTileBytes;
+      const uint32_t ds_addr = sm_ds + buf * kDsTileBytes + ds_first;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeySteps; ++kk) {
@@ -525,14 +592,20 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < 2; ++r) {
       const int key = kv0 + key_row + 8 * r;
       if (key >= seq) continue;
-      __nv_bfloat16* dk_row = p.dk + (bh * seq + key) * kD + 2 * t;
-      __nv_bfloat16* dv_row = p.dv + (bh * seq + key) * kD + 2 * t;
+      const long long row = (bh * seq + key) * D + 2 * t;
 #pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dk_row + n * 8) =
-            pack_bf16(dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dv_row + n * 8) =
-            pack_bf16(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      for (int n = 0; n < D / 8; ++n) {
+        const float k0 = dk[4 * n + 2 * r] * p.scale, k1 = dk[4 * n + 2 * r + 1] * p.scale;
+        const float v0 = dv[4 * n + 2 * r], v1 = dv[4 * n + 2 * r + 1];
+        if constexpr (OUT_F32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.dk) + row + n * 8) = make_float2(k0, k1);
+          *reinterpret_cast<float2*>(static_cast<float*>(p.dv) + row + n * 8) = make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dk) + row + n * 8) =
+              pack_bf16(k0, k1);
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.dv) + row + n * 8) =
+              pack_bf16(v0, v1);
+        }
       }
     }
   }
@@ -543,16 +616,16 @@ BwdParams make_params(const void* out, const void* dout, const void* lse, void* 
                       long long o_sb, long long o_sh, long long o_ss,
                       long long d_sb, long long d_sh, long long d_ss, float scale) {
   BwdParams p;
-  p.out = static_cast<const __nv_bfloat16*>(out);
+  p.out = out;
   p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.lse2 = static_cast<float*>(lse2);
   p.delta = static_cast<float*>(delta);
   p.dq_acc = static_cast<float*>(dq_acc);
   p.dq_flags = nullptr;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.d_sb = d_sb; p.d_sh = d_sh; p.d_ss = d_ss;
   p.heads = heads;
@@ -563,41 +636,101 @@ BwdParams make_params(const void* out, const void* dout, const void* lse, void* 
 }
 
 bool bad_shape(int batch, int heads, int seq, int seq_pad, int head_dim) {
-  // FLUX's head dim; other widths get their instantiation when a model needs one
-  return seq < 1 || batch < 1 || heads < 1 || head_dim != kD || seq_pad < seq ||
-         seq_pad % kStatPad != 0;
+  // FLUX.1-dev's head dim and the trained-weights demo's
+  return seq < 1 || batch < 1 || heads < 1 || (head_dim != 64 && head_dim != 128) ||
+         seq_pad < seq || seq_pad % kStatPad != 0;
+}
+
+template <int D, bool OUT_F32>
+cudaError_t launch_preprocess(const BwdParams& p, int batch, cudaStream_t s) {
+  dim3 grid(p.seq_pad * (D / 8) / 256, p.heads, batch);
+  attn_bwd_preprocess_kernel<D, OUT_F32><<<grid, 256, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, bool ONLINE, bool OUT_F32>
+cudaError_t launch_backward(const BwdParams& p, const void* q, const void* k, const void* v,
+                            const void* dout, int batch, long long q_sb, long long q_sh,
+                            long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                            long long v_sb, long long v_sh, long long v_ss, cudaStream_t s) {
+  const int heads = p.heads, seq = p.seq;
+  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+  // a layout no tensor map takes is refused here
+  if (!make_map(&map_q, q, batch, heads, seq, q_sb, q_sh, q_ss, D, kBlockQ) ||
+      !make_map(&map_k, k, batch, heads, seq, k_sb, k_sh, k_ss, D, kBlockKV) ||
+      !make_map(&map_v, v, batch, heads, seq, v_sb, v_sh, v_ss, D, kBlockKV) ||
+      !make_map(&map_do, dout, batch, heads, seq, p.d_sb, p.d_sh, p.d_ss, D, kBlockQ) ||
+      !make_map_f32(&map_dq, p.dq_acc, batch, heads, seq, D, kBlockQ)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto kernel = attn_bwd_kernel<D, ONLINE, OUT_F32>;
+  constexpr int kSmemBytes = BwdShape<D>::kSmemBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // the key tile is the fastest index: one head's CTAs run together, so its
+  // slice of dq_acc stays in L2 while they add into it, and a CTA's dq
+  // writers wait only on CTAs launched before it (see "Run-to-run order")
+  dim3 grid((seq + kBlockKV - 1) / kBlockKV, heads, batch);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(p, map_q, map_k, map_v, map_do, map_dq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long n8 = (long long)batch * heads * seq * (D / 8);
+  attn_bwd_epilogue_kernel<OUT_F32><<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, s>>>(p, n8);
+  return cudaGetLastError();
+}
+
+template <int D, bool OUT_F32>
+cudaError_t launch_backward_softmax(const BwdParams& p, int online, const void* q,
+                                    const void* k, const void* v, const void* dout, int batch,
+                                    long long q_sb, long long q_sh, long long q_ss,
+                                    long long k_sb, long long k_sh, long long k_ss,
+                                    long long v_sb, long long v_sh, long long v_ss,
+                                    cudaStream_t s) {
+  return online ? launch_backward<D, true, OUT_F32>(p, q, k, v, dout, batch, q_sb, q_sh, q_ss,
+                                                    k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, s)
+                : launch_backward<D, false, OUT_F32>(p, q, k, v, dout, batch, q_sb, q_sh, q_ss,
+                                                     k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, s);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
-// Strides are in elements; the head dim must be contiguous, every other stride
-// a multiple of 8 elements and the bases 16-byte aligned. Each function
-// returns the cudaError_t of its launches (0 on success).
+// Strides are in elements; the head dim (64 or 128) must be contiguous, every
+// other stride a multiple of 8 elements and the bases 16-byte aligned. q, k,
+// v and dO are bf16; out (the preprocess pass's input) and dq, dk, dv are bf16,
+// or fp32 when out_f32. Each function returns the cudaError_t of its launches
+// (0 on success).
 
-// delta = rowsum(dO * O) and lse * log2(e). out, dout: bf16 [B, H, S, D] with
+// delta = rowsum(dO * O) and lse * log2(e). out, dout: [B, H, S, D] with
 // strides; lse: fp32 [B, H, S] contiguous; lse2, delta: fp32 [B, H, seq_pad]
 // contiguous with seq_pad a multiple of 64, written whole (0 past S).
 extern "C" int reptext_flash_attention_bwd_preprocess(
     const void* out, const void* dout, const void* lse, void* lse2, void* delta,
     int batch, int heads, int seq, int seq_pad, int head_dim,
     long long o_sb, long long o_sh, long long o_ss,
-    long long d_sb, long long d_sh, long long d_ss, void* stream) {
+    long long d_sb, long long d_sh, long long d_ss, int out_f32, void* stream) {
   if (bad_shape(batch, heads, seq, seq_pad, head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdParams p = make_params(out, dout, lse, lse2, delta, nullptr, nullptr, nullptr, nullptr,
                                   heads, seq, seq_pad, o_sb, o_sh, o_ss, d_sb, d_sh, d_ss, 0.0f);
-  dim3 grid(seq_pad * (kD / 8) / 256, heads, batch);
-  attn_bwd_preprocess_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (head_dim == 64) {
+    err = out_f32 ? launch_preprocess<64, true>(p, batch, s) : launch_preprocess<64, false>(p, batch, s);
+  } else {
+    err = out_f32 ? launch_preprocess<128, true>(p, batch, s)
+                  : launch_preprocess<128, false>(p, batch, s);
+  }
+  return static_cast<int>(err);
 }
 
-// The main kernel and the epilogue. q, k, v, dout: bf16 [B, H, S, D] with
-// strides; lse2, delta: the preprocess pass's outputs; dq_acc: fp32 [B, H, S,
-// D] contiguous and zero; dq_flags: int32 [B, H, ceil(S / 64), 2] contiguous
-// and zero (the order of the dq adds); dq, dk, dv: bf16 [B, H, S, D]
-// contiguous. All allocated by the caller.
+// The main kernel and the epilogue. q, k, v, dout: [B, H, S, D] with strides;
+// lse2, delta: the preprocess pass's outputs; dq_acc: fp32 [B, H, S, D]
+// contiguous and zero; dq_flags: int32 [B, H, ceil(S / 64), 2] contiguous and
+// zero (the order of the dq adds); dq, dk, dv: [B, H, S, D] contiguous. All
+// allocated by the caller.
 extern "C" int reptext_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, const void* lse2,
     const void* delta, void* dq_acc, void* dq_flags, void* dq, void* dk, void* dv,
@@ -606,7 +739,7 @@ extern "C" int reptext_flash_attention_bwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long d_sb, long long d_sh, long long d_ss,
-    float scale, int online, void* stream) {
+    float scale, int online, int out_f32, void* stream) {
   if (bad_shape(batch, heads, seq, seq_pad, head_dim)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -614,28 +747,21 @@ extern "C" int reptext_flash_attention_bwd(
                             const_cast<void*>(delta), dq_acc, dq, dk, dv, heads, seq, seq_pad,
                             0, 0, 0, d_sb, d_sh, d_ss, scale);
   p.dq_flags = static_cast<int*>(dq_flags);
-  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
-  // a layout no tensor map takes is refused here
-  if (!make_map(&map_q, q, batch, heads, seq, q_sb, q_sh, q_ss, kD, kBlockQ) ||
-      !make_map(&map_k, k, batch, heads, seq, k_sb, k_sh, k_ss, kD, kBlockKV) ||
-      !make_map(&map_v, v, batch, heads, seq, v_sb, v_sh, v_ss, kD, kBlockKV) ||
-      !make_map(&map_do, dout, batch, heads, seq, d_sb, d_sh, d_ss, kD, kBlockQ) ||
-      !make_map_f32(&map_dq, dq_acc, batch, heads, seq, kD, kBlockQ)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto kernel = online ? attn_bwd_kernel<true> : attn_bwd_kernel<false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // the key tile is the fastest index: one head's CTAs run together, so its
-  // slice of dq_acc stays in L2 while they add into it, and a CTA's dq
-  // writers wait only on CTAs launched before it (see "Run-to-run order")
-  dim3 grid((seq + kBlockKV - 1) / kBlockKV, heads, batch);
-  kernel<<<grid, kThreads, kSmemBytes, s>>>(p, map_q, map_k, map_v, map_do, map_dq);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n8 = (long long)batch * heads * seq * (kD / 8);
-  attn_bwd_epilogue_kernel<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0, s>>>(p, n8);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (head_dim == 64) {
+    err = out_f32 ? launch_backward_softmax<64, true>(p, online, q, k, v, dout, batch, q_sb, q_sh,
+                                                      q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, s)
+                  : launch_backward_softmax<64, false>(p, online, q, k, v, dout, batch, q_sb,
+                                                       q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                                                       v_ss, s);
+  } else {
+    err = out_f32 ? launch_backward_softmax<128, true>(p, online, q, k, v, dout, batch, q_sb,
+                                                       q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                                                       v_ss, s)
+                  : launch_backward_softmax<128, false>(p, online, q, k, v, dout, batch, q_sb,
+                                                        q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                                                        v_ss, s);
+  }
+  return static_cast<int>(err);
 }

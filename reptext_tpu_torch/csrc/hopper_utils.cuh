@@ -245,6 +245,31 @@ __device__ __forceinline__ void wgmma_rs_n128_bt(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// wgmma_rs_n128_bt at 64 columns: d[64 x 64] += A[64 x 16] B[16 x 64], A from
+// registers, B MN-major in shared memory (one 64-wide column block).
+__device__ __forceinline__ void wgmma_rs_n64_bt(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REPTEXT_REGS32
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : REPTEXT_ACC32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The transposed-B register-A product at N = D columns (the head dim: 64 or
+// 128), as the attention kernels instantiate it.
+template <int D>
+__device__ __forceinline__ void wgmma_rs_bt(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  static_assert(D == 64 || D == 128, "the kernels are instantiated at head dims 64 and 128");
+  if constexpr (D == 128) {
+    wgmma_rs_n128_bt(d, a, desc_b);
+  } else {
+    wgmma_rs_n64_bt(d, a, desc_b);
+  }
+}
+
 // 2^x on the special-function unit; results below 2^-126 flush to 0.
 __device__ __forceinline__ float ex2_approx(float x) {
   float y;

@@ -21,6 +21,11 @@ Written by ``io/convert_cli.py``; per component one file, all optional:
   ``vision.safetensors`` with their own ``configs.json`` and
   ``LAYOUT_VERSION``, the directory that ``--ip-adapter-dir`` names.
 
+:func:`save_pipeline_params` writes trained modules in this layout (the
+component files and ``LAYOUT_VERSION``), in their own dtypes (fp32 stays
+fp32), as ``reptext_tpu/io/checkpoint.py::save_pipeline_params`` does for the
+JAX package (``examples/overfit_e2e.py --params-cache``).
+
 The JAX package stores its components as orbax directories; orbax needs JAX,
 so such a directory does not load into the port: convert the original
 safetensors again with ``python -m reptext_tpu_torch.io.convert_cli``.
@@ -35,7 +40,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from reptext_tpu_torch.io.safetensors import load_file
+from reptext_tpu_torch.io.safetensors import load_file, save_file
 
 COMPONENTS = ("flux", "controlnet", "inpaint_controlnet", "vae", "clip", "t5")
 
@@ -104,6 +109,20 @@ def load_saved_configs(directory: str) -> Dict[str, Any]:
 
 def component_path(directory: str, name: str) -> str:
     return os.path.join(os.path.abspath(directory), f"{name}.safetensors")
+
+
+def save_pipeline_params(params: Dict[str, Any], directory: str) -> None:
+    """Save each component, a module or its state dict, as
+    ``directory/<component>.safetensors`` (from any device, dtypes kept), and
+    the layout version: the directory
+    :func:`load_pipeline_params` reads and ``build_module`` takes over."""
+    os.makedirs(directory, exist_ok=True)
+    for name, state in params.items():
+        if isinstance(state, torch.nn.Module):
+            state = state.state_dict()
+        save_file({k: v.detach() for k, v in state.items()}, component_path(directory, name))
+    with open(os.path.join(os.path.abspath(directory), _LAYOUT_FILE), "w") as f:
+        f.write(f"{LAYOUT_VERSION}\n")
 
 
 def load_pipeline_params(directory: str, components: Optional[tuple] = None

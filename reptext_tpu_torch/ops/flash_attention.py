@@ -34,6 +34,15 @@ scales and rounds dq. The adds of one query tile land in key order behind a
 counter per tile, so dq, like dk and dv, repeats bit for bit from run to run,
 as the JAX package's backward does.
 
+Head dims 64 and 128 take the kernels, in bf16 or fp32. The tensor-core
+operands are bf16 either way: an fp32 call rounds q, k, v (and dO) to bf16
+in the wrapper, a cast that is plain glue (TMA copies bytes and cannot
+convert, so the K and V tiles could not be rounded while staged), and the
+kernels write their fp32 accumulators out in fp32 (out, and dq, dk, dv), so
+the call returns its input's dtype as the JAX kernels do. This is the port's
+precision for an fp32 call; what Mosaic does with fp32 dots on the TPU is not
+claimed either way. fp16 is refused (exp(+/-43) overflows it).
+
 A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
 the same rounding points; ``chip_smoke.py`` holds the kernels against them on
@@ -56,7 +65,12 @@ from reptext_tpu_torch.ops.rope import apply_rope_half
 LOGIT_CLAMP = 43.0
 LOG2E = 1.4426950408889634
 _STAT_PAD = 64    # K4's per-query statistics are padded to its 64-query tile
-_SUPPORTED_HEAD_DIMS = (128,)   # FLUX's; the kernel is instantiated for these only
+# FLUX.1-dev's and the trained-weights demo's (examples/overfit_e2e.py); K1-K4
+# are instantiated at these only
+_SUPPORTED_HEAD_DIMS = (64, 128)
+# The dtypes the kernel entries take. An fp32 call rounds q, k, v (and dO) to
+# bf16 on their way in and returns fp32 out, lse and gradients (the module note)
+_KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # Above this joint length the JAX package takes its streaming kernel (K3).
 _SINGLE_PASS_MAX_SEQ = 6144
 
@@ -207,21 +221,33 @@ def _kernel_strides(x: torch.Tensor) -> bool:
                     for n, s in zip(x.shape[:-1], x.stride()[:-1])))
 
 
-def _check(name: str, x: torch.Tensor, shape) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+def check_head_dim(d: int, supported=_SUPPORTED_HEAD_DIMS) -> None:
+    if d not in supported:
+        raise ValueError(f"head dim {d} not supported by the kernel {supported}")
+
+
+def _check(name: str, x: torch.Tensor, shape, dtypes=_KERNEL_DTYPES) -> None:
     if x.dtype == torch.float16:
         raise TypeError(
             f"{name}: float16 is rejected (exp(+/-{LOGIT_CLAMP}) overflows it "
             "in the max-free softmax); use bfloat16")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(t).replace("torch.", "") for t in dtypes)
+        raise TypeError(f"{name} must be {names}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if not _kernel_strides(x):
         raise ValueError(
             f"{name} needs a contiguous head dim, positive 8-element-aligned strides and a "
             f"16-byte-aligned base (strides {x.stride()})")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' operand: x itself in bf16, else rounded to bf16 (an fp32
+    call), strides kept, so the layout checks still hold."""
+    return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
 
 
 def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
@@ -230,12 +256,11 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
     from reptext_tpu_torch.ops import _build
 
     b, h, s, d = q.shape
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    check_head_dim(d)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, (b, h, s, d))
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q {q.dtype} on {q.device}")
     rope = rope_cos is not None
     if rope and streaming:
         raise ValueError("the streaming kernel takes q and k already rotated")
@@ -246,11 +271,13 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
                 raise ValueError(f"{name} must be a contiguous, 16-byte-aligned float32 "
                                  f"[{s}, {d}] tensor on {q.device}")
     lib = _build.load()
+    out_dtype = q.dtype
+    q, k, v = _bf16(q), _bf16(k), _bf16(v)
     # the kernel rotates k once per call into this scratch (see the source note)
     k_rot = torch.empty((b, h, s, d), dtype=k.dtype, device=k.device) if rope else None
     # out is laid out [B, S, H, D] and returned as a [B, H, S, D] view, so the
     # caller's head merge is a free reshape.
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -258,13 +285,14 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
     if streaming:
         err = lib.reptext_flash_attention_streaming_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, d,
-            *strides, 1.0 / math.sqrt(d), int(online), stream)
+            *strides, 1.0 / math.sqrt(d), int(online), int(out_dtype == torch.float32), stream)
     else:
         err = lib.reptext_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rope_cos.data_ptr() if rope else None, rope_sin.data_ptr() if rope else None,
             k_rot.data_ptr() if rope else None, out.data_ptr(), lse.data_ptr(), b, h, s, d,
-            *strides, 1.0 / math.sqrt(d), int(rope), int(online), stream)
+            *strides, 1.0 / math.sqrt(d), int(rope), int(online),
+            int(out_dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
     return out, lse
@@ -285,20 +313,22 @@ def backward_preprocess_plain(out: torch.Tensor, lse: torch.Tensor, do: torch.Te
 def backward_preprocess(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's preprocess pass, one hand-written kernel on CUDA tensors (out and
-    dO read once, 16 bytes a thread); see :func:`backward_preprocess_plain`.
-    Launches are counted by :func:`flash_attention_backward`, whose first pass
-    this is."""
+    dO read once, 16 bytes a thread; an fp32 out is read in fp32, an fp32 dO
+    rounded to bf16 first, as the main kernel reads it); see
+    :func:`backward_preprocess_plain`. Launches are counted by
+    :func:`flash_attention_backward`, whose first pass this is."""
     if out.device.type == "cpu":
         return backward_preprocess_plain(out, lse, do)
     from reptext_tpu_torch.ops import _build
 
     b, h, s, d = out.shape
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    check_head_dim(d)
     for name, x in (("out", out), ("do", do)):
         _check(name, x, (b, h, s, d))
-        if x.device != out.device:
-            raise ValueError(f"{name} is on {x.device}, out on {out.device}")
+        if x.device != out.device or x.dtype != out.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, out {out.dtype} on "
+                             f"{out.device}")
+    do = _bf16(do)
     if (lse.device != out.device or lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s)
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous float32 [{b}, {h}, {s}] tensor on {out.device}")
@@ -310,7 +340,8 @@ def backward_preprocess(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.reptext_flash_attention_bwd_preprocess(
         out.data_ptr(), do.data_ptr(), lse.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
-        b, h, s, s_pad, d, *out.stride()[:3], *do.stride()[:3], stream)
+        b, h, s, s_pad, d, *out.stride()[:3], *do.stride()[:3],
+        int(out.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward preprocess launch failed: cudaError {err}")
     return delta, lse2
@@ -321,17 +352,18 @@ def _launch_backward(q, k, v, out, lse, do, online: bool
     from reptext_tpu_torch.ops import _build
 
     b, h, s, d = q.shape
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    check_head_dim(d)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, (b, h, s, d))
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q {q.dtype} on {q.device}")
     if out.shape != q.shape or out.device != q.device:
         raise ValueError(f"out has shape {tuple(out.shape)} on {out.device}, q "
                          f"{tuple(q.shape)} on {q.device}")
     delta, lse2 = backward_preprocess(out, lse, do)
     lib = _build.load()
+    out_dtype = q.dtype
+    q, k, v, do = _bf16(q), _bf16(k), _bf16(v), _bf16(do)
     # the key-tile CTAs add their partial dq into an fp32 buffer, in key order
     # behind one int32 counter per (b, h, 64-query tile, channel half); both
     # zeroed by one fill (see the source note)
@@ -339,7 +371,7 @@ def _launch_backward(q, k, v, out, lse, do, online: bool
     scratch = torch.zeros(n_acc + n_flags, dtype=torch.int32, device=q.device)
     dq_acc = scratch[:n_acc].view(torch.float32).view(b, h, s, d)
     dq_flags = scratch[n_acc:]
-    dq, dk, dv = (torch.empty((b, h, s, d), dtype=q.dtype, device=q.device) for _ in range(3))
+    dq, dk, dv = (torch.empty((b, h, s, d), dtype=out_dtype, device=q.device) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.reptext_flash_attention_bwd(
@@ -348,7 +380,7 @@ def _launch_backward(q, k, v, out, lse, do, online: bool
         dv.data_ptr(),
         b, h, s, lse2.shape[-1], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        1.0 / math.sqrt(d), int(online), stream)
+        1.0 / math.sqrt(d), int(online), int(out_dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError {err}")
     return dq, dk, dv

@@ -29,7 +29,10 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from reptext_tpu_torch.ops import _build
-from reptext_tpu_torch.ops.flash_attention import _SUPPORTED_HEAD_DIMS, _check
+from reptext_tpu_torch.ops.flash_attention import _check, check_head_dim
+
+# FLUX.1-dev's: the ring step is instantiated at this head dim alone, in bf16
+_SUPPORTED_HEAD_DIMS = (128,)
 
 NEG_INF = -1e30
 RingState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # acc, m, l
@@ -62,11 +65,10 @@ def ring_step_plain(q: torch.Tensor, k_blk: torch.Tensor, v_blk: torch.Tensor,
 def _launch(q, k_blk, v_blk, state, first: bool, last: bool) -> StepResult:
     b, h, sq, d = q.shape
     sk = k_blk.shape[2]
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported by the kernel {_SUPPORTED_HEAD_DIMS}")
+    check_head_dim(d, _SUPPORTED_HEAD_DIMS)
     for name, x, shape in (("q", q, (b, h, sq, d)), ("k_blk", k_blk, (b, h, sk, d)),
                            ("v_blk", v_blk, (b, h, sk, d))):
-        _check(name, x, shape)
+        _check(name, x, shape, (torch.bfloat16,))
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
     if first:

@@ -334,11 +334,15 @@ def test_ulysses_local_attention_is_exact(dev):
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
+    """fp16 and fp64, mixed dtypes and a head dim of 32 (the tiny configs')
+    are refused; fp32 and a head dim of 64 are taken (the cases below)."""
     q, k, v, cos, sin = _inputs(dev, 1, 2, 64, seed=2)
     with pytest.raises(TypeError, match="float16"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    with pytest.raises(TypeError, match="bfloat16"):
-        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="q torch.float32"):
+        fa.flash_attention(q.float(), k, v.float())
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
     # at 1001 keys the route fuses the rotation into K1, which takes fp32 tables only
@@ -568,7 +572,121 @@ def test_backward_rejects_what_it_does_not_take(dev):
     with pytest.raises(TypeError, match="float16"):
         fa.flash_attention_backward(*(x.half() if x.dtype == torch.bfloat16 else x for x in args))
     with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_backward(*(x[..., :64] if x.dim() == 4 else x for x in args))
+        fa.flash_attention_backward(*(x[..., :32] if x.dim() == 4 else x for x in args))
+
+
+# ---------------------------------------------- head dim 64, fp32 (the overfit demo)
+#
+# The trained-weights demo (examples/overfit_e2e.py) runs FLUX 2 + 4 and its
+# ControlNet at head dim 64 in fp32: 64 image + 5 text tokens, so S = 69, one
+# partial 128-key tile and two 64-query tiles; K2 forward (the route rotates
+# outside at one chunk) and K4 behind it. In bf16 the kernel and its plain
+# version round at the same points: the limits above. An fp32 call rounds q,
+# k, v and dO to bf16 for the products, where the plain version keeps fp32:
+# out within 2^-6 of max|plain out| (each logit moves by about 2^-9 of
+# |q||k| / sqrt(D), each p and v by 2^-9), lse within 2^-6 absolute (a
+# weighted mean of the logits' errors), gradients within the limits above.
+D64_RTOL_LSE_FP32 = 2.0 ** -6
+
+
+def _inputs64(dev, b, h, s, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, 64, generator=g, device=dev).to(dtype) for _ in range(4))
+    r = np.random.default_rng(seed)
+    ids = np.zeros((s, 3), np.float32)
+    ids[:, 1], ids[:, 2] = np.arange(s) % 8, r.integers(0, 8, s)
+    cos, sin = rope_cos_sin_half(torch.from_numpy(ids).to(dev), (8, 28, 28))
+    return q, k, v, do, cos, sin
+
+
+def _fwd_ok(got, want, dtype):
+    lse_lim = 1e-3 if dtype == torch.bfloat16 else D64_RTOL_LSE_FP32
+    return (got[0].dtype == dtype and got[1].dtype == torch.float32
+            and bool(torch.isfinite(got[0]).all()) and _out_err_ok(got[0], want[0])
+            and (got[1] - want[1]).abs().max().item() <= lse_lim)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,s", [(16, 4, 69), (1, 4, 69), (2, 3, 1), (2, 3, 129)])
+def test_d64_k2_and_k4_at_the_demo_shapes(dev, dtype, b, h, s):
+    """K2 and K4 at the demo's training (16, 4, 69, 64) and sampling (1, 4, 69,
+    64) shapes, and at S = 1 and 129 (one key, one query tile past a CTA)."""
+    q, k, v, do, _, _ = _inputs64(dev, b, h, s, dtype, seed=s + b)
+    n2, n4 = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, h, s, 64) and _fwd_ok(got, want, dtype)
+    grads = fa.flash_attention_backward(q, k, v, got[0], got[1], do)
+    plain = fa.flash_attention_backward_plain(q, k, v, got[0], got[1], do)
+    if s == 1:
+        # one key: out is v, so dq and dk are rounding noise (see the S = 1
+        # test above); in fp32 the plain version's dp = dO v and delta = dO out
+        # would differ by the kernel's bf16 rounding of v (2^-9 |dO| |v|), so
+        # it takes the kernel's bf16 operands there
+        ops = [x.to(torch.bfloat16).to(dtype) for x in (q, k, v, do)]
+        plain = fa.flash_attention_backward_plain(*ops[:3], got[0], got[1], ops[3])
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches - n2, fa.flash_attention_backward.launches - n4) == (1, 1)
+    for x, y in zip(grads, plain):
+        assert x.shape == (b, h, s, 64) and x.dtype == dtype
+        assert bool(torch.isfinite(x).all())
+        if s == 1:
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= 2.0 ** -5 * y.float().abs().max().item() + 1e-5
+        else:
+            assert _grad_ok(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_d64_route_and_autograd_through_attention(dev, dtype):
+    """The block's entry at the demo's length: the RoPE route rotates in fp32
+    and takes K2 (one chunk), the gradients come back through K4, in the
+    input's dtype, against autograd through the plain route."""
+    q, k, v, do, cos, sin = _inputs64(dev, 2, 4, 69, dtype, seed=3)
+    assert not fa.rope_fused(69)
+    before = _counts()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attention(*leaves, cos, sin)
+    out.backward(do)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 1, 0)
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = fa.flash_attention_plain(apply_rope_half(ref[0], cos, sin),
+                                    apply_rope_half(ref[1], cos, sin), ref[2])[0]
+    want.backward(do)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _out_err_ok(out, want)
+    for x, y in zip(leaves, ref):
+        assert x.grad.dtype == dtype and _grad_ok(x.grad, y.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_d64_k1_and_k3(dev, dtype):
+    """K1 (RoPE fused, 1001 tokens: more than one chunk) and K3 at D = 64."""
+    q, k, v, _, cos, sin = _inputs64(dev, 1, 4, 1001, dtype, seed=5)
+    assert fa.rope_fused(1001)
+    n1, n3 = fa.flash_attention_rope.launches, fa.flash_attention_streaming.launches
+    got1 = fa.flash_attention_rope(q, k, v, cos, sin)
+    got3 = fa.flash_attention_streaming(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_rope.launches - n1, fa.flash_attention_streaming.launches - n3) \
+        == (1, 1)
+    assert _fwd_ok(got1, fa.flash_attention_rope_plain(q, k, v, cos, sin), dtype)
+    assert _fwd_ok(got3, fa.flash_attention_streaming_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_d64_backward_is_bit_equal_over_calls(dev, dtype):
+    """At D = 64 both consumer warpgroups add a partial dq over the same
+    channels; the counter orders them behind the key tiles: bit-equal."""
+    q, k, v, do, _, _ = _inputs64(dev, 2, 4, 1000, dtype, seed=7)
+    out, lse = fa.flash_attention(q, k, v)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do)
+    second = fa.flash_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for x, y in zip(first, fa.flash_attention_backward_plain(q, k, v, out, lse, do)):
+        assert _grad_ok(x, y)
 
 
 VARIANTS = {"chunked": (av.chunked_attn, av.chunked_attn_plain, 2.0 ** -6),
