@@ -38,7 +38,10 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    models): K2 and K4 at the demo's (16, 4, 69, 64) and (1, 4, 69, 64), K1 at
    (1, 24, 4608, 64), K4 there too and K3 at (1, 24, 9728, 64), each against
    its plain version (fp32: lse within 2^-6, the operands rounded to bf16),
-   K4 bit-equal over two calls, times beside the bound and SDPA's;
+   K4 bit-equal over two calls, times beside the bound and SDPA's; then K1 and K3
+   at the head counts of a tensor-parallel rank (12 and 6: tp 2 and 4) at the 1024^2
+   and 1536^2 lengths and K4 at (1, 12, 4608, 128), against their plain versions,
+   times beside the bound and SDPA's;
    then K5, the ring step: sequence_sharded_attention(impl="ring_kernel") over
    4 thread ranks on the card against the plain ring at (1, 24, 4608, 128)
    and (1, 24, 16896, 128), and the three steps one rank of the 2048^2 SP
@@ -47,6 +50,8 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    makes at CFG batch 2 (q (2, 24, 3968, 128) against blocks of 512, 3456 and
    3456 keys), against the plain steps, within 2^-6 of max|plain
    out|; the step's, the whole ring's and SDPA's times beside the bound;
+   K5 at head dim 64: the demo's joint 69 tokens over 2 thread ranks (the text
+   block folded in first) and (1, 24, 4608, 64) over 4, against the plain ring;
    Ulysses over 4 thread ranks with logits planted beyond the clamp against
    plain_attention (its local attention is an exact softmax) and against the
    clamped K2, from which it must differ; with
@@ -55,7 +60,10 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    shard_for_sp over the cards (ring and Ulysses, each called twice: cold,
    warm), the transfers alone, a profile of one warm step of each backend,
    then SP inpainting at 1536x1152 on each card alone and over the cards the
-   same way (one card: a line says so);
+   same way, then ``--shard 1xN``: the 1024^2 request on each card alone and
+   tensor-parallel over the cards (cold, warm), one block's all-reduce alone,
+   and the cut-depth ControlNet train steps on one card and over the mesh (one
+   card: a line says so);
 4. variants: the attention A/B kernels of the study (chunked online softmax,
    exp2, bf16 exp; reptext_tpu_torch/ops/attention_variants.py) against their
    plain versions at (1, 24, 4608, 128), their times beside the plain
@@ -216,13 +224,29 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    1024^2 request through it; cli.build_pipeline(--random-weights
    --weight-dtype fp8) at full geometry (seconds, peak, no bf16 Linear left in
    the stacks) and one request through it. Every time and size with the
-   card's name and power limit.
+   card's name and power limit;
+12. tp, in a process of its own (``--tp-worker``) after the fp8 one: tensor and
+   data parallelism over a (dp, tp) mesh of thread ranks on the card
+   (reptext_tpu_torch/parallel/mesh.py::LocalMesh): 2 ControlNet train steps at
+   batch 2 under 2 x 2 at full width, depth cut to FLUX CUT_FLUX and ControlNet
+   CUT_CN, against the one card (losses within REF_RTOL, step 1's gradients within
+   the K4 limits; K1 2 and K4 1 per block, step and rank, FLUX's first block K1 once);
+   then, with the prompts
+   encoded once and T5 freed, txt2img 1024^2 under 1 x 2 and (2 images, split over
+   dp) 2 x 2, 1536^2 under 1 x 2 (K3), inpainting at 1280x960 under 2 x 1 (the CFG
+   halves split over dp) and 1 x 2, and a served pair (one batch of 2 through a
+   GenerationServer's worker; the other ranks follow) under 1 x 2 and sp2, each
+   against the one card's run on the same modules within TP_RTOL; per rank every
+   attention call at 24 / tp heads, launches steps x 57 + ControlNet steps x 14
+   (K1, K3 at 1536^2) on every rank; the meshes share one copy of each tp rank's
+   slices.
 
 Then a JSON line of the eight kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
 phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
 and the demo and gates paths among them; times, the bound, SDPA's time;
-K5 also at CFG batch 2 in its by_shape; K1-K4 at head dim 64 under "d64"),
+K5 also at CFG batch 2 in its by_shape; K1-K4 at head dim 64 under "d64", K5's
+under its "d64"; K1, K3 and K4 at a tp rank's heads under "tp_heads"),
 the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
@@ -232,6 +256,7 @@ worker takes them through its ``conditions`` method, replaced on the instance).
 
 import argparse
 import base64
+import contextlib
 import gc
 import io
 import json
@@ -3550,12 +3575,15 @@ def ring_kernel_phase(dev):
                   f"{TXT_LEN + 2 * sk2} keys) {lib2:.4f} ms")
     del q2, blocks2, kt, vt, k1, v1, k_all, v_all, state, plain_state
     torch.cuda.empty_cache()
+    d64 = d64_ring_checks(dev, gen)
+    err = max([err] + [x["max_abs_err"] for x in d64.values()])
+    torch.cuda.empty_cache()
     ulysses_exact_check(dev, gen)
     return {"ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "rank_steps_ms": rank_steps, "rank_steps_bound_ms": rank_bound,
             "library_note": "SDPA over the rank's queries and all keys: the output of the rank's "
                             "three steps (rank_steps_ms)",
-            "max_abs_err": err, "by_shape": by_shape}
+            "max_abs_err": err, "by_shape": by_shape, "d64": d64}
 
 
 def nccl_worker(rank, world, port):
@@ -3582,6 +3610,9 @@ def nccl_worker(rank, world, port):
     print(json.dumps({"rank": rank, "k5_ring_max_abs_err": err, "ok": ok}), flush=True)
     del q, k, v, got, want
     ok = dist_sp_run(dev, group) and ok
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = dist_tp_run(dev) and ok
     dist.destroy_process_group()
     return 0 if ok else 1
 
@@ -3729,7 +3760,7 @@ def multi_card_phase():
     outs = []
     for proc in procs:
         try:
-            outs.append(proc.communicate(timeout=420)[0])
+            outs.append(proc.communicate(timeout=720)[0])
         except subprocess.TimeoutExpired:
             for p in procs:
                 p.kill()
@@ -3738,7 +3769,9 @@ def multi_card_phase():
         lines = [ln for ln in out.splitlines() if ln.startswith("{")] or ["no result line"]
         phase("ring", f"NCCL rank {r} of {n} (K5 ring at (1,24,4608,128) vs the plain ring, "
                       f"then txt2img {SP_SIZE}^2 on one card, ring and ulysses over the cards, "
-                      "the transfers alone, then inpainting at 1536x1152 the same way): "
+                      "the transfers alone, then inpainting at 1536x1152 the same way; then "
+                      "--shard 1xN: txt2img 1024^2 on one card and tensor-parallel over the "
+                      "cards, and the cut-depth ControlNet train steps the same way): "
                       + " | ".join(lines))
         for ln in out.splitlines():
             if ln.startswith("[profile]") and (r == 0 or "idle" in ln):
@@ -3973,6 +4006,609 @@ def sp_batch_runs(dev, pipe, seed, steps=2):
             backend, call, sp_expect(backend, "K1", calls), ref, steps, (2, s_img, 64))
         ref = lat if ref is None else ref
     return launches
+
+
+# ---------------------------------------------------------------- tensor parallelism
+
+TP_RESULT = "TP_LAUNCHES "
+# the head counts a tp rank runs: 24 / tp at tp = 2 and 4
+TP_HEADS = (12, 6)
+TP_RTOL = SP_RTOL
+
+
+def tp_kernel_phase(dev):
+    """K1 and K3 at the head counts of a tp rank (12 at tp = 2, 6 at tp = 4)
+    at the 1024^2 and 1536^2 joint lengths, and K4 at (1, 12, 4608, 128) (a
+    2 x 2 train step's rank), against their plain versions; times beside the
+    bound and SDPA's on the same inputs. Returns {kernel: {shape: {...}}}."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    sdpa = F.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(23)
+    res = {"K1": {}, "K3": {}, "K4": {}}
+
+    def qkv(h, s):
+        return [torch.randn(1, h, s, 128, generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(3)]
+
+    def timed(key, label, kern, plain, library, b_ms_by, flop, err):
+        k_t, p_t, line = alternated_ms(kern, plain)
+        lib = cuda_time_ms(library)[0]
+        res[key][label] = {"ms": k_t[0], "plain_ms": p_t[0], "library_ms": lib,
+                           "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1], "max_abs_err": err}
+        phase("kernels", f"{key} {label} (a tp rank's heads) time: {line}; SDPA {lib:.4f} ms; "
+                         f"bound {b_ms_by[0]:.4f} ms ({b_ms_by[1]}); "
+                         f"{rate(flop, k_t[0], b_ms_by[0])}")
+
+    for h in TP_HEADS:
+        q, k, v = qkv(h, 4608)
+        cos, sin = rope_tables(512, 64, 64, dev)
+        label = f"(1,{h},4608,128)"
+        err = compare(f"K1 {label}", fa.flash_attention_rope(q, k, v, cos, sin),
+                      fa.flash_attention_rope_plain(q, k, v, cos, sin))
+        qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        timed("K1", label, lambda: fa.flash_attention_rope(q, k, v, cos, sin),
+              lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), lambda: sdpa(qr, kr, v),
+              forward_bound(1, h, 4608, tables=True), attention_flop(1, h, 4608, 4608), err)
+        if h == TP_HEADS[0]:
+            out, lse = fa.flash_attention(qr, kr, v)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+            args = (qr, kr, v, out, lse, do)
+            err = compare_grads(f"K4 {label}", fa.flash_attention_backward(*args),
+                                plain_backward_by_heads(fa, args, None))
+            leaves = [x.detach().clone().requires_grad_(True) for x in (qr, kr, v)]
+            lib_out = sdpa(*leaves)
+            timed("K4", label, lambda: fa.flash_attention_backward(*args),
+                  lambda: plain_backward_by_heads(fa, args, None),
+                  lambda: torch.autograd.grad(lib_out, leaves, do, retain_graph=True),
+                  backward_bound(1, h, 4608), 10 * h * 4608 * 4608 * 128, err)
+            del out, lse, do, args, leaves, lib_out
+        del q, k, v, qr, kr
+        q, k, v = qkv(h, 9728)
+        cos, sin = rope_tables(512, 96, 96, dev)
+        q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        label = f"(1,{h},9728,128)"
+        err = compare(f"K3 {label}", fa.flash_attention_streaming(q, k, v),
+                      fa.flash_attention_streaming_plain(q, k, v))
+        timed("K3", label, lambda: fa.flash_attention_streaming(q, k, v),
+              lambda: fa.flash_attention_streaming_plain(q, k, v), lambda: sdpa(q, k, v),
+              forward_bound(1, h, 9728), attention_flop(1, h, 9728, 9728), err)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return res
+
+
+def d64_ring_checks(dev, gen):
+    """K5 at head dim 64: the demo's joint 69 tokens (5 text on every rank, 64
+    image over 2 thread ranks, the text block folded in first) and (1, 24,
+    4608, 64) over 4 thread ranks, each against the plain ring; one middle
+    step timed beside the bound and SDPA."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops import ring_attention as ra
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    def rnd(*shape):
+        return torch.randn(*shape, 64, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = rnd(1, 4, 69), rnd(1, 4, 69), rnd(1, 4, 69)
+
+    def joint(step):
+        def rank(g):
+            return ra.ring_loop(torch.cat([q[:, :, :5], g.shard(q[:, :, 5:], 2)], 2),
+                                g.shard(k[:, :, 5:], 2), g.shard(v[:, :, 5:], 2), g, step,
+                                prefix=(k[:, :, :5], v[:, :, :5]))
+        return run_spmd(LocalSPGroup(2, dev), rank)
+
+    err = max(check_out(f"K5 at D = 64, the demo's joint (1,4,69,64) over 2 ranks: rank {r}",
+                        a, b) for r, (a, b) in enumerate(zip(joint(ra.ring_step),
+                                                             joint(ra.ring_step_plain))))
+    q, k, v = rnd(1, HEADS, 4608), rnd(1, HEADS, 4608), rnd(1, HEADS, 4608)
+    err = max(err, check_out(f"K5 at D = 64, (1,{HEADS},4608,64) over {RING_RANKS} ranks",
+                             sharded_attention(dev, RING_RANKS, q, k, v, "ring_kernel"),
+                             sharded_attention(dev, RING_RANKS, q, k, v, "ring")))
+    sq = 4608 // RING_RANKS
+    q0, k0, v0 = (x[:, :, :sq] for x in (q, k, v))
+    state = ra.ring_step(q0, k0, v0, None, True, False)
+    plain_state = ra.ring_step_plain(q0, k0, v0, None, True, False)
+    kern, pln, line = alternated_ms(
+        lambda: ra.ring_step(q0, k0, v0, state, False, False),
+        lambda: ra.ring_step_plain(q0, k0, v0, plain_state, False, False))
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(q0, k, v))[0]
+    b_ms, b_by = step_bound(1, HEADS, sq, sq, d=64)
+    phase("ring", f"K5 middle step at D = 64 (1,{HEADS},{sq},64) x (1,{HEADS},{sq},64) time: "
+                  f"{line}; bound {b_ms:.4f} ms ({b_by}); "
+                  f"{rate(attention_flop(1, HEADS, sq, sq, 64), kern[0], b_ms)}; library (SDPA, "
+                  f"the rank's {sq} queries over all 4608 keys) {lib:.4f} ms")
+    return {f"(1,{HEADS},{sq},64) x (1,{HEADS},{sq},64)": {
+        "ms": kern[0], "plain_ms": pln[0], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib, "max_abs_err": err}}
+
+
+@contextlib.contextmanager
+def heads_seen():
+    """The head counts the blocks' attention calls get while inside (a tp
+    rank's: num_heads / tp)."""
+    from reptext_tpu_torch.nn import blocks
+
+    seen, real = set(), blocks.attention
+
+    def recorded(q, *a, **kw):
+        seen.add(q.shape[1])
+        return real(q, *a, **kw)
+
+    blocks.attention = recorded
+    try:
+        yield seen
+    finally:
+        blocks.attention = real
+
+
+def tp_run(dev, label, grid, call, expect, ref, steps, shape, slices, heads=None):
+    """One sharded comparison run: ``call(rank)`` -> (latents, timings) on the
+    one card (``grid`` None, rank None) or on every rank of a (dp, tp) thread
+    mesh on the card (``grid``; the meshes share ``slices``, one copy of each
+    tp rank's weights); launches set to 0 just before and read just after;
+    ranks equal, finite latents of ``shape``, the launches, the heads the
+    blocks' attention got (``heads``), and for a sharded run the latents
+    within TP_RTOL of ``ref``. Returns (latents, launches)."""
+    from reptext_tpu_torch.parallel.mesh import LocalMesh
+    from reptext_tpu_torch.parallel.testing import run_spmd
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with heads_seen() as seen:
+        outs = ([call(None)] if grid is None
+                else run_spmd(LocalMesh(*grid, dev, slices=slices), call))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lat = outs[0][0]
+    same = all(bool(torch.equal(o[0], lat)) for o in outs[1:])
+    finite = bool(torch.isfinite(lat).all()) and tuple(lat.shape) == shape
+    heads_ok = heads is None or seen == {heads}
+    ms_step = 1e3 * statistics.median(o[1]["sample"] for o in outs) / steps
+    line = (f"{label}, " + ("one card" if grid is None else
+                           f"{grid[0]} x {grid[1]} (dp x tp) thread ranks on one card")
+            + f": {wall:.3f} s for {steps} steps; sampler {ms_step:.1f} ms/step; peak device "
+            f"memory {peak:.2f} GiB; launches "
+            + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+            + f"; attention heads per call {sorted(seen)} (expected {heads}); latents finite, "
+            f"shape ok {finite}; ranks equal {same}")
+    ok_tol = True
+    if grid is not None:
+        err = (lat - ref).abs()
+        rel_max = err.max().item() / ref.abs().max().item()
+        ok_tol = rel_max <= TP_RTOL
+        line += (f"; vs one card: max_abs/max|ref| {rel_max:.3e} (tol {TP_RTOL}), mean_abs/"
+                 f"mean|ref| {err.mean().item() / ref.abs().mean().item():.3e} -> "
+                 f"{'ok' if ok_tol else 'FAIL'}")
+    phase("tp", line)
+    if not (finite and same and got == expect and ok_tol and heads_ok):
+        raise SystemExit(f"the tensor-parallel run ({label}, {grid or 'one card'}) failed its "
+                         "checks")
+    return lat, got
+
+
+def tp_expect(kernel, calls, ranks=1):
+    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    expect[kernel] = ranks * calls
+    return expect
+
+
+def cut_models(dev, pipe, seed):
+    """FLUX CUT_FLUX and a ControlNet CUT_CN at full width, seeded, remat on:
+    the models of the sharded train steps."""
+    import dataclasses
+
+    from reptext_tpu_torch.pipelines.txt2img import MODULES, build_module
+
+    flux_cfg = dataclasses.replace(pipe.flux.config, num_layers=CUT_FLUX[0],
+                                   num_single_layers=CUT_FLUX[1])
+    cn_cfg = dataclasses.replace(pipe.controlnet.config, num_layers=CUT_CN[0],
+                                 num_single_layers=CUT_CN[1])
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    flux = build_module(MODULES["flux"], flux_cfg, dev, pipe.compute_dtype, None, gen, remat=True)
+    cn = build_module(MODULES["controlnet"], cn_cfg, dev, pipe.compute_dtype, None, gen,
+                      remat=True)
+    return flux, cn
+
+
+def tp_train_check(dev, pipe, seed, run_ranks, label, ranks):
+    """2 ControlNet train steps at batch 2 (the fixture's batches), FLUX
+    CUT_FLUX and ControlNet CUT_CN at full width, AdamW lr 1e-5, remat: on the
+    one card, then on every rank of ``run_ranks`` (``ranks`` of them, each
+    warm-starting, sharding and stepping its copy under ``mesh=``); each
+    step's loss within REF_RTOL of the one card's, step 1's ControlNet
+    gradients (gathered over tp) within the K4 limits of the one card's per
+    tensor, launches K1 2 and K4 1 per block and step on every rank but FLUX's
+    first block's (K1 once, no K4). Returns the sharded run's launches."""
+    from reptext_tpu_torch.parallel.partition import ShardedState, shard_module
+    from reptext_tpu_torch.pipelines.txt2img import FluxRepTextPipeline
+    from reptext_tpu_torch.sampling.elastic import step_generator
+    from reptext_tpu_torch.sampling.train_controlnet import (
+        init_controlnet_training, make_controlnet_train_step,
+    )
+
+    flux, cn = cut_models(dev, pipe, seed)
+    cut = FluxRepTextPipeline(flux, cn, pipe.vae, pipe.pipe_cfg, clip=pipe.clip, t5=pipe.t5,
+                              compute_dtype=pipe.compute_dtype)
+    dataset = fixture_dataset(cut, seed)
+    batches = [dataset.batch(s) for s in range(2)]
+    state0 = {k: v.clone() for k, v in cn.state_dict().items()}
+    blocks = sum(CUT_FLUX) + sum(CUT_CN)
+
+    def run(mesh):
+        net = cn
+        if mesh is not None:          # each rank starts from the same fresh ControlNet
+            net = type(cn)(cn.config, device="meta", dtype=pipe.compute_dtype, remat=True)
+            net.load_state_dict(state0, assign=True)
+            net.to(dev)
+        net, opt = init_controlnet_training(flux, net, *CUT_CN, learning_rate=1e-5,
+                                            weight_decay=0.01, mesh=mesh)
+        base = flux if mesh is None else shard_module(flux, mesh)
+        step = make_controlnet_train_step(net, opt, mesh=mesh)
+        losses, grads = [], None
+        for s, batch in enumerate(batches):
+            losses.append(float(step(base, batch, step_generator(seed, s, dev))))
+            if s == 0:
+                view = None if mesh is None else ShardedState(net, mesh)
+                grads = {n: (p.grad if view is None else view.whole(n, p.grad)).float().clone()
+                         for n, p in net.named_parameters() if p.grad is not None}
+        return losses, grads
+
+    torch.cuda.synchronize()
+    reset_train_launches()
+    one_losses, one_grads = run(None)
+    one_counts = read_train_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    t0 = time.perf_counter()
+    outs = run_ranks(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_train_launches()
+    # FLUX's first block takes no gradient (nothing trained is upstream of it):
+    # it is neither recomputed nor run backward, as in the train phase's 141 and 70
+    per_step = {"K1": 2 * blocks - 1, "K2": 0, "K3": 0, "K4": blocks - 1}
+    expect = {k: 2 * ranks * v for k, v in per_step.items()}
+    losses, grads = outs[0]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    worst, fails = 0.0, []
+    for name, ref in one_grads.items():
+        if not bool(ref.any()):
+            continue
+        err = (grads[name] - ref).abs()
+        rel = err.max().item() / ref.abs().max().item()
+        worst = max(worst, rel)
+        if rel > GRAD_MAX_RTOL or err.mean().item() > GRAD_MEAN_RTOL * ref.abs().mean().item():
+            fails.append(name)
+    same = all(o[0] == losses for o in outs[1:])
+    ok = (loss_rel <= REF_RTOL and not fails and counts == expect and same
+          and one_counts == {k: 2 * v for k, v in per_step.items()})
+    phase("tp", f"{label}: 2 ControlNet train steps at batch 2, FLUX {CUT_FLUX[0]} + "
+                f"{CUT_FLUX[1]}, ControlNet {CUT_CN[0]} + {CUT_CN[1]}, full width, remat, AdamW "
+                f"lr 1e-5: losses {[round(x, 6) for x in losses]} against the one card's "
+                f"{[round(x, 6) for x in one_losses]} (max rel {loss_rel:.3e}, tol {REF_RTOL}); "
+                f"step 1's nonzero ControlNet gradients, max_abs/max|one card| worst {worst:.3e} "
+                f"(limits {GRAD_MAX_RTOL:.4g} max, {GRAD_MEAN_RTOL:.4g} mean; failing {fails}); "
+                f"ranks equal {same}; launches "
+                + ", ".join(f"{k} {counts[k]} (expected {expect[k]})" for k in sorted(expect))
+                + f"; {wall:.3f} s; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB -> {'ok' if ok else 'FAIL'}")
+    del cut, dataset, batches, flux, cn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"the sharded train steps ({label}) failed their checks")
+    return counts
+
+
+def tp_serve_pair(dev, pipe, conds, reqs, emb, pooled, seed, steps, grid, sp, expect, ref,
+                  slices):
+    """Two 1024^2 requests (pre-encoded prompts: T5 is gone by now) through a
+    GenerationServer's worker over the card: one rank, or rank 0 of a thread
+    mesh (``grid``) or SP group (``sp`` ranks, ring) whose other ranks follow
+    (``serving.follow``); one coalesced batch. Returns (latents, launches)."""
+    import threading
+
+    from reptext_tpu_torch.parallel.mesh import LocalMesh
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+    from reptext_tpu_torch.serving import GenerationRequest, GenerationServer, follow
+
+    table = {r[1]: c for r, c in zip(reqs, conds)}
+    captured = {}
+
+    def rank(member):
+        view = pipe.with_config(pipe.pipe_cfg)
+        group = None
+        if sp is not None:
+            view.shard_for_sp(member, "ring")
+            group = member
+        elif grid is not None:
+            view.shard_for_inference(member)
+            group = member.world
+        if group is not None and group.rank != 0:
+            follow(group, view)
+            return None, None
+        real = view.generate_batch
+
+        def generate_batch(*a, **kw):          # the latents, and the sampler's seconds
+            timings = {}
+            out = real(*a, **dict(kw, output_type="latent", timings=timings))
+            captured["latents"], captured["sample"] = out, timings["sample"]
+            return view.decode(out)
+
+        view.generate_batch = generate_batch
+        server = GenerationServer(view, host="127.0.0.1", port=0, max_batch=2,
+                                  batch_window_s=BATCH_WINDOW_S, group=group)
+        server.worker.conditions = lambda req, w, h: table[req.lines[0]["text"]]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            sent = [server.worker.submit(GenerationRequest(
+                prompt="", lines=[{"text": text, "position": list(pos)}], seed=seed + i,
+                num_steps=steps, prompt_embeds=emb[0].float().cpu().numpy(),
+                pooled_embeds=pooled[0].float().cpu().numpy()))
+                for i, (_, text, pos) in enumerate(reqs)]
+            for req in sent:
+                req._done.wait(600)
+                if req._error:
+                    raise SystemExit(f"a served request failed: {req._error}")
+            if server.worker.batches != 1:
+                raise SystemExit(f"the pair ran as {server.worker.batches} batches, not one")
+        finally:
+            server.shutdown()
+        return captured["latents"], {"sample": captured["sample"]}
+
+    label = "served pair of 1024^2 requests (one batch of 2)"
+    if sp is not None:
+        ranks = LocalSPGroup(sp, dev)
+        label += f", sp{sp} ring"
+    elif grid is not None:
+        ranks = LocalMesh(*grid, dev, slices=slices)
+    if grid is None and sp is None:
+        return tp_run(dev, label, None, rank, expect, ref, steps,
+                      (2, pipe.pipe_cfg.image_seq_len, 64), None)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = run_spmd(ranks, rank)
+    torch.cuda.synchronize()
+    got = read_launches()
+    lat = outs[0][0]
+    rel = (lat - ref).abs().max().item() / ref.abs().max().item()
+    ok = got == expect and rel <= TP_RTOL and bool(torch.isfinite(lat).all())
+    phase("tp", f"{label}{'' if grid is None else f', {grid[0]} x {grid[1]} thread ranks'}: "
+                f"{time.perf_counter() - t0:.3f} s; launches "
+                + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                + f"; latents vs one rank's server: max_abs/max|ref| {rel:.3e} (tol {TP_RTOL}) "
+                f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the sharded served pair ({label}) failed its checks")
+    return lat, got
+
+
+def tp_phase(dev, steps, cn_steps, seed):
+    """Tensor and data parallelism at full width, thread ranks on one card
+    (``parallel/mesh.py::LocalMesh``), in a process of its own: the 2 x 2
+    ControlNet train steps at cut depth against the one card; then, with the
+    prompts encoded once and T5 freed, txt2img 1024^2 under 1 x 2 and (2
+    images, one a dp rank) 2 x 2, 1536^2 under 1 x 2 (K3), inpainting at
+    1280x960 under 2 x 1 (the CFG halves split over dp) and 1 x 2, and a
+    served pair under 1 x 2 and sp2, each against the one card's run on the
+    same modules. Returns launches by path."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.parallel.mesh import LocalMesh, SliceCache
+    from reptext_tpu_torch.pipelines.inpaint import (
+        DEFAULT_NEGATIVE_PROMPT, FluxRepTextInpaintPipeline,
+    )
+    from reptext_tpu_torch.parallel.testing import run_spmd
+    from reptext_tpu_torch.text import pad_to_common_length
+
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    args = cli.build_parser().parse_args(
+        ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+         str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--font-size",
+         str(font_size), "--random-weights"])
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    phase("tp", f"pipeline built in {time.perf_counter() - t0:.1f} s (full FLUX.1-dev + RepText "
+                f"+ T5-XXL + CLIP-L + VAE, bf16, seeded)")
+    launches = {}
+    launches["tp_train_2x2"] = tp_train_check(
+        dev, pipe, seed, lambda fn: run_spmd(LocalMesh(2, 2, dev), fn), "2 x 2 thread ranks", 4)
+
+    # the prompts encoded once; T5 (9.4 GB) freed for the sharded copies
+    clip_ids, t5_ids = cli.request_ids(args, pipe)
+    neg_clip, neg_t5 = cli._prompt_ids(args, pipe, DEFAULT_NEGATIVE_PROMPT)
+    t5_ids, neg_t5 = pad_to_common_length(t5_ids, neg_t5)
+    clip_ids, neg_clip = pad_to_common_length(clip_ids, neg_clip)
+    emb, pooled = pipe.encode_prompt(clip_ids, t5_ids)
+    neg_emb, neg_pooled = pipe.encode_prompt(neg_clip, neg_t5)
+    pipe.t5 = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gate = min(cn_steps, steps)
+    calls = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
+    inpaint_calls = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
+    slices = SliceCache()                       # one copy of each tp rank's slices
+    cond, source = conditions_for(data, name, text, pos, size, font_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s_img = pipe.pipe_cfg.image_seq_len
+
+    def txt2img(run_pipe, images, noise):
+        kw = dict(prompt_embeds=emb, pooled_embeds=pooled, seed=seed, num_images=images,
+                  latents=noise, output_type="latent", num_inference_steps=steps,
+                  guidance_scale=args.guidance_scale)
+
+        def call(mesh):
+            timings = {}
+            run = run_pipe if mesh is None else run_pipe.with_config(
+                run_pipe.pipe_cfg).shard_for_inference(mesh)
+            return run(cond_of[run_pipe.pipe_cfg.height], timings=timings, **kw), timings
+        return call
+
+    large = np.load(LARGE_FIXTURE)
+    cond_of = {size: cond}
+    l_text = str(large["txt2img_1536.text"])
+    l_pos = tuple(int(v) for v in large["txt2img_1536.position"])
+    cond_of[1536], l_source = conditions_for(large, "txt2img_1536", l_text, l_pos, (1536, 1536),
+                                             int(large["font_size"]), LARGE_FIXTURE)
+    runs = [("txt2img 1024^2", pipe, 1, [(1, 2)], "K1"),
+            ("txt2img 1024^2, 2 images", pipe, 2, [(2, 2)], "K1"),
+            ("txt2img 1536^2 (S = 9728: K3)",
+             pipe.with_config(cli.pipeline_config(args, 1536, 1536)), 1, [(1, 2)], "K3")]
+    for label, run_pipe, images, grids, kernel in runs:
+        s = run_pipe.pipe_cfg.image_seq_len
+        noise = torch.randn((images, s, 64), generator=gen, device=dev)
+        call = txt2img(run_pipe, images, noise)
+        label = f"{label} (conditions: {source if s == s_img else l_source})"
+        ref, launches[f"tp_one_card_{kernel}_{images}x{s}"] = tp_run(
+            dev, label, None, call, tp_expect(kernel, calls), None, steps, (images, s, 64),
+            slices, HEADS)
+        for grid in grids:
+            _, launches[f"tp_{grid[0]}x{grid[1]}_{kernel}_{images}x{s}"] = tp_run(
+                dev, label, grid, call, tp_expect(kernel, calls, grid[0] * grid[1]), ref, steps,
+                (images, s, 64), slices, HEADS // grid[1])
+        del ref, noise
+    # inpainting at 1280x960 (S = 5312: K1) with a seeded inpaint ControlNet
+    i_name = "inpaint_1280x960"
+    i_text = str(large[f"{i_name}.text"])
+    i_pos = tuple(int(v) for v in large[f"{i_name}.position"])
+    w, h = (int(v) for v in large[f"{i_name}.size"])
+    i_cond, i_source = conditions_for(large, i_name, i_text, i_pos, (w, h),
+                                      int(large["font_size"]), LARGE_FIXTURE)
+    i_args = cli.build_parser().parse_args(
+        ["--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE), "--text", i_text,
+         "--position", *map(str, i_pos), "--steps", str(steps), "--controlnet-step",
+         str(cn_steps), "--seed", str(seed), "--random-weights"])
+    inp = FluxRepTextInpaintPipeline.from_pipeline(
+        pipe, seed=seed + 7, pipe_cfg=cli.pipeline_config(i_args, h, w))
+    image, mask = source_image(seed, h, w), box_mask(i_cond)
+    i_noise = torch.randn((1, inp.pipe_cfg.image_seq_len, 64), generator=gen, device=dev)
+
+    def inpaint_call(mesh):
+        timings = {}
+        run = inp if mesh is None else inp.with_config(inp.pipe_cfg).shard_for_inference(mesh)
+        return run(i_cond, image=image, mask=mask, prompt_embeds=emb, pooled_embeds=pooled,
+                   negative_prompt_embeds=neg_emb, negative_pooled_embeds=neg_pooled, seed=seed,
+                   latents=i_noise, true_guidance_scale=TRUE_GUIDANCE, num_inference_steps=steps,
+                   guidance_scale=i_args.guidance_scale, output_type="latent",
+                   timings=timings), timings
+
+    label = (f"inpaint {w}x{h} (S = {TXT_LEN + inp.pipe_cfg.image_seq_len}, CFG batch 2, "
+             f"true CFG {TRUE_GUIDANCE}, conditions: {i_source})")
+    shape = (1, inp.pipe_cfg.image_seq_len, 64)
+    ref, launches["tp_one_card_inpaint"] = tp_run(
+        dev, label, None, inpaint_call, tp_expect("K1", inpaint_calls), None, steps, shape,
+        slices, HEADS)
+    for grid in ((2, 1), (1, 2)):
+        _, launches[f"tp_{grid[0]}x{grid[1]}_inpaint"] = tp_run(
+            dev, label, grid, inpaint_call, tp_expect("K1", inpaint_calls, grid[0] * grid[1]),
+            ref, steps, shape, slices, HEADS // grid[1])
+    del inp, ref
+    torch.cuda.empty_cache()
+    # a served pair: one rank, 1 x 2 and sp2
+    conds = [conditions_for(data, n_, t_, p_, size, font_size)[0] for n_, t_, p_ in reqs]
+    ref, launches["tp_serve_one_rank"] = tp_serve_pair(
+        dev, pipe, conds, reqs, emb, pooled, seed, steps, None, None,
+        tp_expect("K1", calls), None, slices)
+    _, launches["tp_serve_1x2"] = tp_serve_pair(
+        dev, pipe, conds, reqs, emb, pooled, seed, steps, (1, 2), None,
+        tp_expect("K1", calls, 2), ref, slices)
+    sp_exp = {"K1": 0, "K2": 0, "K3": 0, "K5": SP_RANKS * (SP_RANKS + 1) * calls}
+    _, launches["tp_serve_sp2"] = tp_serve_pair(
+        dev, pipe, conds, reqs, emb, pooled, seed, steps, None, SP_RANKS, sp_exp, ref, slices)
+    return launches
+
+
+def tp_child(args):
+    """tp_phase in a child process of its own (``--tp-worker``), its lines
+    passed through; returns its launches by path."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--tp-worker", "--steps", str(args.steps),
+           "--controlnet-step", str(args.controlnet_step), "--seed", str(args.seed)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+    launches = None
+    for line in proc.stdout:
+        if line.startswith(TP_RESULT):
+            launches = json.loads(line[len(TP_RESULT):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or launches is None:
+        raise SystemExit(f"the tp phase failed (exit {proc.returncode})")
+    return launches
+
+
+def dist_tp_run(dev, seed=0, steps=2):
+    """Tensor parallelism over the cards, one process per card (NCCL), as
+    ``--shard 1xN`` runs it: the full pipeline on this card, the 1024^2
+    request on this card alone, then shard_for_inference over a 1 x N mesh of
+    the cards (cold, warm); then the cut-depth ControlNet train steps on this
+    card and over the mesh. A JSON line per run; returns whether all passed."""
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, None, device="cuda")
+    data, size, font_size, reqs = load_requests()
+    name, text, pos = reqs[0]
+    args = cli.build_parser().parse_args(
+        ["--text", text, "--position", *map(str, pos), "--size", str(size), "--steps",
+         str(steps), "--controlnet-step", str(steps), "--seed", str(seed), "--font-size",
+         str(font_size), "--random-weights"])
+    pipe = cli.build_pipeline(args)
+    cond, _ = conditions_for(data, name, text, pos, size, font_size)
+    clip_ids, t5_ids = cli.request_ids(args, pipe)
+    noise = torch.randn((1, pipe.pipe_cfg.image_seq_len, 64),
+                        generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    kw = dict(clip_ids=clip_ids, t5_ids=t5_ids, seed=seed, latents=noise, output_type="latent",
+              num_inference_steps=steps, guidance_scale=args.guidance_scale)
+    calls, ok, ref = steps * (DOUBLE_CALLS + SINGLE_CALLS), True, None
+    for sharded, call in ((False, "cold"), (True, "cold"), (True, "warm")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timings = {}
+        run = pipe.with_config(pipe.pipe_cfg).shard_for_inference(mesh) if sharded else pipe
+        lat = run(cond, timings=timings, **kw)
+        torch.cuda.synchronize()
+        got = read_launches()
+        ref = lat if not sharded else ref
+        rel = (lat - ref).abs().max().item() / ref.abs().max().item()
+        run_ok = (got == tp_expect("K1", calls) and rel <= TP_RTOL
+                  and bool(torch.isfinite(lat).all()))
+        ok = ok and run_ok
+        print(json.dumps({"rank": mesh.rank, "tp": f"1x{mesh.tp}" if sharded else "one card",
+                          "call": call, "ms_per_step": 1e3 * timings["sample"] / steps,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": got, "max_abs_vs_one_card": rel, "ok": run_ok}),
+              flush=True)
+    del run
+    # one block's all-reduce alone: [1, 4608, 3072] bf16 over the tp group
+    x = torch.randn(1, TXT_LEN + pipe.pipe_cfg.image_seq_len, 3072, device=dev).to(torch.bfloat16)
+    ar_ms = cuda_time_ms(lambda: mesh.tp_group.all_reduce_sum(x), repeats=10, warmup=2)[0]
+    print(json.dumps({"rank": mesh.rank, "tp_all_reduce_mb": x.numel() * 2 / 1e6,
+                      "tp_all_reduce_ms": ar_ms, "calls_per_step": 2 * 19 + 38 + 2 * 4 + 10}),
+          flush=True)
+    del x
+    try:
+        counts = tp_train_check(dev, pipe, seed, lambda fn: [fn(mesh)], f"1 x {mesh.tp} cards",
+                                1)
+        print(json.dumps({"rank": mesh.rank, "tp_train": f"1x{mesh.tp}", "launches": counts,
+                          "ok": True}), flush=True)
+    except SystemExit as e:
+        print(json.dumps({"rank": mesh.rank, "tp_train": f"1x{mesh.tp}", "error": str(e),
+                          "ok": False}), flush=True)
+        ok = False
+    return ok
 
 
 def fp8_phase(dev, steps, cn_steps, seed):
@@ -4271,6 +4907,7 @@ def main(argv=None):
     ap.add_argument("--nccl-worker", nargs=3, type=int, metavar=("RANK", "WORLD", "PORT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--fp8-worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="also profile two inpaint steps at 1536x1152, two ControlNet "
                          "steps at 1024^2 and one train step "
@@ -4288,6 +4925,11 @@ def main(argv=None):
         launches = fp8_phase(torch.device("cuda", 0), args.steps, args.controlnet_step, args.seed)
         print(FP8_RESULT + json.dumps(launches), flush=True)
         return 0
+    if args.tp_worker:
+        _build.build()
+        launches = tp_phase(torch.device("cuda", 0), args.steps, args.controlnet_step, args.seed)
+        print(TP_RESULT + json.dumps(launches), flush=True)
+        return 0
 
     started = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4302,6 +4944,7 @@ def main(argv=None):
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
     d64 = d64_kernel_phase(dev)
+    tp_heads = tp_kernel_phase(dev)
     results["K5"] = ring_kernel_phase(dev)
     multi_card_phase()
     variants, study_launches = variants_phase(dev, sass)
@@ -4348,8 +4991,9 @@ def main(argv=None):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    # in a process of its own, once this one holds no pipeline
+    # in processes of their own, once this one holds no pipeline
     by_path.update(fp8_child(args))
+    by_path.update(tp_child(args))
 
     by_path["attention_study"] = study_launches
     src = "reptext_tpu_torch/csrc/flash_attention.cu"
@@ -4391,6 +5035,8 @@ def main(argv=None):
                                           for shape, bhs in k3_shapes.items()}
     for key, by_shape in d64.items():
         results[key]["d64"] = by_shape
+    for key, by_shape in tp_heads.items():
+        results[key]["tp_heads"] = by_shape
     for key in entry:
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})

@@ -18,6 +18,10 @@ or seeded random weights):
         --text "مرحبا" --position 740 400 --size 2048 --random-weights
     torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --mode inpaint --shard sp2 \
         --image photo.jpg --mask mask.png --text "مرحبا" --position 370 200 --random-weights
+    torchrun --nproc-per-node 4 -m reptext_tpu_torch.cli --shard 2x2 \
+        --text "مرحبا" --position 370 200 --size 1024 --random-weights
+    torchrun --nproc-per-node 2 -m reptext_tpu_torch.cli --mode train --shard 2x1 \
+        --random-weights --train-steps 3 --batch-size 2
     python -m reptext_tpu_torch.cli --text "مرحبا" --position 370 200 --random-weights \
         --init-image photo.png --strength 0.6 --sigmas 1.0,0.75,0.5,0.25
 
@@ -45,12 +49,17 @@ full geometry needs it to fit one card. ``--ocr-loss-weight > 0`` adds the
 OCR text-perceptual term (the VAE decoder with gradients, its blocks
 checkpointed too, and the frozen judge of ``--ocr-judge``, by default
 ``benchmarks/ocr_judge.npz`` beside the package); ``--corpus-dir`` trains on
-an annotated photo corpus (``data_disk.py``). ``--shard spN`` (txt2img and inpaint)
-shards the image tokens over N ranks, one process per card started by
-``torchrun --nproc-per-node N`` (gloo processes on the CPU with ``--device
-cpu``); every rank builds the same seeded pipeline, and rank 0 writes the
-images. Without N ranks it raises. ``--shard DPxTP``/``auto``, and serving
-and training under ``--shard``, are not ported yet. The generation flags of
+an annotated photo corpus (``data_disk.py``). ``--shard`` runs over the
+ranks of the job, one process per card started by ``torchrun
+--nproc-per-node N`` (gloo processes on the CPU with ``--device cpu``); every
+rank builds the same seeded pipeline, and rank 0 writes the images. ``spN``
+(txt2img, inpaint, serve) shards the image tokens over N ranks; ``DPxTP``
+(txt2img, inpaint, serve, train) runs FLUX and the ControlNets
+tensor-parallel over tp ranks and splits the batch rows over dp
+(``parallel/mesh.py``, ``parallel/partition.py``), ``auto`` being 1 x all
+ranks; dp x tp must be the job's ranks. Training takes ``DPxTP`` alone, and
+``--batch-size`` must divide by dp. A sharded server answers HTTP on rank 0;
+the other ranks follow its calls (``serving.follow``). The generation flags of
 the JAX CLI are here (``--color``, ``--no-shape``, ``--prompt-suffix``,
 ``--prompt-2``, ``--timesteps``/``--sigmas``, ``--init-image``/``--strength``
 for txt2img, ``--control-guidance-start``/``-end``), and the adapters':
@@ -229,10 +238,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(omit for in-memory restore points)")
     p.add_argument("--corpus-dir", default=None,
                    help="train on an annotated photo corpus (annotations.jsonl + images)")
-    p.add_argument("--shard", default=None, metavar="spN",
-                   help="txt2img and inpaint: shard the image tokens over N ranks, one process "
-                        "per card under torchrun --nproc-per-node N (DPxTP and auto: not "
-                        "ported yet)")
+    p.add_argument("--shard", default=None, metavar="DPxTP|spN|auto",
+                   help="run over the ranks of a torchrun job, one process per card: DPxTP "
+                        "(e.g. 2x4) tensor parallelism over TP ranks and the batch over DP, "
+                        "auto = 1 x all ranks, spN the image tokens over N ranks (not in "
+                        "training)")
     p.add_argument("--sp-backend", choices=["ring", "ulysses"], default="ring",
                    help="sequence-parallel attention for --shard spN: the K/V ring, or the "
                         "ulysses all-to-all head swap (needs heads %% N == 0)")
@@ -534,28 +544,38 @@ def generate_inpaint(args, pipeline, conditions, image: np.ndarray, mask: np.nda
                     timings=timings, **schedule_kwargs(args))
 
 
-def train(args, pipeline, dataset=None, on_event=None):
+def train(args, pipeline, dataset=None, on_event=None, mesh=None):
     """ControlNet training (``--mode train``): warm start from the base, AdamW,
     ``GlyphTextDataset`` batches (``DiskImageTextDataset`` with
     ``--corpus-dir``, or ``dataset``) through a ``PrefetchLoader`` and the
     ``ElasticTrainer``; with ``--ocr-loss-weight > 0`` the step adds the OCR
     term through the pipeline's differentiable decode and the frozen judge.
-    Returns the trainer (its ``losses``)."""
+    Under ``mesh`` (``--shard DPxTP``, this rank's) FLUX and the ControlNet
+    are the rank's tensor-parallel copies, the VAE and the judge whole, each
+    step takes the rank's rows of the batch (``--batch-size`` must divide by
+    dp), and the restore points and ``controlnet_final.pt`` hold whole
+    tensors, written by rank 0. Returns the trainer (its ``losses``)."""
     import torch
 
     from reptext_tpu_torch.data import GlyphTextDataset, PrefetchLoader
+    from reptext_tpu_torch.parallel.partition import (
+        ShardedOptimizerState, ShardedState, shard_module,
+    )
     from reptext_tpu_torch.sampling.elastic import ElasticTrainer
     from reptext_tpu_torch.sampling.train_controlnet import (
         bind_frozen_base, init_controlnet_training, make_controlnet_train_step,
     )
 
+    if mesh is not None and args.batch_size % mesh.dp:
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by dp={mesh.dp}")
     cn_cfg = pipeline.controlnet.config
     if cn_cfg.union and args.controlnet_mode is None:
         # a union checkpoint trains on one conditioning type, as it samples
         raise SystemExit("training a union-mode ControlNet requires --controlnet-mode")
     controlnet, optimizer = init_controlnet_training(
         pipeline.flux, pipeline.controlnet, cn_cfg.num_layers, cn_cfg.num_single_layers,
-        learning_rate=args.learning_rate, weight_decay=args.weight_decay)
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay, mesh=mesh)
+    flux = pipeline.flux if mesh is None else shard_module(pipeline.flux, mesh)
     # the checkpoint's tokenizers, when it has them, tokenize the training prompts too
     tokenize = functools.partial(_prompt_ids, args, pipeline)
     if dataset is None and args.corpus_dir:
@@ -576,42 +596,63 @@ def train(args, pipeline, dataset=None, on_event=None):
         frozen = (pipeline.vae, judge)
     step = make_controlnet_train_step(controlnet, optimizer,
                                       text_loss_weight=args.text_loss_weight,
-                                      perceptual=perceptual, control_mode=args.controlnet_mode)
+                                      perceptual=perceptual, control_mode=args.controlnet_mode,
+                                      mesh=mesh)
     loader = PrefetchLoader(dataset.batch, depth=2)  # host build overlaps the device step
+    state = {"controlnet": controlnet, "optimizer": optimizer}
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        state = {"controlnet": ShardedState(controlnet, mesh),
+                 "optimizer": ShardedOptimizerState(optimizer, controlnet, mesh)}
     trainer = ElasticTrainer(
-        bind_frozen_base(step, pipeline.flux, *frozen), loader,
-        state={"controlnet": controlnet, "optimizer": optimizer}, device=pipeline.device,
-        checkpoint_dir=args.train_dir, checkpoint_every=args.checkpoint_every,
-        on_event=on_event or (lambda kind, info: print(f"[{kind}] {info}", flush=True)))
+        bind_frozen_base(step, flux, *frozen), loader, state=state, device=pipeline.device,
+        checkpoint_dir=args.train_dir if writer else None,
+        checkpoint_every=args.checkpoint_every,
+        on_event=on_event or (lambda kind, info: print(f"[{kind}] {info}", flush=True)
+                              if writer else None))
     try:
         losses = trainer.run(args.train_steps, seed=args.seed)
     finally:
         loader.close()
     k = max(1, min(10, len(losses) // 4))
-    print(f"trained {args.train_steps} steps: loss(first {k} mean)={np.mean(losses[:k]):.4f} "
-          f"-> loss(last {k} mean)={np.mean(losses[-k:]):.4f}", flush=True)
+    if writer:
+        print(f"trained {args.train_steps} steps: loss(first {k} mean)={np.mean(losses[:k]):.4f} "
+              f"-> loss(last {k} mean)={np.mean(losses[-k:]):.4f}", flush=True)
     if args.train_dir:
-        out = os.path.join(args.train_dir, "controlnet_final.pt")
-        torch.save(controlnet.state_dict(), out)
-        print(f"saved the trained ControlNet to {out}")
+        whole = state["controlnet"].state_dict()      # gathered over tp on every rank
+        if writer:
+            out = os.path.join(args.train_dir, "controlnet_final.pt")
+            torch.save(whole, out)
+            print(f"saved the trained ControlNet to {out}")
     return trainer
 
 
-def build_server(args):
-    """The ``--mode serve`` server (not yet serving): a ``GenerationServer``
-    over the pipeline of the flags at ``--size`` and, with
-    ``--serve-inpaint``, the inpaint pipeline over the same modules;
-    prompts through :func:`_tokenize`."""
-    from reptext_tpu_torch.serving import GenerationServer
-
+def serving_pipelines(args, sp=None, mesh=None):
+    """The served pipeline of the flags at ``--size`` and, with
+    ``--serve-inpaint``, the inpaint pipeline over the same modules, sharded
+    as ``--shard`` says (``sp``: an SP group, ``mesh``: this rank's mesh)."""
     pipeline = build_pipeline(args)
+    shard(args, pipeline, sp, mesh)
     inpaint = None
     if args.serve_inpaint:
-        # over the served pipeline's (quantized) modules; only a dense inpaint
-        # ControlNet is quantized here
+        # over the served pipeline's (quantized, sharded) modules; only a dense
+        # inpaint ControlNet is quantized, and sharded, here
         inpaint = add_inpaint(args, pipeline)
-        if pipeline.flux.weight_quant:
+        if pipeline.flux.weight_quant and mesh is None:
             inpaint.quantize_weights()
+        if sp is not None:
+            inpaint.shard_for_sp(sp, args.sp_backend)
+    return pipeline, inpaint
+
+
+def build_server(args, sp=None, mesh=None):
+    """The ``--mode serve`` server (not yet serving): a ``GenerationServer``
+    over :func:`serving_pipelines`, prompts through :func:`_tokenize`. Under
+    ``--shard`` this is rank 0's, and the other ranks run
+    ``serving.follow``."""
+    from reptext_tpu_torch.serving import GenerationServer
+
+    pipeline, inpaint = serving_pipelines(args, sp, mesh)
     clip_cfg, t5_cfg = pipeline.clip.config, pipeline.t5.config
     t5_length = pipeline.pipe_cfg.max_sequence_length
 
@@ -620,29 +661,83 @@ def build_server(args):
 
     return GenerationServer(pipeline, host=args.host, port=args.port, tokenizer=tokenizer,
                             warmup=args.warmup, max_batch=args.max_batch,
-                            batch_window_s=args.batch_window, inpaint_pipeline=inpaint)
+                            batch_window_s=args.batch_window, inpaint_pipeline=inpaint,
+                            group=ranks_of(sp, mesh))
 
 
-def sp_group(args):
-    """The SP group of ``--shard spN`` (txt2img and inpaint): this job's N ranks."""
+SHARD_SYNTAX = "--shard expects DPxTP (e.g. 2x4), spN (e.g. sp8), or 'auto'"
+
+
+def check_shard(parser, args) -> None:
+    """The JAX CLI's up-front syntax check of ``--shard``."""
     spec = args.shard.lower()
-    if args.mode not in ("txt2img", "inpaint"):
-        raise SystemExit(f"--shard is not ported yet for --mode {args.mode}")
-    if not spec.startswith("sp") or (spec[2:] and not spec[2:].isdigit()):
-        raise SystemExit(f"--shard {args.shard}: only spN is ported yet (DPxTP and auto are "
-                         "not ported yet)")
-    from reptext_tpu_torch.parallel import make_sp_group
+    if spec.startswith("sp"):
+        if spec[2:] and not spec[2:].isdigit():
+            parser.error("--shard spN expects an integer N (e.g. sp8)")
+    elif spec != "auto":
+        parts = spec.split("x")
+        if len(parts) != 2 or not all(p.isdigit() for p in parts):
+            parser.error(SHARD_SYNTAX)
 
-    n = int(spec[2:]) if spec[2:] else int(os.environ.get("WORLD_SIZE", "1"))
-    return make_sp_group(n, args.device)
+
+def shard_ranks(args):
+    """(SP group, None) for ``--shard spN`` or (None, this rank's mesh) for
+    ``DPxTP``/``auto``, over the job's ranks; training refuses spN with the
+    JAX message."""
+    spec = args.shard.lower()
+    if spec.startswith("sp"):
+        if args.mode == "train":
+            raise SystemExit("--shard spN is an inference mode; training shards dp x tp "
+                             "(e.g. --shard 2x4)")
+        from reptext_tpu_torch.parallel import make_sp_group
+
+        n = int(spec[2:]) if spec[2:] else int(os.environ.get("WORLD_SIZE", "1"))
+        return make_sp_group(n, args.device), None
+    from reptext_tpu_torch.parallel.mesh import make_mesh
+
+    dp = tp = None
+    if spec != "auto":
+        dp, tp = (int(x) for x in spec.split("x"))
+    return None, make_mesh(dp, tp, device=args.device)
+
+
+def ranks_of(sp, mesh):
+    """The group of every rank of a sharded job (None unsharded)."""
+    return sp if mesh is None else mesh.world
+
+
+def shard(args, pipeline, sp=None, mesh=None):
+    """``pipeline`` sharded as ``--shard`` says; returns it."""
+    if sp is not None:
+        pipeline.shard_for_sp(sp, args.sp_backend)
+    elif mesh is not None:
+        pipeline.shard_for_inference(mesh)
+    return pipeline
+
+
+def end_job() -> None:
+    """The process group of a sharded job destroyed, where one was started."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    group = sp_group(args) if args.shard else None
+    sp = mesh = None
+    if args.shard:
+        check_shard(parser, args)
+        sp, mesh = shard_ranks(args)
+    group = ranks_of(sp, mesh)
     if args.mode == "serve":
-        server = build_server(args)
+        if group is not None and group.rank != 0:
+            from reptext_tpu_torch.serving import follow
+
+            follow(group, *serving_pipelines(args, sp, mesh))
+            return 0
+        server = build_server(args, sp, mesh)
         host, port = server.address[:2]
         print(f"serving on http://{host}:{port} (POST /generate, GET /healthz, GET /metrics)",
               flush=True)
@@ -654,7 +749,8 @@ def main(argv=None) -> int:
             server.shutdown()
         return 0
     if args.mode == "train":
-        train(args, build_pipeline(args))
+        train(args, build_pipeline(args), mesh=mesh)
+        end_job()
         return 0
     if not args.text or not args.position:
         parser.error(f"{args.mode} needs --text and --position")
@@ -678,9 +774,7 @@ def main(argv=None) -> int:
     if inpaint:
         image, mask = load_inpaint_inputs(args.image, args.mask)
         height, width = image.shape[:2]
-    pipeline = build_pipeline(args, height, width)
-    if group is not None:
-        pipeline.shard_for_sp(group, args.sp_backend)
+    pipeline = shard(args, build_pipeline(args, height, width), sp, mesh)
     lines = [TextLine(t, tuple(p), tuple(c), font_size=args.font_size)
              for t, p, c in zip(args.text, args.position, colors)]
     conditions = build_conditions(lines, width, height, font_path=args.font,
@@ -693,9 +787,7 @@ def main(argv=None) -> int:
         images = generate(args, pipeline, conditions, init_image=init)
 
     if group is not None:
-        import torch.distributed as dist
-
-        dist.destroy_process_group()
+        end_job()
         if group.rank != 0:
             return 0
     from PIL import Image

@@ -79,7 +79,8 @@
 // launch()).
 //
 // Head dim and output dtype. D is a template argument, instantiated at 128
-// (FLUX.1-dev) and 64 (the trained-weights demo's models) for K1-K3: a row of
+// (FLUX.1-dev) and 64 (the trained-weights demo's models) for K1-K3 and the
+// ring step (K5): a row of
 // q', K or V is D / 64 blocks of 64 channels, each 128 swizzled bytes, so D =
 // 64 is one block where D = 128 is two; the QK product takes D / 16 k-steps,
 // PV is m64nDk16 and the accumulator D / 2 registers a thread. RoPE's pairs
@@ -842,7 +843,7 @@ extern "C" int reptext_attention_variant_fwd(
   return static_cast<int>(err);
 }
 
-// K5's ring step: q [B, H, seq_q, D] against one K/V block [B, H, seq_k, D],
+// K5's ring step: q [B, H, seq_q, D] against one K/V block [B, H, seq_k, D], D 64 or 128,
 // all bf16 with the head dim contiguous, folded into the contiguous fp32 state
 // acc [B, H, seq_q, D], m and l [B, H, seq_q] (see the source note). `first`
 // starts the state instead of loading it; `last` writes acc / l to `out`
@@ -856,7 +857,7 @@ extern "C" int reptext_ring_attention_step(
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
     float scale, int first, int last, void* stream) {
-  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || head_dim != kFluxD ||
+  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || (head_dim != 64 && head_dim != 128) ||
       (last && out == nullptr) || (!(first && last) && (acc == nullptr || m_state == nullptr ||
                                                         l_state == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -870,5 +871,6 @@ extern "C" int reptext_ring_attention_step(
   p.first = first;
   p.last = last;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch<kFluxD, false, true, kExp2, true>(p, batch, s));
+  return static_cast<int>(head_dim == 64 ? launch<64, false, true, kExp2, true>(p, batch, s)
+                                          : launch<128, false, true, kExp2, true>(p, batch, s));
 }

@@ -20,6 +20,18 @@ keys), and the result, times ``ip_scale``, is added after the FF residual.
 Under SP the queries are the rank's own image tokens and the ip tokens are
 whole on every rank. Given no ``ip_tokens`` such a block skips the path, so
 pipelines that share the module and pass none run as before.
+
+Under tensor parallelism (``parallel/partition.py::shard_module``) a block
+is a rank's copy: ``num_heads`` is its share of the heads, its q/k/v, MLP
+and FF in-projections are column-parallel and its out-projections
+row-parallel (their partial sums reduced inside the layer). The block puts
+Megatron's ``f`` (``copy_to_tp``) once before each column-parallel group: the
+modulated image stream, the modulated text stream and each FF's input. The
+per-head q/k RMSNorm and the RoPE tables are the same on every rank; a
+trained norm's weight takes ``f`` too, since each rank's heads give only
+part of its gradient (XLA sums a replicated parameter's gradient itself). The ip
+path cuts ``k_ip``/``v_ip`` (whole: the JAX rules replicate ``to_k_ip`` and
+``to_v_ip``) to the rank's heads and gathers its output over tp.
 """
 
 from __future__ import annotations
@@ -39,7 +51,32 @@ from reptext_tpu_torch.nn.layers import (
 )
 from reptext_tpu_torch.ops.attention import attention
 from reptext_tpu_torch.ops.rope import apply_rope_half
+from reptext_tpu_torch.parallel.partition import copy_to_tp, gather_from_tp
 from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION
+
+
+class TensorParallelBlock(nn.Module):
+    """What both blocks read of their tensor-parallel copy: the rank and the
+    tp group (``tp_size`` 1, the whole block, unless ``shard_module`` made it)."""
+
+    tp_rank, tp_size, tp_group = 0, 1, None
+
+    def tp_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``f`` before a column-parallel group."""
+        return x if self.tp_size == 1 else copy_to_tp(x, self.tp_group)
+
+    def head_norm(self, norm: RMSNorm, x: torch.Tensor) -> torch.Tensor:
+        """A per-head q/k RMSNorm: its weight, shared by every head, meets only
+        the rank's heads here, so a trained one takes ``f`` (its gradient
+        summed over tp), as a replicated parameter on split activations."""
+        if self.tp_size == 1 or not norm.weight.requires_grad:
+            return norm(x)
+        return norm(x, copy_to_tp(norm.weight, self.tp_group))
+
+    def check_backend(self, attention_backend: Optional[str]) -> None:
+        if attention_backend is not None and self.tp_size > 1:
+            raise ValueError("a tensor-parallel block runs no sequence-parallel backend "
+                             f"({attention_backend!r}): shard one way")
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -77,7 +114,7 @@ def ip_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
-class JointTransformerBlock(nn.Module):
+class JointTransformerBlock(TensorParallelBlock):
     """Double-stream MMDiT block over (image tokens, text tokens)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_ratio: float = 4.0,
@@ -120,26 +157,31 @@ class JointTransformerBlock(nn.Module):
         [B] per request): the IP-Adapter's image prompt, on a block that has
         one."""
         h = self.num_heads
+        self.check_backend(attention_backend)
         s_txt = encoder_hidden_states.shape[1]
         norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(hidden_states, temb)
         norm_txt, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(
             encoder_hidden_states, temb)
+        norm_img, norm_txt = self.tp_enter(norm_img), self.tp_enter(norm_txt)
 
-        q_i = self.norm_q(split_heads(self.to_q(norm_img), h))
-        k_i = self.norm_k(split_heads(self.to_k(norm_img), h))
+        q_i = self.head_norm(self.norm_q, split_heads(self.to_q(norm_img), h))
+        k_i = self.head_norm(self.norm_k, split_heads(self.to_k(norm_img), h))
         v_i = split_heads(self.to_v(norm_img), h)
-        q_t = self.norm_added_q(split_heads(self.add_q_proj(norm_txt), h))
-        k_t = self.norm_added_k(split_heads(self.add_k_proj(norm_txt), h))
+        q_t = self.head_norm(self.norm_added_q, split_heads(self.add_q_proj(norm_txt), h))
+        k_t = self.head_norm(self.norm_added_k, split_heads(self.add_k_proj(norm_txt), h))
         v_t = split_heads(self.add_v_proj(norm_txt), h)
 
         ip_attn = None
         if ip_tokens is not None and hasattr(self, "to_k_ip"):
             ip_tokens = ip_tokens.to(q_i.dtype)
-            k_ip = split_heads(self.to_k_ip(ip_tokens), h)
-            v_ip = split_heads(self.to_v_ip(ip_tokens), h)
+            heads = slice(self.tp_rank * h, (self.tp_rank + 1) * h)   # this rank's
+            k_ip = split_heads(self.to_k_ip(ip_tokens), h * self.tp_size)[:, heads]
+            v_ip = split_heads(self.to_v_ip(ip_tokens), h * self.tp_size)[:, heads]
             if k_ip.shape[0] != q_i.shape[0]:
                 k_ip, v_ip = (x.expand(q_i.shape[0], -1, -1, -1) for x in (k_ip, v_ip))
             ip_attn = merge_heads(ip_attention(q_i, k_ip, v_ip))
+            if self.tp_size > 1:
+                ip_attn = gather_from_tp(ip_attn, self.tp_group)
             scale = torch.as_tensor(1.0 if ip_scale is None else ip_scale, device=ip_attn.device)
             if scale.ndim == 1:        # per-request scale in a served batch
                 scale = scale[:, None, None]
@@ -157,19 +199,20 @@ class JointTransformerBlock(nn.Module):
                                                     rope_sin, s_txt)
 
         hidden_states = hidden_states + gate_msa[:, None, :] * self.to_out(img_attn)
-        ff_out = self.ff(modulate(hidden_states, shift_mlp, scale_mlp))
+        ff_out = self.ff(self.tp_enter(modulate(hidden_states, shift_mlp, scale_mlp)))
         hidden_states = hidden_states + gate_mlp[:, None, :] * ff_out
         if ip_attn is not None:
             hidden_states = hidden_states + ip_attn
 
         encoder_hidden_states = (encoder_hidden_states
                                  + c_gate_msa[:, None, :] * self.to_add_out(txt_attn))
-        ff_c = self.ff_context(modulate(encoder_hidden_states, c_shift_mlp, c_scale_mlp))
+        ff_c = self.ff_context(self.tp_enter(modulate(encoder_hidden_states, c_shift_mlp,
+                                                      c_scale_mlp)))
         encoder_hidden_states = encoder_hidden_states + c_gate_mlp[:, None, :] * ff_c
         return encoder_hidden_states, hidden_states
 
 
-class SingleTransformerBlock(nn.Module):
+class SingleTransformerBlock(TensorParallelBlock):
     """Single-stream block over the concatenated [text; image] sequence."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, mlp_ratio: float = 4.0,
@@ -194,10 +237,12 @@ class SingleTransformerBlock(nn.Module):
         """``txt_len``: the text tokens at the head of the sequence, which
         the SP backends need (they are replicated, the rest is sharded)."""
         h = self.num_heads
+        self.check_backend(attention_backend)
         normed, gate = self.norm(hidden_states, temb)
+        normed = self.tp_enter(normed)
         mlp = gelu_tanh(self.proj_mlp(normed))
-        q = self.norm_q(split_heads(self.to_q(normed), h))
-        k = self.norm_k(split_heads(self.to_k(normed), h))
+        q = self.head_norm(self.norm_q, split_heads(self.to_q(normed), h))
+        k = self.head_norm(self.norm_k, split_heads(self.to_k(normed), h))
         v = split_heads(self.to_v(normed), h)
         if attention_backend is None:
             attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))

@@ -11,7 +11,7 @@ swaps a module tree's Linears for it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,10 +30,13 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight`` stands in for ``self.weight`` (the tensor-parallel blocks
+        pass it through Megatron's ``f``)."""
+        w = self.weight if weight is None else weight
         xf = x.float()
         var = xf.pow(2).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * self.weight.float()).to(x.dtype)
+        return (xf * torch.rsqrt(var + self.eps) * w.float()).to(x.dtype)
 
 
 def layer_norm_no_affine_f32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -31,8 +31,8 @@ import torch
 from reptext_tpu_torch.ops import _build
 from reptext_tpu_torch.ops.flash_attention import _check, check_head_dim
 
-# FLUX.1-dev's: the ring step is instantiated at this head dim alone, in bf16
-_SUPPORTED_HEAD_DIMS = (128,)
+# the ring step is instantiated at FLUX.1-dev's 128 and the demo models' 64, in bf16
+_SUPPORTED_HEAD_DIMS = (64, 128)
 
 NEG_INF = -1e30
 RingState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # acc, m, l

@@ -5,7 +5,11 @@ The JAX package shards the image tokens over a one-axis mesh
 part as the body of a ``shard_map``, whose collectives are ``lax.ppermute``,
 ``all_gather``, ``all_to_all`` and ``pmean`` over that axis. Here each rank
 runs the same Python code on its own shard, and an :class:`SPGroup` gives it
-its ``rank``, ``size`` and ``device`` and those four collectives.
+its ``rank``, ``size`` and ``device`` and those four collectives, plus the
+true sum that tensor parallelism's partial products need
+(:meth:`SPGroup.all_reduce_sum`) and serving's :meth:`SPGroup.broadcast_object`
+from rank 0. The group is the port's one process group type: the ``dp`` and
+``tp`` groups of a mesh (``parallel/mesh.py``) are SP groups too.
 :class:`DistSPGroup` is the group over ``torch.distributed``: NCCL with one
 process per card (``cuda:LOCAL_RANK``), gloo on the CPU.
 ``parallel/testing.py`` runs n ranks as threads of one process.
@@ -16,7 +20,7 @@ process per card (``cuda:LOCAL_RANK``), gloo on the CPU.
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -47,6 +51,16 @@ class SPGroup:
 
     def all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean of every rank's ``x`` (``lax.pmean``), equal on every rank."""
+        raise NotImplementedError
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``x`` (``lax.psum``), bit-equal on every rank:
+        a new tensor, ``x`` is left as it is."""
+        raise NotImplementedError
+
+    def broadcast_object(self, obj: Any = None) -> Any:
+        """Rank 0's ``obj`` (any picklable object) on every rank; the other
+        ranks' arguments are ignored."""
         raise NotImplementedError
 
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -97,6 +111,7 @@ class DistSPGroup(SPGroup):
         self.device = torch.device(device)
         self._right = dist.get_global_rank(self.group, (self.rank + 1) % self.size)
         self._left = dist.get_global_rank(self.group, (self.rank - 1) % self.size)
+        self._root = dist.get_global_rank(self.group, 0)
 
     def ppermute_right(self, x, out=None):
         send = x.contiguous()
@@ -119,9 +134,18 @@ class DistSPGroup(SPGroup):
         return torch.cat(recv.unbind(0), dim=concat_dim)
 
     def all_reduce_mean(self, x):
-        y = x.clone()
+        return self.all_reduce_sum(x) / self.size
+
+    def all_reduce_sum(self, x):
+        y = x.detach().clone(memory_format=torch.contiguous_format)
         dist.all_reduce(y, group=self.group)
-        return y / self.size
+        return y
+
+    def broadcast_object(self, obj=None):
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=self._root, group=self.group,
+                                   device=self.device if self.device.type == "cuda" else None)
+        return box[0]
 
 
 def make_sp_group(n: int, device: str = "cuda") -> DistSPGroup:

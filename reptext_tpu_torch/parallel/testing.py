@@ -1,4 +1,4 @@
-"""n sequence-parallel ranks as threads of one process, on one device.
+"""n ranks as threads of one process, on one device.
 
 The counterpart of the JAX package's virtual CPU mesh
 (``reptext_tpu/parallel/testing.py``, ``--xla_force_host_platform_device_count``):
@@ -65,12 +65,18 @@ class _Member(SPGroup):
             [b.chunk(self.size, dim=split_dim)[self.rank] for b in box], dim=concat_dim))
 
     def all_reduce_mean(self, x):
-        def mean(box):
-            total = box[0].clone()
+        return self.all_reduce_sum(x) / self.size
+
+    def all_reduce_sum(self, x):
+        def total(box):       # in rank order on every rank: bit-equal results
+            out = box[0].detach().clone()
             for b in box[1:]:
-                total += b
-            return total / self.size
-        return self._exchange(x, mean)
+                out += b
+            return out
+        return self._exchange(x, total)
+
+    def broadcast_object(self, obj=None):
+        return self._exchange(obj, lambda box: box[0])
 
 
 # A rank that waits longer than this at an exchange raises BrokenBarrierError
@@ -93,13 +99,21 @@ class LocalSPGroup:
         self._barrier = threading.Barrier(self.size, timeout=BARRIER_TIMEOUT_S)
         self._box: List[Any] = [None] * self.size
 
+    def _abort(self) -> None:
+        self._barrier.abort()
+
     def member(self, rank: int) -> SPGroup:
         return _Member(self, rank)
 
 
-def run_spmd(group: LocalSPGroup, fn: Callable, *args) -> List[Any]:
+def run_spmd(group, fn: Callable, *args) -> List[Any]:
     """``[fn(group.member(r), *args) for r in ranks]``, the ranks running as
-    threads; the first error of any rank is raised after all have stopped."""
+    threads; the first error of any rank is raised after all have stopped.
+    ``group`` is a :class:`LocalSPGroup` or a ``parallel/mesh.py::LocalMesh``
+    (``fn`` then takes a rank's ``Mesh``). Each rank runs its backward passes
+    on its own thread (``set_multithreading_enabled(False)``): autograd's
+    device thread, which would otherwise run every rank's CUDA backward, would
+    hang at the first collective inside one."""
     n = group.size
     results: List[Any] = [None] * n
     errors: List[BaseException] = [None] * n
@@ -111,12 +125,13 @@ def run_spmd(group: LocalSPGroup, fn: Callable, *args) -> List[Any]:
             with contextlib.ExitStack() as stack:
                 stack.enter_context(torch.inference_mode(inference))
                 stack.enter_context(torch.set_grad_enabled(grad))
+                stack.enter_context(torch.autograd.set_multithreading_enabled(False))
                 if stream is not None:
                     stack.enter_context(torch.cuda.stream(stream))
                 results[rank] = fn(group.member(rank), *args)
         except BaseException as e:  # noqa: BLE001 (handed to the caller below)
             errors[rank] = e
-            group._barrier.abort()   # release the ranks waiting on this one
+            group._abort()           # release the ranks waiting on this one
 
     threads = [threading.Thread(target=body, args=(r,), name=f"sp-rank-{r}") for r in range(n)]
     for t in threads:

@@ -24,7 +24,11 @@ img2img or callbacks: the JAX inpaint pipeline has none).
 sequence-parallel (``make_sp_inpaint_sampler``): it writes only this
 pipeline's ``sp_group`` and ``sp_backend``, never the modules it shares with
 the base, whose inpaint ControlNet reads the thread's SP context as the
-other two models do.
+other two models do. :meth:`~FluxRepTextPipeline.shard_for_inference`,
+inherited, makes the three models' tensor-parallel copies; at dp = 2 the CFG
+batch of 2 splits into its unconditional and conditional halves. An inpaint
+pipeline made from a sharded one shares its copies and shards only its new
+inpaint ControlNet.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ import torch
 from reptext_tpu_torch.configs import ControlNetConfig, PipelineConfig
 from reptext_tpu_torch.utils.image import preprocess_images
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
+from reptext_tpu_torch.models.flux import quantized_copy
 from reptext_tpu_torch.ops.latents import pack_latents, prepare_latent_image_ids, resize_nearest
+from reptext_tpu_torch.parallel.partition import CONTROLNET_ROW_ARGS, FLUX_ROW_ARGS
 from reptext_tpu_torch.pipelines.txt2img import (
     FluxRepTextPipeline,
     _normalize_custom_schedule,
@@ -99,6 +105,10 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                    clip=base.clip, t5=base.t5, compute_dtype=base.compute_dtype,
                    inpaint_controlnet=inpaint_cn)
         pipe.vae_tiling = base.vae_tiling
+        if base.mesh is not None:       # the base's shards shared, the new net sharded
+            if base.flux.weight_quant:  # quantized before it is sharded, as the base was
+                pipe.inpaint_controlnet = quantized_copy(inpaint_cn)
+            pipe.shard_for_inference(base.mesh)
         return pipe
 
     @classmethod
@@ -207,8 +217,11 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         cfg = dataclasses.replace(self.pipe_cfg, true_guidance_scale=tscale)
         models = (self.flux, self.controlnet, self.inpaint_controlnet, schedule, cfg)
         if self.sp_group is None:
-            sampler = make_inpaint_sampler(*models, self.inpaint_conditioning_scale,
-                                           self.compute_dtype)
+            sampler = make_inpaint_sampler(
+                self._dp_rows(self.flux, FLUX_ROW_ARGS),
+                self._dp_rows(self.controlnet, CONTROLNET_ROW_ARGS),
+                self._dp_rows(self.inpaint_controlnet, CONTROLNET_ROW_ARGS), schedule, cfg,
+                self.inpaint_conditioning_scale, self.compute_dtype, decide=self._decide())
         else:
             sampler = make_sp_inpaint_sampler(*models, self.sp_group, self.sp_backend,
                                               self.inpaint_conditioning_scale,

@@ -28,14 +28,17 @@ when the callback returns False), custom ``timesteps``/``sigmas``,
 ``return_dict`` (:class:`~reptext_tpu_torch.pipelines.outputs.FluxPipelineOutput`)
 and, after :meth:`FluxRepTextPipeline.attach_ip_adapter`, an image prompt
 (``ip_adapter_image``, ``ip_adapter_scale``). A union ControlNet takes
-``PipelineConfig.control_mode`` (the samplers pass it). Tensor parallelism
-(``shard_for_inference``) is not ported yet.
+``PipelineConfig.control_mode`` (the samplers pass it).
+:meth:`FluxRepTextPipeline.shard_for_inference` runs FLUX and the
+ControlNet(s) tensor-parallel over a (dp, tp) mesh (``parallel/mesh.py``,
+``parallel/partition.py``), their batch rows split over dp.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -73,6 +76,9 @@ from reptext_tpu_torch.ops.latents import (
 )
 from reptext_tpu_torch.ops.vae_tiling import tiled_apply
 from reptext_tpu_torch.parallel.group import decide_on_rank0
+from reptext_tpu_torch.parallel.partition import (
+    CONTROLNET_ROW_ARGS, FLUX_ROW_ARGS, DPRows, shard_module,
+)
 from reptext_tpu_torch.pipelines.outputs import FluxPipelineOutput, to_pil_images
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule, build_schedule
 from reptext_tpu_torch.sampling.sampler import make_sp_txt2img_sampler, make_txt2img_sampler
@@ -144,6 +150,7 @@ class FluxRepTextPipeline:
         self.compute_dtype = compute_dtype
         self.device = next(flux.parameters()).device
         self.sp_group = self.sp_backend = None
+        self.mesh = None            # this rank's (dp, tp) mesh after shard_for_inference
         self.ip_encoder: Optional[IPAdapterEncoder] = None
         # (tile, overlap) in latent units after enable_vae_tiling, else None
         self.vae_tiling: Optional[Tuple[int, int]] = None
@@ -227,6 +234,9 @@ class FluxRepTextPipeline:
         share and go on using unsharded. Every rank calls the pipeline with
         the same inputs and gets the whole result. Returns self.
         """
+        if self.mesh is not None:
+            raise ValueError("this pipeline is sharded over a (dp, tp) mesh already: "
+                             "shard one way")
         n = group.size
         s_img = self.pipe_cfg.image_seq_len
         if s_img % n:
@@ -238,6 +248,50 @@ class FluxRepTextPipeline:
                              f"({self.flux.config.num_attention_heads} % {n})")
         self.sp_group, self.sp_backend = group, backend
         return self
+
+    def shard_for_inference(self, mesh=None) -> "FluxRepTextPipeline":
+        """Tensor and data parallelism over a (dp, tp) mesh: the counterpart
+        of the JAX ``shard_for_inference``.
+
+        ``mesh`` is this rank's ``parallel/mesh.py::Mesh`` (default
+        ``make_mesh()``: every rank of the job on tp). FLUX, the ControlNet
+        and the inpaint ControlNet become this rank's tensor-parallel copies
+        (``parallel/partition.py::shard_module``: its heads and features,
+        the partial sums reduced over tp in every block); the VAE, CLIP, T5
+        and the IP-Adapter's encoder stay whole. The copies are new modules:
+        every other pipeline over the old ones (``with_config`` views made
+        before, an inpaint pipeline) runs as before, and views made after
+        share the copies. Every rank calls the pipeline with the same inputs
+        and gets the whole result. The rows of each model call (images x CFG
+        halves, x text lines for the ControlNet) split over dp where dp
+        divides them, else every dp rank runs them all; the callback and the
+        adaptive velocity cache take rank 0's answer. Quantize and attach an
+        IP-Adapter first. Returns self."""
+        from reptext_tpu_torch.parallel.mesh import make_mesh
+
+        if self.sp_group is not None:
+            raise ValueError("this pipeline is sequence-parallel already: shard one way")
+        if mesh is None:
+            mesh = make_mesh(device=self.device.type)
+        self.mesh = mesh
+        self.flux = shard_module(self.flux, mesh)
+        self.controlnet = shard_module(self.controlnet, mesh)
+        if getattr(self, "inpaint_controlnet", None) is not None:
+            self.inpaint_controlnet = shard_module(self.inpaint_controlnet, mesh)
+        return self
+
+    def _decision_group(self):
+        """The ranks that must take one branch together (SP or mesh), or None."""
+        return self.sp_group if self.mesh is None else self.mesh.world
+
+    def _decide(self) -> Optional[Callable]:
+        """The samplers' ``decide``: rank 0's answer on every rank of a mesh."""
+        group = self._decision_group()
+        return None if group is None else functools.partial(decide_on_rank0, group)
+
+    def _dp_rows(self, model, row_args):
+        """``model``'s calls with their rows split over the mesh's dp group."""
+        return model if self.mesh is None else DPRows(model, self.mesh.dp_group, row_args)
 
     # ------------------------------------------------- fp8 storage, tiled VAE
 
@@ -252,7 +306,10 @@ class FluxRepTextPipeline:
         pipelines made before, a server's views) keeps them, and a pipeline
         derived after this call shares the quantized ones, as the JAX method
         gives this pipeline a new params dict. A model already quantized is
-        kept. Attach an IP-Adapter first. In place; returns self."""
+        kept. Attach an IP-Adapter first, and shard after. In place; returns
+        self."""
+        if self.mesh is not None:
+            raise ValueError("quantize_weights() must run BEFORE shard_for_inference()")
         self.flux = quantized_copy(self.flux)
         self.controlnet = quantized_copy(self.controlnet)
         if getattr(self, "inpaint_controlnet", None) is not None:
@@ -293,6 +350,8 @@ class FluxRepTextPipeline:
         pipelines over it (``with_config`` views, an inpaint pipeline), which
         run as before: a block given no ip tokens skips the path.
         """
+        if self.mesh is not None:
+            raise ValueError("attach_ip_adapter() must run BEFORE shard_for_inference()")
         if self.flux.weight_quant:
             # dense adapter kernels would join a block stack stored in fp8
             raise ValueError("attach_ip_adapter() must run BEFORE quantize_weights(); attach "
@@ -610,8 +669,10 @@ class FluxRepTextPipeline:
         ``shard_for_sp``)."""
         cfg = self.pipe_cfg
         if self.sp_group is None:
-            sampler = make_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
-                                           self.compute_dtype)
+            sampler = make_txt2img_sampler(
+                self._dp_rows(self.flux, FLUX_ROW_ARGS),
+                self._dp_rows(self.controlnet, CONTROLNET_ROW_ARGS), schedule, cfg,
+                self.compute_dtype, decide=self._decide())
         else:
             sampler = make_sp_txt2img_sampler(self.flux, self.controlnet, schedule, cfg,
                                               self.sp_group, self.sp_backend,
@@ -630,12 +691,13 @@ class FluxRepTextPipeline:
 
     def _callback_stops(self, callback: Callable, step: int, latents: torch.Tensor) -> bool:
         """Whether ``callback(step, latents)`` returned False. Under
-        ``shard_for_sp`` rank 0 alone calls it (the JAX controller's one call,
-        on the gathered latents every rank holds) and every rank takes its
-        answer, so all stop at the same step."""
-        if self.sp_group is None:
+        ``shard_for_sp`` or ``shard_for_inference`` rank 0 alone calls it (the
+        JAX controller's one call, on the whole latents every rank holds) and
+        every rank takes its answer, so all stop at the same step."""
+        group = self._decision_group()
+        if group is None:
             return callback(step, latents) is False
-        return decide_on_rank0(self.sp_group, lambda: callback(step, latents) is False)
+        return decide_on_rank0(group, lambda: callback(step, latents) is False)
 
     # ------------------------------------------------------- batched serving
 

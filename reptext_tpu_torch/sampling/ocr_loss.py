@@ -101,13 +101,16 @@ def ocr_logits_from_images(images: torch.Tensor, boxes: torch.Tensor,
 
 def ocr_ctc_loss(images: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
                  label_paddings: torch.Tensor, judge: OCRJudge,
-                 sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 sample_weights: Optional[torch.Tensor] = None,
+                 total=None) -> torch.Tensor:
     """Per-character-normalised CTC loss of the text regions against their labels.
 
     labels [B, L] int (``eval.ocr.CHAR_TO_ID``, 0-padded), label_paddings
     [B, L] float (1.0 = pad); ``sample_weights`` [B] scales each sample (the
     (1 - t) ramp). A sample whose label is empty (no character of the charset)
     is left out: CTC against an empty label rewards erasing its text.
+    ``total`` sums the weights over the dp ranks of a mesh (the rows being
+    this rank's): the loss is then this rank's part of the whole batch's.
     """
     logits = ocr_logits_from_images(images, boxes, judge)
     per = ctc_losses(logits, labels, label_paddings)
@@ -117,4 +120,5 @@ def ocr_ctc_loss(images: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor
     weights = valid if sample_weights is None else sample_weights.to(per.dtype) * valid
     # where() keeps an excluded sample's term out of the gradient as well
     per = torch.where(valid > 0, per, torch.zeros_like(per))
-    return (per * weights).sum() / weights.sum().clamp(min=1e-6)
+    den = weights.sum() if total is None else total(weights.sum())
+    return (per * weights).sum() / den.clamp(min=1e-6)

@@ -103,7 +103,8 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
                           lat: torch.Tensor, sig_i: np.float32, i: int, always: bool, *,
                           vc_adaptive: bool, vc_linear: bool, vc_warmup: int, vc_interval: int,
                           vc_threshold: float, vc_max_skip: int,
-                          signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                          signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                          decide: Optional[Callable[[Callable[[], bool]], bool]] = None
                           ) -> Tuple[torch.Tensor, CacheRegs]:
     """Twin of ``_velocity_cache_select``: run ``compute_fn`` or skip it.
 
@@ -113,7 +114,9 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
     ``always`` forces a run. ``signal_mean`` (an SP group's mean) turns the
     shard's per-image drift and reference means into the global ones before
     the host decides, so every rank takes the same branch, as the JAX
-    sampler's ``pmean`` does. A skipped step reuses the last computed velocity
+    sampler's ``pmean`` does. ``decide`` (``decide_on_rank0`` over a mesh's
+    ranks) gives every rank rank 0's answer to the adaptive question. A
+    skipped step reuses the last computed velocity
     or, linear, extrapolates over sigma from the last two; extrapolated
     values never enter the registers. Returns ``(velocity, regs)``.
     """
@@ -125,7 +128,8 @@ def velocity_cache_select(compute_fn: Callable[[], torch.Tensor], regs: CacheReg
         if signal_mean is not None:     # equal shards: the mean of shard means
             drift, ref = signal_mean(drift), signal_mean(ref)
         rel = float((drift / (ref + 1e-8)).max())     # the host sync of this mode
-        run = always or rel >= vc_threshold or skips >= vc_max_skip
+        ask = lambda: always or rel >= vc_threshold or skips >= vc_max_skip   # noqa: E731
+        run = ask() if decide is None else decide(ask)
     else:
         run = always or (i - vc_warmup) % vc_interval == 0
     if run:
@@ -156,7 +160,8 @@ def chunk_steps(num_steps: int, start_step: int, chunk: Optional[int]) -> range:
 def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
                          schedule: FlowMatchSchedule, pipe_cfg: PipelineConfig,
                          compute_dtype: torch.dtype = torch.float32,
-                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                         decide: Optional[Callable[[Callable[[], bool]], bool]] = None
                          ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, prompt_embeds,
     pooled_embeds, txt_ids, img_ids, guidance, start_step=0, num_steps=None,
@@ -167,13 +172,13 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
     [N, B, S, 1] carry one condition set per image (serving's coalesced
     batch of requests), tiled line-major as the ControlNet's batch is.
     ``start_step``/``num_steps``: the chunk of the schedule to run (None: to
-    its end). ``signal_mean``: see :func:`velocity_cache_select`.
+    its end). ``signal_mean`` and ``decide``: see :func:`velocity_cache_select`.
     ``flux_extra``: keywords for every FLUX call (the IP-Adapter's
     ``ip_tokens`` and ``ip_scale``).
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
-    vc["signal_mean"] = signal_mean
+    vc.update(signal_mean=signal_mean, decide=decide)
     total = schedule.num_steps
     cn_active = cn_active_mask(pipe_cfg, total,
                                min(pipe_cfg.controlnet_conditioning_step, total))

@@ -44,7 +44,8 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
                          inpaint_controlnet: torch.nn.Module, schedule: FlowMatchSchedule,
                          pipe_cfg: PipelineConfig, inpaint_conditioning_scale: float = 1.0,
                          compute_dtype: torch.dtype = torch.float32,
-                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                         signal_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                         decide: Optional[Callable[[Callable[[], bool]], bool]] = None
                          ) -> Callable:
     """Build ``sample(latents, cond_tokens, token_masks, inpaint_cond,
     prompt_embeds_cfg, pooled_embeds_cfg, txt_ids, img_ids, guidance) -> latents``.
@@ -53,11 +54,11 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
     the B images or [N, B, S, F] per image, token_masks [N, S, 1] or
     [N, B, S, 1] to match; inpaint_cond [B, S, F_inpaint]; the embeds [2B, ...]
     ordered [negative; positive]; guidance [B] or None. ``signal_mean`` (the
-    JAX ``signal_axis``): see ``sampler.velocity_cache_select``.
+    JAX ``signal_axis``) and ``decide``: see ``sampler.velocity_cache_select``.
     """
     vc = velocity_cache_settings(pipe_cfg)
     vc_enabled = vc.pop("enabled")
-    vc["signal_mean"] = signal_mean
+    vc.update(signal_mean=signal_mean, decide=decide)
     num_steps = schedule.num_steps
     cn_active = cn_active_mask(pipe_cfg, num_steps,
                                min(pipe_cfg.controlnet_conditioning_step, num_steps))

@@ -21,6 +21,15 @@ Counterpart of ``reptext_tpu/sampling/train_controlnet.py``:
   and AdamW with weight decay on the Linear weights (the Flax ``kernel``
   leaves) only.
 
+Under a (dp, tp) mesh (``mesh=``, the counterpart of the JAX CLI's
+``shard_params`` + ``shard_batch`` around the same step): the modules are the
+rank's tensor-parallel copies (``parallel/partition.py``), whose collectives
+make the tp gradients; t and the noise are drawn for the whole batch from the
+one generator and the rank takes its rows of them and of the batch, so each
+row sees what the unsharded step gives it; the loss's denominators are summed
+over dp, the partial gradients too, and the returned loss is the whole
+batch's. AdamW is elementwise, so each rank steps its shards.
+
 Modules and the optimizer are updated in place (PyTorch idiom) where the JAX
 step returns new trees. A frozen module (the base in the ControlNet step, the
 VAE and the judge in both) must hold no parameter that requires a gradient:
@@ -38,8 +47,17 @@ import torch
 from reptext_tpu_torch.io.from_jax import flax_leaf_kinds
 from reptext_tpu_torch.models.controlnet import RepTextControlNet, params_from_transformer
 from reptext_tpu_torch.models.flux import FluxTransformer2D
+from reptext_tpu_torch.parallel.partition import all_reduce_grads, shard_batch, shard_module
 
 Batch = Dict[str, Optional[torch.Tensor]]
+
+
+def draw_t_noise(x0: torch.Tensor, generator: Optional[torch.Generator]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logit-normal timesteps [B] (the SD3/FLUX recipe) and Gaussian noise
+    like ``x0``, in that order from ``generator``."""
+    t = torch.sigmoid(torch.randn((x0.shape[0],), generator=generator, device=x0.device))
+    return t, torch.randn(x0.shape, generator=generator, device=x0.device)
 
 
 def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextControlNet,
@@ -49,7 +67,9 @@ def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextContr
                                text_loss_weight: float = 2.0,
                                conditioning_scale: float = 1.0,
                                perceptual: Optional[dict] = None,
-                               control_mode: Optional[int] = None) -> torch.Tensor:
+                               control_mode: Optional[int] = None,
+                               total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                               ) -> torch.Tensor:
     """Region-weighted conditional flow-matching MSE with ControlNet injection.
 
     batch: ``x0`` [B, S, C] packed clean latents, ``cond_tokens`` [B, S, F],
@@ -65,12 +85,14 @@ def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextContr
     the batch then carries ``ocr_boxes`` [B, 4], ``ocr_labels`` [B, L] and
     ``ocr_paddings`` [B, L] (``data.py`` makes them). A weight of 0 leaves
     the term out.
+
+    ``total`` sums the loss's denominators over the dp ranks of a mesh, whose
+    batch rows this rank's ``batch`` is: the loss is then this rank's part
+    of the whole batch's, and the parts sum to it.
     """
     x0 = batch["x0"].float()
     if t is None or noise is None:
-        # logit-normal timesteps (the SD3/FLUX recipe) and Gaussian noise
-        t = torch.sigmoid(torch.randn((x0.shape[0],), generator=generator, device=x0.device))
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device)
+        t, noise = draw_t_noise(x0, generator)
     t, noise = t.to(x0.device, torch.float32), noise.to(x0.device, torch.float32)
     t_b = t[:, None, None]
     x_t = (1.0 - t_b) * x0 + t_b * noise
@@ -99,22 +121,26 @@ def controlnet_flow_match_loss(flux: FluxTransformer2D, controlnet: RepTextContr
 
     err = (pred.float() - target) ** 2
     w = 1.0 + text_loss_weight * mask
-    loss = (err * w).sum() / (w.sum() * x0.shape[-1])
+    den = w.sum() if total is None else total(w.sum())
+    loss = (err * w).sum() / (den * x0.shape[-1])
     if perceptual is not None and perceptual.get("weight", 0.0) > 0.0:
-        loss = loss + perceptual["weight"] * perceptual_term(perceptual, batch, x_t, t, pred)
+        loss = loss + perceptual["weight"] * perceptual_term(perceptual, batch, x_t, t, pred,
+                                                             total)
     return loss
 
 
 def perceptual_term(perceptual: dict, batch: Batch, x_t: torch.Tensor, t: torch.Tensor,
-                    pred: torch.Tensor) -> torch.Tensor:
+                    pred: torch.Tensor, total=None) -> torch.Tensor:
     """The OCR term of one step, unweighted: CTC of the judge on the decode of
-    x0 = x_t - t * v at the batch's boxes, each sample ramped by (1 - t)."""
+    x0 = x_t - t * v at the batch's boxes, each sample ramped by (1 - t)
+    (``total``: see :func:`controlnet_flow_match_loss`)."""
     from reptext_tpu_torch.sampling.ocr_loss import ocr_ctc_loss
 
     x0_pred = x_t - t[:, None, None] * pred.float()
     images = perceptual["decode"](x0_pred)
     return ocr_ctc_loss(images, batch["ocr_boxes"], batch["ocr_labels"],
-                        batch["ocr_paddings"], perceptual["judge"], sample_weights=1.0 - t)
+                        batch["ocr_paddings"], perceptual["judge"], sample_weights=1.0 - t,
+                        total=total)
 
 
 def check_frozen(modules: Iterable[Optional[torch.nn.Module]], what: str = "module"):
@@ -128,9 +154,11 @@ def check_frozen(modules: Iterable[Optional[torch.nn.Module]], what: str = "modu
 def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.optim.Optimizer,
                                text_loss_weight: float = 2.0, conditioning_scale: float = 1.0,
                                perceptual: Optional[dict] = None,
-                               control_mode: Optional[int] = None) -> Callable:
+                               control_mode: Optional[int] = None, mesh=None) -> Callable:
     """Returns ``step(flux, batch, generator, *frozen) -> loss``: one optimizer
     update of the ControlNet, in place; ``loss`` is the detached scalar.
+    Under ``mesh`` (see the module note) ``flux`` and the ControlNet are the
+    rank's copies and ``batch`` the whole batch, the same on every rank.
 
     The frozen base is an argument, not a closure, as in the JAX step;
     ``frozen`` are the other frozen modules the step runs through (the
@@ -146,7 +174,7 @@ def make_controlnet_train_step(controlnet: RepTextControlNet, optimizer: torch.o
         check_frozen([flux], "base transformer")
         check_frozen([*frozen, (perceptual or {}).get("judge")])
         return _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-                       conditioning_scale, perceptual, control_mode)
+                       conditioning_scale, perceptual, control_mode, mesh)
 
     return step
 
@@ -155,18 +183,19 @@ def make_joint_train_step(flux: FluxTransformer2D, controlnet: RepTextControlNet
                           optimizer: torch.optim.Optimizer, text_loss_weight: float = 2.0,
                           conditioning_scale: float = 1.0,
                           perceptual: Optional[dict] = None,
-                          control_mode: Optional[int] = None) -> Callable:
+                          control_mode: Optional[int] = None, mesh=None) -> Callable:
     """Full-model training: the same region-weighted loss with gradients
     through both the base and the ControlNet, one ``optimizer`` over both.
     Returns ``step(batch, generator, *frozen) -> loss`` (the ElasticTrainer
     signature when nothing else is frozen); ``frozen`` and
-    ``perceptual["judge"]`` are checked as in the ControlNet step."""
+    ``perceptual["judge"]`` are checked as in the ControlNet step; ``mesh``
+    as there (both modules the rank's trainable copies)."""
 
     def step(batch: Batch, generator: Optional[torch.Generator],
              *frozen: torch.nn.Module) -> torch.Tensor:
         check_frozen([*frozen, (perceptual or {}).get("judge")])
         return _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-                       conditioning_scale, perceptual, control_mode)
+                       conditioning_scale, perceptual, control_mode, mesh)
 
     return step
 
@@ -189,13 +218,24 @@ def loss_and_backward(flux: FluxTransformer2D, controlnet: RepTextControlNet, ba
 
 
 def _update(optimizer, flux, controlnet, batch, generator, text_loss_weight,
-            conditioning_scale, perceptual, control_mode) -> torch.Tensor:
-    """One optimizer update on the loss of ``batch``; returns the detached loss."""
+            conditioning_scale, perceptual, control_mode, mesh=None) -> torch.Tensor:
+    """One optimizer update on the loss of ``batch``; returns the detached
+    loss (the whole batch's under ``mesh``)."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_and_backward(flux, controlnet, batch, generator,
-                             text_loss_weight=text_loss_weight,
-                             conditioning_scale=conditioning_scale,
-                             perceptual=perceptual, control_mode=control_mode)
+    kw = dict(text_loss_weight=text_loss_weight, conditioning_scale=conditioning_scale,
+              perceptual=perceptual, control_mode=control_mode)
+    dp = None if mesh is None or mesh.dp == 1 else mesh.dp_group
+    if mesh is not None:
+        t, noise = draw_t_noise(batch["x0"].float(), generator)
+        if dp is not None:
+            batch = shard_batch(batch, mesh)
+            t, noise = dp.shard(t, 0), dp.shard(noise, 0)
+            kw["total"] = dp.all_reduce_sum
+        kw.update(t=t, noise=noise)
+    loss = loss_and_backward(flux, controlnet, batch, generator, **kw)
+    if dp is not None:
+        all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], dp)
+        loss = dp.all_reduce_sum(loss)
     optimizer.step()
     return loss
 
@@ -227,10 +267,12 @@ def decay_param_groups(controlnet: torch.nn.Module, weight_decay: float) -> list
 def init_controlnet_training(flux: FluxTransformer2D, controlnet: RepTextControlNet,
                              num_layers: int, num_single_layers: int,
                              optimizer: Optional[torch.optim.Optimizer] = None,
-                             learning_rate: float = 1e-5, weight_decay: float = 0.0
-                             ) -> Tuple[RepTextControlNet, torch.optim.Optimizer]:
+                             learning_rate: float = 1e-5, weight_decay: float = 0.0,
+                             mesh=None) -> Tuple[RepTextControlNet, torch.optim.Optimizer]:
     """Warm-start ``controlnet`` from ``flux`` in place, make it trainable,
-    freeze the base, and build AdamW (b1 0.9, b2 0.999, eps 1e-8).
+    freeze the base, and build AdamW (b1 0.9, b2 0.999, eps 1e-8). Under
+    ``mesh`` the ControlNet returned (and optimized) is this rank's trainable
+    tensor-parallel copy of the warm-started one (the caller shards ``flux``).
 
     ``weight_decay == 0`` means no decay at all. This departs from the JAX
     package, whose ``optax.adamw(learning_rate)`` then applies optax's default
@@ -240,6 +282,8 @@ def init_controlnet_training(flux: FluxTransformer2D, controlnet: RepTextControl
     params_from_transformer(flux, controlnet, num_layers, num_single_layers)
     flux.requires_grad_(False)
     controlnet.requires_grad_(True)
+    if mesh is not None:
+        controlnet = shard_module(controlnet, mesh, trainable=True)
     if optimizer is None:
         optimizer = torch.optim.AdamW(decay_param_groups(controlnet, weight_decay),
                                       lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)

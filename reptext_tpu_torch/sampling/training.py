@@ -41,14 +41,31 @@ def flow_match_loss(flux: FluxTransformer2D, batch: Batch,
     return ((pred.float() - target) ** 2).mean()
 
 
-def make_train_step(flux: FluxTransformer2D, optimizer: torch.optim.Optimizer) -> Callable:
+def make_train_step(flux: FluxTransformer2D, optimizer: torch.optim.Optimizer,
+                    mesh=None) -> Callable:
     """Returns ``step(batch, generator) -> loss``: one update of ``optimizer``
-    (over the transformer's parameters) in place; ``loss`` is detached."""
+    (over the transformer's parameters) in place; ``loss`` is detached.
+    Under a (dp, tp) ``mesh`` ``flux`` is the rank's trainable tensor-parallel
+    copy and ``batch`` the whole batch: t and the noise are drawn for it, the
+    rank takes its rows, and its mean (equal rows a rank) is 1/dp of the
+    whole batch's, so the partial gradients and losses are summed over dp
+    (the JAX step leaves the shardings to the call site)."""
+    from reptext_tpu_torch.parallel.partition import all_reduce_grads, shard_batch
+    from reptext_tpu_torch.sampling.train_controlnet import draw_t_noise
 
     def step(batch: Batch, generator: Optional[torch.Generator]) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
-        loss = flow_match_loss(flux, batch, generator)
-        loss.backward()
+        if mesh is None or mesh.dp == 1:
+            loss = flow_match_loss(flux, batch, generator)
+            loss.backward()
+        else:
+            dp = mesh.dp_group
+            t, noise = draw_t_noise(batch["x0"].float(), generator)
+            loss = flow_match_loss(flux, shard_batch(batch, mesh), t=dp.shard(t, 0),
+                                   noise=dp.shard(noise, 0)) / mesh.dp
+            loss.backward()
+            all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], dp)
+            loss = dp.all_reduce_sum(loss)
         optimizer.step()
         return loss.detach()
 

@@ -27,6 +27,16 @@ IP-Adapter (``cli --ip-adapter-dir``): image prompts do not split a batch,
 a row without one rides as zero tokens at scale 0, and without an attached
 adapter such a request fails as the JAX worker's does. A request must carry
 ``prompt_embeds`` and ``pooled_embeds`` both or neither.
+
+Under ``--shard`` (a (dp, tp) mesh or an SP group: ranks that must make
+every call together) rank 0 runs the HTTP server and the worker, given the
+group (``group=``): each pipeline call the worker makes (``__call__`` or
+``generate_batch``, at a resolution) is first broadcast to the other ranks
+(:class:`BroadcastPipeline`), a keep-alive when the queue has been idle for
+``KEEPALIVE_S``, and a stop message when the worker stops. The other ranks
+run :func:`follow`, which makes the same call on their own pipeline. This is
+the JAX server's single controller, written as one leader and its
+followers.
 """
 
 from __future__ import annotations
@@ -48,6 +58,64 @@ import torch
 from reptext_tpu_torch.utils.metrics import Metrics, default_metrics
 
 NO_ADAPTER = "ip_adapter_images given but no adapter attached"
+KEEPALIVE = "keepalive"
+# an idle leader tells the followers it is there, well inside a collective's timeout
+KEEPALIVE_S = 60.0
+
+
+class BroadcastPipeline:
+    """Rank 0's pipeline under a sharded server: ``__call__`` and
+    ``generate_batch`` (and those of its ``with_resolution`` views) are sent
+    to the other ranks, as (pipeline name, resolution, method, args, kwargs),
+    before rank 0 makes them; every other attribute reads through."""
+
+    def __init__(self, pipeline, group, name: str, resolution=None):
+        self.__dict__.update(_pipe=pipeline, _group=group, _name=name, _res=resolution)
+
+    def __getattr__(self, attr):
+        return getattr(self._pipe, attr)
+
+    def with_resolution(self, height: int, width: int) -> "BroadcastPipeline":
+        return BroadcastPipeline(self._pipe.with_resolution(height, width), self._group,
+                                 self._name, (height, width))
+
+    def _sent(self, method: str, args, kwargs):
+        self._group.broadcast_object((self._name, self._res, method, args, kwargs))
+        return getattr(self._pipe, method)(*args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        return self._sent("__call__", args, kwargs)
+
+    def generate_batch(self, *args, **kwargs):
+        return self._sent("generate_batch", args, kwargs)
+
+
+def follow(group, pipeline, inpaint_pipeline=None) -> int:
+    """A rank other than 0 of a sharded server: make every call rank 0's
+    worker broadcasts, on this rank's pipelines, until the stop message;
+    returns the number of calls. A call that fails here fails on rank 0 too
+    (the same inputs), which reports it; the loop goes on."""
+    pipes = {"txt2img": pipeline, "inpaint": inpaint_pipeline}
+    views: Dict = {}
+    calls = 0
+    while True:
+        msg = group.broadcast_object(None)
+        if msg is None:
+            return calls
+        if msg == KEEPALIVE:
+            continue
+        name, res, method, args, kwargs = msg
+        pipe = pipes[name]
+        if res is not None:
+            if (name, res) not in views:
+                views[(name, res)] = pipe.with_resolution(*res)
+            pipe = views[(name, res)]
+        calls += 1
+        try:
+            with torch.inference_mode():
+                getattr(pipe, method)(*args, **kwargs)
+        except Exception:  # noqa: BLE001 — rank 0 reports it to the client
+            pass
 
 
 @dataclass
@@ -104,7 +172,14 @@ class GenerationWorker:
 
     def __init__(self, pipeline, tokenizer=None, max_queue: int = 64,
                  max_batch: int = 4, batch_window_s: float = 0.0,
-                 metrics: Optional[Metrics] = None, inpaint_pipeline=None):
+                 metrics: Optional[Metrics] = None, inpaint_pipeline=None, group=None):
+        """``group``: the ranks of a sharded pipeline, this one rank 0 (see
+        the module note); the others run :func:`follow`."""
+        self.group = group
+        if group is not None:
+            pipeline = BroadcastPipeline(pipeline, group, "txt2img")
+            if inpaint_pipeline is not None:
+                inpaint_pipeline = BroadcastPipeline(inpaint_pipeline, group, "inpaint")
         self.pipeline = pipeline
         self.inpaint_pipeline = inpaint_pipeline
         self.tokenizer = tokenizer  # callable(prompt) -> (clip_ids, t5_ids)
@@ -423,8 +498,15 @@ class GenerationWorker:
         device = getattr(self.pipeline, "device", None)
         if device is not None and device.type == "cuda":
             torch.cuda.set_device(device)   # a card other than cuda:0
+        heard = time.monotonic()
         while not self._stop.is_set():
-            self._process_once()
+            if self._process_once() or self.group is None:
+                heard = time.monotonic()
+            elif time.monotonic() - heard > KEEPALIVE_S:
+                self.group.broadcast_object(KEEPALIVE)
+                heard = time.monotonic()
+        if self.group is not None:
+            self.group.broadcast_object(None)     # the followers' stop
 
 
 def _png_b64(image: np.ndarray) -> str:
@@ -514,10 +596,10 @@ class GenerationServer:
                  tokenizer=None, request_timeout_s: float = 600.0,
                  warmup: bool = False, max_batch: int = 4,
                  batch_window_s: float = 0.0, inpaint_pipeline=None,
-                 metrics: Optional[Metrics] = None):
+                 metrics: Optional[Metrics] = None, group=None):
         self.worker = GenerationWorker(
             pipeline, tokenizer, max_batch=max_batch, batch_window_s=batch_window_s,
-            metrics=metrics, inpaint_pipeline=inpaint_pipeline,
+            metrics=metrics, inpaint_pipeline=inpaint_pipeline, group=group,
         ).start()
         if warmup:
             self.worker.warmup()

@@ -722,10 +722,10 @@ def test_variant_kernel_rejects_what_it_does_not_take(dev, name):
     assert entry.launches == n
 
 
-def _ring_inputs(dev, b, h, sq, sks, seed):
+def _ring_inputs(dev, b, h, sq, sks, seed, d=128):
     g = torch.Generator(device=dev).manual_seed(seed)
     def rnd(s):
-        return torch.randn(b, h, s, 128, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(b, h, s, d, generator=g, device=dev).to(torch.bfloat16)
 
     return rnd(sq), [(rnd(sk), rnd(sk)) for sk in sks]
 
@@ -755,6 +755,25 @@ def test_ring_step_matches_plain_at_every_step(dev, sq, sks):
         assert ((l - p_l).abs() / p_l).max().item() <= 1e-3
         assert _out_err_ok(acc / l[..., None], p_acc / p_l[..., None])
         state = got
+
+
+@pytest.mark.parametrize("h,sq,sks", [(4, 69, (5, 32, 32)), (24, 1152, (512, 1152, 1152))])
+def test_d64_ring_step_matches_plain_at_every_step(dev, h, sq, sks):
+    """K5 at head dim 64: the demo's 69 tokens over 2 ranks (the text block,
+    then two 32-token image blocks) and one of 4 ranks at 4608 image tokens,
+    step by step against the plain steps."""
+    q, blocks = _ring_inputs(dev, 1, h, sq, sks, seed=sq, d=64)
+    got = want = None
+    for i, (k, v) in enumerate(blocks):
+        first, last = i == 0, i == len(blocks) - 1
+        plain_in = None if first else tuple(x.clone() for x in want)
+        got = ra.ring_step(q, k, v, got, first, last)
+        torch.cuda.synchronize()
+        want = ra.ring_step_plain(q, k, v, plain_in, first, last)
+        if not last:
+            assert _out_err_ok(got[0] / got[2][..., None], want[0] / want[2][..., None])
+            assert (got[1] - want[1]).abs().max().item() <= 1e-3
+    assert got.shape == q.shape and got.dtype == torch.bfloat16 and _out_err_ok(got, want)
 
 
 def test_ring_step_at_cfg_batch_2(dev):

@@ -417,7 +417,7 @@ def test_cli_shard_sp_needs_its_ranks(monkeypatch):
         monkeypatch.delenv(key, raising=False)
     with pytest.raises(ValueError, match="need 2 ranks, have 1"):
         cli.main(["--shard", "sp2", *TINY_CLI, "--output", "unused.png"])
-    with pytest.raises(SystemExit, match="only spN"):
+    with pytest.raises(ValueError, match="dp\\*tp=8 != device count 1"):
         cli.main(["--shard", "2x4", *TINY_CLI, "--output", "unused.png"])
 
 

@@ -483,17 +483,23 @@ def test_cli_refuses_bad_surface_flags(argv, match, capsys):
 
 
 def test_cli_shard_takes_inpaint(monkeypatch):
-    """--mode inpaint --shard sp2 asks for its ranks; serve and train under
-    --shard, and DPxTP, stay refused."""
+    """--mode inpaint --shard sp2 asks for its ranks, and so do serving under
+    sp2 and DPxTP (dp x tp must be the job's ranks); auto over one rank is
+    1 x 1; training refuses spN with the JAX message."""
     from reptext_tpu_torch import cli
 
     for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
         monkeypatch.delenv(key, raising=False)
-    args = cli.build_parser().parse_args(["--mode", "inpaint", "--shard", "sp2", "--device",
-                                          "cpu"])
-    with pytest.raises(ValueError, match="need 2 ranks, have 1"):
-        cli.sp_group(args)
-    for argv in (["--mode", "serve", "--shard", "sp2"], ["--mode", "inpaint", "--shard", "2x4"],
-                 ["--mode", "txt2img", "--shard", "auto"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.sp_group(cli.build_parser().parse_args(argv))
+
+    def ranks(*argv):
+        return cli.shard_ranks(cli.build_parser().parse_args([*argv, "--device", "cpu"]))
+
+    for mode in ("inpaint", "serve"):
+        with pytest.raises(ValueError, match="need 2 ranks, have 1"):
+            ranks("--mode", mode, "--shard", "sp2")
+    with pytest.raises(ValueError, match="dp\\*tp=8 != device count 1"):
+        ranks("--mode", "inpaint", "--shard", "2x4")
+    sp, mesh = ranks("--mode", "txt2img", "--shard", "auto")
+    assert sp is None and (mesh.dp, mesh.tp, mesh.rank) == (1, 1, 0)
+    with pytest.raises(SystemExit, match="inference mode"):
+        ranks("--mode", "train", "--shard", "sp2")

@@ -231,8 +231,9 @@ def test_the_wrappers_refuse_head_dim_32_fp16_and_the_ring_fp32():
 
     with pytest.raises(ValueError, match="head dim 32"):
         fa.check_head_dim(32)
-    with pytest.raises(ValueError, match="head dim 64"):
-        fa.check_head_dim(64, ra._SUPPORTED_HEAD_DIMS)
+    fa.check_head_dim(64, ra._SUPPORTED_HEAD_DIMS)      # K5 takes 64 and 128
+    with pytest.raises(ValueError, match="head dim 32"):
+        fa.check_head_dim(32, ra._SUPPORTED_HEAD_DIMS)
     x = torch.zeros(1, 2, 8, 64)
     with pytest.raises(TypeError, match="float16 is rejected"):
         fa._check("q", x.half(), x.shape)
