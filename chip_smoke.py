@@ -38,7 +38,13 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    models): K2 and K4 at the demo's (16, 4, 69, 64) and (1, 4, 69, 64), K1 at
    (1, 24, 4608, 64), K4 there too and K3 at (1, 24, 9728, 64), each against
    its plain version (fp32: lse within 2^-6, the operands rounded to bf16),
-   K4 bit-equal over two calls, times beside the bound and SDPA's; then K1 and K3
+   K4 bit-equal over two calls, times beside the bound and SDPA's; then K1-K5 at
+   head dim 32 in bf16 and fp32 (the CLI's --tiny models: one 64-byte row under
+   the 64-byte swizzle): K1 and K2 at (1, 4, 4608, 32), K3 at (1, 4, 9728, 32), K4
+   at (2, 4, 4608, 32) and bit-equal over two calls, and K5 step by step at one
+   rank of the sp2 ring at 1024^2 (q (1, 4, 2560, 32) against blocks of 512, 2048
+   and 2048 keys), each against its plain version, times beside the bound and
+   SDPA's; then K1 and K3
    at the head counts of a tensor-parallel rank (12 and 6: tp 2 and 4) at the 1024^2
    and 1536^2 lengths and K4 at (1, 12, 4608, 128), against their plain versions,
    times beside the bound and SDPA's;
@@ -210,6 +216,15 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    differ), 2 steps with the ControlNet on both: one device (K1 142) and ring
    over 2 thread ranks (K5 852); each against its one-device run within
    SP_RTOL, ranks equal;
+10b. tiny: the JAX CLI's documented demo (--random-weights --tiny) on the card
+   through the port's CLI functions, fp32 as the JAX CLI runs --tiny, once
+   this process holds no full-geometry pipeline: txt2img at 1024^2 (K1) and
+   1536^2 (K3), a 1280x960 inpaint request (cli.build_pipeline --mode inpaint),
+   3 train steps at batch 2 through cli.train (K1, K4), one request over HTTP
+   through cli.build_server, and the 1024^2 request over 2 thread ranks with
+   the ring backend (K5) against its one-device run; launches against the
+   blocks' counts, finite fp32 outputs, and no call of a plain attention
+   version on any of these paths;
 11. fp8, in a process of its own (``--fp8-worker``) once this one holds no
    pipeline: a full-geometry bf16 pipeline, one 1024^2 request with latents=
    given (cold, warm), quantize_weights() (the Linears quantized, the GiB
@@ -221,7 +236,10 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    request through an inpaint pipeline made from the quantized one (K1 312);
    a full-width, depth-cut snapshot converted with --dtype fp8, its FLUX and
    ControlNet state bit-equal to quantize_weights() of the bf16 modules, one
-   1024^2 request through it; cli.build_pipeline(--random-weights
+   1024^2 request through it; the same snapshot with an IP-Adapter (attached to
+   the fp8-stored stacks, then quantize_weights(), as the JAX CLI does) bit-equal
+   in state and latents to its bf16 conversion with the adapter attached, then
+   quantize_weights(); cli.build_pipeline(--random-weights
    --weight-dtype fp8) at full geometry (seconds, peak, no bf16 Linear left in
    the stacks) and one request through it. Every time and size with the
    card's name and power limit;
@@ -246,7 +264,8 @@ path's counts set to 0 just before it and read just after: the surface
 phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
 and the demo and gates paths among them; times, the bound, SDPA's time;
 K5 also at CFG batch 2 in its by_shape; K1-K4 at head dim 64 under "d64", K5's
-under its "d64"; K1, K3 and K4 at a tp rank's heads under "tp_heads"),
+under its "d64"; K1-K5 at head dim 32 under "d32"; K1, K3 and K4 at a tp rank's
+heads under "tp_heads"; the tiny phase's paths, every launch at head dim 32),
 the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
@@ -957,6 +976,150 @@ def d64_kernel_phase(dev):
     return res
 
 
+# The CLI's --tiny demo (FLUX 2 + 4 and its ControlNet at 4 heads x 32, fp32
+# on the card as the JAX CLI runs it): K1 at the 1024^2 joint length (1, 4,
+# 4608, 32), K2 there on rotated q and k, K3 at 1536^2's (1, 4, 9728, 32), K4 at
+# a train step's batch 2 (2, 4, 4608, 32), and K5 at one rank of the sp2 ring at
+# 1024^2: queries [512 text; 2048 image] against the text block and two image
+# blocks of 2048 keys. Tolerances as at head dim 64 (fp32: lse within 2^-6).
+TINY_ROPE_AXES = (8, 12, 12)
+TINY_HEADS, TINY_D = 4, 32
+
+
+def d32_kernel_phase(dev):
+    """K1-K5 at head dim 32, in bf16 and fp32, at the shapes the tiny CLI
+    gives them (above), each against its plain version; K4 bit-equal over
+    two calls; K5 step by step (the state after each step but the last, then
+    the output); times beside the bound and SDPA's on the same inputs.
+    Returns {kernel: {"shape dtype": {...}}}."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops import ring_attention as ra
+    from reptext_tpu_torch.ops.rope import apply_rope_half
+
+    sdpa = F.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(23)
+    res = {"K1": {}, "K2": {}, "K3": {}, "K4": {}, "K5": {}}
+    h, d = TINY_HEADS, TINY_D
+
+    def tensors(b, s, dtype, n=4):
+        return [torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype) for _ in range(n)]
+
+    def timed(key, label, kern, plain, library, b_ms_by, flop, err):
+        k_t, p_t, line = alternated_ms(kern, plain)
+        lib = cuda_time_ms(library)[0]
+        res[key][label] = {"ms": k_t[0], "plain_ms": p_t[0], "library_ms": lib,
+                           "bound_ms": b_ms_by[0], "bound_by": b_ms_by[1], "max_abs_err": err}
+        phase("kernels", f"{key} at D = 32, {label} time: {line}; SDPA {lib:.4f} ms; bound "
+                         f"{b_ms_by[0]:.4f} ms ({b_ms_by[1]}); {rate(flop, k_t[0], b_ms_by[0])}")
+
+    def sdpa_backward(q, k, v, do):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = sdpa(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    def steps(fn, q, blocks, upto=None):
+        state = None
+        for i, (k, v) in enumerate(blocks[:upto]):
+            state = fn(q, k, v, state, i == 0, i == len(blocks) - 1)
+        return state
+
+    for dtype, tag, elem in ((torch.bfloat16, "bf16", 2), (torch.float32, "fp32", 4)):
+        lse_atol = LSE_ATOL if dtype == torch.bfloat16 else D64_LSE_ATOL_FP32
+        # K1 and K2 at the 1024^2 joint length (512 text tokens + a 64 x 64 grid)
+        q, k, v = tensors(1, 4608, dtype, 3)
+        cos, sin = rope_tables(512, 64, 64, dev, TINY_ROPE_AXES)
+        label = f"(1,{h},4608,{d}) {tag}"
+        err = compare(f"K1 at D = 32, {label}", fa.flash_attention_rope(q, k, v, cos, sin),
+                      fa.flash_attention_rope_plain(q, k, v, cos, sin), lse_atol)
+        qr, kr = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        timed("K1", label, lambda: fa.flash_attention_rope(q, k, v, cos, sin),
+              lambda: fa.flash_attention_rope_plain(q, k, v, cos, sin), lambda: sdpa(qr, kr, v),
+              forward_bound(1, h, 4608, d, tables=True, elem=elem),
+              attention_flop(1, h, 4608, 4608, d), err)
+        err = compare(f"K2 at D = 32, {label}", fa.flash_attention(qr, kr, v),
+                      fa.flash_attention_plain(qr, kr, v), lse_atol)
+        timed("K2", label, lambda: fa.flash_attention(qr, kr, v),
+              lambda: fa.flash_attention_plain(qr, kr, v), lambda: sdpa(qr, kr, v),
+              forward_bound(1, h, 4608, d, elem=elem), attention_flop(1, h, 4608, 4608, d), err)
+        del q, k, v, qr, kr
+        # K4 at a train step's batch 2
+        q, k, v, do = tensors(2, 4608, dtype)
+        out, lse = fa.flash_attention(q, k, v)
+        args = (q, k, v, out, lse, do)
+        label = f"(2,{h},4608,{d}) {tag}"
+        err = compare_grads(f"K4 at D = 32, {label}", fa.flash_attention_backward(*args),
+                            plain_backward_by_heads(fa, args, None, heads=2))
+        timed("K4", label, lambda: fa.flash_attention_backward(*args),
+              lambda: plain_backward_by_heads(fa, args, None, heads=2),
+              sdpa_backward(q, k, v, do), backward_bound(2, h, 4608, d, elem=elem),
+              10 * 2 * h * 4608 * 4608 * d, err)
+        first, second = fa.flash_attention_backward(*args), fa.flash_attention_backward(*args)
+        same = [bool(torch.equal(a, b)) for a, b in zip(first, second)]
+        phase("kernels", f"K4 at D = 32, {label} two calls: dq, dk, dv bit-equal {same} -> "
+                         f"{'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            raise SystemExit(f"the backward kernel does not repeat bit for bit at D = 32 {label}")
+        del q, k, v, do, out, lse, args, first, second
+        torch.cuda.empty_cache()
+        # K3 at the 1536^2 joint length (512 + 96 x 96), q and k rotated first
+        q, k, v = tensors(1, 9728, dtype, 3)
+        cos, sin = rope_tables(512, 96, 96, dev, TINY_ROPE_AXES)
+        q, k = apply_rope_half(q, cos, sin), apply_rope_half(k, cos, sin)
+        label = f"(1,{h},9728,{d}) {tag}"
+        err = compare(f"K3 at D = 32, {label}", fa.flash_attention_streaming(q, k, v),
+                      fa.flash_attention_streaming_plain(q, k, v), lse_atol)
+        timed("K3", label, lambda: fa.flash_attention_streaming(q, k, v),
+              lambda: fa.flash_attention_streaming_plain(q, k, v), lambda: sdpa(q, k, v),
+              forward_bound(1, h, 9728, d, elem=elem), attention_flop(1, h, 9728, 9728, d), err)
+        del q, k, v
+        # K5: one rank of the sp2 ring at 1024^2, step by step
+        sq, sk = TXT_LEN + 4096 // 2, 4096 // 2
+        q = tensors(1, sq, dtype, 1)[0]
+        blocks = [tuple(tensors(1, n, dtype, 2)) for n in (TXT_LEN, sk, sk)]
+        err = 0.0
+        for i in range(len(blocks)):
+            got = steps(ra.ring_step, q, blocks, i + 1)
+            want = steps(ra.ring_step_plain, q, blocks, i + 1)
+            if i < len(blocks) - 1:
+                # the running max: an fp32 call's q and k are rounded to bf16 (2^-9
+                # relative each), so a logit, and the row's max, moves by up to 2^-8
+                # |q| max|k| / sqrt(D) beyond the bf16 call's sum-order limit
+                m_lim = torch.full_like(want[1], LSE_ATOL)
+                if dtype == torch.float32:
+                    k_norm = torch.stack([k.float().norm(dim=-1).amax(-1)
+                                          for k, _ in blocks[:i + 1]]).amax(0)
+                    m_lim += 2.0 ** -8 * q.float().norm(dim=-1) * k_norm[..., None] / d ** 0.5
+                m_err = (got[1] - want[1]).abs()
+                phase("ring", f"K5 at D = 32 {tag}, step {i}: running max max_abs "
+                              f"{m_err.max().item():.3e}, worst share of its limit "
+                              f"{(m_err / m_lim).max().item():.3f}")
+                if bool((m_err > m_lim).any()):
+                    raise SystemExit(f"K5 at D = 32 {tag}: step {i}'s running max is beyond "
+                                     "its limit from the plain step's")
+                got, want = got[0] / got[2][..., None], want[0] / want[2][..., None]
+            elif got.dtype != dtype:
+                raise SystemExit(f"K5 at D = 32 {tag}: the output is {got.dtype}")
+            err = max(err, check_out(f"K5 at D = 32, the sp2 1024^2 rank's step {i} {tag} "
+                                     f"(the state's acc / l, then the output)", got, want))
+        (kt, vt), (k1, v1) = blocks[:2]
+        state = ra.ring_step(q, kt, vt, None, True, False)
+        plain_state = ra.ring_step_plain(q, kt, vt, None, True, False)
+        k_all = torch.cat([x for x, _ in blocks], dim=2)
+        v_all = torch.cat([x for _, x in blocks], dim=2)
+        label = f"(1,{h},{sq},{d}) x (1,{h},{sk},{d}) {tag}"
+        timed("K5", label, lambda: ra.ring_step(q, k1, v1, state, False, False),
+              lambda: ra.ring_step_plain(q, k1, v1, plain_state, False, False),
+              lambda: sdpa(q, k_all, v_all), step_bound(1, h, sq, sk, d, elem=elem),
+              attention_flop(1, h, sq, sk, d), err)
+        res["K5"][label]["library_note"] = (f"SDPA over the rank's {sq} queries and all "
+                                            f"{TXT_LEN + 2 * sk} keys")
+        del q, blocks, kt, vt, k1, v1, k_all, v_all, state, plain_state
+        torch.cuda.empty_cache()
+    return res
+
+
 def variant_counters():
     from reptext_tpu_torch.ops import attention_variants as av
     from reptext_tpu_torch.ops import flash_attention as fa
@@ -1007,13 +1170,14 @@ def kernel_label(mangled):
 
 
 def attention_instantiations():
-    """The labels (without the overlap tag) of every K1/K2/K3 instantiation and
-    of every backward main kernel: head dims 64 and 128, bf16 and fp32 out,
-    clamped and online."""
-    fwd, bwd = {"K5 online D128"}, set()
-    for d in (64, 128):
+    """The labels (without the overlap tag) of every K1/K2/K3/K5 instantiation
+    and of every backward main kernel: head dims 32, 64 and 128, bf16 and fp32
+    out, clamped and online (K5: online)."""
+    fwd, bwd = set(), set()
+    for d in (32, 64, 128):
         for f32 in (0, 1):
             w = width_label(d, f32)
+            fwd.add(f"K5 online{w}")
             for online in ("clamped", "online"):
                 fwd.add(f"K1 {online}{w}")
                 bwd.add(f"K4 main {online}{w}")
@@ -1539,6 +1703,252 @@ def e2e_phase(dev, steps, cn_steps, seed):
     phase("e2e", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
                  f"(torch.cuda.max_memory_allocated)")
     return launches, pipe, cond
+
+
+# The plain attention versions, module by module: the tiny phase counts their
+# calls while it drives the CLI on the card, and every count must stay 0.
+PLAIN_VERSIONS = (
+    ("reptext_tpu_torch.ops.flash_attention",
+     ("flash_attention_plain", "flash_attention_rope_plain", "flash_attention_streaming_plain",
+      "flash_attention_backward_plain", "backward_preprocess_plain")),
+    ("reptext_tpu_torch.ops.ring_attention", ("ring_step_plain",)),
+    ("reptext_tpu_torch.ops.attention", ("plain_attention",)),
+    ("reptext_tpu_torch.parallel.sequence", ("plain_attention", "ring_step_plain")),
+)
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """{module.function: calls} of every plain attention version while open
+    (each wrapped by a counter, put back on exit)."""
+    import importlib
+
+    calls, saved = {}, []
+    for mod_name, names in PLAIN_VERSIONS:
+        mod = importlib.import_module(mod_name)
+        for name in names:
+            fn, key = getattr(mod, name), f"{mod_name.rsplit('.', 1)[1]}.{name}"
+
+            def counted(*a, _fn=fn, _key=key, **kw):
+                calls[_key] = calls.get(_key, 0) + 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def tiny_phase(dev, steps, cn_steps, seed):
+    """The JAX CLI's documented demo (``--random-weights --tiny``) on the card
+    through the port's CLI functions, in fp32 as the JAX CLI runs --tiny: FLUX
+    2 + 4 and the ControlNet at 4 heads x 32. txt2img at 1024^2 (K1) and
+    1536^2 (K3), one 1280x960 inpaint request, 3 train steps at batch 2 (K1,
+    K4), one request served over HTTP, and the 1024^2 request over 2 thread
+    ranks with the ring backend (K5) against its one-device run. Every path:
+    launch counts set to 0 just before and read just after, against the
+    blocks' count; finite fp32 outputs; no call of a plain attention version
+    (every launch on these paths is a head dim 32 instantiation). Returns the
+    launches by path."""
+    import http.client
+    import threading
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.parallel.testing import LocalSPGroup, run_spmd
+
+    data, size, font_size, reqs = load_requests()
+    large = np.load(LARGE_FIXTURE)
+    name, text, pos = reqs[0]
+    common = ["--steps", str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed),
+              "--random-weights", "--tiny"]
+
+    def parse(*flags):
+        return cli.build_parser().parse_args([*flags, *common])
+
+    args = parse("--text", text, "--position", *map(str, pos), "--size", str(size),
+                 "--font-size", str(font_size))
+    t0 = time.perf_counter()
+    pipe = cli.build_pipeline(args)
+    torch.cuda.synchronize()
+    flux_cfg, cn_cfg = pipe.flux.config, pipe.controlnet.config
+    flux_n = flux_cfg.num_layers + flux_cfg.num_single_layers
+    cn_n = cn_cfg.num_layers + cn_cfg.num_single_layers
+    dtypes = {str(next(m.parameters()).dtype) for m in (pipe.flux, pipe.controlnet, pipe.vae)}
+    phase("tiny", f"cli.build_pipeline(--random-weights --tiny) on {dev} in "
+                  f"{time.perf_counter() - t0:.2f} s: compute dtype {pipe.compute_dtype}, "
+                  f"parameters {sorted(dtypes)}, FLUX {flux_cfg.num_layers} + "
+                  f"{flux_cfg.num_single_layers} and ControlNet {cn_cfg.num_layers} + "
+                  f"{cn_cfg.num_single_layers} blocks at {flux_cfg.num_attention_heads} heads x "
+                  f"{flux_cfg.attention_head_dim}")
+    if (pipe.compute_dtype != torch.float32 or dtypes != {"torch.float32"}
+            or flux_cfg.attention_head_dim != TINY_D or cn_cfg.attention_head_dim != TINY_D):
+        raise SystemExit("--tiny on the card is not the fp32, head dim 32 pipeline")
+    gate = min(cn_steps, steps)
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    launches, fails = {}, []
+
+    def fp32_request(label, call, run_pipe, expect, shape):
+        out = {}
+        got = run_request(label, call, run_pipe, expect, shape, steps, tag="tiny", out=out)
+        if out["latents"].dtype != torch.float32:
+            fails.append(f"{label}: latents {out['latents'].dtype}")
+        return got
+
+    with plain_calls() as plain:
+        cond, source = conditions_for(data, name, text, pos, size, font_size)
+        launches["tiny_txt2img_1024"] = fp32_request(
+            f"txt2img {size}^2 (S = {TXT_LEN + (size // 16) ** 2}, conditions: {source})",
+            lambda timings: cli.generate(args, pipe, cond, timings=timings, output_type="latent"),
+            pipe, dict(zero, K1=steps * flux_n + gate * cn_n), (1, size, size, 3))
+
+        lname = "txt2img_1536"
+        width, height = (int(v) for v in large[f"{lname}.size"])
+        largs = parse("--text", str(large[f"{lname}.text"]), "--position",
+                      *(str(int(v)) for v in large[f"{lname}.position"]), "--size", str(width),
+                      "--font-size", str(int(large["font_size"])))
+        lcond, source = conditions_for(large, lname, str(large[f"{lname}.text"]),
+                                       tuple(int(v) for v in large[f"{lname}.position"]),
+                                       (width, height), int(large["font_size"]), LARGE_FIXTURE)
+        big = pipe.with_config(cli.pipeline_config(largs, height, width))
+        s = TXT_LEN + big.pipe_cfg.image_seq_len
+        launches["tiny_txt2img_1536"] = fp32_request(
+            f"txt2img {width}x{height} (S = {s}, conditions: {source})",
+            lambda timings: cli.generate(largs, big, lcond, timings=timings,
+                                         output_type="latent"),
+            big, dict(zero, K3=steps * flux_n + gate * cn_n), (1, height, width, 3))
+        del big
+
+        iname = "inpaint_1280x960"
+        width, height = (int(v) for v in large[f"{iname}.size"])
+        itext, ipos = str(large[f"{iname}.text"]), tuple(int(v) for v in large[f"{iname}.position"])
+        iargs = parse("--mode", "inpaint", "--true-guidance-scale", str(TRUE_GUIDANCE), "--text",
+                      itext, "--position", *map(str, ipos), "--size", str(width),
+                      "--font-size", str(int(large["font_size"])))
+        inp = cli.build_pipeline(iargs, height, width)
+        icond, source = conditions_for(large, iname, itext, ipos, (width, height),
+                                       int(large["font_size"]), LARGE_FIXTURE)
+        image, mask = source_image(seed, height, width), box_mask(icond)
+        s = TXT_LEN + inp.pipe_cfg.image_seq_len
+        icn = inp.inpaint_controlnet.config
+        icn_n = icn.num_layers + icn.num_single_layers
+        kernel = "K3" if fa.streams(s) else "K1"
+        launches["tiny_inpaint_1280x960"] = fp32_request(
+            f"inpaint {width}x{height} (S = {s}, CFG batch 2, cli.build_pipeline(--mode inpaint "
+            f"--tiny), conditions: {source})",
+            lambda timings: cli.generate_inpaint(iargs, inp, icond, image, mask, timings=timings,
+                                                 output_type="latent"),
+            inp, dict(zero, **{kernel: steps * (flux_n + icn_n) + gate * cn_n}),
+            (1, height, width, 3))
+        del inp
+
+        # 3 train steps at batch 2 through cli.train (remat: every block's
+        # attention twice, K4 on all but FLUX's first double block)
+        targs = cli.build_parser().parse_args(
+            ["--mode", "train", "--random-weights", "--tiny", "--size", str(size),
+             "--train-steps", "3", "--batch-size", "2", "--seed", str(seed)])
+        tpipe = cli.build_pipeline(targs)
+        losses = []
+        reset_train_launches()
+        t0 = time.perf_counter()
+        trainer = cli.train(targs, tpipe, dataset=fixture_dataset(tpipe, seed),
+                            on_event=lambda kind, info: losses.append(info["loss"])
+                            if kind == "step" else None)
+        torch.cuda.synchronize()
+        got = read_train_launches()
+        fwd = flux_n + cn_n
+        texpect = {"K1": 3 * (2 * fwd - 1), "K2": 0, "K3": 0, "K4": 3 * (fwd - 1)}
+        ok = (len(losses) == 3 and all(np.isfinite(losses)) and not trainer.faults
+              and got == texpect and tpipe.compute_dtype == torch.float32
+              and all(p.dtype == torch.float32 for p in tpipe.controlnet.parameters()))
+        launches["tiny_train"] = got
+        phase("tiny", f"cli.train --tiny, 3 steps at batch 2, {size}^2: "
+                      f"{time.perf_counter() - t0:.3f} s; losses {[f'{x:.6f}' for x in losses]}; "
+                      f"launches " + ", ".join(f"{k} {got[k]} (expected {texpect[k]})"
+                                               for k in sorted(texpect))
+                      + f"; fp32 ControlNet {ok} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append("train")
+        del trainer, tpipe
+
+        # one request served over HTTP on 127.0.0.1 by cli.build_server
+        sargs = cli.build_parser().parse_args(
+            ["--mode", "serve", "--random-weights", "--tiny", "--size", str(size), "--steps",
+             str(steps), "--controlnet-step", str(cn_steps), "--seed", str(seed), "--port", "0"])
+        server = cli.build_server(sargs)
+        server.worker.conditions = lambda req, width, height: cond
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            reset_launches()
+            host, port = server.address[:2]
+            conn = http.client.HTTPConnection(host, port, timeout=600)
+            conn.request("POST", "/generate", body=json.dumps({
+                "prompt": cli.build_prompt("a street sign in city", [text], cli.PROMPT_SUFFIX),
+                "lines": [{"text": text, "position": list(pos), "font_size": font_size}],
+                "seed": seed}), headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            status, body = resp.status, json.loads(resp.read())
+            conn.close()
+            got = read_launches()
+        finally:
+            server.shutdown()
+            thread.join(timeout=60)
+        is_png, served = png_array(body["image_png_base64"]) if status == 200 else (False, None)
+        sexpect = dict(zero, K1=steps * flux_n + gate * cn_n)
+        ok = (status == 200 and is_png and served.shape == (size, size, 3) and got == sexpect
+              and server.worker.pipeline.compute_dtype == torch.float32)
+        launches["tiny_serve"] = got
+        phase("tiny", f"cli.build_server --tiny: one request over HTTP, HTTP {status}, PNG "
+                      f"{None if served is None else served.shape}; launches "
+                      + ", ".join(f"{k} {got[k]} (expected {sexpect[k]})" for k in sorted(sexpect))
+                      + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append("serve")
+        del server
+
+        # the 1024^2 request over 2 thread ranks with the ring backend (K5),
+        # the ControlNet on every step, against its one-device run
+        pargs = cli.build_parser().parse_args(
+            ["--text", text, "--position", *map(str, pos), "--size", str(size), "--font-size",
+             str(font_size), "--steps", str(steps), "--controlnet-step", str(steps), "--seed",
+             str(seed), "--random-weights", "--tiny"])
+        sp_pipe = pipe.with_config(cli.pipeline_config(pargs, size, size))
+        clip_ids, t5_ids = cli._prompt_ids(pargs, sp_pipe, cli.build_prompt(
+            pargs.prompt, pargs.text, cli.PROMPT_SUFFIX))
+        s_img = sp_pipe.pipe_cfg.image_seq_len
+        noise = torch.randn((1, s_img, 64), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed))
+        kw = dict(clip_ids=clip_ids, t5_ids=t5_ids, seed=seed, latents=noise,
+                  output_type="latent", num_inference_steps=steps,
+                  guidance_scale=pargs.guidance_scale)
+        runs = {}
+        for label, backend in (("single", None), ("ring", "ring")):
+            def call(g, backend=backend):
+                timings = {}
+                run = sp_pipe if g is None else sp_pipe.with_config(
+                    sp_pipe.pipe_cfg).shard_for_sp(g, backend)
+                return run(cond, timings=timings, **kw), timings
+
+            runs[label], got, _ = sp_run(
+                dev, f"tiny txt2img {size}^2 (S = {TXT_LEN + s_img}, fp32)", backend, call,
+                sp_expect(backend, "K1", steps * (flux_n + cn_n)), runs.get("single"), steps,
+                (1, s_img, 64))
+            if runs[label].dtype != torch.float32:
+                fails.append(f"sp {label}: latents {runs[label].dtype}")
+            if backend:
+                launches["tiny_sp2_ring"] = got
+        del runs, sp_pipe, pipe
+    phase("tiny", f"plain attention versions called on these paths: {dict(plain) or 'none'} -> "
+                  + ("ok" if not plain else "FAIL"))
+    if plain or fails:
+        raise SystemExit(f"the tiny phase failed its checks: {fails}; plain calls {plain}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def source_image(seed, height, width):
@@ -3403,11 +3813,12 @@ def inpaint_profile(dev, inp, cond, image, mask, seed):
                     fa.flash_attention_rope: 0, fa.flash_attention: 0})
 
 
-def step_bound(b, h, sq, sk, d=128):
+def step_bound(b, h, sq, sk, d=128, elem=2):
     """One ring step: both products, 4 B H Sq Sk D FLOP; q, k, v read once in
-    bf16 and the fp32 state (acc, m, l) read and written once."""
+    their dtype (``elem`` bytes) and the fp32 state (acc, m, l) read and
+    written once."""
     state = 4 * b * h * sq * (d + 2)
-    return bound(4 * b * h * sq * sk * d, 2 * b * h * (sq + 2 * sk) * d + 2 * state)
+    return bound(4 * b * h * sq * sk * d, elem * b * h * (sq + 2 * sk) * d + 2 * state)
 
 
 def sharded_attention(dev, n, q, k, v, impl):
@@ -4842,6 +5253,10 @@ def fp8_phase(dev, steps, cn_steps, seed):
         if not (rc == 0 and same and cpipe.flux.weight_quant and cpipe.vae_tiling):
             raise SystemExit("the fp8 checkpoint failed its checks")
         del cpipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["fp8_checkpoint_ip"] = fp8_checkpoint_ip(
+            dev, work, snap, out, flux_cfg, base, cond, cexpect, size, steps, seed, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
@@ -4880,6 +5295,82 @@ def fp8_phase(dev, steps, cn_steps, seed):
                      and rpipe.vae_tiling == (72, 16)):
         raise SystemExit("the fp8 random-weights build failed its checks")
     return launches
+
+
+def fp8_checkpoint_ip(dev, work, snap, out, flux_cfg, base, cond, expect, size, steps, seed,
+                      card):
+    """The --dtype fp8 snapshot with the IP-Adapter, as the JAX CLI takes one:
+    the adapter (published geometry, seeded, converted by convert_cli's
+    writer for the cut-depth FLUX) attached to the stored fp8 stacks, then
+    quantize_weights() (cli.build_pipeline with --ip-adapter-image and
+    --ip-adapter-dir). Its FLUX and ControlNet state bit-equal to the same
+    snapshot converted to bf16 with the adapter attached, then
+    quantize_weights(); one 1024^2 request through each, latents bit-equal.
+    Returns the fp8 request's launches."""
+    from PIL import Image
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.configs import CLIPVisionConfig, IPAdapterConfig
+    from reptext_tpu_torch.io import convert_cli, synthetic
+    from reptext_tpu_torch.io.safetensors import save_file
+    from reptext_tpu_torch.nn.layers import QuantLinear
+
+    vcfg, ipcfg = CLIPVisionConfig(), IPAdapterConfig()
+    vdir = os.path.join(work, "image_encoder")
+    synthetic.write_component(vdir, synthetic.clip_vision_state(
+        vcfg, seed=seed + 61, device=dev, dtype=torch.bfloat16),
+        synthetic.clip_vision_hf_config(vcfg))
+    ip_path = os.path.join(work, "ip-adapter.safetensors")
+    save_file(synthetic.ip_adapter_state(ipcfg, flux_cfg.num_layers, flux_cfg.inner_dim,
+                                         seed=seed + 62, device=dev, dtype=torch.bfloat16),
+              ip_path)
+    convert_cli.write_ip_adapter(out, ip_path, flux_cfg.num_layers, flux_cfg.attention_head_dim,
+                                 vdir)
+    dense_out = os.path.join(work, "converted_bf16")
+    rc = convert_cli.main(["--pipeline-dir", os.path.join(snap, "pipeline"), "--controlnet-dir",
+                           os.path.join(snap, "controlnet"), "--dtype", "bf16", "--out",
+                           dense_out])
+    style = os.path.join(work, "style.png")
+    Image.fromarray(np.random.default_rng(seed + 63).integers(
+        0, 256, (224, 224, 3)).astype(np.uint8)).save(style)
+    # the VAE tiled on both (the fp8 deployment's default), so that the condition
+    # images encode the same way
+    ip_flags = ["--ip-adapter-image", style, "--ip-adapter-scale", str(IP_SCALE),
+                "--ip-adapter-dir", os.path.join(out, "ip_adapter"), "--vae-tiling", "on"]
+    iargs = cli.build_parser().parse_args([*base, "--checkpoint-dir", out, *ip_flags])
+    t0 = time.perf_counter()
+    ipipe = cli.build_pipeline(iargs)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dargs = cli.build_parser().parse_args([*base, "--checkpoint-dir", dense_out, *ip_flags])
+    dense = cli.build_pipeline(dargs)
+    stored = dense.flux.weight_quant
+    dense.quantize_weights()
+    same = True
+    for a, b in ((ipipe.flux, dense.flux), (ipipe.controlnet, dense.controlnet)):
+        sa, sb = a.state_dict(), b.state_dict()
+        same = same and sorted(sa) == sorted(sb) and all(
+            sa[k].dtype == sb[k].dtype and torch.equal(sa[k].view(torch.uint8),
+                                                       sb[k].view(torch.uint8)) for k in sa)
+    adapter_q8 = isinstance(ipipe.flux.double_blocks[0].block.to_k_ip, QuantLinear)
+    res = {}
+    got = run_request(
+        f"1024^2 through the fp8 checkpoint with the IP-Adapter (scale {IP_SCALE})",
+        lambda timings: cli.generate(iargs, ipipe, cond, timings=timings, output_type="latent"),
+        ipipe, expect, (1, size, size, 3), steps, tag="fp8", out=res)
+    want = cli.generate(dargs, dense, cond, output_type="latent")
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(res["latents"], want))
+    phase("fp8", f"the fp8 checkpoint with the IP-Adapter (convert_cli's adapter directory for "
+                 f"FLUX {CKPT_FLUX}): built in {build_s:.3f} s, the adapter's to_k_ip stored "
+                 f"in fp8 {adapter_q8}; FLUX and ControlNet state bit-equal to the bf16 "
+                 f"conversion (dense before: {not stored}) with the adapter attached, then "
+                 f"quantize_weights(): {same}; the request's latents bit-equal: {bit_equal} "
+                 f"[{card}]")
+    if not (rc == 0 and same and bit_equal and adapter_q8 and ipipe.flux.ip_adapter
+            and not stored):
+        raise SystemExit("the fp8 checkpoint with the IP-Adapter failed its checks")
+    return got
 
 
 def fp8_child(args):
@@ -4944,6 +5435,7 @@ def main(argv=None):
     results["K3"] = streaming_kernel_phase(dev)
     results["K4"] = backward_kernel_phase(dev)
     d64 = d64_kernel_phase(dev)
+    d32 = d32_kernel_phase(dev)
     tp_heads = tp_kernel_phase(dev)
     results["K5"] = ring_kernel_phase(dev)
     multi_card_phase()
@@ -4991,6 +5483,7 @@ def main(argv=None):
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    by_path.update(tiny_phase(dev, args.steps, args.controlnet_step, args.seed))
     # in processes of their own, once this one holds no pipeline
     by_path.update(fp8_child(args))
     by_path.update(tp_child(args))
@@ -5035,6 +5528,8 @@ def main(argv=None):
                                           for shape, bhs in k3_shapes.items()}
     for key, by_shape in d64.items():
         results[key]["d64"] = by_shape
+    for key, by_shape in d32.items():
+        results[key]["d32"] = by_shape
     for key, by_shape in tp_heads.items():
         results[key]["tp_heads"] = by_shape
     for key in entry:

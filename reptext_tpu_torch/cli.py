@@ -26,13 +26,17 @@ or seeded random weights):
         --init-image photo.png --strength 0.6 --sigmas 1.0,0.75,0.5,0.25
 
 ``--device`` (``cuda``, the default, or ``cpu``) says where the modules
-live, as ``JAX_PLATFORMS`` does for the JAX CLI: bf16 on the card, float32 on
-the CPU; without a card ``cuda`` raises. ``--tiny`` is a geometry flag only:
-the tiny test geometry's head dim of 32 is not one the attention kernels
-take, so it runs with ``--device cpu``. The flags keep the JAX
-CLI's names and defaults (``reptext_tpu/cli.py``). ``--checkpoint-dir`` loads
-the port's converted checkpoint (``io/checkpoint.py``; a JAX orbax directory
-does not load): its ``configs.json`` geometry wins over the defaults unless
+live, as ``JAX_PLATFORMS`` does for the JAX CLI; without a card ``cuda``
+raises. ``--tiny`` runs in float32 on either device, as the JAX CLI runs it
+(:func:`compute_dtype`; the tiny configs' head dim of 32 takes the attention
+kernels on the card, as 64 and 128 do), so ``--random-weights --tiny`` is the
+quick start on the card too. A full-geometry run is bf16 on the card and, a
+documented deviation from the JAX CLI's bf16, float32 with ``--device cpu``:
+the CPU parity tests hold the port to the JAX package there in float32. The
+flags keep the JAX CLI's names and defaults (``reptext_tpu/cli.py``).
+``--checkpoint-dir`` loads the port's converted checkpoint
+(``io/checkpoint.py``; a JAX orbax directory does not load): its
+``configs.json`` geometry wins over the defaults unless
 ``--tiny`` is given, and prompts are tokenized by the vendored CLIP BPE and
 SentencePiece tokenizers from its ``tokenizer*/`` files. Without those files
 prompts become deterministic demo token ids (a stable CRC32 hash per word;
@@ -76,8 +80,11 @@ converted with ``convert_cli --dtype fp8`` is detected and loaded so;
 ``--vae-tiling auto|on|off`` tiles the VAE (``ops/vae_tiling.py``), auto
 meaning on for fp8 weights at full geometry. As in the JAX CLI, training
 with fp8 weights and ``--lora`` on an fp8-stored checkpoint are refused, and
-the IP-Adapter is attached before the stacks are quantized (an fp8-stored
-checkpoint cannot take one: convert it with ``--dtype keep`` or ``bf16``).
+the IP-Adapter is attached before the stacks are quantized: on an fp8-stored
+checkpoint its dense ``to_k_ip``/``to_v_ip`` join the stored stacks, and
+``quantize_weights()`` then quantizes them and leaves the stored codes and
+scales as they are (the JAX CLI's order, whose ``quantize_params`` is
+idempotent).
 """
 
 from __future__ import annotations
@@ -202,9 +209,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiled VAE encode/decode (bounded VAE activation memory); auto = on "
                         "whenever fp8 weights are used at full geometry")
     p.add_argument("--tiny", action="store_true",
-                   help="tiny model geometry (demo and tests; with --device cpu)")
+                   help="tiny model geometry in float32 (the demo and tests), on either device")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the modules run: cuda (bf16, the default) or cpu (float32)")
+                   help="where the modules run: cuda (the default; bf16 unless --tiny) or cpu "
+                        "(float32)")
     p.add_argument("--attention-backend", choices=["auto", "xla", "pallas"], default="auto",
                    help="attention impl (the JAX names): auto = the hand-written kernels on "
                         "CUDA tensors, the plain version on the CPU; xla = the plain version "
@@ -302,16 +310,24 @@ def load_inpaint_inputs(image_path: str, mask_path: str) -> Tuple[np.ndarray, np
     return image, mask
 
 
+def compute_dtype(args):
+    """The modules' dtype: float32 for ``--tiny``, as the JAX CLI
+    (``reptext_tpu/cli.py``: bf16 unless ``--tiny``), and for ``--device cpu``
+    at any geometry (the port's deviation, which the CPU parity tests rest
+    on); bf16 for a full-geometry run on the card."""
+    import torch
+
+    return torch.float32 if args.tiny or args.device == "cpu" else torch.bfloat16
+
+
 def build_pipeline(args, height=None, width=None):
-    """The pipeline the flags describe on ``--device`` (bf16 on the CUDA
-    device, float32 on the CPU): the weights of ``--checkpoint-dir``, mapped
+    """The pipeline the flags describe on ``--device``, in
+    :func:`compute_dtype`: the weights of ``--checkpoint-dir``, mapped
     from its files into modules built on the meta device, or seeded random
     ones. ``--mode inpaint`` adds the inpaint ControlNet to the same modules
     (:func:`add_inpaint`). Then ``--weight-dtype`` and ``--vae-tiling``
     (:func:`deploy`). ``--attention-backend`` sets the process-wide attention
     backend (``ops.attention.set_default_backend``)."""
-    import torch
-
     from reptext_tpu_torch.io.quantize import is_quantized
     from reptext_tpu_torch.ops.attention import set_default_backend
 
@@ -344,15 +360,13 @@ def build_pipeline(args, height=None, width=None):
                          "--weight-dtype fp8")
     ip = (args.mode == "serve" and args.ip_adapter_dir) or (
         args.mode == "txt2img" and args.ip_adapter_image)
-    if ip and pre_quantized:
-        raise SystemExit("the IP-Adapter is attached before the block stacks are quantized, and "
-                         "this checkpoint stores them in fp8: convert it with --dtype keep/bf16")
-    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
     pipeline = FluxRepTextPipeline.create(
         flux_cfg, cn_cfg, vae_cfg, pipe_cfg, params=params, clip_cfg=clip_cfg, t5_cfg=t5_cfg,
-        seed=args.seed, device=args.device, dtype=dtype, remat=args.mode == "train",
-        weight_quant=fp8 and params is None and not ip)
+        seed=args.seed, device=args.device, dtype=compute_dtype(args),
+        remat=args.mode == "train", weight_quant=fp8 and params is None and not ip)
     if ip:
+        # dense adapter kernels, also beside fp8-stored stacks; deploy() then
+        # quantizes them with quantize_weights(), as the JAX CLI does
         attach_ip_adapter(args, pipeline)
     if args.mode == "inpaint":
         pipeline = add_inpaint(args, pipeline)

@@ -79,17 +79,23 @@
 // launch()).
 //
 // Head dim and output dtype. D is a template argument, instantiated at 128
-// (FLUX.1-dev) and 64 (the trained-weights demo's models) for K1-K3 and the
-// ring step (K5): a row of
-// q', K or V is D / 64 blocks of 64 channels, each 128 swizzled bytes, so D =
-// 64 is one block where D = 128 is two; the QK product takes D / 16 k-steps,
-// PV is m64nDk16 and the accumulator D / 2 registers a thread. RoPE's pairs
-// (i, i + D/2) are two blocks apart at D = 128 and inside one block at D = 64,
-// so q is staged in chunk pairs and each chunk placed by its own channel.
-// OUT_F32 writes out in fp32: the fp32 entries of ops/flash_attention.py round
-// q, k and v to bf16 in the wrapper (TMA copies bytes and cannot convert) and
-// keep the fp32 accumulator's quotient, as the JAX kernels return the input's
-// dtype. The tensor-core operands are bf16 either way.
+// (FLUX.1-dev), 64 (the trained-weights demo's models) and 32 (the tiny
+// configs of the CLI's --tiny demo) for K1-K3 and the ring step (K5). A row
+// of q', K or V is D / 64 blocks of 64 channels, each 128 bytes under the
+// 128-byte swizzle, so D = 64 is one block where D = 128 is two; at D = 32 a
+// row is one block of 32 channels, 64 bytes, and its tensor maps, q' tile and
+// wgmma descriptors take the 64-byte swizzle (chunk c of row r at c ^ (r / 2
+// % 4), the pattern every 512 bytes; the same 32-byte k-step moves the start
+// within a row). The QK product takes D / 16 k-steps (2 at D = 32), PV is
+// m64nDk16 and the accumulator D / 2 registers a thread. RoPE's pairs (i, i +
+// D/2) are two blocks apart at D = 128 and inside one block at D = 64 and 32
+// (at 32: chunks 0 and 2, 1 and 3 of the 64-byte row), so q is staged in chunk
+// pairs and each chunk placed by its own channel. OUT_F32 writes out in fp32:
+// the fp32 entries of ops/flash_attention.py round q, k and v to bf16 in the
+// wrapper (TMA copies bytes and cannot convert) and keep the fp32
+// accumulator's quotient, as the JAX kernels return the input's dtype; the
+// ring step's last launch writes acc / l so too. The tensor-core operands are
+// bf16 either way.
 //
 // RoPE: k is rotated once per call by rope_rotate_kernel into a bf16 scratch
 // copy (k' as above), which a tensor map then streams like an unrotated k;
@@ -158,29 +164,32 @@
 
 namespace {
 
-constexpr int kHalf = 64;            // 64 bf16: one 128-byte swizzled row (half of D = 128)
-constexpr int kRowBytes = 128;
 constexpr int kWgRows = 64;          // query rows per consumer warpgroup
 constexpr int kConsumers = 2;        // consumer warpgroups per CTA
 constexpr int kBlockQ = kWgRows * kConsumers;
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kQHalfBytes = kBlockQ * kRowBytes;   // one 64-channel block of q'
 
 // The tiling of the keys: kBlockK keys per K or V tile, kStages tiles in each
 // of the K and V rings.
 constexpr int kBlockK = 128;
 constexpr int kStages = 2;
-constexpr int kHalfBytes = kBlockK * kRowBytes;  // one 64-channel block of a tile
 
-// The head dim D is a template argument (64 or 128). A row of q', K or V is
-// kBlocks 64-channel blocks of 128 swizzled bytes: two for FLUX's D = 128 (the
-// halves), one for D = 64.
+// The head dim D is a template argument (32, 64 or 128). A row of q', K or V
+// is kBlocks channel blocks of kChannels channels, each one swizzled row of
+// kRowBytes: two blocks of 64 channels (128 bytes, the 128-byte swizzle) for
+// FLUX's D = 128, one for D = 64, and one of 32 channels (64 bytes, the
+// 64-byte swizzle) for D = 32.
 template <int D>
 struct FwdShape {
-  static_assert(D == 64 || D == 128, "the template is instantiated at head dims 64 and 128");
-  static constexpr int kBlocks = D / kHalf;
-  static constexpr int kTileBytes = kBlocks * kHalfBytes;
-  static constexpr int kSmemBytes = 1024 /* alignment slack */ + kBlocks * kQHalfBytes +
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the template is instantiated at head dims 32, 64 and 128");
+  static constexpr int kChannels = box_channels(D);
+  static constexpr int kRowBytes = 2 * kChannels;
+  static constexpr int kBlocks = D / kChannels;
+  static constexpr int kQBlockBytes = kBlockQ * kRowBytes;  // one channel block of q'
+  static constexpr int kBlockBytes = kBlockK * kRowBytes;   // one channel block of a tile
+  static constexpr int kTileBytes = kBlocks * kBlockBytes;
+  static constexpr int kSmemBytes = 1024 /* alignment slack */ + kBlocks * kQBlockBytes +
                                     2 * kStages * kTileBytes + 4 * kStages * 8 /* mbarriers */;
 };
 
@@ -347,20 +356,26 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v) {
   using Shape = FwdShape<D>;
   constexpr int kBlocks = Shape::kBlocks;
+  constexpr int kChannels = Shape::kChannels;
+  constexpr int kRowBytes = Shape::kRowBytes;
+  constexpr int kQBlockBytes = Shape::kQBlockBytes;
+  constexpr int kBlockBytes = Shape::kBlockBytes;
   constexpr int kTileBytes = Shape::kTileBytes;
   constexpr int kNS = kBlockK / 2;       // logits per thread and tile
   constexpr int kKSteps = D / 16;        // wgmma k-steps over the head dim (QK)
+  constexpr int kRowSteps = kRowBytes / 32;  // of them in one swizzled row
   constexpr int kPvSteps = kBlockK / 16; // wgmma k-steps over the keys (PV)
   constexpr bool kLog2Units = EXP != kExpE;
   static_assert(EXP == kExp2 || ONLINE, "the study's exponentials keep a running max");
-  static_assert(!CARRY || (ONLINE && EXP == kExp2 && !ROPE && !OUT_F32),
-                "the ring step is the online form on unrotated bf16 inputs");
+  static_assert(!CARRY || (ONLINE && EXP == kExp2 && !ROPE),
+                "the ring step is the online form on unrotated inputs");
 
   extern __shared__ uint8_t smem_raw[];
-  // the swizzle pattern repeats every 1024 bytes of the shared address
+  // the swizzle pattern repeats every 1024 (or 512) bytes of the shared address
   uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sm_q = smem_addr(sm);                   // q': kBlocks x [kBlockQ][64]
-  const uint32_t sm_k = sm_q + kBlocks * kQHalfBytes;    // K ring: kStages x kBlocks x [kBlockK][64]
+  const uint32_t sm_q = smem_addr(sm);                  // q': kBlocks x [kBlockQ][kChannels]
+  const uint32_t sm_k = sm_q + kBlocks * kQBlockBytes;  // K ring: kStages x kBlocks x
+                                                        // [kBlockK][kChannels]
   const uint32_t sm_v = sm_k + kStages * kTileBytes;  // V ring, the same
   const uint32_t bars = sm_v + kStages * kTileBytes;
   // tile `it` lives in slot it % kStages; its barriers flip once per round
@@ -398,13 +413,13 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
         mbar_wait(empty_k(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full_k(it), kTileBytes);
         for (int blk = 0; blk < kBlocks; ++blk) {
-          tma_load_4d(kt + blk * kHalfBytes, &map_k, full_k(it), blk * kHalf, k0, h, b);
+          tma_load_4d(kt + blk * kBlockBytes, &map_k, full_k(it), blk * kChannels, k0, h, b);
         }
         const uint32_t vt = sm_v + slot(it) * kTileBytes;
         mbar_wait(empty_v(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full_v(it), kTileBytes);
         for (int blk = 0; blk < kBlocks; ++blk) {
-          tma_load_4d(vt + blk * kHalfBytes, &map_v, full_v(it), blk * kHalf, k0, h, b);
+          tma_load_4d(vt + blk * kBlockBytes, &map_v, full_v(it), blk * kChannels, k0, h, b);
         }
       }
     }
@@ -422,15 +437,15 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
 
     // q' for this warpgroup's 64 rows, rotated and scaled, into the swizzled
     // tile: each thread takes 8-channel chunk pairs (c, c + D/2), the pairs
-    // the half-split rotation mixes; channel ch of row r lands in block ch / 64
-    // at 16-byte chunk ((ch % 64) / 8) ^ (r % 8)
+    // the half-split rotation mixes; channel ch of row r lands in block
+    // ch / kChannels at 16-byte chunk (ch % kChannels) / 8, swizzled
     {
       constexpr int kPairs = D / 16;
       const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
       uint8_t* q_tile = sm + cw * kWgRows * kRowBytes;
       const auto store = [&](int r, int ch, const float (&f)[8]) {
-        const int off = (ch / kHalf) * kQHalfBytes + r * kRowBytes +
-                        ((((ch % kHalf) >> 3) ^ (r & 7)) << 4);
+        const int off = (ch / kChannels) * kQBlockBytes +
+                        swizzled_offset<kRowBytes>(r, (ch % kChannels) >> 3);
         *reinterpret_cast<uint4*>(q_tile + off) = pack8(f);
       };
       for (int idx = wtid; idx < kWgRows * kPairs; idx += 128) {
@@ -492,9 +507,11 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
-        const uint32_t half = kk >> 2, in = (kk & 3) * 32u;
-        wgmma_ss_n128(s, wgmma_desc(q_addr + half * kQHalfBytes + in, 16, 1024),
-                      wgmma_desc(k_addr + half * kHalfBytes + in, 16, 1024), kk != 0);
+        const uint32_t blk = kk / kRowSteps, in = (kk % kRowSteps) * 32u;
+        wgmma_ss_n128(s,
+                      wgmma_desc<kRowBytes>(q_addr + blk * kQBlockBytes + in, 16, 8 * kRowBytes),
+                      wgmma_desc<kRowBytes>(k_addr + blk * kBlockBytes + in, 16, 8 * kRowBytes),
+                      kk != 0);
       }
       wgmma_commit();
     };
@@ -506,7 +523,8 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kPvSteps; ++kk) {
-        wgmma_rs_bt<D>(o, pa[kk], wgmma_desc(v_addr + kk * 16 * kRowBytes, kHalfBytes, 1024));
+        wgmma_rs_bt<D>(o, pa[kk], wgmma_desc<kRowBytes>(v_addr + kk * 16 * kRowBytes, kBlockBytes,
+                                                        8 * kRowBytes));
       }
       wgmma_commit();
     };
@@ -685,16 +703,20 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// K1, K2 and K3 at the call's head dim (64 or 128) and output dtype.
-template <bool ROPE, bool ONLINE>
+// K1, K2 and K3 (CARRY: K5's step) at head dim D and the call's output dtype.
+template <int D, bool ROPE, bool ONLINE, bool CARRY = false>
+cudaError_t launch_dtype(const Params& p, int batch, int out_f32, cudaStream_t stream) {
+  return out_f32 ? launch<D, ROPE, ONLINE, kExp2, CARRY, true>(p, batch, stream)
+                 : launch<D, ROPE, ONLINE, kExp2, CARRY>(p, batch, stream);
+}
+
+// The same at the call's head dim (32, 64 or 128: attention_head_dim).
+template <bool ROPE, bool ONLINE, bool CARRY = false>
 cudaError_t launch_attention(const Params& p, int batch, int head_dim, int out_f32,
                              cudaStream_t stream) {
-  if (head_dim == 64) {
-    return out_f32 ? launch<64, ROPE, ONLINE, kExp2, false, true>(p, batch, stream)
-                   : launch<64, ROPE, ONLINE>(p, batch, stream);
-  }
-  return out_f32 ? launch<128, ROPE, ONLINE, kExp2, false, true>(p, batch, stream)
-                 : launch<128, ROPE, ONLINE>(p, batch, stream);
+  if (head_dim == 32) return launch_dtype<32, ROPE, ONLINE, CARRY>(p, batch, out_f32, stream);
+  if (head_dim == 64) return launch_dtype<64, ROPE, ONLINE, CARRY>(p, batch, out_f32, stream);
+  return launch_dtype<128, ROPE, ONLINE, CARRY>(p, batch, out_f32, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -735,12 +757,14 @@ void fold_scale(Params& p) {
   p.logit_mul = kLog2e;
 }
 
-// The head dims the attention entries (K1, K2, K3) are instantiated at: FLUX's
-// 128 and the trained-weights demo's 64. The study's variants and K5's ring
-// step are instantiated at FLUX's alone.
+// The head dims the attention entries (K1, K2, K3) and K5's ring step are
+// instantiated at: FLUX's 128, the trained-weights demo's 64 and the tiny
+// configs' 32. The study's variants are instantiated at FLUX's alone.
 constexpr int kFluxD = 128;
 
-bool attention_head_dim(int head_dim) { return head_dim == 64 || head_dim == 128; }
+bool attention_head_dim(int head_dim) {
+  return head_dim == 32 || head_dim == 64 || head_dim == 128;
+}
 
 }  // namespace
 
@@ -774,7 +798,9 @@ extern "C" int reptext_flash_attention_fwd(
   if (rope) {
     dim3 grid((seq * (head_dim / 16) + 255) / 256, heads, batch);
     __nv_bfloat16* k_out = static_cast<__nv_bfloat16*>(k_rot);
-    if (head_dim == 64) {
+    if (head_dim == 32) {
+      rope_rotate_kernel<32><<<grid, 256, 0, s>>>(p, k_out);
+    } else if (head_dim == 64) {
       rope_rotate_kernel<64><<<grid, 256, 0, s>>>(p, k_out);
     } else {
       rope_rotate_kernel<128><<<grid, 256, 0, s>>>(p, k_out);
@@ -843,12 +869,13 @@ extern "C" int reptext_attention_variant_fwd(
   return static_cast<int>(err);
 }
 
-// K5's ring step: q [B, H, seq_q, D] against one K/V block [B, H, seq_k, D], D 64 or 128,
-// all bf16 with the head dim contiguous, folded into the contiguous fp32 state
-// acc [B, H, seq_q, D], m and l [B, H, seq_q] (see the source note). `first`
-// starts the state instead of loading it; `last` writes acc / l to `out`
-// (q's layout: strides o_*) and stores no state. Strides in elements;
-// returns the cudaError_t of the launch.
+// K5's ring step: q [B, H, seq_q, D] against one K/V block [B, H, seq_k, D], D
+// 32, 64 or 128, all bf16 with the head dim contiguous, folded into the
+// contiguous fp32 state acc [B, H, seq_q, D], m and l [B, H, seq_q] (see the
+// source note). `first` starts the state instead of loading it; `last` writes
+// acc / l to `out` (q's layout: strides o_*; fp32 when out_f32, the fp32
+// entry's, else bf16) and stores no state. Strides in elements; returns the
+// cudaError_t of the launch.
 extern "C" int reptext_ring_attention_step(
     const void* q, const void* k, const void* v, void* out, void* acc, void* m_state,
     void* l_state, int batch, int heads, int seq_q, int seq_k, int head_dim,
@@ -856,8 +883,8 @@ extern "C" int reptext_ring_attention_step(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int first, int last, void* stream) {
-  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || (head_dim != 64 && head_dim != 128) ||
+    float scale, int first, int last, int out_f32, void* stream) {
+  if (seq_q < 1 || seq_k < 1 || batch < 1 || heads < 1 || !attention_head_dim(head_dim) ||
       (last && out == nullptr) || (!(first && last) && (acc == nullptr || m_state == nullptr ||
                                                         l_state == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -871,6 +898,5 @@ extern "C" int reptext_ring_attention_step(
   p.first = first;
   p.last = last;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(head_dim == 64 ? launch<64, false, true, kExp2, true>(p, batch, s)
-                                          : launch<128, false, true, kExp2, true>(p, batch, s));
+  return static_cast<int>(launch_attention<false, true, true>(p, batch, head_dim, out_f32, s));
 }

@@ -92,17 +92,22 @@
 // ptxas spill; peeled, no gain); adding dq under the next tile's logit
 // products (spills). ptxas: 168 registers at launch, no spills.
 //
-// Head dim 64 and fp32 outputs. D is a template argument, instantiated at 128
-// (FLUX.1-dev) and 64 (the trained-weights demo's models). A row of K, V, Q
-// or dO is D / 64 blocks of 64 channels, so D = 64 is one block where D = 128
-// is two: s^T and dp^T take D / 16 k-steps, dv and dk are m64nDk16 products
-// into D / 2 registers a thread. dq changes its split: at D = 128 each
-// consumer warpgroup makes its 64-channel half of dq over all 128 keys of
-// the CTA; at D = 64 there is one channel block, so each makes all 64
-// channels over its own 64 keys (the ds^T rows it wrote and the K rows it
-// owns) and the two partials of a CTA are added one after the other, behind
-// one counter per query tile that counts warpgroups (writer cw of key tile x
-// waits for 2 x + cw), so the order stays fixed. OUT_F32 writes dq (the
+// Head dims 64 and 32, and fp32 outputs. D is a template argument,
+// instantiated at 128 (FLUX.1-dev), 64 (the trained-weights demo's models)
+// and 32 (the tiny configs of the CLI's --tiny demo). A row of K, V, Q or dO
+// is D / 64 blocks of 64 channels, so D = 64 is one block where D = 128 is
+// two: s^T and dp^T take D / 16 k-steps, dv and dk are m64nDk16 products into
+// D / 2 registers a thread. At D = 32 a row is one block of 32 channels, 64
+// bytes, under the 64-byte swizzle (the tensor maps' and the K-major and
+// MN-major descriptors'), as in the forward. dq changes its split: at D = 128
+// each consumer warpgroup makes its 64-channel half of dq over all 128 keys
+// of the CTA; at D = 64 and 32 there is one channel block, so each makes all
+// D channels over its own 64 keys (the ds^T rows it wrote and the K rows it
+// owns; at D = 32 an m64n32k16 product) and the two partials of a CTA are
+// added one after the other, behind one counter per query tile that counts
+// warpgroups (writer cw of key tile x waits for 2 x + cw), so the order stays
+// fixed. The fp32 staging row of dq is 32 channels, 128 bytes, at every D: two
+// boxes a warpgroup at D = 64 and 128, one at 32. OUT_F32 writes dq (the
 // epilogue), dk and dv in fp32 and reads the forward's fp32 out in the
 // preprocess pass: the fp32 entries round q, k, v and dO to bf16 in the
 // wrapper (TMA copies bytes and cannot convert), and the products stay bf16.
@@ -142,34 +147,43 @@
 
 namespace {
 
-constexpr int kHalf = 64;            // 64 bf16: one 128-byte swizzled row (half of D = 128)
-constexpr int kRowBytes = 128;
 constexpr int kWgKeys = 64;          // keys per consumer warpgroup
 constexpr int kConsumers = 2;        // consumer warpgroups per CTA
 constexpr int kBlockKV = kWgKeys * kConsumers;   // keys a CTA owns
 constexpr int kBlockQ = 64;          // queries per streamed tile
 constexpr int kStages = 2;           // stages of the Q / dO ring
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kKVHalfBytes = kBlockKV * kRowBytes;  // one 64-channel block of K or V
-constexpr int kQHalfBytes = kBlockQ * kRowBytes;    // one 64-channel block of a Q or dO tile
-constexpr int kDsTileBytes = kBlockKV * kRowBytes;  // [128 keys][64 queries] bf16
+constexpr int kDsRowBytes = kBlockQ * 2;              // a ds^T row: 64 queries, bf16
+constexpr int kDsTileBytes = kBlockKV * kDsRowBytes;  // [128 keys][64 queries] bf16
 constexpr int kStatBytes = 2 * kBlockQ * 4;         // lse log2(e) and delta of one tile
 constexpr int kDsBufs = 2;           // ds^T tiles: one barrier per query tile is enough
-constexpr int kDqStageBytes = kBlockQ * kHalf * 4;  // a warpgroup's [64 queries][64 ch] fp32
+constexpr int kDqRowBytes = 32 * 4;                   // a dq box row: 32 channels, fp32
+constexpr int kDqBoxBytes = kBlockQ * kDqRowBytes;    // [64 queries][32 ch] fp32
 constexpr int kDqBufs = 2;           // staging tiles per consumer warpgroup
 constexpr int kBars = 1 + 2 * kStages + 2 * kConsumers * kDqBufs;
 constexpr int kStatPad = kBlockQ;    // lse log2(e) and delta rows are padded to this
 
-// The head dim D is a template argument (64 or 128): a row of K, V, Q or dO
-// is kBlocks 64-channel blocks of 128 swizzled bytes, two for FLUX's D = 128,
-// one for D = 64 (see "Head dim 64" in the source note).
+// The head dim D is a template argument (32, 64 or 128): a row of K, V, Q or
+// dO is kBlocks channel blocks of kChannels channels, each one swizzled row of
+// kRowBytes: two blocks of 64 channels (128 bytes) for FLUX's D = 128, one for
+// D = 64, one of 32 channels (64 bytes, the 64-byte swizzle) for D = 32 (see
+// "Head dims 64 and 32" in the source note). A warpgroup's dq is kDqChannels
+// wide, staged in kDqChannels / 32 boxes of 32 fp32 channels.
 template <int D>
 struct BwdShape {
-  static_assert(D == 64 || D == 128, "the backward is instantiated at head dims 64 and 128");
-  static constexpr int kBlocks = D / kHalf;
-  static constexpr int kKVTileBytes = kBlocks * kKVHalfBytes;
-  static constexpr int kQTileBytes = kBlocks * kQHalfBytes;
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the backward is instantiated at head dims 32, 64 and 128");
+  static constexpr int kChannels = box_channels(D);
+  static constexpr int kRowBytes = 2 * kChannels;
+  static constexpr int kBlocks = D / kChannels;
+  static constexpr int kKVBlockBytes = kBlockKV * kRowBytes;  // one channel block of K or V
+  static constexpr int kQBlockBytes = kBlockQ * kRowBytes;    // one of a Q or dO tile
+  static constexpr int kKVTileBytes = kBlocks * kKVBlockBytes;
+  static constexpr int kQTileBytes = kBlocks * kQBlockBytes;
   static constexpr int kStageBytes = 2 * kQTileBytes + kStatBytes;
+  static constexpr int kDqChannels = D < 64 ? D : 64;
+  static constexpr int kDqBoxes = kDqChannels / 32;
+  static constexpr int kDqStageBytes = kDqBoxes * kDqBoxBytes;  // a warpgroup's dq, fp32
   static constexpr int kSmemBytes = 1024 /* alignment slack */ + 2 * kKVTileBytes +
                                     kStages * kStageBytes + kDsBufs * kDsTileBytes +
                                     kConsumers * kDqBufs * kDqStageBytes +
@@ -302,25 +316,33 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_dq) {
   using Shape = BwdShape<D>;
   constexpr int kBlocks = Shape::kBlocks;
+  constexpr int kChannels = Shape::kChannels;
+  constexpr int kRowBytes = Shape::kRowBytes;
+  constexpr int kKVBlockBytes = Shape::kKVBlockBytes;
+  constexpr int kQBlockBytes = Shape::kQBlockBytes;
   constexpr int kKVTileBytes = Shape::kKVTileBytes;
   constexpr int kQTileBytes = Shape::kQTileBytes;
+  constexpr int kDqChannels = Shape::kDqChannels;
+  constexpr int kDqStageBytes = Shape::kDqStageBytes;
   constexpr int kNS = kBlockQ / 2;         // logits per thread and tile
   constexpr int kDSteps = D / 16;          // wgmma k-steps over the head dim (s^T, dp^T)
+  constexpr int kRowSteps = kRowBytes / 32;  // of them in one swizzled row
   constexpr int kQSteps = kBlockQ / 16;    // over the tile's queries (dv, dk)
   // D = 128: a warpgroup's dq is its 64-channel half over all 128 keys of the
-  // CTA; D = 64: all 64 channels over its own 64 keys (see "Head dim 64")
-  constexpr bool kSplitKeys = D == 64;
+  // CTA; D = 64 and 32: all D channels over its own 64 keys (see "Head dims
+  // 64 and 32")
+  constexpr bool kSplitKeys = D <= 64;
   constexpr int kKeySteps = (kSplitKeys ? kWgKeys : kBlockKV) / 16;  // over keys (dq)
 
   extern __shared__ uint8_t smem_raw[];
-  // the swizzle pattern repeats every 1024 bytes of the shared address
+  // the swizzle pattern repeats every 1024 (or 512) bytes of the shared address
   uint8_t* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sm_k = smem_addr(sm);                     // kBlocks x [kBlockKV][64]
+  const uint32_t sm_k = smem_addr(sm);                     // kBlocks x [kBlockKV][kChannels]
   const uint32_t sm_v = sm_k + kKVTileBytes;               // the same
-  const uint32_t sm_q = sm_v + kKVTileBytes;               // kStages x kBlocks x [kBlockQ][64]
+  const uint32_t sm_q = sm_v + kKVTileBytes;  // kStages x kBlocks x [kBlockQ][kChannels]
   const uint32_t sm_do = sm_q + kStages * kQTileBytes;     // the same
   const uint32_t sm_ds = sm_do + kStages * kQTileBytes;    // kDsBufs x [kBlockKV][kBlockQ]
-  // kConsumers x kDqBufs x 2 x [kBlockQ][32] fp32
+  // kConsumers x kDqBufs x kDqChannels / 32 x [kBlockQ][32] fp32
   const uint32_t sm_dq = sm_ds + kDsBufs * kDsTileBytes;
   const uint32_t sm_stat = sm_dq + kConsumers * kDqBufs * kDqStageBytes;  // kStages x (lse2, delta)
   const uint32_t bars = sm_stat + kStages * kStatBytes;
@@ -377,8 +399,8 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(full_kv, 2 * kKVTileBytes);
       for (int blk = 0; blk < kBlocks; ++blk) {
-        tma_load_4d(sm_k + blk * kKVHalfBytes, &map_k, full_kv, blk * kHalf, kv0, h, b);
-        tma_load_4d(sm_v + blk * kKVHalfBytes, &map_v, full_kv, blk * kHalf, kv0, h, b);
+        tma_load_4d(sm_k + blk * kKVBlockBytes, &map_k, full_kv, blk * kChannels, kv0, h, b);
+        tma_load_4d(sm_v + blk * kKVBlockBytes, &map_v, full_kv, blk * kChannels, kv0, h, b);
       }
       const float* lse2_row = p.lse2 + bh * p.seq_pad;
       const float* delta_row = p.delta + bh * p.seq_pad;
@@ -390,8 +412,8 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
         mbar_wait(empty(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full(it), Shape::kStageBytes);
         for (int blk = 0; blk < kBlocks; ++blk) {
-          tma_load_4d(qt + blk * kQHalfBytes, &map_q, full(it), blk * kHalf, q0, h, b);
-          tma_load_4d(dot + blk * kQHalfBytes, &map_do, full(it), blk * kHalf, q0, h, b);
+          tma_load_4d(qt + blk * kQBlockBytes, &map_q, full(it), blk * kChannels, q0, h, b);
+          tma_load_4d(dot + blk * kQBlockBytes, &map_do, full(it), blk * kChannels, q0, h, b);
         }
         bulk_load(st, lse2_row + q0, kStatBytes / 2, full(it));
         bulk_load(st + kStatBytes / 2, delta_row + q0, kStatBytes / 2, full(it));
@@ -399,21 +421,24 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     } else if (threadIdx.x == 32 || threadIdx.x == 64) {
       // dq writer of consumer warpgroup cw: add each staged tile once the
       // partials before it have landed. D = 128: the key tiles before this
-      // one, on this warpgroup's channel half (a counter per half); D = 64:
-      // the key tiles before this one and, in this CTA, warpgroup 0's keys
-      // before warpgroup 1's (one counter, counting warpgroups)
+      // one, on this warpgroup's channel half (a counter per half); D = 64
+      // and 32: the key tiles before this one and, in this CTA, warpgroup 0's
+      // keys before warpgroup 1's (one counter, counting warpgroups)
       const int cw = (threadIdx.x >> 5) - 1;
       int* const flags = p.dq_flags + bh * n_tiles * kConsumers + (kSplitKeys ? 0 : cw);
       const int turn = kSplitKeys ? kConsumers * blockIdx.x + cw : blockIdx.x;
-      const int ch0 = kSplitKeys ? 0 : cw * kHalf;
+      const int ch0 = kSplitKeys ? 0 : cw * kDqChannels;
       for (int it = 0; it < n_tiles; ++it) {
         const uint32_t stage = dq_stage(cw, it);
         mbar_wait(dq_full(cw, it), dq_round(it));
         int* const flag = flags + it * kConsumers;
         flag_wait_eq(flag, turn);
         fence_proxy_async_global();
-        tma_reduce_add_4d(&map_dq, stage, ch0, it * kBlockQ, h, b);
-        tma_reduce_add_4d(&map_dq, stage + kDqStageBytes / 2, ch0 + 32, it * kBlockQ, h, b);
+#pragma unroll
+        for (int box = 0; box < Shape::kDqBoxes; ++box) {
+          tma_reduce_add_4d(&map_dq, stage + box * kDqBoxBytes, ch0 + 32 * box, it * kBlockQ, h,
+                            b);
+        }
         bulk_commit();
         bulk_wait<0>();
         fence_proxy_async_global();
@@ -437,12 +462,12 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
 
     // this warpgroup's 64 keys of K and V (A operands of s^T and dp^T) and the
     // B operand of dq: its 64-channel half of all 128 keys of K (D = 128), or
-    // all 64 channels of its own 64 keys (D = 64), with the ds^T rows that
+    // all D channels of its own 64 keys (D = 64, 32), with the ds^T rows that
     // go with them (A of dq)
     const uint32_t k_rows = sm_k + cw * kWgKeys * kRowBytes;
     const uint32_t v_rows = sm_v + cw * kWgKeys * kRowBytes;
-    const uint32_t k_cols = kSplitKeys ? k_rows : sm_k + cw * kKVHalfBytes;
-    const uint32_t ds_first = kSplitKeys ? cw * kWgKeys * kRowBytes : 0;
+    const uint32_t k_cols = kSplitKeys ? k_rows : sm_k + cw * kKVBlockBytes;
+    const uint32_t ds_first = kSplitKeys ? cw * kWgKeys * kDsRowBytes : 0;
 
     float dk[D / 2], dv[D / 2];
 #pragma unroll
@@ -461,15 +486,17 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDSteps; ++kk) {
-        const uint32_t half = kk >> 2, in = (kk & 3) * 32u;
-        wgmma_ss_n64<0, 0>(s, wgmma_desc(k_rows + half * kKVHalfBytes + in, 16, 1024),
-                           wgmma_desc(q_addr + half * kQHalfBytes + in, 16, 1024), kk != 0);
+        const uint32_t blk = kk / kRowSteps, in = (kk % kRowSteps) * 32u;
+        wgmma_ss_n64<0, 0>(
+            s, wgmma_desc<kRowBytes>(k_rows + blk * kKVBlockBytes + in, 16, 8 * kRowBytes),
+            wgmma_desc<kRowBytes>(q_addr + blk * kQBlockBytes + in, 16, 8 * kRowBytes), kk != 0);
       }
 #pragma unroll
       for (int kk = 0; kk < kDSteps; ++kk) {
-        const uint32_t half = kk >> 2, in = (kk & 3) * 32u;
-        wgmma_ss_n64<0, 0>(dp, wgmma_desc(v_rows + half * kKVHalfBytes + in, 16, 1024),
-                           wgmma_desc(do_addr + half * kQHalfBytes + in, 16, 1024), kk != 0);
+        const uint32_t blk = kk / kRowSteps, in = (kk % kRowSteps) * 32u;
+        wgmma_ss_n64<0, 0>(
+            dp, wgmma_desc<kRowBytes>(v_rows + blk * kKVBlockBytes + in, 16, 8 * kRowBytes),
+            wgmma_desc<kRowBytes>(do_addr + blk * kQBlockBytes + in, 16, 8 * kRowBytes), kk != 0);
       }
       wgmma_commit();
     };
@@ -494,14 +521,14 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
     // chunk c ^ (r % 8): the MN-major A operand of dq.
     const auto pack = [&](const float (&s)[kNS], const float (&dp)[kNS],
                           uint32_t (&pa)[kQSteps][4], uint32_t (&da)[kQSteps][4], int buf) {
-      uint8_t* ds_rows = ds_ptr + buf * kDsTileBytes + key_row * kRowBytes + 4 * t;
+      uint8_t* ds_rows = ds_ptr + buf * kDsTileBytes + key_row * kDsRowBytes + 4 * t;
 #pragma unroll
       for (int i = 0; i < kNS; i += 2) {
         pa[i >> 3][(i >> 1) & 3] = pack_bf16(s[i], s[i + 1]);
         const uint32_t d2 = pack_bf16(dp[i], dp[i + 1]);
         da[i >> 3][(i >> 1) & 3] = d2;
         // key_row % 8 == g for both of the thread's rows
-        *reinterpret_cast<uint32_t*>(ds_rows + ((i >> 1) & 1) * 8 * kRowBytes +
+        *reinterpret_cast<uint32_t*>(ds_rows + ((i >> 1) & 1) * 8 * kDsRowBytes +
                                      (((i >> 2) ^ g) << 4)) = d2;
       }
       fence_proxy_async();
@@ -517,43 +544,48 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kQSteps; ++kk) {
-        wgmma_rs_bt<D>(dv, pa[kk], wgmma_desc(do_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+        wgmma_rs_bt<D>(dv, pa[kk], wgmma_desc<kRowBytes>(do_addr + kk * 16 * kRowBytes,
+                                                         kQBlockBytes, 8 * kRowBytes));
       }
 #pragma unroll
       for (int kk = 0; kk < kQSteps; ++kk) {
-        wgmma_rs_bt<D>(dk, da[kk], wgmma_desc(q_addr + kk * 16 * kRowBytes, kQHalfBytes, 1024));
+        wgmma_rs_bt<D>(dk, da[kk], wgmma_desc<kRowBytes>(q_addr + kk * 16 * kRowBytes,
+                                                         kQBlockBytes, 8 * kRowBytes));
       }
     };
 
-    // dq[64 queries x 64 channels] = ds k over the CTA's 128 keys (D = 128)
-    // or this warpgroup's 64 (D = 64), from the shared tile `buf`, issued
-    // (not committed)
-    const auto issue_dq = [&](float (&dq)[kNS], int buf) {
+    // dq[64 queries x kDqChannels] = ds k over the CTA's 128 keys (D = 128)
+    // or this warpgroup's 64 (D = 64, 32), from the shared tile `buf`,
+    // issued (not committed)
+    const auto issue_dq = [&](float (&dq)[kDqChannels / 2], int buf) {
       const uint32_t ds_addr = sm_ds + buf * kDsTileBytes + ds_first;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKeySteps; ++kk) {
-        wgmma_ss_n64<1, 1>(dq, wgmma_desc(ds_addr + kk * 16 * kRowBytes, kDsTileBytes, 1024),
-                           wgmma_desc(k_cols + kk * 16 * kRowBytes, kKVHalfBytes, 1024), kk != 0);
+        wgmma_ss_n<kDqChannels, 1, 1>(
+            dq, wgmma_desc(ds_addr + kk * 16 * kDsRowBytes, kDsTileBytes, 1024),
+            wgmma_desc<kRowBytes>(k_cols + kk * 16 * kRowBytes, kKVBlockBytes, 8 * kRowBytes),
+            kk != 0);
       }
     };
 
     // the partial dq of tile `it` handed to the dq writer. The fragment (rows
-    // g and g + 8 of the warp's 16 queries, this warpgroup's 64 channels)
-    // goes to one of the warpgroup's staging tiles, two boxes of [64
-    // queries][32 channels] fp32 with the 128-byte swizzle (16-byte chunk c of
-    // row r at chunk c ^ (r % 8)), once the writer has emptied it.
-    const auto add_dq = [&](const float (&dq)[kNS], int it) {
+    // g and g + 8 of the warp's 16 queries, this warpgroup's kDqChannels
+    // channels) goes to one of the warpgroup's staging tiles, kDqChannels / 32
+    // boxes of [64 queries][32 channels] fp32 with the 128-byte swizzle
+    // (16-byte chunk c of row r at chunk c ^ (r % 8)), once the writer has
+    // emptied it.
+    const auto add_dq = [&](const float (&dq)[kDqChannels / 2], int it) {
       uint8_t* const stage_ptr = dq_ptr + (cw * kDqBufs + dq_buf(it)) * kDqStageBytes;
       mbar_wait(dq_empty(cw, it), dq_round(it) ^ 1);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = warp * 16 + g + 8 * r;
-        uint8_t* row_ptr = stage_ptr + row * kRowBytes + (2 * t & 3) * 4;
+        uint8_t* row_ptr = stage_ptr + row * kDqRowBytes + (2 * t & 3) * 4;
 #pragma unroll
-        for (int j = 0; j < kHalf / 8; ++j) {
-          // channel 8 j + 2 t of the half: box j / 4, chunk 2 (j % 4) + t / 2
-          *reinterpret_cast<float2*>(row_ptr + (j >> 2) * (kDqStageBytes / 2) +
+        for (int j = 0; j < kDqChannels / 8; ++j) {
+          // channel 8 j + 2 t of the warpgroup's: box j / 4, chunk 2 (j % 4) + t / 2
+          *reinterpret_cast<float2*>(row_ptr + (j >> 2) * kDqBoxBytes +
                                      (((2 * (j & 3) + (t >> 1)) ^ g) << 4)) =
               make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
         }
@@ -564,7 +596,7 @@ attn_bwd_kernel(const BwdParams p, const __grid_constant__ CUtensorMap map_q,
 
     mbar_wait(full_kv, 0);
     for (int it = 0; it < n_tiles; ++it) {
-      float s[kNS], dp[kNS], dq[kNS];
+      float s[kNS], dp[kNS], dq[kDqChannels / 2];
       uint32_t pa[kQSteps][4], da[kQSteps][4];
       mbar_wait(full(it), round(it));
       issue_logits(s, dp, it);
@@ -636,9 +668,10 @@ BwdParams make_params(const void* out, const void* dout, const void* lse, void* 
 }
 
 bool bad_shape(int batch, int heads, int seq, int seq_pad, int head_dim) {
-  // FLUX.1-dev's head dim and the trained-weights demo's
-  return seq < 1 || batch < 1 || heads < 1 || (head_dim != 64 && head_dim != 128) ||
-         seq_pad < seq || seq_pad % kStatPad != 0;
+  // FLUX.1-dev's head dim, the trained-weights demo's and the tiny configs'
+  return seq < 1 || batch < 1 || heads < 1 ||
+         (head_dim != 32 && head_dim != 64 && head_dim != 128) || seq_pad < seq ||
+         seq_pad % kStatPad != 0;
 }
 
 template <int D, bool OUT_F32>
@@ -696,7 +729,7 @@ cudaError_t launch_backward_softmax(const BwdParams& p, int online, const void* 
 }  // namespace
 
 // C interface, bound with ctypes by reptext_tpu_torch/ops/flash_attention.py.
-// Strides are in elements; the head dim (64 or 128) must be contiguous, every
+// Strides are in elements; the head dim (32, 64 or 128) must be contiguous, every
 // other stride a multiple of 8 elements and the bases 16-byte aligned. q, k,
 // v and dO are bf16; out (the preprocess pass's input) and dq, dk, dv are bf16,
 // or fp32 when out_f32. Each function returns the cudaError_t of its launches
@@ -717,8 +750,12 @@ extern "C" int reptext_flash_attention_bwd_preprocess(
                                   heads, seq, seq_pad, o_sb, o_sh, o_ss, d_sb, d_sh, d_ss, 0.0f);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (head_dim == 64) {
-    err = out_f32 ? launch_preprocess<64, true>(p, batch, s) : launch_preprocess<64, false>(p, batch, s);
+  if (head_dim == 32) {
+    err = out_f32 ? launch_preprocess<32, true>(p, batch, s)
+                  : launch_preprocess<32, false>(p, batch, s);
+  } else if (head_dim == 64) {
+    err = out_f32 ? launch_preprocess<64, true>(p, batch, s)
+                  : launch_preprocess<64, false>(p, batch, s);
   } else {
     err = out_f32 ? launch_preprocess<128, true>(p, batch, s)
                   : launch_preprocess<128, false>(p, batch, s);
@@ -749,7 +786,13 @@ extern "C" int reptext_flash_attention_bwd(
   p.dq_flags = static_cast<int*>(dq_flags);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (head_dim == 64) {
+  if (head_dim == 32) {
+    err = out_f32 ? launch_backward_softmax<32, true>(p, online, q, k, v, dout, batch, q_sb, q_sh,
+                                                      q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, s)
+                  : launch_backward_softmax<32, false>(p, online, q, k, v, dout, batch, q_sb,
+                                                       q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+                                                       v_ss, s);
+  } else if (head_dim == 64) {
     err = out_f32 ? launch_backward_softmax<64, true>(p, online, q, k, v, dout, batch, q_sb, q_sh,
                                                       q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, s)
                   : launch_backward_softmax<64, false>(p, online, q, k, v, dout, batch, q_sb,

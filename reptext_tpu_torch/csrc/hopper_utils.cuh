@@ -1,6 +1,6 @@
 // Hopper-only building blocks of the attention kernels, forward and backward
 // (sm_90a): mbarriers, TMA tile loads (cp.async.bulk.tensor) and plain bulk
-// copies, wgmma descriptors for the 128-byte swizzle, the wgmma.mma_async
+// copies, wgmma descriptors for the 128- and 64-byte swizzles, the wgmma.mma_async
 // forms the kernels issue, named barriers and setmaxnreg. Every helper is a
 // forced-inline device function in an anonymous namespace, as in mma_utils.cuh.
 
@@ -151,18 +151,35 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // --------------------------------------------------------------------- wgmma
 
-// Shared-memory matrix descriptor for the 128-byte swizzle: the tile's start
-// (1024-byte-aligned pattern), leading and stride byte offsets.
-//   K-major (rows of 64 bf16 = 128 bytes, the reduction dim contiguous):
-//     stride = 1024 (the next 8 rows); leading is not used.
-//   MN-major (rows of 64 bf16 along M or N, the reduction dim across rows):
-//     leading = the distance between 64-wide column blocks of the tile,
-//     stride = 1024 (the next 8 rows of the reduction dim).
+// Shared-memory matrix descriptor for a swizzled tile: the tile's start, the
+// leading and stride byte offsets, and the swizzle the TMA wrote it with
+// (SWIZZLE 128 or 64 bytes: rows of 64 or 32 bf16, the pattern repeating
+// every 8 rows, 1024 or 512 bytes, from an address aligned to it).
+//   K-major (rows of 64 or 32 bf16, the reduction dim contiguous):
+//     stride = 8 rows (1024 or 512 bytes); leading is not used.
+//   MN-major (rows of 64 or 32 bf16 along M or N, the reduction dim across
+//     rows): leading = the distance between 64- or 32-wide column blocks of
+//     the tile, stride = 8 rows of the reduction dim.
+// Within a row the start may move by a k-step's 32 bytes: the hardware
+// swizzles the address it forms, as the TMA did.
+template <int SWIZZLE = 128>
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t leading_bytes,
                                                uint32_t stride_bytes) {
+  static_assert(SWIZZLE == 128 || SWIZZLE == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t kLayout = SWIZZLE == 128 ? 1 : 2;  // the descriptor's layout type
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(leading_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(stride_bytes >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(stride_bytes >> 4) << 32) | (kLayout << 62);
+}
+
+// The byte offset of 16-byte chunk c of row r in a tile of ROW_BYTES-byte
+// rows (128 or 64) that the TMA wrote with the swizzle of that width: the
+// chunk index XORed with address bits 7.. (r % 8 for 128-byte rows, r / 2 % 4
+// for 64-byte ones).
+template <int ROW_BYTES>
+__device__ __forceinline__ int swizzled_offset(int r, int c) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "128- or 64-byte rows");
+  return r * ROW_BYTES + ((c ^ ((r * ROW_BYTES >> 7) & (ROW_BYTES / 16 - 1))) << 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -192,6 +209,7 @@ __device__ __forceinline__ void wgmma_fence_regs(float (&r)[N]) {
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define REPTEXT_ACC32(d, i) \
   REPTEXT_ACC8(d, i), REPTEXT_ACC8(d, i + 8), REPTEXT_ACC8(d, i + 16), REPTEXT_ACC8(d, i + 24)
+#define REPTEXT_REGS16 "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15"
 #define REPTEXT_REGS32                                                      \
   "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"                  \
   "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31"
@@ -257,16 +275,56 @@ __device__ __forceinline__ void wgmma_rs_n64_bt(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The transposed-B register-A product at N = D columns (the head dim: 64 or
-// 128), as the attention kernels instantiate it.
+// wgmma_rs_n64_bt at 32 columns (one 32-wide column block).
+__device__ __forceinline__ void wgmma_rs_n32_bt(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" REPTEXT_REGS16
+      "}, {%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+      : REPTEXT_ACC8(d, 0), REPTEXT_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// wgmma_ss_n64 at 32 columns: d[64 x 32] (+)= A[64 x 16] B[16 x 32], both in
+// shared memory, TRANS_A / TRANS_B as there.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" REPTEXT_REGS16
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : REPTEXT_ACC8(d, 0), REPTEXT_ACC8(d, 8)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// The transposed-B register-A product at N = D columns (the head dim: 32, 64
+// or 128), as the attention kernels instantiate it.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_bt(float (&d)[D / 2], const uint32_t (&a)[4],
                                             uint64_t desc_b) {
-  static_assert(D == 64 || D == 128, "the kernels are instantiated at head dims 64 and 128");
+  static_assert(D == 32 || D == 64 || D == 128,
+                "the kernels are instantiated at head dims 32, 64 and 128");
   if constexpr (D == 128) {
     wgmma_rs_n128_bt(d, a, desc_b);
-  } else {
+  } else if constexpr (D == 64) {
     wgmma_rs_n64_bt(d, a, desc_b);
+  } else {
+    wgmma_rs_n32_bt(d, a, desc_b);
+  }
+}
+
+// The shared-memory product at N columns (64 or 32), TRANS_A / TRANS_B as in
+// wgmma_ss_n64.
+template <int N, int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                           int accumulate) {
+  static_assert(N == 32 || N == 64, "64 or 32 columns");
+  if constexpr (N == 64) {
+    wgmma_ss_n64<TRANS_A, TRANS_B>(d, desc_a, desc_b, accumulate);
+  } else {
+    wgmma_ss_n32<TRANS_A, TRANS_B>(d, desc_a, desc_b, accumulate);
   }
 }
 

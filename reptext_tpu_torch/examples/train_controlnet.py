@@ -14,9 +14,9 @@ Counterpart of ``examples/train_controlnet.py``, at small scale:
 
 The geometry is the tests' tiny FLUX (2 + 4 blocks) and ControlNet (1 + 2)
 at head dim 64, the trained-weights demo's (``examples/overfit_e2e.py``),
-so that it runs on the card's attention kernels (head dims 64 and 128) as on
-the CPU. Draws come from torch generators: the JAX example's numbers are not
-reproduced, its protocol is.
+which the card's attention kernels take as they take the JAX example's
+``tiny()`` head dim of 32. Draws come from torch generators: the JAX
+example's numbers are not reproduced, its protocol is.
 
 Run: python -m reptext_tpu_torch.examples.train_controlnet [--device cpu]
 """

@@ -21,7 +21,10 @@ Written by ``io/convert_cli.py``; per component one file, all optional:
   ``vision.safetensors`` with their own ``configs.json`` and
   ``LAYOUT_VERSION``, the directory that ``--ip-adapter-dir`` names.
 
-:func:`save_pipeline_params` writes trained modules in this layout (the
+:func:`convert_and_cache` converts HF safetensors components into such a
+directory from Python, as ``convert_cli`` does from the command line (the
+counterpart of ``reptext_tpu/io/checkpoint.py::convert_and_cache``, which
+caches them as orbax). :func:`save_pipeline_params` writes trained modules in this layout (the
 component files and ``LAYOUT_VERSION``), in their own dtypes (fp32 stays
 fp32), as ``reptext_tpu/io/checkpoint.py::save_pipeline_params`` does for the
 JAX package (``examples/overfit_e2e.py --params-cache``).
@@ -158,3 +161,41 @@ def load_pipeline_params(directory: str, components: Optional[tuple] = None
     if not out:
         raise FileNotFoundError(f"no component checkpoints under {directory}")
     return out
+
+
+def convert_and_cache(hf_dirs: Dict[str, str], configs: Dict[str, Any],
+                      cache_dir: str) -> Dict[str, Any]:
+    """Convert HF safetensors checkpoints and write them as the port's
+    checkpoint directory: ``cache_dir/<component>.safetensors`` (the module
+    state, as ``convert_cli`` writes it, in the files' dtypes read as fp32),
+    ``configs.json`` with each component's geometry and ``LAYOUT_VERSION``;
+    ``--checkpoint-dir`` and :func:`load_pipeline_params` read it back.
+
+    ``hf_dirs`` maps a component name (``COMPONENTS``) to a safetensors file
+    or shard directory, ``configs`` the same name to its config dataclass.
+    Returns the converted trees ({component: Flax-named tree of tensors}), as
+    the JAX function returns its converters' trees."""
+    from reptext_tpu_torch.io import convert as C
+    from reptext_tpu_torch.io.convert_cli import module_state
+
+    converters = {
+        "flux": C.convert_flux_transformer,
+        "controlnet": C.convert_controlnet,
+        "inpaint_controlnet": C.convert_controlnet,
+        "vae": C.convert_vae,
+        "clip": C.convert_clip,
+        "t5": C.convert_t5,
+    }
+    params = {}
+    for name, path in hf_dirs.items():
+        params[name] = converters[name](C.load_safetensors_state(path), configs[name])
+        save_pipeline_params({name: module_state(name, params[name], configs[name])}, cache_dir)
+    saved_path = os.path.join(os.path.abspath(cache_dir), "configs.json")
+    saved = {}
+    if os.path.isfile(saved_path):
+        with open(saved_path) as f:
+            saved = json.load(f)
+    saved.update({name: dataclasses.asdict(configs[name]) for name in hf_dirs})
+    with open(saved_path, "w") as f:
+        json.dump(saved, f, indent=1, sort_keys=True)
+    return params

@@ -28,6 +28,7 @@ import torch
 
 from reptext_tpu_torch.configs import CLIPConfig, ControlNetConfig, FluxConfig, T5Config, VAEConfig
 from reptext_tpu_torch.io.safetensors import load_file
+from reptext_tpu_torch.ops.rope import deinterleave_perm
 
 State = Dict[str, torch.Tensor]
 
@@ -72,11 +73,6 @@ def _rms(state, name):
     return {"weight": state[f"{name}.weight"]}
 
 
-def _deinterleave(d: int) -> torch.Tensor:
-    """Pair (2j, 2j+1) -> (j, j + d/2): interleaved -> half-split channels."""
-    return torch.cat([torch.arange(0, d, 2), torch.arange(1, d, 2)])
-
-
 def _lin_rope(state, name, head_dim: int):
     """torch q/k Linear with the RoPE deinterleave permutation folded in.
 
@@ -85,7 +81,7 @@ def _lin_rope(state, name, head_dim: int):
     half-split RoPE layout (ops/rope.py) is pure weight surgery: permute the
     projection's output channels per head (and its bias).
     """
-    perm = _deinterleave(head_dim)
+    perm = deinterleave_perm(head_dim)
     w = state[f"{name}.weight"]          # [out, in] torch layout
     out_dim = w.shape[0]
     wp = w.reshape(out_dim // head_dim, head_dim, -1)[:, perm, :].reshape(out_dim, -1)
@@ -98,7 +94,7 @@ def _lin_rope(state, name, head_dim: int):
 
 def _rms_rope(state, name, head_dim: int):
     """Per-head q/k RMSNorm scale, permuted to half-split channel order."""
-    return {"weight": state[f"{name}.weight"][_deinterleave(head_dim)]}
+    return {"weight": state[f"{name}.weight"][deinterleave_perm(head_dim)]}
 
 
 def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:

@@ -81,6 +81,7 @@ class RepTextControlNet(nn.Module):
         if weight_quant:
             for name in BLOCK_STACKS:
                 quantize_linears_(getattr(self, name))
+        self.quantized_by_call = weight_quant
 
     @property
     def weight_quant(self) -> bool:

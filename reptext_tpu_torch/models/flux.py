@@ -31,7 +31,14 @@ reach them (JAX ``ip_adapter=True``, :200-248).
 ``io/quantize.py``; JAX ``weight_quant``, :180-187, 231-234, 265-268): a
 layer dequantizes its own weight in its forward. :func:`quantized_copy`
 makes such a module from a bf16 one without touching it, over the same
-embedders, norms and heads.
+embedders, norms and heads; from a model whose stacks were stored in fp8
+and then given dense layers (the IP-Adapter's, attached to an fp8-stored
+checkpoint) it quantizes those and keeps the stored ones, as the JAX
+``quantize_params`` is idempotent. ``quantized_by_call`` is the JAX
+models' ``weight_quant`` flag: set on a model built with
+``weight_quant=True`` and on what :func:`quantized_copy` returns, not on one
+whose stacks only came from fp8 storage (``pipelines/txt2img.py::
+build_module``); once it is set no dense layer may join the stacks.
 """
 
 from __future__ import annotations
@@ -100,13 +107,15 @@ def _structural_copy(module: nn.Module) -> nn.Module:
 
 @torch.no_grad()
 def quantized_copy(model: nn.Module) -> nn.Module:
-    """``model`` with fp8 weight-only block stacks, as a new module: every
-    Linear of its ``double_blocks`` and ``single_blocks`` quantized (its
-    bias shared); the embedders, norms and the heads outside the stacks are
-    the same module objects. ``model`` itself, which other pipelines may
-    share, is not changed, and once nothing holds it its bf16 block weights
-    are freed. A quantized model is returned as it is."""
-    if has_quant_blocks(model):
+    """``model`` with fp8 weight-only block stacks, as a new module marked
+    ``quantized_by_call``: every dense Linear of its ``double_blocks`` and
+    ``single_blocks`` quantized (its bias shared), every ``QuantLinear``
+    there kept as it is (fp8 storage from a checkpoint, codes and scales bit
+    for bit); the embedders, norms and the heads outside the stacks are the
+    same module objects. ``model`` itself, which other pipelines may share,
+    is not changed, and once nothing holds it its bf16 block weights are
+    freed. A model this function made is returned as it is."""
+    if model.quantized_by_call:
         return model
     new = copy.copy(model)
     new._parameters = dict(model._parameters)
@@ -114,6 +123,7 @@ def quantized_copy(model: nn.Module) -> nn.Module:
     new._modules = dict(model._modules)
     for name in BLOCK_STACKS:
         new._modules[name] = quantize_linears_(_structural_copy(model._modules[name]))
+    new.quantized_by_call = True
     return new
 
 
@@ -163,6 +173,7 @@ class FluxTransformer2D(nn.Module):
         if weight_quant:
             for name in BLOCK_STACKS:
                 quantize_linears_(getattr(self, name))
+        self.quantized_by_call = weight_quant
 
     @property
     def weight_quant(self) -> bool:
@@ -174,10 +185,11 @@ class FluxTransformer2D(nn.Module):
         return hasattr(self.double_blocks[0].block, "to_k_ip")
 
     def add_ip_adapter(self, ip_dim: int) -> "FluxTransformer2D":
-        """Graft uninitialised ``to_k_ip``/``to_v_ip`` onto every double
-        block; returns self. A model with fp8 block stacks refuses: the
+        """Graft uninitialised dense ``to_k_ip``/``to_v_ip`` onto every double
+        block, also beside stacks stored in fp8; returns self. A model built
+        with ``weight_quant=True`` or made by ``quantized_copy`` refuses: the
         adapter is attached first, then quantized with the stacks."""
-        if self.weight_quant:
+        if self.quantized_by_call:
             raise ValueError("attach_ip_adapter() must run BEFORE quantize_weights(); attach "
                              "first, then quantize (the adapter kernels are then quantized "
                              "with the rest of the double-block stack)")

@@ -141,12 +141,14 @@ class JointTransformerBlock(TensorParallelBlock):
         self.ff_context = FeedForward(dim, mlp_ratio, **kw)
 
     def add_ip_adapter(self, ip_dim: int) -> None:
-        """Graft ``to_k_ip``/``to_v_ip`` ([ip_dim] -> heads x head dim),
-        uninitialised, on the block's device and dtype."""
-        w = self.to_q.weight
+        """Graft dense ``to_k_ip``/``to_v_ip`` ([ip_dim] -> heads x head dim),
+        uninitialised, on the block's device and dtype (its q projection's
+        bias: a ``QuantLinear`` of fp8 storage keeps its bias in the block's
+        dtype)."""
+        ref = self.to_q.bias
         for name in ("to_k_ip", "to_v_ip"):
-            setattr(self, name, nn.Linear(ip_dim, w.shape[0], device="meta", dtype=w.dtype)
-                    .to_empty(device=w.device))
+            setattr(self, name, nn.Linear(ip_dim, self.to_q.out_features, device="meta",
+                                          dtype=ref.dtype).to_empty(device=ref.device))
 
     def forward(self, hidden_states: torch.Tensor, encoder_hidden_states: torch.Tensor,
                 temb: torch.Tensor, rope_cos: torch.Tensor, rope_sin: torch.Tensor,

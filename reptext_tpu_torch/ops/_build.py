@@ -143,7 +143,7 @@ def load() -> ctypes.CDLL:
             fn.argtypes = ([c_p] * 11 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p])
             fn.restype = c_i
             fn = lib.reptext_ring_attention_step
-            fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p]
+            fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_i, c_p]
             fn.restype = c_i
             _lib = lib
         return _lib

@@ -34,7 +34,8 @@ scales and rounds dq. The adds of one query tile land in key order behind a
 counter per tile, so dq, like dk and dv, repeats bit for bit from run to run,
 as the JAX package's backward does.
 
-Head dims 64 and 128 take the kernels, in bf16 or fp32. The tensor-core
+Head dims 32, 64 and 128 take the kernels, in bf16 or fp32 (32: one
+64-byte row under the 64-byte swizzle, see the source notes). The tensor-core
 operands are bf16 either way: an fp32 call rounds q, k, v (and dO) to bf16
 in the wrapper, a cast that is plain glue (TMA copies bytes and cannot
 convert, so the K and V tiles could not be rounded while staged), and the
@@ -65,9 +66,9 @@ from reptext_tpu_torch.ops.rope import apply_rope_half
 LOGIT_CLAMP = 43.0
 LOG2E = 1.4426950408889634
 _STAT_PAD = 64    # K4's per-query statistics are padded to its 64-query tile
-# FLUX.1-dev's and the trained-weights demo's (examples/overfit_e2e.py); K1-K4
-# are instantiated at these only
-_SUPPORTED_HEAD_DIMS = (64, 128)
+# FLUX.1-dev's, the trained-weights demo's (examples/overfit_e2e.py) and the
+# tiny configs' (the CLI's --tiny); K1-K4 are instantiated at these only
+_SUPPORTED_HEAD_DIMS = (32, 64, 128)
 # The dtypes the kernel entries take. An fp32 call rounds q, k, v (and dO) to
 # bf16 on their way in and returns fp32 out, lse and gradients (the module note)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)

@@ -29,10 +29,12 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from reptext_tpu_torch.ops import _build
-from reptext_tpu_torch.ops.flash_attention import _check, check_head_dim
+from reptext_tpu_torch.ops.flash_attention import _bf16, _check, check_head_dim
 
-# the ring step is instantiated at FLUX.1-dev's 128 and the demo models' 64, in bf16
-_SUPPORTED_HEAD_DIMS = (64, 128)
+# the ring step is instantiated at FLUX.1-dev's 128, the demo models' 64 and the
+# tiny configs' 32, in bf16 and fp32 (as K1-K3: an fp32 call's q, k and v are
+# rounded to bf16 on their way in, and the last step writes its output in fp32)
+_SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
 NEG_INF = -1e30
 RingState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]   # acc, m, l
@@ -68,9 +70,9 @@ def _launch(q, k_blk, v_blk, state, first: bool, last: bool) -> StepResult:
     check_head_dim(d, _SUPPORTED_HEAD_DIMS)
     for name, x, shape in (("q", q, (b, h, sq, d)), ("k_blk", k_blk, (b, h, sk, d)),
                            ("v_blk", v_blk, (b, h, sk, d))):
-        _check(name, x, shape, (torch.bfloat16,))
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        _check(name, x, shape)
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, q {q.dtype} on {q.device}")
     if first:
         state = None if last else (
             torch.empty((b, h, sq, d), dtype=torch.float32, device=q.device),
@@ -88,6 +90,8 @@ def _launch(q, k_blk, v_blk, state, first: bool, last: bool) -> StepResult:
     out = (torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
            if last else None)
     acc, m, l = state if state is not None else (None, None, None)
+    out_f32 = int(q.dtype == torch.float32)
+    q, k_blk, v_blk = _bf16(q), _bf16(k_blk), _bf16(v_blk)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -96,7 +100,7 @@ def _launch(q, k_blk, v_blk, state, first: bool, last: bool) -> StepResult:
     err = lib.reptext_ring_attention_step(
         q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), ptr(out), ptr(acc), ptr(m), ptr(l),
         b, h, sq, sk, d, *q.stride()[:3], *k_blk.stride()[:3], *v_blk.stride()[:3], *o_strides,
-        1.0 / math.sqrt(d), int(first), int(last), stream)
+        1.0 / math.sqrt(d), int(first), int(last), out_f32, stream)
     if err != 0:
         raise RuntimeError(f"ring attention step kernel launch failed: cudaError {err}")
     return out if last else state

@@ -121,10 +121,16 @@ def build_module(ctor, cfg, device: torch.device, dtype: torch.dtype, params=Non
     ``load_state_dict(assign=True)``, then moved and cast) or a Flax tree, or
     drawn from ``generator``; frozen. ``params`` in fp8 storage (``kernel_q8``
     leaves, ``io/quantize.py``) build the module with ``weight_quant``
-    first."""
-    if params is not None and is_quantized(params):
+    first, but without its ``quantized_by_call`` flag unless the caller asked
+    for ``weight_quant``: dense layers (an IP-Adapter's) may still join such
+    stacks, and ``quantize_weights()`` quantizes them."""
+    stored_fp8 = (params is not None and is_quantized(params)
+                  and not kw.get("weight_quant", False))
+    if stored_fp8:
         kw = dict(kw, weight_quant=True)
     module = ctor(cfg, device="meta", dtype=dtype, **kw)
+    if stored_fp8:
+        module.quantized_by_call = False
     if params is not None and is_state_dict(params):
         module.load_state_dict(params, strict=True, assign=True)
         module.to(device=device, dtype=dtype)
@@ -305,9 +311,12 @@ class FluxRepTextPipeline:
         bf16 modules (``with_config``/``with_resolution`` views and inpaint
         pipelines made before, a server's views) keeps them, and a pipeline
         derived after this call shares the quantized ones, as the JAX method
-        gives this pipeline a new params dict. A model already quantized is
-        kept. Attach an IP-Adapter first, and shard after. In place; returns
-        self."""
+        gives this pipeline a new params dict. A model this method made is
+        kept. Stacks stored in fp8 (a ``--dtype fp8`` checkpoint) keep their
+        codes and scales; only what is still dense there (an IP-Adapter
+        attached to them) is quantized, as the JAX ``quantize_params`` is
+        idempotent. Attach an IP-Adapter first, and shard after. In place;
+        returns self."""
         if self.mesh is not None:
             raise ValueError("quantize_weights() must run BEFORE shard_for_inference()")
         self.flux = quantized_copy(self.flux)
@@ -352,8 +361,10 @@ class FluxRepTextPipeline:
         """
         if self.mesh is not None:
             raise ValueError("attach_ip_adapter() must run BEFORE shard_for_inference()")
-        if self.flux.weight_quant:
-            # dense adapter kernels would join a block stack stored in fp8
+        if self.flux.quantized_by_call:
+            # built with weight_quant or quantize_weights() ran: dense adapter
+            # kernels would stay dense (stacks stored in fp8 from a checkpoint
+            # take them, and quantize_weights() quantizes them after)
             raise ValueError("attach_ip_adapter() must run BEFORE quantize_weights(); attach "
                              "first, then quantize (the adapter kernels are then quantized "
                              "with the rest of the double-block stack)")

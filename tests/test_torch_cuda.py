@@ -334,8 +334,9 @@ def test_ulysses_local_attention_is_exact(dev):
 
 
 def test_kernel_rejects_what_it_does_not_take(dev):
-    """fp16 and fp64, mixed dtypes and a head dim of 32 (the tiny configs')
-    are refused; fp32 and a head dim of 64 are taken (the cases below)."""
+    """fp16 and fp64, mixed dtypes and a head dim of none of the
+    instantiations (48) are refused; fp32 and head dims 64 and 32 are taken
+    (the cases below)."""
     q, k, v, cos, sin = _inputs(dev, 1, 2, 64, seed=2)
     with pytest.raises(TypeError, match="float16"):
         fa.flash_attention(q.half(), k.half(), v.half())
@@ -343,8 +344,8 @@ def test_kernel_rejects_what_it_does_not_take(dev):
         fa.flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="q torch.float32"):
         fa.flash_attention(q.float(), k, v.float())
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
     # at 1001 keys the route fuses the rotation into K1, which takes fp32 tables only
     q, k, v, cos, sin = _inputs(dev, 1, 2, 1001, seed=2)
     with pytest.raises(ValueError, match="rope_cos"):
@@ -571,8 +572,8 @@ def test_backward_rejects_what_it_does_not_take(dev):
     args = _bwd_inputs(dev, 1, 2, 64, online=False, seed=4)
     with pytest.raises(TypeError, match="float16"):
         fa.flash_attention_backward(*(x.half() if x.dtype == torch.bfloat16 else x for x in args))
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention_backward(*(x[..., :32] if x.dim() == 4 else x for x in args))
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention_backward(*(x[..., :48] if x.dim() == 4 else x for x in args))
 
 
 # ---------------------------------------------- head dim 64, fp32 (the overfit demo)
@@ -687,6 +688,160 @@ def test_d64_backward_is_bit_equal_over_calls(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     for x, y in zip(first, fa.flash_attention_backward_plain(q, k, v, out, lse, do)):
         assert _grad_ok(x, y)
+
+
+# ---------------------------------------------- head dim 32 (the --tiny demo)
+#
+# The CLI's --tiny runs FLUX 2 + 4 and the ControlNet at 4 heads x 32 in fp32
+# on the card, as the JAX CLI runs it: K1 at 1024^2 (S = 4096 + 512), K2 at
+# one chunk, K3 at 1536^2 (S = 9728), K4 behind them (train at batch 2) and
+# K5 over two ranks. At D = 32 a row is 64 bytes under the 64-byte swizzle
+# (the tensor maps, the q' tile and every wgmma descriptor, K-major and
+# MN-major), so these cases hold that layout against the plain versions, at
+# the limits of the D = 64 cases above; K5's running max in fp32 within 1e-3
+# plus what rounding q and k to bf16 moves a logit by (2^-8 |q| max|k| / sqrt(D)).
+
+
+def _inputs32(dev, b, h, s, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, 32, generator=g, device=dev).to(dtype) for _ in range(4))
+    r = np.random.default_rng(seed)
+    ids = np.zeros((s, 3), np.float32)
+    ids[:, 1], ids[:, 2] = np.arange(s) % 64, r.integers(0, 64, s)
+    cos, sin = rope_cos_sin_half(torch.from_numpy(ids).to(dev), (8, 12, 12))
+    return q, k, v, do, cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,s", [(1, 4, 4608), (2, 4, 1), (2, 4, 129)])
+def test_d32_k1_and_k2_at_the_tiny_shapes(dev, dtype, b, h, s):
+    """K2 at the 1024^2 request's (1, 4, 4608, 32), at S = 1 and 129; K1
+    where the route fuses the rotation (4608 tokens)."""
+    q, k, v, _, cos, sin = _inputs32(dev, b, h, s, dtype, seed=s + b)
+    before = _counts()
+    got2 = fa.flash_attention(q, k, v)
+    got1 = fa.flash_attention_rope(q, k, v, cos, sin) if fa.rope_fused(s) else None
+    torch.cuda.synchronize()
+    assert got2[0].shape == (b, h, s, 32)
+    assert _fwd_ok(got2, fa.flash_attention_plain(q, k, v), dtype)
+    if got1 is not None:
+        assert _fwd_ok(got1, fa.flash_attention_rope_plain(q, k, v, cos, sin), dtype)
+    n1, n2, n3 = (a - c for a, c in zip(_counts(), before))
+    assert (n1, n2, n3) == (int(got1 is not None), 1, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("online", [False, True], ids=["clamped", "online"])
+def test_d32_k3_at_the_1536_shape(dev, dtype, online):
+    """K3 at the 1536^2 request's (1, 4, 9728, 32), and the RoPE route there
+    (the fp32 rotation, then K3)."""
+    q, k, v, _, cos, sin = _inputs32(dev, 1, 4, 9728, dtype, seed=9)
+    assert fa.streams(9728)
+    before = _counts()
+    got = fa.flash_attention_streaming(q, k, v, online)
+    routed = fa.flash_attention_rope(q, k, v, cos, sin, online)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_counts(), before)) == (0, 0, 2)
+    assert _fwd_ok(got, fa.flash_attention_streaming_plain(q, k, v, online), dtype)
+    want, _ = _rope_plain(q, k, v, cos, sin, online)
+    assert _fwd_ok(routed, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,s", [(2, 4, 4608), (2, 3, 1), (2, 3, 129)])
+def test_d32_k4_at_the_tiny_shapes(dev, dtype, b, h, s):
+    """K4 at a tiny train step's (2, 4, 4608, 32), at S = 1 and 129."""
+    q, k, v, do, _, _ = _inputs32(dev, b, h, s, dtype, seed=s + 3)
+    out, lse = fa.flash_attention(q, k, v)
+    n4 = fa.flash_attention_backward.launches
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do)
+    plain = fa.flash_attention_backward_plain(q, k, v, out, lse, do)
+    if s == 1:   # as at D = 64: the plain version on the kernel's bf16 operands
+        ops = [x.to(torch.bfloat16).to(dtype) for x in (q, k, v, do)]
+        plain = fa.flash_attention_backward_plain(*ops[:3], out, lse, ops[3])
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == n4 + 1
+    for x, y in zip(grads, plain):
+        assert x.shape == (b, h, s, 32) and x.dtype == dtype and bool(torch.isfinite(x).all())
+        if s == 1:
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= 2.0 ** -5 * y.float().abs().max().item() + 1e-5
+        else:
+            assert _grad_ok(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_d32_backward_is_bit_equal_over_calls(dev, dtype):
+    """At D = 32 both consumer warpgroups add a partial dq over the same 32
+    channels, one 128-byte fp32 box each, behind the counter: bit-equal."""
+    q, k, v, do, _, _ = _inputs32(dev, 2, 4, 1000, dtype, seed=7)
+    out, lse = fa.flash_attention(q, k, v)
+    first = fa.flash_attention_backward(q, k, v, out, lse, do)
+    second = fa.flash_attention_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for x, y in zip(first, fa.flash_attention_backward_plain(q, k, v, out, lse, do)):
+        assert _grad_ok(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("s", [4608, 69])
+def test_d32_route_and_autograd_through_attention(dev, dtype, s):
+    """The block's entry at the tiny 1024^2 length (K1, then K4) and at one
+    chunk (the fp32 rotation, K2, K4), against autograd through the plain
+    route, in the input's dtype."""
+    q, k, v, do, cos, sin = _inputs32(dev, 2, 4, s, dtype, seed=s)
+    before, n4 = _counts(), fa.flash_attention_backward.launches
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = attention(*leaves, cos, sin)
+    out.backward(do)
+    fused = fa.rope_fused(s)
+    assert tuple(a - c for a, c in zip(_counts(), before)) == (int(fused), int(not fused), 0)
+    assert fa.flash_attention_backward.launches == n4 + 1
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    if fused:
+        want = fa.flash_attention_rope_plain(ref[0], ref[1], ref[2], cos, sin)[0]
+    else:
+        want = fa.flash_attention_plain(apply_rope_half(ref[0], cos, sin),
+                                        apply_rope_half(ref[1], cos, sin), ref[2])[0]
+    want.backward(do)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _out_err_ok(out, want)
+    for x, y in zip(leaves, ref):
+        assert x.grad.dtype == dtype and _grad_ok(x.grad, y.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("sq,sks", [(2560, (512, 2048, 2048)), (69, (5, 32, 32)), (1, (5, 130))])
+def test_d32_ring_step_matches_plain_at_every_step(dev, dtype, sq, sks):
+    """K5 at head dim 32: one rank of the tiny 1024^2 request over 2 ranks
+    (512 text + 2048 image queries against the text block and two image
+    blocks), short and one-query cases, step by step against the plain
+    steps; an fp32 call's last step writes fp32."""
+    g = torch.Generator(device=dev).manual_seed(sq)
+    q = torch.randn(1, 4, sq, 32, generator=g, device=dev).to(dtype)
+    blocks = [tuple(torch.randn(1, 4, sk, 32, generator=g, device=dev).to(dtype)
+                    for _ in range(2)) for sk in sks]
+    got = want = None
+    k_norm = torch.zeros(1, 4, device=dev)
+    for i, (k, v) in enumerate(blocks):
+        first, last = i == 0, i == len(blocks) - 1
+        plain_in = None if first else tuple(x.clone() for x in want)
+        n = ra.ring_step.launches
+        got = ra.ring_step(q, k, v, got, first, last)
+        torch.cuda.synchronize()
+        want = ra.ring_step_plain(q, k, v, plain_in, first, last)
+        assert ra.ring_step.launches == n + 1
+        if not last:
+            assert _out_err_ok(got[0] / got[2][..., None], want[0] / want[2][..., None])
+            # the running max within 1e-3; in fp32 q and k are rounded to bf16
+            # (2^-9 relative each): a logit moves by up to 2^-8 |q| max|k| / sqrt(D)
+            k_norm = torch.maximum(k_norm, k.float().norm(dim=-1).amax(-1))
+            m_lim = 1e-3 + (0.0 if dtype == torch.bfloat16 else
+                            2.0 ** -8 * q.float().norm(dim=-1) * k_norm[..., None] / 32 ** 0.5)
+            assert bool(((got[1] - want[1]).abs() <= m_lim).all())
+    assert got.shape == q.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all()) and _out_err_ok(got, want)
 
 
 VARIANTS = {"chunked": (av.chunked_attn, av.chunked_attn_plain, 2.0 ** -6),
@@ -829,8 +984,12 @@ def test_ring_kernel_over_thread_ranks_matches_the_plain_ring(dev):
 def test_ring_step_rejects_what_it_does_not_take(dev):
     q, [(k, v)] = _ring_inputs(dev, 1, 2, 128, (128,), seed=7)
     n = ra.ring_step.launches
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(TypeError, match="float16"):
+        ra.ring_step(q.half(), k.half(), v.half(), None, True, True)
+    with pytest.raises(ValueError, match="q torch.float32"):
         ra.ring_step(q.float(), k, v, None, True, True)
+    with pytest.raises(ValueError, match="head dim 48"):
+        ra.ring_step(q[..., :48], k[..., :48], v[..., :48], None, True, True)
     state = ra.ring_step(q, k, v, None, True, False)
     with pytest.raises(ValueError, match="state acc"):
         ra.ring_step(q, k, v, (state[0].half(), state[1], state[2]), False, True)

@@ -333,6 +333,55 @@ def test_pipeline_matches_jax(pipes, with_image):
         _call(pipes["plain"], pipes, ip_adapter_image=_image(11))
 
 
+def test_fp8_stored_stacks_take_the_adapter_as_the_jax_pipeline_does(pipes):
+    """Stacks stored in fp8 (``quantize_params`` trees, as a ``--dtype fp8``
+    checkpoint holds them), then the adapter's dense kernels attached, then
+    ``quantize_weights()``: the JAX pipeline's order, whose quantize_params
+    quantizes only what is still dense. Against the JAX pipeline (TOL), and
+    bit-equal to the dense stacks with the adapter attached, then quantized."""
+    from reptext_tpu.io.quantize import quantize_params
+
+    p = pipes
+    base = {k: v for k, v in p["params"].items() if k != "ip"}
+    stored = dict(base, **{n: {"params": quantize_params(base[n]["params"])}
+                           for n in ("flux", "controlnet")})
+    adapter = {k: p["params"]["ip"][k] for k in ("vision", "proj", "blocks")}
+    jpipe = JPipeline.create(pipe_cfg=PIPE_CFG, params=dict(stored), **CFGS)
+    jpipe.attach_ip_adapter(VCFG, IPCFG, params=dict(adapter))
+    jpipe.quantize_weights()
+    pipes_t = {}
+    for name, params in (("stored", stored), ("dense", base)):
+        pipe = FluxRepTextPipeline.create(pipe_cfg=port_config(PIPE_CFG), params=params,
+                                          device="cpu", **port_configs_of(CFGS))
+        assert pipe.flux.weight_quant == (name == "stored")
+        pipe.attach_ip_adapter(port_config(VCFG), port_config(IPCFG), params=dict(adapter))
+        pipes_t[name] = pipe.quantize_weights()
+    stored_t, dense_t = pipes_t["stored"], pipes_t["dense"]
+    block = stored_t.flux.double_blocks[0].block
+    assert type(block.to_k_ip).__name__ == "QuantLinear"
+    for a, b in ((stored_t.flux, dense_t.flux), (stored_t.controlnet, dense_t.controlnet)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            assert sa[k].dtype == sb[k].dtype and torch.equal(
+                sa[k].view(torch.uint8) if sa[k].element_size() == 1 else sa[k],
+                sb[k].view(torch.uint8) if sb[k].element_size() == 1 else sb[k]), k
+    kw = dict(ip_adapter_image=_image(11), ip_adapter_scale=0.8)
+    got = _call(stored_t, p, **kw)
+    assert torch.equal(got, _call(dense_t, p, **kw))
+    want = np.asarray(jpipe(p["cond"], clip_ids=jnp.asarray(CLIP_IDS), t5_ids=jnp.asarray(T5_IDS),
+                            latents=jnp.asarray(p["noise"]), output_type="latent", **kw))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the adapter acts: scale 0 gives another result
+    assert not torch.equal(got, _call(stored_t, p, ip_adapter_image=_image(11),
+                                      ip_adapter_scale=0.0))
+    # after quantize_weights() the stacks take no dense layer, as in JAX
+    with pytest.raises(ValueError, match="BEFORE quantize_weights"):
+        stored_t.attach_ip_adapter(port_config(VCFG), port_config(IPCFG))
+    with pytest.raises(ValueError, match="BEFORE quantize_weights"):
+        jpipe.attach_ip_adapter(VCFG, IPCFG)
+
+
 def test_untrained_adapter_is_a_no_op_and_the_blocks_layout_is_the_flux_one(pipes):
     p = pipes
     base = {k: v for k, v in p["params"].items() if k != "ip"}

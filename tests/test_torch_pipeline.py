@@ -246,8 +246,8 @@ def test_pipeline_defaults_to_the_card():
 
 
 def test_cli_defaults_to_the_card():
-    """--tiny is geometry only: without --device cpu the CLI builds on CUDA and
-    raises on a host without a card."""
+    """Without --device cpu the CLI builds on CUDA (--tiny too, in float32)
+    and raises on a host without a card."""
     if torch.cuda.is_available():
         pytest.skip("with a CUDA device the CLI runs on it")
     from reptext_tpu_torch import cli

@@ -325,6 +325,35 @@ def test_quantized_pipeline_matches_jax_and_leaves_sharing_pipelines_alone(pipes
         q.flux.add_ip_adapter(32)
 
 
+@pytest.mark.parametrize("built", ["module", "pipeline"])
+def test_a_model_built_with_weight_quant_refuses_the_adapter(pipes, built):
+    """``weight_quant=True`` at build sets the JAX models' flag, so the
+    adapter is refused as the JAX method refuses a ``weight_quant`` FLUX;
+    only stacks that came from fp8 storage take it."""
+    jpipe = dataclasses.replace(pipes[0])
+    jpipe.flux = jpipe.flux.clone(weight_quant=True)
+    with pytest.raises(ValueError, match="BEFORE quantize_weights"):
+        jpipe.attach_ip_adapter()
+    if built == "module":
+        flux = FluxTransformer2D(port_config(CFGS["flux_cfg"]), device="cpu", weight_quant=True)
+        assert flux.quantized_by_call and quantized_copy(flux) is flux
+        with pytest.raises(ValueError, match="BEFORE quantize_weights"):
+            flux.add_ip_adapter(32)
+    else:
+        pipe = FluxRepTextPipeline.create(pipe_cfg=port_config(PIPE_CFG), device="cpu",
+                                          weight_quant=True, **port_configs_of(CFGS))
+        assert pipe.flux.quantized_by_call and pipe.controlnet.quantized_by_call
+        with pytest.raises(ValueError, match="BEFORE quantize_weights"):
+            pipe.attach_ip_adapter()
+        stored = FluxRepTextPipeline.create(
+            pipe_cfg=port_config(PIPE_CFG), device="cpu", **port_configs_of(CFGS),
+            params={k: v if k not in ("flux", "controlnet")
+                    else {"params": jq.quantize_params(v["params"])}
+                    for k, v in _shared_params().items()})
+        assert stored.flux.weight_quant and not stored.flux.quantized_by_call
+        assert stored.controlnet.weight_quant and not stored.controlnet.quantized_by_call
+
+
 def test_quantized_bytes_of_the_models(pipes):
     _, tpipe, _, _ = pipes
     q = quantized_copy(tpipe.flux)
@@ -424,6 +453,46 @@ def test_fp8_checkpoint_equals_quantize_at_load(converted_fp8):
     assert images.shape == (1, SIZE, SIZE, 3) and images.dtype == np.uint8
 
 
+def test_fp8_checkpoint_with_ip_adapter_equals_dense_attach_then_quantize(converted_fp8,
+                                                                          tmp_path):
+    """``--ip-adapter-image`` with the converter's adapter directory on the
+    ``--dtype fp8`` checkpoint: module state and image bit-equal to the bf16
+    checkpoint's pipeline with the adapter attached, then quantize_weights()."""
+    from PIL import Image
+
+    from reptext_tpu_torch import cli
+    from reptext_tpu_torch.io.convert_cli import write_ip_adapter
+    from test_torch_checkpoint import FLUX
+    from test_torch_ip_adapter import _image, _write_adapter_files
+
+    vdir, ip_path = _write_adapter_files(tmp_path)
+    write_ip_adapter(str(tmp_path), ip_path, FLUX.num_layers, FLUX.attention_head_dim, vdir)
+    style = tmp_path / "style.png"
+    Image.fromarray(_image(16)).save(style)
+    extra = ("--ip-adapter-image", str(style), "--ip-adapter-dir", str(tmp_path / "ip_adapter"),
+             "--ip-adapter-scale", "0.7", "--vae-tiling", "off")
+    fp8 = cli.build_pipeline(_cli_args(converted_fp8["fp8"], *extra))
+    dense = cli.build_pipeline(_cli_args(converted_fp8["bf16"], *extra))
+    assert fp8.flux.weight_quant and not dense.flux.weight_quant and dense.flux.ip_adapter
+    dense.quantize_weights()
+    for a, b in ((fp8.flux, dense.flux), (fp8.controlnet, dense.controlnet)):
+        pa, pb = a.state_dict(), b.state_dict()
+        assert sorted(pa) == sorted(pb)
+        for k in pa:
+            assert pa[k].dtype == pb[k].dtype and np.array_equal(_bits(pa[k]), _bits(pb[k])), k
+    assert isinstance(fp8.flux.double_blocks[0].block.to_v_ip, QuantLinear)
+    cond = build_conditions([TextLine("Hi", (8, 16), font_size=24)], SIZE, SIZE, font_size=24)
+    args = _cli_args(converted_fp8["fp8"], *extra)
+    got = cli.generate(args, fp8, cond)
+    assert np.array_equal(got, cli.generate(args, dense, cond))
+    assert got.shape == (1, SIZE, SIZE, 3) and got.dtype == np.uint8
+    # the adapter acts on the fp8 pipeline
+    args.ip_adapter_scale = 0.0
+    assert not torch.equal(cli.generate(args, fp8, cond, output_type="latent"),
+                           cli.generate(_cli_args(converted_fp8["fp8"], *extra), fp8, cond,
+                                        output_type="latent"))
+
+
 def test_cli_weight_dtype_and_its_refusals(converted_fp8):
     from reptext_tpu_torch import cli
 
@@ -435,8 +504,12 @@ def test_cli_weight_dtype_and_its_refusals(converted_fp8):
     with pytest.raises(SystemExit, match="training needs dense weights"):
         cli.build_pipeline(_cli_args(converted_fp8["bf16"], "--mode", "train", "--weight-dtype",
                                      "fp8"))
-    with pytest.raises(SystemExit, match="IP-Adapter"):
-        cli.build_pipeline(_cli_args(converted_fp8["fp8"], "--ip-adapter-image", lora))
+    # an fp8-stored checkpoint takes the IP-Adapter: attached dense, then
+    # quantized by quantize_weights() with the stored stacks kept (the JAX
+    # CLI's order; the image itself is read at generation only)
+    pipe = cli.build_pipeline(_cli_args(converted_fp8["fp8"], "--ip-adapter-image", lora))
+    assert pipe.flux.ip_adapter and pipe.flux.weight_quant
+    assert isinstance(pipe.flux.double_blocks[0].block.to_k_ip, QuantLinear)
     # random weights drawn in fp8 storage; the IP-Adapter attaches before quantizing
     rand = cli.build_parser().parse_args(["--random-weights", "--tiny", "--device", "cpu",
                                           "--size", str(SIZE), "--weight-dtype", "fp8"])

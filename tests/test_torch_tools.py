@@ -2,7 +2,7 @@
 and diffing (``io/verify_activations.py``), tracing and step timing
 (``utils/profiling.py``), the attention backend switch
 (``ops/attention.py::set_default_backend``) and the CLI's
-``--attention-backend``; and what the kernel wrappers take (head dims 64
+``--attention-backend``; and what the kernel wrappers take (head dims 32, 64
 and 128, bf16 and fp32), checked without a launch. CPU, float32.
 
 Tolerances: activations within 5e-4 of each layer's max|JAX activation|
@@ -215,9 +215,7 @@ def test_cli_attention_backend(default_backend):
 # ---------------------------------------- what the kernel wrappers take
 
 
-@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (64, torch.float32),
-                                     (128, torch.bfloat16), (128, torch.float32)])
-def test_the_wrappers_take_head_dims_64_128_in_bf16_and_fp32(d, dtype):
+def _passes_to_the_device_check(d, dtype):
     """Head dim and dtype pass the checks; the next one is the device (a CPU
     tensor never reaches a kernel)."""
     fa.check_head_dim(d)
@@ -226,14 +224,30 @@ def test_the_wrappers_take_head_dims_64_128_in_bf16_and_fp32(d, dtype):
         fa._check("q", x, x.shape)
 
 
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (64, torch.float32),
+                                     (128, torch.bfloat16), (128, torch.float32)])
+def test_the_wrappers_take_head_dims_64_128_in_bf16_and_fp32(d, dtype):
+    _passes_to_the_device_check(d, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_wrappers_take_head_dim_32_in_bf16_and_fp32(dtype):
+    _passes_to_the_device_check(32, dtype)
+
+
 def test_the_wrappers_refuse_head_dim_32_fp16_and_the_ring_fp32():
+    """What the wrappers refuse now that head dim 32 and K5 in fp32 are
+    taken (the name is the one this test had when it refused both): a head
+    dim of none of the instantiations (48), fp16 and fp64, a dtype outside
+    the ones asked for, a wrong shape."""
     from reptext_tpu_torch.ops import ring_attention as ra
 
-    with pytest.raises(ValueError, match="head dim 32"):
-        fa.check_head_dim(32)
-    fa.check_head_dim(64, ra._SUPPORTED_HEAD_DIMS)      # K5 takes 64 and 128
-    with pytest.raises(ValueError, match="head dim 32"):
-        fa.check_head_dim(32, ra._SUPPORTED_HEAD_DIMS)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.check_head_dim(48)
+    for d in (32, 64, 128):                               # K5 takes them all, as K1-K4
+        fa.check_head_dim(d, ra._SUPPORTED_HEAD_DIMS)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.check_head_dim(48, ra._SUPPORTED_HEAD_DIMS)
     x = torch.zeros(1, 2, 8, 64)
     with pytest.raises(TypeError, match="float16 is rejected"):
         fa._check("q", x.half(), x.shape)
