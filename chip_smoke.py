@@ -421,6 +421,11 @@ SERVE_RTOL = SP_RTOL
 SERVE_PNG_MAX, SERVE_PNG_MEAN = 8, 0.5
 
 
+def stage_seconds(timings: dict) -> str:
+    """A request's stage seconds from ``timings``, without its spans (``trace``)."""
+    return ", ".join(f"{k} {v:.3f} s" for k, v in timings.items() if k != "trace")
+
+
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
@@ -1692,7 +1697,7 @@ def e2e_phase(dev, steps, cn_steps, seed):
         shape_ok = images.shape == (1, size, size, 3) and images.dtype == np.uint8
         phase("e2e", f"request {i + 1} ({name}, {text!r}, conditions: {source}): "
                      f"{'cold' if i == 0 else 'warm'} {wall:.3f} s/image; stages "
-                     + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                     + stage_seconds(timings)
                      + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; "
                      f"kernel launches K1 {got['K1']} (expected {expect['K1']}) K2 {got['K2']} "
                      f"K3 {got['K3']} K5 {got['K5']} (expected 0, 0 and 0: every block passes RoPE "
@@ -1987,7 +1992,7 @@ def run_request(label, call, pipe, expect, shape, steps, tag="large", out=None):
     finite = bool(torch.isfinite(lat).all())
     shape_ok = images.shape == shape and images.dtype == np.uint8
     phase(tag, f"{label}: {wall:.3f} s/image (cold for its size); stages "
-                   + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                   + stage_seconds(timings)
                    + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; kernel launches "
                    + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
                    + f"; image {images.shape} {images.dtype}, mean {images.mean():.2f}; latents "
@@ -2125,7 +2130,7 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
         shape_ok = images.shape == (1, size, size, 3) and images.dtype == np.uint8
         ok = finite and shape_ok and got == expect
         phase("surface", f"{label}: {wall:.3f} s/image; stages "
-                         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+                         + stage_seconds(timings)
                          + f"; kernel launches K1 {got['K1']} (expected {k1}) K2 {got['K2']} K3 "
                          f"{got['K3']} K5 {got['K5']} (expected 0, 0, 0); image {images.shape} "
                          f"{images.dtype}; finite {finite} -> {'ok' if ok else 'FAIL'}")
@@ -2470,10 +2475,10 @@ def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
                        f"level(s) (must be 0); burst vs alone PNGs: max {pix.max()} levels (tol "
                        f"{SERVE_PNG_MAX}), mean {pix.mean():.3f} (tol {SERVE_PNG_MEAN}) -> "
                        f"{'ok' if ok else 'FAIL'}; called directly, the batch of 4 takes "
-                       + ", ".join(f"{k} {v:.3f} s" for k, v in stages_b.items())
+                       + stage_seconds(stages_b)
                        + f" (sampler {1e3 * stages_b['sample'] / steps:.1f} ms/step), one "
                        f"request alone (the last) "
-                       + ", ".join(f"{k} {v:.3f} s" for k, v in stages_1.items())
+                       + stage_seconds(stages_1)
                        + f" (sampler {1e3 * stages_1['sample'] / steps:.1f} ms/step)")
         if not ok:
             fails.append("burst vs one at a time")

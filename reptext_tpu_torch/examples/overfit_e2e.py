@@ -600,74 +600,75 @@ def run(args) -> Tuple[Dict, object]:
     JSON (and the sample grid where Pillow is there) and returns it with the
     pipeline, which holds the random FLUX and ControlNet again at the end."""
     from reptext_tpu_torch.io.checkpoint import load_pipeline_params, save_pipeline_params
-    from reptext_tpu_torch.pipelines.txt2img import _StageClock
+    from reptext_tpu_torch.utils.profiling import SpanRecorder
 
     t_start = time.time()
     device = torch.device(args.device)
     stages: Dict[str, float] = {}   # wall seconds per stage, the device synchronised
-    clock = _StageClock(stages, device)
-    train_words = TRAIN_WORDS if args.holdout else WORDS
-    print(f"conditions: {conditions_source()}", flush=True)
-    samples = build_overfit_set(args.size, words=train_words)
-    holdout_samples = (build_overfit_set(args.size, words=HOLDOUT_WORDS, seed=HOLDOUT_SEED)
-                       if args.holdout else None)
-    pipe = build_pipeline(args.size, args.steps_sample, device)
-    clock.mark("setup")
+    clock = SpanRecorder(stages, device)
+    with clock.stage("setup"):
+        train_words = TRAIN_WORDS if args.holdout else WORDS
+        print(f"conditions: {conditions_source()}", flush=True)
+        samples = build_overfit_set(args.size, words=train_words)
+        holdout_samples = (build_overfit_set(args.size, words=HOLDOUT_WORDS, seed=HOLDOUT_SEED)
+                           if args.holdout else None)
+        pipe = build_pipeline(args.size, args.steps_sample, device)
 
     cached = bool(args.params_cache) and os.path.isfile(
         os.path.join(args.params_cache, "flux.safetensors"))
     flow_losses: List[float] = []
     if cached:
-        print(f"[1-3/4] reusing trained params from {args.params_cache}", flush=True)
-        saved = load_pipeline_params(args.params_cache, ("vae", "flux", "controlnet"))
-        pipe.vae.load_state_dict(saved["vae"])
-        # cache reuse skips VAE training: keep the PSNR measured before, if any
-        psnr = None
-        if os.path.isfile(args.output):
-            prev = json.load(open(args.output)).get("vae_recon_psnr_db")
-            if isinstance(prev, (int, float)) and math.isfinite(prev):
-                psnr = float(prev)
-        random_state = snapshot(pipe.flux, pipe.controlnet)
-        batch = precompute_batch(pipe, samples)
-        pipe.flux.load_state_dict(saved["flux"])
-        pipe.controlnet.load_state_dict(saved["controlnet"])
-        clock.mark("load")
+        with clock.stage("load"):
+            print(f"[1-3/4] reusing trained params from {args.params_cache}", flush=True)
+            saved = load_pipeline_params(args.params_cache, ("vae", "flux", "controlnet"))
+            pipe.vae.load_state_dict(saved["vae"])
+            # cache reuse skips VAE training: keep the PSNR measured before, if any
+            psnr = None
+            if os.path.isfile(args.output):
+                prev = json.load(open(args.output)).get("vae_recon_psnr_db")
+                if isinstance(prev, (int, float)) and math.isfinite(prev):
+                    psnr = float(prev)
+            random_state = snapshot(pipe.flux, pipe.controlnet)
+            batch = precompute_batch(pipe, samples)
+            pipe.flux.load_state_dict(saved["flux"])
+            pipe.controlnet.load_state_dict(saved["controlnet"])
     else:
-        print(f"[1/4] training VAE ({args.steps_vae} steps)...", flush=True)
-        psnr, _ = train_vae(pipe.vae, samples, args.steps_vae)
-        print(f"      recon PSNR {psnr:.1f} dB", flush=True)
-        clock.mark("train_vae")
-        print("[2/4] building the fixed training batch (production cond path)...", flush=True)
-        batch = precompute_batch(pipe, samples)
-        # control: random FLUX and ControlNet with the same trained VAE
-        random_state = snapshot(pipe.flux, pipe.controlnet)
-        clock.mark("batch")
-        print(f"[3/4] joint FLUX+CN training ({args.steps_flux} steps)...", flush=True)
-        judge_train = None
-        if args.ocr_loss_weight > 0.0:
-            from reptext_tpu_torch.eval.ocr import load_judge as load_one
+        with clock.stage("train_vae"):
+            print(f"[1/4] training VAE ({args.steps_vae} steps)...", flush=True)
+            psnr, _ = train_vae(pipe.vae, samples, args.steps_vae)
+            print(f"      recon PSNR {psnr:.1f} dB", flush=True)
+        with clock.stage("batch"):
+            print("[2/4] building the fixed training batch (production cond path)...",
+                  flush=True)
+            batch = precompute_batch(pipe, samples)
+            # control: random FLUX and ControlNet with the same trained VAE
+            random_state = snapshot(pipe.flux, pipe.controlnet)
+        with clock.stage("train_flow"):
+            print(f"[3/4] joint FLUX+CN training ({args.steps_flux} steps)...", flush=True)
+            judge_train = None
+            if args.ocr_loss_weight > 0.0:
+                from reptext_tpu_torch.eval.ocr import load_judge as load_one
 
-            judge_train = load_one(device=device)
-        before = launch_counts()
-        flow_losses = train_flow(pipe, batch, args.steps_flux, seed=args.train_seed,
-                                 ocr_loss_weight=args.ocr_loss_weight, judge=judge_train)
-        flow_launches = {k: n - before[k] for k, n in launch_counts().items()}
-        clock.mark("train_flow")
+                judge_train = load_one(device=device)
+            before = launch_counts()
+            flow_losses = train_flow(pipe, batch, args.steps_flux, seed=args.train_seed,
+                                     ocr_loss_weight=args.ocr_loss_weight, judge=judge_train)
+            flow_launches = {k: n - before[k] for k, n in launch_counts().items()}
         if args.params_cache:
-            save_pipeline_params({"vae": pipe.vae, "flux": pipe.flux,
-                                  "controlnet": pipe.controlnet}, args.params_cache)
-            print(f"      saved trained params to {args.params_cache}", flush=True)
-            clock.mark("save")
+            with clock.stage("save"):
+                save_pipeline_params({"vae": pipe.vae, "flux": pipe.flux,
+                                      "controlnet": pipe.controlnet}, args.params_cache)
+                print(f"      saved trained params to {args.params_cache}", flush=True)
 
-    print("[4/4] sampling + scoring (trained vs random)...", flush=True)
-    judge = load_judge(device)
-    res_trained = sample_and_score(pipe, samples, batch, args.steps_sample, judge)
-    res_holdout = (sample_and_score(pipe, holdout_samples, batch, args.steps_sample, judge)
-                   if holdout_samples is not None else None)
-    pipe.flux.load_state_dict(random_state[0])
-    pipe.controlnet.load_state_dict(random_state[1])
-    res_random = sample_and_score(pipe, samples, batch, args.steps_sample, judge)
-    clock.mark("sample_and_score")
+    with clock.stage("sample_and_score"):
+        print("[4/4] sampling + scoring (trained vs random)...", flush=True)
+        judge = load_judge(device)
+        res_trained = sample_and_score(pipe, samples, batch, args.steps_sample, judge)
+        res_holdout = (sample_and_score(pipe, holdout_samples, batch, args.steps_sample, judge)
+                       if holdout_samples is not None else None)
+        pipe.flux.load_state_dict(random_state[0])
+        pipe.controlnet.load_state_dict(random_state[1])
+        res_random = sample_and_score(pipe, samples, batch, args.steps_sample, judge)
 
     n_images = len(samples) * 2 + (len(holdout_samples) if holdout_samples else 0)
     name, limit = device_info(device)

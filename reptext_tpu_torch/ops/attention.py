@@ -15,7 +15,9 @@ process-wide backend switch, with the JAX names so that scripts carry over
 - ``pallas``: the hand-written kernels; a CPU tensor raises.
 
 This is an explicit switch, never a fallback: ``auto`` does not retry the
-plain version when a kernel refuses its inputs. Tensors are [B, H, S, D];
+plain version when a kernel refuses its inputs. Under a request's span
+recorder a call of :func:`plain_attention` is an ``attention`` span, as a
+call of a kernel entry is. Tensors are [B, H, S, D];
 with RoPE tables, q/k arrive unrotated in half-split channel order.
 """
 
@@ -27,6 +29,7 @@ import torch
 
 from reptext_tpu_torch.ops.flash_attention import flash_attention, flash_attention_rope
 from reptext_tpu_torch.ops.rope import apply_rope_half
+from reptext_tpu_torch.utils.profiling import span_calls
 
 BACKENDS = ("auto", "xla", "pallas")
 _DEFAULT_BACKEND = "auto"
@@ -55,6 +58,7 @@ def _kernels(q: torch.Tensor, backend: Optional[str]) -> bool:
     return b == "pallas" or (b == "auto" and q.device.type == "cuda")
 
 
+@span_calls("attention")
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """fp32 logits and softmax, probabilities cast to v's dtype for PV."""
     scale = 1.0 / (q.shape[-1] ** 0.5)

@@ -48,7 +48,13 @@ A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
 the same rounding points; ``chip_smoke.py`` holds the kernels against them on
 the card. Each kernel entry counts its launches in ``<entry>.launches``
-(``_build.count_launch``: thread-safe).
+(``_build.count_launch``: thread-safe). Under a request's span recorder
+(``utils/profiling.py``) each call of the three forward entries is an
+``attention`` span carrying the entry's name: its host bounds run from
+entering the entry to its return (the checks, allocations, casts and the
+ctypes launch; the plain versions on the CPU), and its ``launch_ns`` is the
+part spent in the ctypes launch call, which blocks while the device's launch
+queue is full.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import torch
 
 from reptext_tpu_torch.ops._build import count_launch
 from reptext_tpu_torch.ops.rope import apply_rope_half
+from reptext_tpu_torch.utils.profiling import span_calls, time_launch
 
 LOGIT_CLAMP = 43.0
 LOG2E = 1.4426950408889634
@@ -284,11 +291,13 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
         stream = torch.cuda.current_stream().cuda_stream
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     if streaming:
-        err = lib.reptext_flash_attention_streaming_fwd(
+        err = time_launch(
+            lib.reptext_flash_attention_streaming_fwd,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, d,
             *strides, 1.0 / math.sqrt(d), int(online), int(out_dtype == torch.float32), stream)
     else:
-        err = lib.reptext_flash_attention_fwd(
+        err = time_launch(
+            lib.reptext_flash_attention_fwd,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             rope_cos.data_ptr() if rope else None, rope_sin.data_ptr() if rope else None,
             k_rot.data_ptr() if rope else None, out.data_ptr(), lse.data_ptr(), b, h, s, d,
@@ -464,6 +473,7 @@ class _FlashAttentionRope(torch.autograd.Function):
                 None, None, None)
 
 
+@span_calls("attention")
 def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                          online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -473,6 +483,7 @@ def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttentionRope.apply(q, k, v, rope_cos, rope_sin, _online(online))
 
 
+@span_calls("attention")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention without rotation: K3 past ``_SINGLE_PASS_MAX_SEQ``, else K2.
@@ -480,6 +491,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, _online(online), streams(q.shape[2]))
 
 
+@span_calls("attention")
 def flash_attention_streaming(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 at any length, on q and k already rotated. Returns (out, lse);

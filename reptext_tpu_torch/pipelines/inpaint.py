@@ -48,7 +48,6 @@ from reptext_tpu_torch.parallel.partition import CONTROLNET_ROW_ARGS, FLUX_ROW_A
 from reptext_tpu_torch.pipelines.txt2img import (
     FluxRepTextPipeline,
     _normalize_custom_schedule,
-    _StageClock,
     build_module,
 )
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
@@ -56,6 +55,7 @@ from reptext_tpu_torch.sampling.sampler_inpaint import (
     make_inpaint_sampler,
     make_sp_inpaint_sampler,
 )
+from reptext_tpu_torch.utils.profiling import request_trace, stage
 
 # the reference's default negative prompt (reptext_tpu/pipelines/inpaint.py)
 DEFAULT_NEGATIVE_PROMPT = (
@@ -174,40 +174,41 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
             num_inference_steps or cfg.num_inference_steps)
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
         tscale = cfg.true_guidance_scale if true_guidance_scale is None else true_guidance_scale
-        clock = _StageClock(timings, self.device)
+        with request_trace(timings, self.device) as rec:
+            with stage(rec, "encode_prompt"):
+                if prompt_embeds is None:
+                    prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+                if negative_prompt_embeds is None:
+                    if negative_clip_ids is None:
+                        raise ValueError("provide negative embeddings or negative token ids (the "
+                                         f"reference's default negative prompt: "
+                                         f"{DEFAULT_NEGATIVE_PROMPT!r})")
+                    negative_prompt_embeds, negative_pooled_embeds = self.encode_prompt(
+                        negative_clip_ids, negative_t5_ids)
+                embeds = [x.to(self.device) for x in (negative_prompt_embeds, prompt_embeds,
+                                                      negative_pooled_embeds, pooled_embeds)]
+                if num_images > 1 and embeds[1].shape[0] == 1:
+                    # one prompt, several images: both CFG halves tiled to the batch
+                    embeds = [x.repeat_interleave(num_images, dim=0) for x in embeds]
+                ctx_cfg = torch.cat(embeds[:2])
+                pooled_cfg = torch.cat(embeds[2:])
 
-        if prompt_embeds is None:
-            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
-        if negative_prompt_embeds is None:
-            if negative_clip_ids is None:
-                raise ValueError("provide negative embeddings or negative token ids (the "
-                                 f"reference's default negative prompt: "
-                                 f"{DEFAULT_NEGATIVE_PROMPT!r})")
-            negative_prompt_embeds, negative_pooled_embeds = self.encode_prompt(
-                negative_clip_ids, negative_t5_ids)
-        embeds = [x.to(self.device) for x in (negative_prompt_embeds, prompt_embeds,
-                                              negative_pooled_embeds, pooled_embeds)]
-        if num_images > 1 and embeds[1].shape[0] == 1:
-            # one prompt, several images: both CFG halves tiled to the batch
-            embeds = [x.repeat_interleave(num_images, dim=0) for x in embeds]
-        ctx_cfg = torch.cat(embeds[:2])
-        pooled_cfg = torch.cat(embeds[2:])
-        clock.mark("encode_prompt")
-
-        g_lat, g_cond, g_glyph, g_inp = self.generators(seed)
-        cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
-        inpaint_cond = self.prepare_inpaint_cond(image, mask, g_inp)
-        if num_images > 1:
-            inpaint_cond = inpaint_cond.repeat(num_images, 1, 1)
-        if latents is not None:
-            latents = self.check_latents(latents, num_images)
-        else:
-            latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
-        clock.mark("prepare")
-        latents = self._sample_inpaint(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
-                                       pooled_cfg, self.schedule(steps, custom), gscale, tscale)
-        clock.mark("sample")
-        return self.finish(latents, output_type, clock, return_dict)
+            with stage(rec, "prepare"):
+                g_lat, g_cond, g_glyph, g_inp = self.generators(seed)
+                cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
+                inpaint_cond = self.prepare_inpaint_cond(image, mask, g_inp)
+                if num_images > 1:
+                    inpaint_cond = inpaint_cond.repeat(num_images, 1, 1)
+                if latents is not None:
+                    latents = self.check_latents(latents, num_images)
+                else:
+                    latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas,
+                                                   g_glyph)
+            with stage(rec, "sample"):
+                latents = self._sample_inpaint(latents, cond_tokens, token_masks, inpaint_cond,
+                                               ctx_cfg, pooled_cfg, self.schedule(steps, custom),
+                                               gscale, tscale)
+            return self.finish(latents, output_type, rec, return_dict)
 
     def _sample_inpaint(self, latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
                         pooled_cfg, schedule: FlowMatchSchedule, gscale: float,
@@ -265,25 +266,24 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
         steps = num_inference_steps or cfg.num_inference_steps
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
         tscale = cfg.true_guidance_scale if true_guidance_scale is None else true_guidance_scale
-        clock = _StageClock(timings, self.device)
+        with request_trace(timings, self.device) as rec:
+            with stage(rec, "encode_prompt"):
+                prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+                neg_embeds, neg_pooled = self.encode_prompt(negative_clip_ids, negative_t5_ids)
+                ctx_cfg = torch.cat([neg_embeds, prompt_embeds])
+                pooled_cfg = torch.cat([neg_pooled, pooled_embeds])
 
-        prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
-        neg_embeds, neg_pooled = self.encode_prompt(negative_clip_ids, negative_t5_ids)
-        ctx_cfg = torch.cat([neg_embeds, prompt_embeds])
-        pooled_cfg = torch.cat([neg_pooled, pooled_embeds])
-        clock.mark("encode_prompt")
-
-        cond_l, mask_l, lat_l, inp_l = [], [], [], []
-        for conds, image, mask, seed in zip(conditions_list, images, masks, seeds):
-            g_lat, g_cond, g_glyph, g_inp = self.generators(int(seed))
-            ct, tm = self.prepare_control_tokens(conds, g_cond)
-            cond_l.append(ct)
-            mask_l.append(tm)
-            inp_l.append(self.prepare_inpaint_cond(image, mask, g_inp))
-            lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
-        clock.mark("prepare")
-        latents = self._sample_inpaint(
-            torch.cat(lat_l), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
-            torch.cat(inp_l), ctx_cfg, pooled_cfg, self.schedule(steps), gscale, tscale)
-        clock.mark("sample")
-        return self.finish(latents, output_type, clock)
+            with stage(rec, "prepare"):
+                cond_l, mask_l, lat_l, inp_l = [], [], [], []
+                for conds, image, mask, seed in zip(conditions_list, images, masks, seeds):
+                    g_lat, g_cond, g_glyph, g_inp = self.generators(int(seed))
+                    ct, tm = self.prepare_control_tokens(conds, g_cond)
+                    cond_l.append(ct)
+                    mask_l.append(tm)
+                    inp_l.append(self.prepare_inpaint_cond(image, mask, g_inp))
+                    lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
+            with stage(rec, "sample"):
+                latents = self._sample_inpaint(
+                    torch.cat(lat_l), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
+                    torch.cat(inp_l), ctx_cfg, pooled_cfg, self.schedule(steps), gscale, tscale)
+            return self.finish(latents, output_type, rec)

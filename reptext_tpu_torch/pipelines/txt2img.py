@@ -39,7 +39,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-import time
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +55,7 @@ from reptext_tpu_torch.configs import (
     VAEConfig,
 )
 from reptext_tpu_torch.utils.image import postprocess_images, preprocess_images
+from reptext_tpu_torch.utils.profiling import SpanRecorder, request_trace, stage
 from reptext_tpu_torch.io.from_jax import flatten_jax_params, load_jax_params
 from reptext_tpu_torch.io.quantize import is_quantized
 from reptext_tpu_torch.models.controlnet import RepTextControlNet
@@ -597,7 +597,8 @@ class FluxRepTextPipeline:
         it in :class:`FluxPipelineOutput`. ``latents``: packed noise
         [num_images, S, 4*C] that replaces the seeded noise and the
         glyph-latent init. ``timings``, when given, receives the seconds of
-        each stage (the device is synchronised at stage boundaries).
+        each stage (the device is synchronised at stage boundaries) and the
+        request's spans under ``"trace"`` (``utils/profiling.py``).
 
         ``timesteps``/``sigmas`` (at most one) replace the linspace schedule
         (``build_schedule``); ``num_inference_steps`` then yields to their
@@ -619,47 +620,48 @@ class FluxRepTextPipeline:
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
         if callback is not None and callback_steps < 1:
             raise ValueError(f"callback_steps must be >= 1, got {callback_steps}")
-        clock = _StageClock(timings, self.device)
+        with request_trace(timings, self.device) as rec:
+            with stage(rec, "encode_prompt"):
+                if prompt_embeds is None:
+                    prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+                prompt_embeds = prompt_embeds.to(self.device)
+                pooled_embeds = pooled_embeds.to(self.device)
+                if num_images > 1 and prompt_embeds.shape[0] == 1:
+                    prompt_embeds = prompt_embeds.repeat_interleave(num_images, dim=0)
+                    pooled_embeds = pooled_embeds.repeat_interleave(num_images, dim=0)
 
-        if prompt_embeds is None:
-            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
-        prompt_embeds = prompt_embeds.to(self.device)
-        pooled_embeds = pooled_embeds.to(self.device)
-        if num_images > 1 and prompt_embeds.shape[0] == 1:
-            prompt_embeds = prompt_embeds.repeat_interleave(num_images, dim=0)
-            pooled_embeds = pooled_embeds.repeat_interleave(num_images, dim=0)
-        clock.mark("encode_prompt")
-
-        schedule = self.schedule(steps, custom)
-        g_lat, g_cond, g_glyph, _ = self.generators(seed)
-        cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
-        if latents is not None:
-            latents = self.check_latents(latents, num_images)
-        t_start = 0
-        if init_image is not None and strength < 1.0:
-            t_start = min(int(steps * (1.0 - strength)), steps - 1)
-            noise = latents if latents is not None else self.prepare_latents(g_lat, num_images)
-            img_lat = self._encode_scaled(self._images(init_image), g_glyph)
-            img_packed = pack_latents(img_lat.expand(num_images, *img_lat.shape[1:]))
-            latents = schedule.scale_noise(img_packed, noise, t_start)
-        elif latents is None:
-            latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas, g_glyph)
-        flux_extra = self._ip_extra([ip_adapter_image], [ip_adapter_scale])
-        clock.mark("prepare")
-        sample = self._sampler(schedule, cond_tokens, token_masks, prompt_embeds,
-                               pooled_embeds, gscale, latents.shape[0], flux_extra)
-        if callback is None:
-            latents = sample(latents, t_start)
-        else:
-            i = t_start
-            while i < steps:
-                k = min(callback_steps, steps - i)
-                latents = sample(latents, i, k)
-                i += k
-                if self._callback_stops(callback, i, latents):
-                    break
-        clock.mark("sample")
-        return self.finish(latents, output_type, clock, return_dict)
+            with stage(rec, "prepare"):
+                schedule = self.schedule(steps, custom)
+                g_lat, g_cond, g_glyph, _ = self.generators(seed)
+                cond_tokens, token_masks = self.prepare_control_tokens(conditions, g_cond)
+                if latents is not None:
+                    latents = self.check_latents(latents, num_images)
+                t_start = 0
+                if init_image is not None and strength < 1.0:
+                    t_start = min(int(steps * (1.0 - strength)), steps - 1)
+                    noise = (latents if latents is not None
+                             else self.prepare_latents(g_lat, num_images))
+                    img_lat = self._encode_scaled(self._images(init_image), g_glyph)
+                    img_packed = pack_latents(img_lat.expand(num_images, *img_lat.shape[1:]))
+                    latents = schedule.scale_noise(img_packed, noise, t_start)
+                elif latents is None:
+                    latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas,
+                                                   g_glyph)
+                flux_extra = self._ip_extra([ip_adapter_image], [ip_adapter_scale])
+            with stage(rec, "sample"):
+                sample = self._sampler(schedule, cond_tokens, token_masks, prompt_embeds,
+                                       pooled_embeds, gscale, latents.shape[0], flux_extra)
+                if callback is None:
+                    latents = sample(latents, t_start)
+                else:
+                    i = t_start
+                    while i < steps:
+                        k = min(callback_steps, steps - i)
+                        latents = sample(latents, i, k)
+                        i += k
+                        if self._callback_stops(callback, i, latents):
+                            break
+            return self.finish(latents, output_type, rec, return_dict)
 
     def schedule(self, steps: int, custom=None) -> FlowMatchSchedule:
         """This pipeline's schedule of ``steps`` steps, or of the custom one
@@ -748,59 +750,43 @@ class FluxRepTextPipeline:
             raise ValueError("conditions_list, seeds, and prompt inputs lengths differ")
         steps = num_inference_steps or cfg.num_inference_steps
         gscale = cfg.guidance_scale if guidance_scale is None else guidance_scale
-        clock = _StageClock(timings, self.device)
+        with request_trace(timings, self.device) as rec:
+            with stage(rec, "encode_prompt"):
+                if not pre_encoded:
+                    prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
+                prompt_embeds = prompt_embeds.to(self.device)
+                pooled_embeds = pooled_embeds.to(self.device)
 
-        if not pre_encoded:
-            prompt_embeds, pooled_embeds = self.encode_prompt(clip_ids, t5_ids)
-        prompt_embeds = prompt_embeds.to(self.device)
-        pooled_embeds = pooled_embeds.to(self.device)
-        clock.mark("encode_prompt")
+            with stage(rec, "prepare"):
+                cond_l, mask_l, lat_l = [], [], []
+                for conds, seed in zip(conditions_list, seeds):
+                    g_lat, g_cond, g_glyph, _ = self.generators(int(seed))
+                    ct, tm = self.prepare_control_tokens(conds, g_cond)
+                    cond_l.append(ct)
+                    mask_l.append(tm)
+                    lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
+                cond_tokens = torch.stack(cond_l, dim=1)   # [N, B, S, F] per-image conditions
+                token_masks = torch.stack(mask_l, dim=1)   # [N, B, S, 1]
+                latents = torch.cat(lat_l, dim=0)          # [B, S, C]
+                b = latents.shape[0]
+                scales = [1.0] * b if ip_adapter_scales is None else list(ip_adapter_scales)
+                flux_extra = self._ip_extra(ip_adapter_images, scales)
+            with stage(rec, "sample"):
+                latents = self._sampler(self.schedule(steps), cond_tokens, token_masks,
+                                        prompt_embeds, pooled_embeds, gscale, b,
+                                        flux_extra)(latents)
+            return self.finish(latents, output_type, rec)
 
-        cond_l, mask_l, lat_l = [], [], []
-        for conds, seed in zip(conditions_list, seeds):
-            g_lat, g_cond, g_glyph, _ = self.generators(int(seed))
-            ct, tm = self.prepare_control_tokens(conds, g_cond)
-            cond_l.append(ct)
-            mask_l.append(tm)
-            lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
-        cond_tokens = torch.stack(cond_l, dim=1)      # [N, B, S, F] per-image conditions
-        token_masks = torch.stack(mask_l, dim=1)      # [N, B, S, 1]
-        latents = torch.cat(lat_l, dim=0)             # [B, S, C]
-        b = latents.shape[0]
-        scales = [1.0] * b if ip_adapter_scales is None else list(ip_adapter_scales)
-        flux_extra = self._ip_extra(ip_adapter_images, scales)
-        clock.mark("prepare")
-        latents = self._sampler(self.schedule(steps), cond_tokens, token_masks, prompt_embeds,
-                                pooled_embeds, gscale, b, flux_extra)(latents)
-        clock.mark("sample")
-        return self.finish(latents, output_type, clock)
-
-    def finish(self, latents: torch.Tensor, output_type: str, clock: "_StageClock",
+    def finish(self, latents: torch.Tensor, output_type: str, rec: Optional[SpanRecorder],
                return_dict: bool = False):
         """Sampled latents -> the requested ``output_type``, wrapped in
-        :class:`FluxPipelineOutput` with ``return_dict``."""
+        :class:`FluxPipelineOutput` with ``return_dict``; the decode is the
+        request's ``decode`` stage under ``rec``."""
         if output_type == "latent":
             out = latents
         else:
-            out = self.decode(latents)
-            clock.mark("decode")
+            with stage(rec, "decode"):
+                out = self.decode(latents)
             if output_type == "pil":
                 out = to_pil_images(out)
         return FluxPipelineOutput(images=out) if return_dict else out
-
-
-class _StageClock:
-    """Seconds per pipeline stage into ``timings`` (no-op when it is None)."""
-
-    def __init__(self, timings: Optional[Dict[str, float]], device: torch.device):
-        self.timings, self.device = timings, device
-        self.t = time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[stage] = now - self.t
-        self.t = now

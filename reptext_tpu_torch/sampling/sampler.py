@@ -14,6 +14,11 @@ step:
   IP-Adapter's image-prompt tokens, ``flux_extra``, when given);
 - advances the float32 latents by one Euler update.
 
+Under a request's span recorder (``utils/profiling.py``; the pipelines'
+``timings=``) each step is a ``step`` span holding a ``controlnet`` span and a
+``flux`` span; otherwise the loop reads the recorder once per call and pays
+one ``is None`` check per step and per model call.
+
 ``sample(..., start_step, num_steps)`` runs a chunk of the schedule, the JAX
 ``sample.chunked``: img2img starts past step 0, and a callback runs between
 chunks. The ControlNet gate reads the absolute step; the velocity cache's
@@ -49,6 +54,7 @@ from reptext_tpu_torch.configs import PipelineConfig
 from reptext_tpu_torch.parallel.group import SPGroup
 from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION, sp_context
 from reptext_tpu_torch.sampling.flow_match import FlowMatchSchedule
+from reptext_tpu_torch.utils.profiling import active_recorder, span
 
 
 def controlnet_mode(controlnet: torch.nn.Module, pipe_cfg: PipelineConfig, batch: int,
@@ -215,29 +221,35 @@ def make_txt2img_sampler(flux: torch.nn.Module, controlnet: torch.nn.Module,
 
         lat = latents.float()
         regs = empty_cache_regs()
+        rec = active_recorder()
         for i in steps:
-            t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
-            t_b = torch.full((b,), t_i, dtype=compute_dtype, device=lat.device)
-            x_model = lat.to(compute_dtype)
+            with span(rec, "step"):
+                t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
+                t_b = torch.full((b,), t_i, dtype=compute_dtype, device=lat.device)
+                x_model = lat.to(compute_dtype)
 
-            def compute_velocity() -> torch.Tensor:
-                block_res = single_res = None
-                if cn_active[i]:
-                    block, single = controlnet(
-                        x_model.repeat(n_lines, 1, 1), cond, ctx_nb, pooled_nb,
-                        t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale, **mode_kw)
-                    block_res, single_res = mask_and_sum(block), mask_and_sum(single)
-                return flux(x_model, ctx, pooled, t_b, img_ids, txt_ids, guidance,
-                            controlnet_block_samples=block_res,
-                            controlnet_single_block_samples=single_res, **extra).float()
+                def compute_velocity() -> torch.Tensor:
+                    block_res = single_res = None
+                    if cn_active[i]:
+                        with span(rec, "controlnet"):
+                            block, single = controlnet(
+                                x_model.repeat(n_lines, 1, 1), cond, ctx_nb, pooled_nb,
+                                t_b.repeat(n_lines), img_ids, txt_ids, guidance_nb, cond_scale,
+                                **mode_kw)
+                        block_res, single_res = mask_and_sum(block), mask_and_sum(single)
+                    with span(rec, "flux"):
+                        v = flux(x_model, ctx, pooled, t_b, img_ids, txt_ids, guidance,
+                                 controlnet_block_samples=block_res,
+                                 controlnet_single_block_samples=single_res, **extra)
+                    return v.float()
 
-            if vc_enabled:
-                always = i < vc["vc_warmup"] or i >= total - 1 or i == steps.start
-                velocity, regs = velocity_cache_select(
-                    compute_velocity, regs, lat, schedule.sigmas[i], i, always, **vc)
-            else:
-                velocity = compute_velocity()
-            lat = schedule.step(lat, velocity, i)
+                if vc_enabled:
+                    always = i < vc["vc_warmup"] or i >= total - 1 or i == steps.start
+                    velocity, regs = velocity_cache_select(
+                        compute_velocity, regs, lat, schedule.sigmas[i], i, always, **vc)
+                else:
+                    velocity = compute_velocity()
+                lat = schedule.step(lat, velocity, i)
         return lat
 
     return sample

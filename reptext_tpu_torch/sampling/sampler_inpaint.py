@@ -18,6 +18,10 @@ The JAX ``lax.scan`` becomes a Python loop; each step:
   never reuses the zeroed value;
 - advances the float32 latents by one Euler update.
 
+Under a request's span recorder each step is a ``step`` span holding
+``controlnet``, ``controlnet_inpaint`` and ``flux`` spans, as in
+``sampler.make_txt2img_sampler``.
+
 :func:`make_sp_inpaint_sampler` runs the same loop with the image tokens
 sharded over an SP group (the JAX ``shard_map`` over the scan), as
 ``make_sp_txt2img_sampler`` does for txt2img.
@@ -38,6 +42,7 @@ from reptext_tpu_torch.sampling.sampler import (
     cn_active_mask, controlnet_mode, empty_cache_regs, shard_tokens, velocity_cache_select,
     velocity_cache_settings,
 )
+from reptext_tpu_torch.utils.profiling import active_recorder, span
 
 
 def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Module,
@@ -96,37 +101,45 @@ def make_inpaint_sampler(flux: torch.nn.Module, reptext_controlnet: torch.nn.Mod
 
         lat = latents.float()
         regs = empty_cache_regs()
+        rec = active_recorder()
         for i in range(num_steps):
-            t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
-            t2 = torch.full((b2,), t_i, dtype=compute_dtype, device=lat.device)
-            x2 = lat.repeat(2, 1, 1).to(compute_dtype)
+            with span(rec, "step"):
+                t_i = float(np.float32(schedule.timesteps[i]) / np.float32(1000.0))
+                t2 = torch.full((b2,), t_i, dtype=compute_dtype, device=lat.device)
+                x2 = lat.repeat(2, 1, 1).to(compute_dtype)
 
-            def compute_v_cfg() -> torch.Tensor:
-                blocks, singles = (), ()
-                if cn_active[i]:
-                    block, single = reptext_controlnet(
-                        x2.repeat(n_lines, 1, 1), cond_rt, ctx_n, pooled_n, t2.repeat(n_lines),
-                        img_ids, txt_ids, guidance_n, cond_scale, **mode_kw)
-                    blocks, singles = (mask_and_sum(block),), (mask_and_sum(single),)
-                blk_i, sgl_i = inpaint_controlnet(x2, cond_inp, ctx, pooled, t2, img_ids, txt_ids,
-                                                  guidance2, inpaint_conditioning_scale)
-                blocks += (blk_i.to(compute_dtype),)
-                singles += (sgl_i.to(compute_dtype),)
-                velocity2 = flux(x2, ctx, pooled, t2, img_ids, txt_ids, guidance2,
-                                 controlnet_block_samples=blocks,
-                                 controlnet_single_block_samples=singles).float()
-                v_uncond, v_text = velocity2[:b], velocity2[b:]
-                return v_uncond + true_scale * (v_text - v_uncond)
+                def compute_v_cfg() -> torch.Tensor:
+                    blocks, singles = (), ()
+                    if cn_active[i]:
+                        with span(rec, "controlnet"):
+                            block, single = reptext_controlnet(
+                                x2.repeat(n_lines, 1, 1), cond_rt, ctx_n, pooled_n,
+                                t2.repeat(n_lines), img_ids, txt_ids, guidance_n, cond_scale,
+                                **mode_kw)
+                        blocks, singles = (mask_and_sum(block),), (mask_and_sum(single),)
+                    with span(rec, "controlnet_inpaint"):
+                        blk_i, sgl_i = inpaint_controlnet(x2, cond_inp, ctx, pooled, t2, img_ids,
+                                                          txt_ids, guidance2,
+                                                          inpaint_conditioning_scale)
+                    blocks += (blk_i.to(compute_dtype),)
+                    singles += (sgl_i.to(compute_dtype),)
+                    with span(rec, "flux"):
+                        velocity2 = flux(x2, ctx, pooled, t2, img_ids, txt_ids, guidance2,
+                                         controlnet_block_samples=blocks,
+                                         controlnet_single_block_samples=singles)
+                    velocity2 = velocity2.float()
+                    v_uncond, v_text = velocity2[:b], velocity2[b:]
+                    return v_uncond + true_scale * (v_text - v_uncond)
 
-            if vc_enabled:
-                always = i < vc["vc_warmup"] or i >= num_steps - 1
-                v_cfg, regs = velocity_cache_select(
-                    compute_v_cfg, regs, lat, schedule.sigmas[i], i, always, **vc)
-            else:
-                v_cfg = compute_v_cfg()
-            # step 0: zero velocity (the reference's first step), outside the cache
-            v = v_cfg if i > 0 else torch.zeros_like(v_cfg)
-            lat = schedule.step(lat, v, i)
+                if vc_enabled:
+                    always = i < vc["vc_warmup"] or i >= num_steps - 1
+                    v_cfg, regs = velocity_cache_select(
+                        compute_v_cfg, regs, lat, schedule.sigmas[i], i, always, **vc)
+                else:
+                    v_cfg = compute_v_cfg()
+                # step 0: zero velocity (the reference's first step), outside the cache
+                v = v_cfg if i > 0 else torch.zeros_like(v_cfg)
+                lat = schedule.step(lat, v, i)
         return lat
 
     return sample

@@ -6,15 +6,52 @@ written as a Chrome trace, and :class:`StepTimer`, the JAX class's wall-clock
 step timer with warmup exclusion. PyTorch returns before the device has
 finished, so on the card the timer synchronises the device before it reads
 the clock, at the start and at the end of every step.
+
+The port adds the program's own spans (:class:`SpanRecorder`), switched on per
+request by the pipelines' ``timings=`` dict and by nothing else. With
+``timings=None`` nothing is recorded: the samplers and the attention entries
+read :func:`active_recorder` (one thread-local read; on the card an
+attention call reads it twice, the second time in :func:`time_launch`) and
+find None. With a
+dict, :func:`request_trace` installs a recorder for the calling thread (ranks
+that run as threads each get their own) and the request's spans form a tree:
+
+- ``request``, the root;
+- the stages ``encode_prompt``, ``prepare``, ``sample`` and ``decode``, each
+  ending in a device synchronisation, whose host seconds, on
+  ``time.perf_counter``'s clock, go into ``timings`` under their names (what
+  ``timings`` held before the spans);
+- ``step``, one per sampler step; inside it ``controlnet`` (the RepText
+  net), ``controlnet_inpaint`` (the inpaint sampler's second net) and
+  ``flux``; the mask-and-sum, the Euler update and the casts are the step's
+  own time;
+- ``attention``, one per call of an attention entry (K1, K2, K3 and the plain
+  path), carrying the entry's name, and on the card ``launch_ns``: the host
+  ns of the kernel's launch call (:func:`time_launch`), where the host waits
+  whenever the device's launch queue is full.
+
+Each span holds its parent's index, its host start and end in ns on
+``time.time_ns()``'s clock, which is the clock of ``torch.profiler``'s events
+(Unix-epoch ns), and its device ms: CUDA events at its two ends on the
+request's stream, read after the request's last stage has synchronised the
+device (the recorder adds no synchronisation); on the CPU, where ops run
+synchronously, its host duration. ``timings["trace"]`` receives
+``{"profiled", "spans", "counters"}`` when the request ends; ``profiled``
+says whether ``torch.profiler`` was on. The spans enter no
+``record_function`` range: a profiler that traces the card copies every range
+onto the device's timeline, where a reader of its kernel events takes it for
+a kernel. Their host bounds set them against the kernels all the same.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
+import threading
 import time
-from typing import Dict, Iterator, List, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import torch
 
@@ -98,3 +135,191 @@ class StepTimer:
             "min_s": ts[0],
             "max_s": ts[-1],
         }
+
+
+# ----------------------------------------------------------- program spans
+
+_local = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+def active_recorder() -> Optional["SpanRecorder"]:
+    """The recorder of the request this thread runs; None when tracing is off."""
+    return getattr(_local, "recorder", None)
+
+
+class _Span:
+    """One span; entered and left as a context manager by its recorder's
+    thread. ``sync``: a stage, which synchronises the device before its host
+    end and writes its seconds into ``timings``. ``events``: whether it
+    records CUDA events of its own (the request reads its stages')."""
+
+    __slots__ = ("rec", "name", "attrs", "sync", "events", "parent", "start_ns", "end_ns",
+                 "start_s")
+
+    def __init__(self, rec: "SpanRecorder", name: str, attrs: dict, sync: bool = False,
+                 events: bool = True):
+        self.rec, self.name, self.attrs, self.sync = rec, name, attrs, sync
+        self.events = [] if events and rec.cuda else None
+
+    def __enter__(self) -> "_Span":
+        rec = self.rec
+        self.parent = rec.open[-1] if rec.open else -1
+        rec.open.append(len(rec.spans))
+        rec.spans.append(self)
+        if self.events is not None:
+            self.events.append(rec.event())
+        self.start_ns = time.time_ns()
+        if self.sync:
+            self.start_s = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        rec = self.rec
+        self.end_ns = time.time_ns()
+        if self.events is not None:
+            self.events.append(rec.event())
+        if self.sync and exc_type is None:
+            if rec.cuda:
+                torch.cuda.synchronize(rec.device)
+                self.end_ns = time.time_ns()
+            rec.timings[self.name] = time.perf_counter() - self.start_s
+        rec.open.pop()
+
+    def device_ms(self, children: List["_Span"]) -> float:
+        """The device's ms from the span's start event to its end event; for
+        a span without events, from its first child's start to its last
+        child's end; on the CPU its host duration."""
+        if not self.rec.cuda:
+            return (self.end_ns - self.start_ns) * 1e-6
+        first, last = (self, self) if self.events else (children[0], children[-1])
+        return first.events[0].elapsed_time(last.events[1])
+
+
+class SpanRecorder:
+    """The spans of one request (the module note). ``timings`` receives the
+    stages' seconds; :func:`request_trace` makes the recorder of a request,
+    installs it for the thread and writes :meth:`result` into ``timings``.
+    Used alone, it is a stage clock that nothing else in the program sees."""
+
+    def __init__(self, timings: Dict, device: Device):
+        self.timings = timings
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.stream = torch.cuda.current_stream(self.device) if self.cuda else None
+        self.profiled = bool(torch.autograd.profiler._is_profiler_enabled)
+        self.spans: List[_Span] = []
+        self.open: List[int] = []
+
+    def event(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    def span(self, name: str, **attrs) -> _Span:
+        return _Span(self, name, attrs)
+
+    def stage(self, name: str) -> _Span:
+        """A span that ends in a device synchronisation; its host seconds,
+        synchronisation included, go into ``timings[name]``."""
+        return _Span(self, name, {}, sync=True)
+
+    def result(self) -> dict:
+        """``{"profiled", "spans", "counters"}`` once every span has ended
+        and the last stage has synchronised the device. A span is a dict of
+        ``name``, ``parent`` (an index, -1 for the root), ``start_ns``,
+        ``end_ns``, ``device_ms`` and its attributes (``entry``). Counters:
+        ``steps``, ``controlnet_steps`` (steps that ran the RepText net),
+        ``velocity_cache_skips`` (steps that ran no FLUX: both samplers run
+        it on every step they compute) and per attention entry its ``calls``,
+        ``host_ns`` (entering the entry to its return) and ``launch_ns`` (the
+        part spent in kernel launch calls; 0 on the CPU)."""
+        children: Dict[int, List[_Span]] = {}
+        for s in self.spans:
+            children.setdefault(s.parent, []).append(s)
+        spans = [dict(name=s.name, parent=s.parent, start_ns=s.start_ns, end_ns=s.end_ns,
+                      device_ms=s.device_ms(children.get(i, [])), **s.attrs)
+                 for i, s in enumerate(self.spans)]
+        steps = [i for i, s in enumerate(spans) if s["name"] == "step"]
+        ran = {s["parent"] for s in spans if s["name"] == "flux"}
+        attention: Dict[str, Dict[str, int]] = {}
+        for s in spans:
+            if s["name"] == "attention":
+                c = attention.setdefault(s["entry"], {"calls": 0, "host_ns": 0, "launch_ns": 0})
+                c["calls"] += 1
+                c["host_ns"] += s["end_ns"] - s["start_ns"]
+                c["launch_ns"] += s.get("launch_ns", 0)
+        counters = {"steps": len(steps),
+                    "controlnet_steps": sum(s["name"] == "controlnet" for s in spans),
+                    "velocity_cache_skips": len(set(steps) - ran), "attention": attention}
+        return {"profiled": self.profiled, "spans": spans, "counters": counters}
+
+
+@contextlib.contextmanager
+def request_trace(timings: Optional[Dict], device: Device
+                  ) -> Iterator[Optional[SpanRecorder]]:
+    """The ``request`` span of one pipeline call, under which its stages and
+    the spans of the samplers and attention entries nest. Yields None and
+    records nothing when ``timings`` is None; else the thread's recorder,
+    and ``timings["trace"]`` receives its result when the request ends
+    (nothing when it raises)."""
+    if timings is None:
+        yield None
+        return
+    rec = SpanRecorder(timings, device)
+    prev = getattr(_local, "recorder", None)
+    _local.recorder = rec
+    try:
+        with _Span(rec, "request", {}, events=False):
+            yield rec
+    finally:
+        _local.recorder = prev
+    timings["trace"] = rec.result()
+    # a span refers to its recorder: free the spans and their CUDA events now,
+    # not at a later request's cyclic collection
+    rec.spans.clear()
+
+
+def span(recorder: Optional[SpanRecorder], name: str):
+    """``recorder.span(name)``; nothing when ``recorder`` is None."""
+    return _OFF if recorder is None else recorder.span(name)
+
+
+def stage(recorder: Optional[SpanRecorder], name: str):
+    """``recorder.stage(name)``; nothing when ``recorder`` is None."""
+    return _OFF if recorder is None else recorder.stage(name)
+
+
+def span_calls(name: str) -> Callable[[Callable], Callable]:
+    """Decorator: every call of the function under an active recorder is a
+    span ``name`` carrying ``entry``, the function's name."""
+
+    def wrap(fn: Callable) -> Callable:
+        entry = fn.__name__
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            rec = getattr(_local, "recorder", None)
+            if rec is None:
+                return fn(*args, **kwargs)
+            with _Span(rec, name, {"entry": entry}):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def time_launch(launch: Callable, *args):
+    """``launch(*args)``, a kernel's launch call; under an active recorder its
+    host ns are added to the innermost open span's ``launch_ns`` (the
+    attention span of the entry that launches)."""
+    rec = getattr(_local, "recorder", None)
+    if rec is None:
+        return launch(*args)
+    t0 = time.time_ns()
+    try:
+        return launch(*args)
+    finally:
+        attrs = rec.spans[rec.open[-1]].attrs
+        attrs["launch_ns"] = attrs.get("launch_ns", 0) + time.time_ns() - t0

@@ -188,7 +188,12 @@ def test_inpaint_pipeline_end_to_end_matches_jax(pipes):
     timg = tpipe.decode(tlat)
     assert timg.shape == jimg.shape == (1, H, W, 3) and timg.dtype == np.uint8
     assert np.abs(timg.astype(int) - jimg.astype(int)).max() <= 2
-    assert set(timings) == {"encode_prompt", "prepare", "sample"}
+    assert set(timings) == {"encode_prompt", "prepare", "sample", "trace"}
+    names = [s["name"] for s in timings["trace"]["spans"]]
+    assert names[:4] == ["request", "encode_prompt", "prepare", "sample"]
+    assert {"step", "controlnet", "controlnet_inpaint", "flux", "attention"} <= set(names)
+    assert names.count("step") == names.count("controlnet_inpaint") == PIPE_CFG.num_inference_steps
+    assert names.count("controlnet") == PIPE_CFG.controlnet_conditioning_step
 
 
 def test_inpaint_num_images_matches_single_images(pipes):
