@@ -79,6 +79,14 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    (1, 2, 4608, 128) and their timings), which must launch every variant and
    K2; and library_ms for K1-K4 (torch's scaled_dot_product_attention, timed
    here only as the yardstick);
+4a. norms: the norm kernels (csrc/norms.cu: modulate, the AdaLN LayerNorm with
+   its modulation, and rms_norm, the per-head q/k RMSNorm) against their plain
+   versions at the 1024^2 request's shapes in bf16 (every element within the
+   card tests' limit, at least 99 % bit-equal), their times beside the bytes
+   bound, the plain versions' and F.layer_norm's and F.rms_norm's (the library
+   yardstick, which the port never calls); every path below counts their
+   launches beside the attention kernels' and checks them against its blocks
+   (norm_launches);
 5. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
@@ -259,7 +267,7 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    (K1, K3 at 1536^2) on every rank; the meshes share one copy of each tp rank's
    slices.
 
-Then a JSON line of the eight kernels' results (launches per path, each
+Then a JSON line of the ten kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
 phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
 and the demo and gates paths among them; times, the bound, SDPA's time;
@@ -329,6 +337,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # (the forward output, the loss, and each ControlNet gradient tensor).
 REF_RTOL = 5e-2
 DOUBLE_CALLS, SINGLE_CALLS = 19 + 38, 4 + 10
+# FLUX's and the ControlNet's (double, single) blocks, by which the norm
+# kernels' launches are counted (norm_launches).
+FLUX_DEPTH, CN_DEPTH = (19, 38), (4, 10)
 # The ring phase: K5 alone over 4 thread ranks; SP txt2img at 2048^2 (512 T5
 # tokens + a 128 x 128 token grid) over 2 thread ranks on one card.
 RING_RANKS, SP_RANKS, HEADS = 4, 2, 24
@@ -355,6 +366,34 @@ SP_RTOL = REF_RTOL
 FWD_CALLS = DOUBLE_CALLS + SINGLE_CALLS
 TRAIN_K4 = FWD_CALLS - 1
 TRAIN_K1 = FWD_CALLS + TRAIN_K4
+
+
+def norm_launches(flux=0, cn=0, flux_depth=FLUX_DEPTH, cn_depth=CN_DEPTH):
+    """The norm kernels' launches of ``flux`` FLUX and ``cn`` ControlNet
+    forwards: a double block calls modulate and rms_norm 4 times each, a
+    single block once and twice, FLUX's norm_out modulate once."""
+    (fd, fs), (cd, cs) = flux_depth, cn_depth
+    return {"modulate": flux * (4 * fd + fs + 1) + cn * (4 * cd + cs),
+            "rms_norm": flux * (4 * fd + 2 * fs) + cn * (4 * cd + 2 * cs)}
+
+
+def train_norm_launches(flux_depth=FLUX_DEPTH, cn_depth=CN_DEPTH, base_trained=False):
+    """The norm kernels' launches of one remat train step of FLUX and the
+    ControlNet (``cn_depth`` None: FLUX alone): the forward, then the
+    recompute of every block a gradient reaches, which is all of them but,
+    where the base is frozen, FLUX's first double block; norm_out, outside
+    the blocks, runs once."""
+    fwd = norm_launches(1, int(cn_depth is not None), flux_depth, cn_depth or (0, 0))
+    skip = 0 if base_trained else 4
+    return {"modulate": 2 * fwd["modulate"] - 1 - skip, "rms_norm": 2 * fwd["rms_norm"] - skip}
+
+
+def scaled(expect, n):
+    return {k: n * v for k, v in expect.items()}
+
+
+# A train step's launches on the full-geometry pipeline.
+TRAIN_EXPECT = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4, **train_norm_launches()}
 # The OCR term's weight in the OCR and corpus train phases (the RepText
 # recipe's 0.3; the CLI's default is 0, the term off).
 OCR_WEIGHT = 0.3
@@ -432,10 +471,12 @@ def phase(name, msg):
 
 def forward_counters():
     from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops import norms
     from reptext_tpu_torch.ops import ring_attention as ra
 
     return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
-            "K3": fa.flash_attention_streaming, "K5": ra.ring_step}
+            "K3": fa.flash_attention_streaming, "K5": ra.ring_step,
+            "modulate": norms.modulate, "rms_norm": norms.rms_norm}
 
 
 def check_attention_backend():
@@ -458,7 +499,11 @@ def read_launches():
     return {key: entry.launches for key, entry in forward_counters().items()}
 
 
-def cuda_time_ms(fn, repeats=20, warmup=3):
+def cuda_time_ms(fn, repeats=20, warmup=3, queue_behind=0):
+    """(median, least, most) ms between CUDA events around ``fn()``; with
+    ``queue_behind``, a device sleep of that many cycles ahead of the first
+    event, so that fn's launches queue behind it and the events bound device
+    work alone even where the host launches slower than the device runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -466,6 +511,8 @@ def cuda_time_ms(fn, repeats=20, warmup=3):
     for _ in range(repeats):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if queue_behind:
+            torch.cuda._sleep(queue_behind)
         e0.record()
         fn()
         e1.record()
@@ -1401,6 +1448,122 @@ def library_yardsticks(dev):
     return lib
 
 
+# The norms phase: calls a timing, taken in turn over the copies of x.
+NORM_CALLS = 60
+
+
+def norm_departure(got, want, terms):
+    """(the largest |got - want| over its limit, the bit-equal share) of a
+    bf16 norm output against its plain version; ``terms``: the fp32 size of
+    each element's largest term, rows along the last axis. The limit is the
+    card tests' (tests/test_torch_norms_cuda.py): one bf16 ulp at the largest
+    of the two values and the element's terms, plus 2^-18 of the row's
+    largest term."""
+    g, w = got.float(), want.float()
+    m = torch.maximum(torch.maximum(g.abs(), w.abs()), terms)
+    ulp = torch.exp2(torch.floor(torch.log2(m.clamp_min(torch.finfo(torch.bfloat16).tiny))) - 7)
+    limit = ulp + 2.0 ** -18 * terms.amax(dim=-1, keepdim=True)
+    return ((g - w).abs() / limit).max().item(), (got == want).float().mean().item()
+
+
+def norms_phase(dev):
+    """modulate and rms_norm (csrc/norms.cu) at the main path's shapes, bf16:
+    every element of the kernel's output within the card tests' limit of its
+    plain version's (:func:`norm_departure`) and at least 99 % of them
+    bit-equal; the device time of a call (NORM_CALLS calls queued behind a
+    device sleep, in turn over three copies of x where one fits in the 50 MB
+    L2, so that x comes from device memory; medians of 5) of the kernel, the
+    plain version and PyTorch's F.layer_norm (no modulation) and F.rms_norm,
+    the library yardstick, which the port never calls; and the bytes bound
+    at 3.35 TB/s (x read and out written once, the parameters' rows once)."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.nn.blocks import split_heads
+    from reptext_tpu_torch.ops import norms
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def act(*shape):
+        x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.25
+        x[..., ::97] *= 100.0
+        return x.to(torch.bfloat16)
+
+    def adaln(b, chunks=6):
+        emb = (torch.randn(b, chunks * 3072, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        return emb.chunk(chunks, dim=-1)[:2]
+
+    def weight():
+        return (torch.rand(128, generator=gen, device=dev) + 0.5).to(torch.bfloat16)
+
+    def modulate_terms(x, shift, scale):
+        a = norms.layer_norm_no_affine_f32(x) * (1.0 + scale.float()[:, None, :])
+        return torch.maximum(a.abs(), shift.float()[:, None, :].abs())
+
+    joints = [act(1, 4608, 3072) for _ in range(3)]
+    cases = {
+        "modulate": {
+            "(1,4096,3072)": [(act(1, 4096, 3072), *adaln(1)) for _ in range(3)],
+            "(1,512,3072)": [(act(1, 512, 3072), *adaln(1))],
+            "(1,4608,3072)": [(j, *adaln(1, 3)) for j in joints],
+            "joint[:, 512:]": [(j[:, 512:], *adaln(1, 2)) for j in joints],
+            "(2,4608,3072)": [(act(2, 4608, 3072), *adaln(2)) for _ in range(2)],
+        },
+        "rms_norm": {
+            "(1,24,4608,128)": [(split_heads(act(1, 4608, 3072), 24), weight())
+                                for _ in range(3)],
+            "(1,24,512,128)": [(split_heads(act(1, 512, 3072), 24), weight())],
+        },
+    }
+    calls = {"modulate": (norms.modulate, norms.modulate_plain,
+                          lambda x, sh, sc: F.layer_norm(x, x.shape[-1:], eps=norms.LN_EPS),
+                          modulate_terms),
+             "rms_norm": (lambda x, w: norms.rms_norm(x, w, 1e-6),
+                          lambda x, w: norms.rms_norm_plain(x, w, 1e-6),
+                          (lambda x, w: F.rms_norm(x, x.shape[-1:], w, 1e-6))
+                          if hasattr(F, "rms_norm") else None,
+                          lambda x, w: norms.rms_norm_plain(x, w, 1e-6).float().abs())}
+    results = {}
+    for key, by_shape in cases.items():
+        kernel, plain, library, terms = calls[key]
+        res = results[key] = {f"{name}_by_shape": {} for name in (
+            "card_ms", "bound_ms", "plain_ms", "library_ms", "of_limit", "bit_equal")}
+        for label, copies in by_shape.items():
+            args = copies[0]
+            worst, equal = norm_departure(kernel(*args), plain(*args), terms(*args))
+            x = args[0]
+            nbytes = 2 * x.numel() * x.element_size() + sum(
+                t.numel() * t.element_size() for t in args[1:])
+            bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+
+            def per_call_ms(fn, copies=copies):
+                return cuda_time_ms(lambda: [fn(*copies[i % len(copies)])
+                                             for i in range(NORM_CALLS)],
+                                    repeats=5, warmup=1, queue_behind=40_000_000)[0] / NORM_CALLS
+
+            k_ms, p_ms = per_call_ms(kernel), per_call_ms(plain)
+            lib_ms = per_call_ms(library) if library else None
+            for name, value in (("card_ms", k_ms), ("bound_ms", bound_ms), ("plain_ms", p_ms),
+                                ("library_ms", lib_ms), ("of_limit", worst),
+                                ("bit_equal", equal)):
+                res[f"{name}_by_shape"][label] = value
+            phase("norms", f"{key} {label}: kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                           f"({100 * bound_ms / k_ms:.1f} % of it, {nbytes / k_ms / 1e9:.0f} "
+                           f"GB/s), plain {p_ms:.4f} ms, library "
+                           + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not in this torch")
+                           + f" (device time a call, medians of 5 x {NORM_CALLS} queued calls); "
+                           f"against the plain version: bit-equal {equal:.6f} (at least "
+                           f"0.99), the largest departure {worst:.3f} of its limit (at most 1)")
+            if worst > 1.0 or equal < 0.99:
+                raise SystemExit(f"{key} {label}: an element outside the limit ({worst:.3f} of "
+                                 f"it) or {equal:.6f} bit-equal to its plain version")
+        first = next(iter(by_shape))
+        for name in ("card_ms", "bound_ms", "plain_ms", "library_ms"):
+            res[name] = res[f"{name}_by_shape"][first]
+    del cases, joints
+    torch.cuda.empty_cache()
+    return results
+
+
 # The trained-weights demo at cut step counts (the protocol's full run is
 # ``python -m reptext_tpu_torch.examples.overfit_e2e --holdout``): full demo
 # width, fp32, the holdout set. Per model call FLUX 2 + 4 and the ControlNet
@@ -1410,6 +1573,7 @@ def library_yardsticks(dev):
 # on every step).
 DEMO_STEPS = {"vae": 200, "flux": 300, "sample": 4}
 DEMO_BLOCKS = 2 + 4 + 1 + 2
+DEMO_NORMS = norm_launches(1, 1, (2, 4), (1, 2))
 GATES_STEPS = 8
 
 
@@ -1446,10 +1610,13 @@ def demo_phase(dev):
     n_images = timing["images_sampled"]
     steps = DEMO_STEPS["flux"]
     want_k2 = steps * DEMO_BLOCKS + n_images * DEMO_STEPS["sample"] * DEMO_BLOCKS
+    # one forward of both models a flow step and a sampled step: the norms
+    want_norms = scaled(DEMO_NORMS, steps + n_images * DEMO_STEPS["sample"])
     ok_launch = (per_step == {"K2": DEMO_BLOCKS, "K4": DEMO_BLOCKS}
                  and per_image == DEMO_STEPS["sample"] * DEMO_BLOCKS
                  and counts["K2"] == want_k2 and counts["K4"] == steps * DEMO_BLOCKS
-                 and counts["K1"] == counts["K3"] == 0)
+                 and counts["K1"] == counts["K3"] == 0
+                 and all(counts[k] == n for k, n in want_norms.items()))
     ok_loss = timing["flow_losses_finite"] and timing["flow_loss_last"] < timing["flow_loss_first"]
     phase("demo", f"{wall:.1f} s (stages {timing['stages_s']}); flow loss "
                   f"{timing['flow_loss_first']:.5f} -> {timing['flow_loss_last']:.5f}, all finite "
@@ -1461,7 +1628,7 @@ def demo_phase(dev):
                   f"trained {out['mean_edge_iou_trained']}, random {out['mean_edge_iou_random']}")
     phase("demo", f"launches: per flow step {per_step} (want K2 = K4 = {DEMO_BLOCKS}), per image "
                   f"{per_image} (want {DEMO_STEPS['sample'] * DEMO_BLOCKS}), in all {counts} "
-                  f"(want K2 {want_k2}, K4 {steps * DEMO_BLOCKS}, K1 = K3 = 0) -> "
+                  f"(want K2 {want_k2}, K4 {steps * DEMO_BLOCKS}, K1 = K3 = 0, {want_norms}) -> "
                   f"{'ok' if ok_launch and ok_loss else 'FAIL'}")
     if not (ok_launch and ok_loss):
         raise SystemExit("the demo's losses or launches are not what they must be")
@@ -1516,12 +1683,15 @@ def gates_phase(dev, cache):
     want = {"uncached": GATES_STEPS * DEMO_BLOCKS,
             "vc_fixed": fixed_cache_steps(GATES_STEPS) * DEMO_BLOCKS,
             "fp8w": GATES_STEPS * DEMO_BLOCKS}
+    # every model call runs both models, so the norms follow K2 block for block
+    norms_ok = all(counts[k] * DEMO_BLOCKS == counts["K2"] * n for k, n in DEMO_NORMS.items())
     ok = (all(per[k] == n for k, n in want.items()) and per["vc_adaptive"] <= per["uncached"]
-          and counts["K4"] == counts["K1"] == counts["K3"] == 0)
+          and counts["K4"] == counts["K1"] == counts["K3"] == 0 and norms_ok)
     phase("gates", f"{wall:.1f} s; " + "; ".join(
         f"{k}: char accuracy {out['char_accuracy_' + k]}, {out['sample_ms_per_step'][k]:.2f} "
         f"ms/step, {per[k]} launches per image" for k in per)
-        + f"; want {want}, adaptive <= uncached -> {'ok' if ok else 'FAIL'}")
+        + f"; want {want}, adaptive <= uncached; launches in all {counts}, the norms "
+          f"K2 x {DEMO_NORMS} / {DEMO_BLOCKS}: {norms_ok} -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the trained gates' launches are not what the cache schedules say")
     return {"gates": counts}
@@ -1678,8 +1848,9 @@ def e2e_phase(dev, steps, cn_steps, seed):
                  f"parameters, bf16, seeded random weights, device {dev}")
 
     gate = min(cn_steps, steps)
-    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
-    launches = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+              **norm_launches(steps, gate)}
+    launches = dict.fromkeys(expect, 0)
     for i, (name, text, pos) in enumerate(reqs):
         args = cli.build_parser().parse_args(["--text", text, "--position", *map(str, pos), *base])
         cond, source = conditions_for(data, name, text, pos, size, font_size)
@@ -1701,7 +1872,9 @@ def e2e_phase(dev, steps, cn_steps, seed):
                      + f"; sampler {1e3 * timings['sample'] / steps:.1f} ms/step; "
                      f"kernel launches K1 {got['K1']} (expected {expect['K1']}) K2 {got['K2']} "
                      f"K3 {got['K3']} K5 {got['K5']} (expected 0, 0 and 0: every block passes RoPE "
-                     f"tables, S = 4608, one device); image {images.shape} {images.dtype}, "
+                     f"tables, S = 4608, one device), modulate {got['modulate']} rms_norm "
+                     f"{got['rms_norm']} (expected {expect['modulate']} and {expect['rms_norm']}); "
+                     f"image {images.shape} {images.dtype}, "
                      f"mean {images.mean():.2f}; latents finite {finite}")
         if not (finite and shape_ok and got == expect):
             raise SystemExit(f"end-to-end request {i + 1} failed its checks")
@@ -1782,6 +1955,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
     flux_cfg, cn_cfg = pipe.flux.config, pipe.controlnet.config
     flux_n = flux_cfg.num_layers + flux_cfg.num_single_layers
     cn_n = cn_cfg.num_layers + cn_cfg.num_single_layers
+    depth = {"flux_depth": (flux_cfg.num_layers, flux_cfg.num_single_layers),
+             "cn_depth": (cn_cfg.num_layers, cn_cfg.num_single_layers)}
     dtypes = {str(next(m.parameters()).dtype) for m in (pipe.flux, pipe.controlnet, pipe.vae)}
     phase("tiny", f"cli.build_pipeline(--random-weights --tiny) on {dev} in "
                   f"{time.perf_counter() - t0:.2f} s: compute dtype {pipe.compute_dtype}, "
@@ -1808,7 +1983,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
         launches["tiny_txt2img_1024"] = fp32_request(
             f"txt2img {size}^2 (S = {TXT_LEN + (size // 16) ** 2}, conditions: {source})",
             lambda timings: cli.generate(args, pipe, cond, timings=timings, output_type="latent"),
-            pipe, dict(zero, K1=steps * flux_n + gate * cn_n), (1, size, size, 3))
+            pipe, dict(zero, K1=steps * flux_n + gate * cn_n,
+                       **norm_launches(steps, gate, **depth)), (1, size, size, 3))
 
         lname = "txt2img_1536"
         width, height = (int(v) for v in large[f"{lname}.size"])
@@ -1824,7 +2000,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
             f"txt2img {width}x{height} (S = {s}, conditions: {source})",
             lambda timings: cli.generate(largs, big, lcond, timings=timings,
                                          output_type="latent"),
-            big, dict(zero, K3=steps * flux_n + gate * cn_n), (1, height, width, 3))
+            big, dict(zero, K3=steps * flux_n + gate * cn_n, **norm_launches(steps, gate, **depth)),
+            (1, height, width, 3))
         del big
 
         iname = "inpaint_1280x960"
@@ -1841,12 +2018,15 @@ def tiny_phase(dev, steps, cn_steps, seed):
         icn = inp.inpaint_controlnet.config
         icn_n = icn.num_layers + icn.num_single_layers
         kernel = "K3" if fa.streams(s) else "K1"
+        # FLUX and the RepText net as txt2img's, the inpaint ControlNet every step
+        icn_norms = norm_launches(0, steps, cn_depth=(icn.num_layers, icn.num_single_layers))
+        inorms = {k: v + icn_norms[k] for k, v in norm_launches(steps, gate, **depth).items()}
         launches["tiny_inpaint_1280x960"] = fp32_request(
             f"inpaint {width}x{height} (S = {s}, CFG batch 2, cli.build_pipeline(--mode inpaint "
             f"--tiny), conditions: {source})",
             lambda timings: cli.generate_inpaint(iargs, inp, icond, image, mask, timings=timings,
                                                  output_type="latent"),
-            inp, dict(zero, **{kernel: steps * (flux_n + icn_n) + gate * cn_n}),
+            inp, dict(zero, **{kernel: steps * (flux_n + icn_n) + gate * cn_n}, **inorms),
             (1, height, width, 3))
         del inp
 
@@ -1865,7 +2045,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
         torch.cuda.synchronize()
         got = read_train_launches()
         fwd = flux_n + cn_n
-        texpect = {"K1": 3 * (2 * fwd - 1), "K2": 0, "K3": 0, "K4": 3 * (fwd - 1)}
+        texpect = {"K1": 3 * (2 * fwd - 1), "K2": 0, "K3": 0, "K4": 3 * (fwd - 1),
+                   **scaled(train_norm_launches(depth["flux_depth"], depth["cn_depth"]), 3)}
         ok = (len(losses) == 3 and all(np.isfinite(losses)) and not trainer.faults
               and got == texpect and tpipe.compute_dtype == torch.float32
               and all(p.dtype == torch.float32 for p in tpipe.controlnet.parameters()))
@@ -1903,7 +2084,7 @@ def tiny_phase(dev, steps, cn_steps, seed):
             server.shutdown()
             thread.join(timeout=60)
         is_png, served = png_array(body["image_png_base64"]) if status == 200 else (False, None)
-        sexpect = dict(zero, K1=steps * flux_n + gate * cn_n)
+        sexpect = dict(zero, K1=steps * flux_n + gate * cn_n, **norm_launches(steps, gate, **depth))
         ok = (status == 200 and is_png and served.shape == (size, size, 3) and got == sexpect
               and server.worker.pipeline.compute_dtype == torch.float32)
         launches["tiny_serve"] = got
@@ -1940,7 +2121,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
 
             runs[label], got, _ = sp_run(
                 dev, f"tiny txt2img {size}^2 (S = {TXT_LEN + s_img}, fp32)", backend, call,
-                sp_expect(backend, "K1", steps * (flux_n + cn_n)), runs.get("single"), steps,
+                sp_expect(backend, "K1", steps * (flux_n + cn_n),
+                          norm_launches(steps, steps, **depth)), runs.get("single"), steps,
                 (1, s_img, 64))
             if runs[label].dtype != torch.float32:
                 fails.append(f"sp {label}: latents {runs[label].dtype}")
@@ -2034,7 +2216,8 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     args, cond, source, width, height = request(name, [])
     big = pipe.with_config(cli.pipeline_config(args, height, width))
     s = big.pipe_cfg.image_seq_len + big.pipe_cfg.max_sequence_length
-    expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K5": 0}
+    expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K5": 0,
+              **norm_launches(steps, gate)}
     launches[name] = run_request(
         f"txt2img {width}x{height} (S = {s}, conditions: {source})",
         lambda timings: cli.generate(args, big, cond, timings=timings, output_type="latent"),
@@ -2058,7 +2241,7 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
         image, mask = source_image(seed, height, width), box_mask(cond)
         s = cfg.image_seq_len + cfg.max_sequence_length
         kernel = "K3" if fa.streams(s) else "K1"
-        expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+        expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **norm_launches(steps, steps + gate)}
         expect[kernel] = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
         launches[name] = run_request(
             f"inpaint {width}x{height} (S = {s}, CFG batch 2, true-CFG {TRUE_GUIDANCE}, "
@@ -2071,11 +2254,14 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     return launches, inp
 
 
-def k1_expected(steps, cn_steps, run):
-    """K1 launches of the txt2img steps ``run`` of a ``steps``-step schedule:
-    57 a step, 14 more where the ControlNet's gate (by absolute step) is on."""
+def txt2img_expected(steps, cn_steps, run):
+    """The launches of the 1024^2 txt2img steps ``run`` of a ``steps``-step
+    schedule: FLUX a step (K1 57), the ControlNet (K1 14) where its gate (by
+    absolute step) is on."""
     gate = min(cn_steps, steps)
-    return sum(DOUBLE_CALLS + (SINGLE_CALLS if i < gate else 0) for i in run)
+    cn = sum(1 for i in run if i < gate)
+    return {"K1": len(run) * DOUBLE_CALLS + cn * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+            **norm_launches(len(run), cn)}
 
 
 def surface_phase(dev, pipe, steps, cn_steps, seed):
@@ -2108,9 +2294,8 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
     t_start = min(int(steps * (1.0 - strength)), steps - 1)
     custom = [1.0, 0.66, 0.33]
 
-    def run(key, label, call, k1):
+    def run(key, label, call, expect):
         """``call(timings)`` -> latents or a FluxPipelineOutput of PIL images."""
-        expect = {"K1": k1, "K2": 0, "K3": 0, "K5": 0}
         torch.cuda.synchronize()
         reset_launches()
         timings = {}
@@ -2131,9 +2316,10 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
         ok = finite and shape_ok and got == expect
         phase("surface", f"{label}: {wall:.3f} s/image; stages "
                          + stage_seconds(timings)
-                         + f"; kernel launches K1 {got['K1']} (expected {k1}) K2 {got['K2']} K3 "
-                         f"{got['K3']} K5 {got['K5']} (expected 0, 0, 0); image {images.shape} "
-                         f"{images.dtype}; finite {finite} -> {'ok' if ok else 'FAIL'}")
+                         + "; kernel launches "
+                         + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in sorted(expect))
+                         + f"; image {images.shape} {images.dtype}; finite {finite} -> "
+                         f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"the surface run {key} failed its checks")
 
@@ -2142,10 +2328,10 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
                    f"{t_start}, {steps - t_start} of {steps} steps",
         lambda t: cli.generate(parse("--strength", str(strength)), pipe, cond, timings=t,
                                output_type="latent", init_image=init),
-        k1_expected(steps, cn_steps, range(t_start, steps)))
+        txt2img_expected(steps, cn_steps, range(t_start, steps)))
     run("no_callback", f"{steps} steps, no callback",
         lambda t: pipe(cond, output_type="latent", timings=t, **kw),
-        k1_expected(steps, cn_steps, range(steps)))
+        txt2img_expected(steps, cn_steps, range(steps)))
     seen = []
 
     def record(i, latents):
@@ -2153,7 +2339,7 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
 
     run("callback", f"{steps} steps, a callback after every step",
         lambda t: pipe(cond, output_type="latent", timings=t, callback=record, **kw),
-        k1_expected(steps, cn_steps, range(steps)))
+        txt2img_expected(steps, cn_steps, range(steps)))
     same = bool(torch.equal(runs["callback"], runs["no_callback"]))
     ok = same and seen == [(i, True) for i in range(1, steps + 1)]
     phase("surface", f"callback steps {[i for i, _ in seen]}, latents finite at each; latents "
@@ -2163,17 +2349,17 @@ def surface_phase(dev, pipe, steps, cn_steps, seed):
         raise SystemExit("the callback changed the result")
     run("callback_stop", "a callback that returns False after step 2",
         lambda t: pipe(cond, output_type="latent", timings=t, callback=lambda i, lat: i < 2,
-                       **kw), k1_expected(steps, cn_steps, range(min(2, steps))))
+                       **kw), txt2img_expected(steps, cn_steps, range(min(2, steps))))
     for flag in ("sigmas", "timesteps"):
         values = custom if flag == "sigmas" else [1000.0 * v for v in custom]
         run(flag, f"custom {flag} {values} through --{flag} (overrides --steps {steps})",
             lambda t, flag=flag, values=values: cli.generate(
                 parse(f"--{flag}", ",".join(f"{v:g}" for v in values)), pipe, cond, timings=t,
                 output_type="latent"),
-            k1_expected(len(custom), cn_steps, range(len(custom))))
+            txt2img_expected(len(custom), cn_steps, range(len(custom))))
     run("pil", f"return_dict=True, output_type='pil', {steps} steps",
         lambda t: pipe(cond, output_type="pil", return_dict=True, timings=t, **kw),
-        k1_expected(steps, cn_steps, range(steps)))
+        txt2img_expected(steps, cn_steps, range(steps)))
     return launches
 
 
@@ -2286,7 +2472,8 @@ def checkpoint_phase(dev, steps, cn_steps, seed):
                     and not np.array_equal(t5_ids, demo[1]))
         cond, source = conditions_for(data, name, text, pos, req_size, font_size)
         gate = min(cn_steps, steps)
-        expect = {"K1": steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN), "K2": 0, "K3": 0, "K5": 0}
+        expect = {"K1": steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN), "K2": 0, "K3": 0, "K5": 0,
+                  **norm_launches(steps, gate, CKPT_FLUX, CKPT_CN)}
         reset_launches()
         t0 = time.perf_counter()
         lat = cli.generate(args, pipe, cond, output_type="latent")
@@ -2375,6 +2562,7 @@ def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
     per_batch = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
     per_inpaint_batch = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
     zero = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    batch_norms = norm_launches(steps, gate)
     launches, fails = {}, []
 
     def scenario(label, payloads, max_batch, batches, expect, shape):
@@ -2437,8 +2625,9 @@ def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
     try:
         burst = [payload(i, reqs[i % 2]) for i in range(4)]
         square = (size, size, 3)
-        batched = scenario("burst", burst, 4, 1, dict(zero, K1=per_batch), square)
-        alone = scenario("one_at_a_time", burst, 1, 4, dict(zero, K1=4 * per_batch), square)
+        one = dict(zero, K1=per_batch, **batch_norms)
+        batched = scenario("burst", burst, 4, 1, one, square)
+        alone = scenario("one_at_a_time", burst, 1, 4, scaled(one, 4), square)
 
         # the same requests called directly: the batch's latents against each
         # request's alone (bf16, SERVE_RTOL), and each served PNG against the
@@ -2485,16 +2674,17 @@ def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
 
         text, pos, w, h = lines["txt2img_1536"]
         scenario("1536", [payload(0, ("txt2img_1536", text, pos), width=w, height=h)], 4, 1,
-                 dict(zero, K3=per_batch), (h, w, 3))
+                 dict(zero, K3=per_batch, **batch_norms), (h, w, 3))
         scenario("mismatched", [payload(0, reqs[0]), payload(1, reqs[1], guidance_scale=4.0)],
-                 4, 2, dict(zero, K1=2 * per_batch), square)
+                 4, 2, scaled(one, 2), square)
         text, pos, w, h = lines["inpaint_1280x960"]
         cond = table[(text, w, h)]
         image, mask = source_image(seed, h, w), box_mask(cond)
         inpaint = [payload(i, ("inpaint_1280x960", text, pos), mode="inpaint",
                            image_png_base64=_png_b64(image), mask_png_base64=_png_b64(mask))
                    for i in range(2)]
-        scenario("inpaint", inpaint, 4, 1, dict(zero, K1=per_inpaint_batch), (h, w, 3))
+        scenario("inpaint", inpaint, 4, 1,
+                 dict(zero, K1=per_inpaint_batch, **norm_launches(steps, steps + gate)), (h, w, 3))
         phase("serve", f"launches per batch of B requests with N lines: K1 (K3 past 6144 joint "
                        f"tokens) = steps x 57 + ControlNet steps x 14 = {per_batch} whatever B and "
                        f"N (every block is one attention call over the batch's rows, the "
@@ -2527,8 +2717,6 @@ def train_phase(dev, pipe, seed, profile=False):
     dataset.conditions = lambda spec, step, index: conds[(step + index) % len(conds)][0]
 
     base_before = param_checksums(pipe.flux)
-    counters = (fa.flash_attention_rope, fa.flash_attention, fa.flash_attention_backward,
-                fa.flash_attention_streaming)
     per_step, fails = [], []
     clock = {"t": None}
 
@@ -2536,10 +2724,8 @@ def train_phase(dev, pipe, seed, profile=False):
         torch.cuda.synchronize()
         now = time.perf_counter()
         if kind == "step":
-            counts = [c.launches for c in counters]
-            for c in counters:
-                c.launches = 0
-            per_step.append((info["step"], info["loss"], now - clock["t"], counts))
+            per_step.append((info["step"], info["loss"], now - clock["t"], read_train_launches()))
+            reset_train_launches()
             if info["step"] == 1:
                 cn = pipe.controlnet
                 layers = list(cn.double_blocks) + list(cn.single_blocks)
@@ -2554,19 +2740,17 @@ def train_phase(dev, pipe, seed, profile=False):
             phase("train", f"[{kind}] {info} ({now - (clock['t'] or now):.3f} s)")
         clock["t"] = now
 
-    for c in counters:
-        c.launches = 0
+    reset_train_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = cli.train(args, pipe, dataset=dataset, on_event=on_event)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for step, loss, sec, (n1, n2, n4, n3) in per_step:
+    for step, loss, sec, counts in per_step:
         phase("train", f"step {step}: loss {loss:.6f}, {sec:.3f} s ({'cold' if step == 1 else 'warm'}"
-                       f"), launches K1 {n1} (expected {TRAIN_K1}) K4 {n4} (expected {TRAIN_K4}) "
-                       f"K2 {n2} K3 {n3} (expected 0 and 0)")
-        if not (np.isfinite(loss) and (n1, n2, n4, n3) == (TRAIN_K1, 0, TRAIN_K4, 0)):
+                       f"), launches {train_launch_text(counts)}")
+        if not (np.isfinite(loss) and counts == TRAIN_EXPECT):
             fails.append(f"step {step}")
     same = param_checksums(pipe.flux) == base_before
     phase("train", f"3 steps at batch {args.batch_size}, {size}^2, lr {args.learning_rate}, "
@@ -2592,15 +2776,17 @@ def train_phase(dev, pipe, seed, profile=False):
         device_profile(f"one train step at batch {args.batch_size} (its batch built before)",
                        run, {fa.flash_attention_rope: TRAIN_K1,
                              fa.flash_attention_backward: TRAIN_K4, fa.flash_attention: 0})
-    return {key: sum(s[3][i] for s in per_step) for i, key in enumerate(("K1", "K2", "K4", "K3"))}
+    return {key: sum(s[3][key] for s in per_step) for key in TRAIN_EXPECT}
 
 
 
 def train_launches():
     from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops import norms
 
     return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
-            "K3": fa.flash_attention_streaming, "K4": fa.flash_attention_backward}
+            "K3": fa.flash_attention_streaming, "K4": fa.flash_attention_backward,
+            "modulate": norms.modulate, "rms_norm": norms.rms_norm}
 
 
 def reset_train_launches():
@@ -2611,6 +2797,10 @@ def reset_train_launches():
 
 def read_train_launches():
     return {key: entry.launches for key, entry in train_launches().items()}
+
+
+def train_launch_text(counts, expect=TRAIN_EXPECT):
+    return ", ".join(f"{k} {counts[k]} (expected {expect[k]})" for k in expect)
 
 
 def param_checksums(module):
@@ -2851,14 +3041,12 @@ def train_ocr_phase(dev, pipe, seed, profile=False):
             ocr.load_judge = real_load
         peak = torch.cuda.max_memory_allocated() / 2**30
         fails = []
-        expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
         for step, loss, sec, counts, term in per_step:
             phase("train_ocr", f"step {step}: loss {loss:.6f}, OCR term {term:.6f} (x "
                                f"{OCR_WEIGHT}: {100 * OCR_WEIGHT * term / loss:.1f} % of the "
                                f"loss), {sec:.3f} s ({'cold' if step == 1 else 'warm'}); "
-                               f"launches K1 {counts['K1']} K4 {counts['K4']} K2 {counts['K2']} "
-                               f"K3 {counts['K3']} (expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
-            if not (np.isfinite(loss) and np.isfinite(term) and counts == expect):
+                               f"launches {train_launch_text(counts)}")
+            if not (np.isfinite(loss) and np.isfinite(term) and counts == TRAIN_EXPECT):
                 fails.append(f"step {step}")
         same = {name: param_checksums(m) == before for name, m, before in
                 (("base", pipe.flux, sums["base"]), ("VAE", pipe.vae, sums["VAE"]),
@@ -2890,7 +3078,7 @@ def train_ocr_phase(dev, pipe, seed, profile=False):
                                             fa.flash_attention: 0})
     finally:
         ttrain.perceptual_term = real_term
-    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+    return {key: sum(s[3][key] for s in per_step) for key in TRAIN_EXPECT}
 
 
 
@@ -2973,13 +3161,11 @@ def train_corpus_phase(dev, pipe, seed):
         del cls.conditions
         shutil.rmtree(root, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
     fails = []
     for step, loss, sec, counts in per_step:
-        phase("train_corpus", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches K1 "
-                              f"{counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 "
-                              f"{counts['K3']} (expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
-        if not (np.isfinite(loss) and counts == expect):
+        phase("train_corpus", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches "
+                              f"{train_launch_text(counts)}")
+        if not (np.isfinite(loss) and counts == TRAIN_EXPECT):
             fails.append(f"step {step}")
     used = sorted({os.path.basename(s["image_path"]) for s in specs.values()})
     phase("train_corpus", f"a corpus of {len(CORPUS_SIZES)} seeded PNGs {CORPUS_SIZES} "
@@ -2989,7 +3175,7 @@ def train_corpus_phase(dev, pipe, seed):
                           f"faults {len(trainer.faults)}; peak device memory {peak:.2f} GiB")
     if len(per_step) != 2 or trainer.faults or not same or fails:
         raise SystemExit(f"the corpus training run failed its checks: {fails}")
-    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+    return {key: sum(s[3][key] for s in per_step) for key in TRAIN_EXPECT}
 
 
 def cut_train_phase(dev, pipe, seed, joint):
@@ -3028,7 +3214,8 @@ def cut_train_phase(dev, pipe, seed, joint):
     step = make_joint_train_step(flux, cn, opt) if joint else make_train_step(flux, opt)
     n_params = sum(p.numel() for g in groups for p in g["params"])
     fwd = sum(CUT_FLUX) + (sum(CUT_CN) if joint else 0)
-    expect = {"K1": 2 * fwd, "K2": 0, "K3": 0, "K4": fwd}
+    expect = {"K1": 2 * fwd, "K2": 0, "K3": 0, "K4": fwd,
+              **train_norm_launches(CUT_FLUX, CUT_CN if joint else None, base_trained=True)}
     before = param_checksums(flux)
     torch.cuda.reset_peak_memory_stats()
     totals, fails = {key: 0 for key in expect}, []
@@ -3046,8 +3233,7 @@ def cut_train_phase(dev, pipe, seed, joint):
         got_grad = sum(g is not None and bool(torch.isfinite(g).all()) and bool(g.any())
                        for g in grads)
         phase(label, f"step {s + 1}: loss {loss:.6f}, {sec:.3f} s ({'cold' if s == 0 else 'warm'})"
-                     f"; launches K1 {counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 "
-                     f"{counts['K3']} (expected {expect['K1']}, {expect['K4']}, 0, 0); base "
+                     f"; launches {train_launch_text(counts, expect)}; base "
                      f"tensors with a finite nonzero gradient {got_grad} of {len(grads)}")
         if not (np.isfinite(loss) and counts == expect and got_grad > 0):
             fails.append(f"step {s + 1}")
@@ -3190,7 +3376,8 @@ def union_phase(dev, pipe, inp, steps, cn_steps, seed):
     upipe = pipe.with_config(cli.pipeline_config(uargs))
     upipe.controlnet = union
     gate = min(cn_steps, steps)
-    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+              **norm_launches(steps, gate)}
     launches, ms = {}, {"plain": [], "union": []}
     for label in ("plain", "union", "union", "plain"):
         p, a = (pipe, args) if label == "plain" else (upipe, uargs)
@@ -3221,7 +3408,7 @@ def union_phase(dev, pipe, inp, steps, cn_steps, seed):
     uinp.controlnet = union
     image, mask = source_image(seed, height, width), box_mask(icond)
     expect = {"K1": steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS, "K2": 0, "K3": 0,
-              "K5": 0}
+              "K5": 0, **norm_launches(steps, steps + gate)}
     launches["union_inpaint"] = run_request(
         f"inpaint {width}x{height} with the union net in the RepText slot (mode {UNION_MODE}, "
         f"CFG batch 2, conditions: {isource})",
@@ -3265,13 +3452,11 @@ def union_train_phase(dev, pipe, union, seed):
     peak = torch.cuda.max_memory_allocated() / 2**30
     grad = union.controlnet_mode_embedder.weight.grad
     rows = [] if grad is None else [i for i in range(UNION_MODES) if bool(grad[i].any())]
-    expect = {"K1": TRAIN_K1, "K2": 0, "K3": 0, "K4": TRAIN_K4}
     fails = []
     for step, loss, sec, counts in per_step:
-        phase("union_train", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches K1 "
-                             f"{counts['K1']} K4 {counts['K4']} K2 {counts['K2']} K3 {counts['K3']} "
-                             f"(expected {TRAIN_K1}, {TRAIN_K4}, 0, 0)")
-        if not (np.isfinite(loss) and counts == expect):
+        phase("union_train", f"step {step}: loss {loss:.6f}, {sec:.3f} s; launches "
+                             f"{train_launch_text(counts)}")
+        if not (np.isfinite(loss) and counts == TRAIN_EXPECT):
             fails.append(f"step {step}")
     phase("union_train", f"2 steps at batch 2, {size}^2, mode {UNION_MODE}: faults "
                          f"{len(trainer.faults)}; mode-embedding rows with a gradient {rows} "
@@ -3282,7 +3467,7 @@ def union_train_phase(dev, pipe, union, seed):
     union.remat = False
     if len(per_step) != 2 or trainer.faults or rows != [UNION_MODE] or fails:
         raise SystemExit(f"the union training run failed its checks: {fails}")
-    return {key: sum(s[3][key] for s in per_step) for key in ("K1", "K2", "K3", "K4")}
+    return {key: sum(s[3][key] for s in per_step) for key in TRAIN_EXPECT}
 
 
 @torch.inference_mode()
@@ -3314,7 +3499,8 @@ def multi_phase(dev, pipe, union, seed):
     multi = MultiControlNet([ControlNetEntry(pipe.controlnet, 1.0),
                              ControlNetEntry(union, 0.8, uses_mode=True, guidance_start=0.5,
                                              guidance_end=1.0)], *layers)
-    launches, ok = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}, True
+    expect = {"K1": 2 * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0, **norm_launches(cn=2)}
+    launches, ok = dict.fromkeys(expect, 0), True
     for step in (1, 3):
         reset_launches()
         blocks, singles = multi(x, [cond, cond], ctx, pooled, t, img_ids, txt_ids, guid,
@@ -3329,11 +3515,12 @@ def multi_phase(dev, pipe, union, seed):
                     b * torch.tensor(keep, dtype=b.dtype, device=dev), n)
                 for a, b, n in ((b1, b2, layers[0]), (s1, s2, layers[1]))]
         same = bool(torch.equal(blocks, want[0])) and bool(torch.equal(singles, want[1]))
-        ok &= same and got["K1"] == 2 * SINGLE_CALLS
+        ok &= same and got == expect
         phase("multi", f"step {step} of 4 (union window 0.5-1.0 {'on' if keep else 'off'}): "
                        f"block stacks {tuple(blocks.shape)}, single {tuple(singles.shape)}; "
                        f"bit-equal to each net's own masked, gated, spread residuals summed: "
-                       f"{same}; K1 launches {got['K1']} (expected {2 * SINGLE_CALLS})")
+                       f"{same}; launches "
+                       + ", ".join(f"{k} {got[k]} (expected {expect[k]})" for k in expect))
     if not ok:
         raise SystemExit("the multi-ControlNet composite failed its checks")
     return launches
@@ -3361,7 +3548,8 @@ def lora_phase(dev, pipe, steps, cn_steps, seed):
     head_dim = pipe.flux.config.attention_head_dim
     before = param_checksums(pipe.flux)
     gate = min(cn_steps, steps)
-    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+              **norm_launches(steps, gate)}
     outs, launches = {}, {}
 
     def request(label):
@@ -3457,7 +3645,8 @@ def single_file_phase(dev, pipe, steps, cn_steps, seed):
         spipe = pipe.with_config(pipe.pipe_cfg)
         spipe.flux = flux
         gate = min(cn_steps, steps)
-        expect = {"K1": steps * sum(CKPT_FLUX) + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+        expect = {"K1": steps * sum(CKPT_FLUX) + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+                  **norm_launches(steps, gate, flux_depth=CKPT_FLUX)}
         got = run_request(f"txt2img {size}^2 through the converted single file (FLUX "
                           f"{cfg.num_layers} + {cfg.num_single_layers})",
                           lambda timings: cli.generate(args, spipe, cond, timings=timings,
@@ -3541,7 +3730,7 @@ def ip_phase(dev, pipe, steps, cn_steps, seed):
                     f"{t_conv:.1f} s, attached from the converter's directory in {t_attach:.1f} s: "
                     f"+{extra:.2f} GiB on the card; a 224^2 image prompt encodes in {enc[0]:.3f} "
                     f"ms (median of 5)")
-        expect = {"K1": per_request, "K2": 0, "K3": 0, "K5": 0}
+        expect = {"K1": per_request, "K2": 0, "K3": 0, "K5": 0, **norm_launches(steps, gate)}
         outs = {}
 
         def request(label, p, a):
@@ -3584,7 +3773,7 @@ def ip_phase(dev, pipe, steps, cn_steps, seed):
         launches["ip_txt2img_1536"] = run_request(
             f"txt2img {lw}x{lh}, image prompt at {IP_SCALE}",
             lambda timings: cli.generate(largs, big, lcond, timings=timings, output_type="latent"),
-            big, {"K1": 0, "K2": 0, "K3": per_request, "K5": 0}, (1, lh, lw, 3), steps, tag="ip")
+            big, dict(expect, K1=0, K3=per_request), (1, lh, lw, 3), steps, tag="ip")
         del big
 
         server = GenerationServer(ipipe, host="127.0.0.1", port=0, max_batch=2,
@@ -3650,7 +3839,8 @@ def ip_phase(dev, pipe, steps, cn_steps, seed):
 
             lat, got, _ = sp_run(dev, f"txt2img {SP_SIZE}x{SP_SIZE} with the image prompt at "
                                       f"{IP_SCALE} (ip tokens whole on every rank)", backend, call,
-                                 sp_expect(backend, "K3", sp_steps * calls), ref, sp_steps,
+                                 sp_expect(backend, "K3", sp_steps * calls,
+                                           norm_launches(sp_steps, sp_steps)), ref, sp_steps,
                                  (1, s_img, 64))
             launches["ip_sp_ring" if backend else "ip_txt2img_2048"] = got
             ref = lat if ref is None else ref
@@ -4055,7 +4245,7 @@ def dist_sp_run(dev, group, seed=0, steps=2):
         lat = run(cond, timings=timings, **kw)
         torch.cuda.synchronize()
         got = read_launches()
-        expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0}
+        expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0, **norm_launches(steps, steps)}
         if backend == "ring":
             expect.update(K3=0, K5=(n + 1) * steps * calls)
         ref = lat if backend is None else ref
@@ -4095,7 +4285,8 @@ def dist_sp_inpaint_run(dev, group, pipe, seed, steps):
                                    output_type="latent")
         torch.cuda.synchronize()
         got = read_launches()
-        expect = {"K1": 0, "K2": 0, "K3": steps * INPAINT_CALLS, "K5": 0}
+        expect = {"K1": 0, "K2": 0, "K3": steps * INPAINT_CALLS, "K5": 0,
+                  **norm_launches(steps, 2 * steps)}
         if backend == "ring":
             expect.update(K3=0, K5=(n + 1) * steps * INPAINT_CALLS)
         ref = lat if backend is None else ref
@@ -4283,12 +4474,13 @@ def sp_run(dev, label, backend, call, expect, ref, steps, shape):
     return lat, got, ms_step
 
 
-def sp_expect(backend, kernel, calls):
-    """Launches of a run of ``calls`` attention calls per rank: ``kernel`` on
-    one device, or on each Ulysses rank (exact local softmax; K3 past 6144
-    joint tokens); the ring's n + 1 K5 steps per call on each rank."""
+def sp_expect(backend, kernel, calls, norms):
+    """Launches of a run of ``calls`` attention calls and ``norms`` norm
+    kernel launches per rank: ``kernel`` on one device, or on each Ulysses
+    rank (exact local softmax; K3 past 6144 joint tokens); the ring's n + 1 K5
+    steps per call on each rank; every rank's norms."""
     n = 1 if backend is None else SP_RANKS
-    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **scaled(norms, n)}
     if backend == "ring":
         expect["K5"] = n * (n + 1) * calls
     else:
@@ -4316,7 +4508,8 @@ def sp_phase(dev, pipe, seed):
 
         runs[label], got, ms[label] = sp_run(
             dev, f"txt2img {SP_SIZE}x{SP_SIZE} (S = {TXT_LEN + s_img}, conditions: {source})",
-            backend, call, sp_expect(backend, "K3", steps * calls), runs.get("single"), steps,
+            backend, call, sp_expect(backend, "K3", steps * calls, norm_launches(steps, steps)),
+            runs.get("single"), steps,
             (1, s_img, 64))
         launches[f"sp_{label}" if backend else "txt2img_2048"] = got
         if backend == "ring":
@@ -4376,7 +4569,8 @@ def sp_inpaint_runs(dev, pipe, seed, steps=2):
             dev, f"inpaint {SP_INPAINT_HW[1]}x{SP_INPAINT_HW[0]} (S = {TXT_LEN + s_img}, CFG "
                  f"batch 2, true-CFG {TRUE_GUIDANCE}, both ControlNets on every step, mask "
                  f"{int((mask > 0).sum())} px, conditions: {source})",
-            backend, call, sp_expect(backend, "K3", steps * INPAINT_CALLS),
+            backend, call,
+            sp_expect(backend, "K3", steps * INPAINT_CALLS, norm_launches(steps, 2 * steps)),
             runs.get("one_device"), steps, (1, s_img, 64))
     d = (runs["ring"] - runs["ulysses"]).abs().max().item() / runs["one_device"].abs().max().item()
     phase("sp", f"inpaint ring vs ulysses: max_abs/max|one device| {d:.3e}")
@@ -4419,7 +4613,8 @@ def sp_batch_runs(dev, pipe, seed, steps=2):
         lat, launches[f"sp_batch_{label}"], _ = sp_run(
             dev, f"generate_batch of 2 requests at {size}^2 (S = {TXT_LEN + s_img}, conditions: "
                  f"{', '.join(sorted(sources))})",
-            backend, call, sp_expect(backend, "K1", calls), ref, steps, (2, s_img, 64))
+            backend, call, sp_expect(backend, "K1", calls, norm_launches(steps, steps)), ref,
+            steps, (2, s_img, 64))
         ref = lat if ref is None else ref
     return launches
 
@@ -4612,8 +4807,10 @@ def tp_run(dev, label, grid, call, expect, ref, steps, shape, slices, heads=None
     return lat, got
 
 
-def tp_expect(kernel, calls, ranks=1):
-    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0}
+def tp_expect(kernel, calls, norms, ranks=1):
+    """``calls`` attention calls of ``kernel`` and ``norms`` norm kernel
+    launches on each of ``ranks`` ranks."""
+    expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **scaled(norms, ranks)}
     expect[kernel] = ranks * calls
     return expect
 
@@ -4693,7 +4890,8 @@ def tp_train_check(dev, pipe, seed, run_ranks, label, ranks):
     counts = read_train_launches()
     # FLUX's first block takes no gradient (nothing trained is upstream of it):
     # it is neither recomputed nor run backward, as in the train phase's 141 and 70
-    per_step = {"K1": 2 * blocks - 1, "K2": 0, "K3": 0, "K4": blocks - 1}
+    per_step = {"K1": 2 * blocks - 1, "K2": 0, "K3": 0, "K4": blocks - 1,
+                **train_norm_launches(CUT_FLUX, CUT_CN)}
     expect = {k: 2 * ranks * v for k, v in per_step.items()}
     losses, grads = outs[0]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
@@ -4856,6 +5054,7 @@ def tp_phase(dev, steps, cn_steps, seed):
     gate = min(cn_steps, steps)
     calls = steps * DOUBLE_CALLS + gate * SINGLE_CALLS
     inpaint_calls = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
+    norms, inpaint_norms = norm_launches(steps, gate), norm_launches(steps, steps + gate)
     slices = SliceCache()                       # one copy of each tp rank's slices
     cond, source = conditions_for(data, name, text, pos, size, font_size)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4889,11 +5088,12 @@ def tp_phase(dev, steps, cn_steps, seed):
         call = txt2img(run_pipe, images, noise)
         label = f"{label} (conditions: {source if s == s_img else l_source})"
         ref, launches[f"tp_one_card_{kernel}_{images}x{s}"] = tp_run(
-            dev, label, None, call, tp_expect(kernel, calls), None, steps, (images, s, 64),
+            dev, label, None, call, tp_expect(kernel, calls, norms), None, steps, (images, s, 64),
             slices, HEADS)
         for grid in grids:
             _, launches[f"tp_{grid[0]}x{grid[1]}_{kernel}_{images}x{s}"] = tp_run(
-                dev, label, grid, call, tp_expect(kernel, calls, grid[0] * grid[1]), ref, steps,
+                dev, label, grid, call, tp_expect(kernel, calls, norms, grid[0] * grid[1]), ref,
+                steps,
                 (images, s, 64), slices, HEADS // grid[1])
         del ref, noise
     # inpainting at 1280x960 (S = 5312: K1) with a seeded inpaint ControlNet
@@ -4925,11 +5125,13 @@ def tp_phase(dev, steps, cn_steps, seed):
              f"true CFG {TRUE_GUIDANCE}, conditions: {i_source})")
     shape = (1, inp.pipe_cfg.image_seq_len, 64)
     ref, launches["tp_one_card_inpaint"] = tp_run(
-        dev, label, None, inpaint_call, tp_expect("K1", inpaint_calls), None, steps, shape,
+        dev, label, None, inpaint_call, tp_expect("K1", inpaint_calls, inpaint_norms), None,
+        steps, shape,
         slices, HEADS)
     for grid in ((2, 1), (1, 2)):
         _, launches[f"tp_{grid[0]}x{grid[1]}_inpaint"] = tp_run(
-            dev, label, grid, inpaint_call, tp_expect("K1", inpaint_calls, grid[0] * grid[1]),
+            dev, label, grid, inpaint_call,
+            tp_expect("K1", inpaint_calls, inpaint_norms, grid[0] * grid[1]),
             ref, steps, shape, slices, HEADS // grid[1])
     del inp, ref
     torch.cuda.empty_cache()
@@ -4937,11 +5139,12 @@ def tp_phase(dev, steps, cn_steps, seed):
     conds = [conditions_for(data, n_, t_, p_, size, font_size)[0] for n_, t_, p_ in reqs]
     ref, launches["tp_serve_one_rank"] = tp_serve_pair(
         dev, pipe, conds, reqs, emb, pooled, seed, steps, None, None,
-        tp_expect("K1", calls), None, slices)
+        tp_expect("K1", calls, norms), None, slices)
     _, launches["tp_serve_1x2"] = tp_serve_pair(
         dev, pipe, conds, reqs, emb, pooled, seed, steps, (1, 2), None,
-        tp_expect("K1", calls, 2), ref, slices)
-    sp_exp = {"K1": 0, "K2": 0, "K3": 0, "K5": SP_RANKS * (SP_RANKS + 1) * calls}
+        tp_expect("K1", calls, norms, 2), ref, slices)
+    sp_exp = {"K1": 0, "K2": 0, "K3": 0, "K5": SP_RANKS * (SP_RANKS + 1) * calls,
+              **scaled(norms, SP_RANKS)}
     _, launches["tp_serve_sp2"] = tp_serve_pair(
         dev, pipe, conds, reqs, emb, pooled, seed, steps, None, SP_RANKS, sp_exp, ref, slices)
     return launches
@@ -4999,7 +5202,7 @@ def dist_tp_run(dev, seed=0, steps=2):
         got = read_launches()
         ref = lat if not sharded else ref
         rel = (lat - ref).abs().max().item() / ref.abs().max().item()
-        run_ok = (got == tp_expect("K1", calls) and rel <= TP_RTOL
+        run_ok = (got == tp_expect("K1", calls, norm_launches(steps, steps)) and rel <= TP_RTOL
                   and bool(torch.isfinite(lat).all()))
         ok = ok and run_ok
         print(json.dumps({"rank": mesh.rank, "tp": f"1x{mesh.tp}" if sharded else "one card",
@@ -5063,7 +5266,8 @@ def fp8_phase(dev, steps, cn_steps, seed):
             str(font_size)]
     args = cli.build_parser().parse_args([*base, "--random-weights"])
     gate = min(cn_steps, steps)
-    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0}
+    expect = {"K1": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+              **norm_launches(steps, gate)}
     launches = {}
     cond, source = conditions_for(data, name, text, pos, size, font_size)
     GiB = 2 ** 30
@@ -5188,7 +5392,8 @@ def fp8_phase(dev, steps, cn_steps, seed):
         pipe, seed=seed + 7, pipe_cfg=cli.pipeline_config(iargs, height, width)).quantize_weights()
     shared = inp.flux is pipe.flux and inp.controlnet is pipe.controlnet
     image, mask = source_image(seed, height, width), box_mask(icond)
-    iexpect = dict(expect, K1=steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS)
+    iexpect = dict(expect, K1=steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS,
+                   **norm_launches(steps, steps + gate))
     launches["fp8_inpaint"] = run_request(
         f"fp8 inpaint {width}x{height} (inpaint ControlNet quantized, FLUX and the RepText net "
         f"shared: {shared}; tiled VAE; conditions: {isource})",
@@ -5243,7 +5448,8 @@ def fp8_phase(dev, steps, cn_steps, seed):
                 and torch.equal(want[k].view(torch.uint8), got_state[k].view(torch.uint8))
                 for k in want)
             del tree, dense, want
-        cexpect = dict(expect, K1=steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN))
+        cexpect = dict(expect, K1=steps * sum(CKPT_FLUX) + gate * sum(CKPT_CN),
+                       **norm_launches(steps, gate, CKPT_FLUX, CKPT_CN))
         launches["fp8_checkpoint"] = run_request(
             f"1024^2 through the fp8 checkpoint (auto-detected: {cpipe.flux.weight_quant}; VAE "
             f"tiling auto: {cpipe.vae_tiling})",
@@ -5446,6 +5652,7 @@ def main(argv=None):
     multi_card_phase()
     variants, study_launches = variants_phase(dev, sass)
     library = library_yardsticks(dev)
+    results.update(norms_phase(dev))
     reference_phase(dev)
     by_path, demo_cache = demo_phase(dev)
     by_path.update(gates_phase(dev, demo_cache))
@@ -5537,6 +5744,11 @@ def main(argv=None):
         results[key]["d32"] = by_shape
     for key, by_shape in tp_heads.items():
         results[key]["tp_heads"] = by_shape
+    norm_src = "reptext_tpu_torch/csrc/norms.cu"
+    entry["modulate"] = {"name": "modulate", "route": "cuda", "source": norm_src,
+                         "replaces": "none: XLA fused reptext_tpu/nn/layers.py::modulate"}
+    entry["rms_norm"] = {"name": "rms_norm", "route": "cuda", "source": norm_src,
+                         "replaces": "none: XLA fused reptext_tpu/nn/layers.py::RMSNorm"}
     for key in entry:
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})

@@ -3,8 +3,10 @@
 Counterpart of ``reptext_tpu/nn/layers.py``. Parameter names follow the Flax
 tree (``linear``, ``in_proj``/``out_proj``, ``weight``) so that
 ``io/from_jax.py`` maps them mechanically. Norms and the AdaLN modulation run
-in float32 and cast back to the activation dtype; projections run in the
-parameters' dtype (bf16 on the card). :class:`QuantLinear` is the Linear of
+in float32 and cast back to the activation dtype (:func:`modulate` and the
+RMSNorm's forward are ``ops/norms.py``'s: hand-written kernels on the card,
+the plain composition elsewhere); projections run in the parameters' dtype
+(bf16 on the card). :class:`QuantLinear` is the Linear of
 fp8 weight-only storage (``io/quantize.py``), and :func:`quantize_linears_`
 swaps a module tree's Linears for it.
 """
@@ -20,6 +22,7 @@ from torch.nn import functional as F
 from reptext_tpu_torch.io.quantize import (
     QUANT_KEY, SCALE_KEY, quantize_kernel, random_q8, random_scale,
 )
+from reptext_tpu_torch.ops.norms import layer_norm_no_affine_f32, modulate, rms_norm
 
 
 class RMSNorm(nn.Module):
@@ -33,32 +36,11 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``weight`` stands in for ``self.weight`` (the tensor-parallel blocks
         pass it through Megatron's ``f``)."""
-        w = self.weight if weight is None else weight
-        xf = x.float()
-        var = xf.pow(2).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * w.float()).to(x.dtype)
-
-
-def layer_norm_no_affine_f32(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm without affine parameters; returns float32."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).pow(2).mean(dim=-1, keepdim=True)
-    return (xf - mean) * torch.rsqrt(var + eps)
+        return rms_norm(x, self.weight if weight is None else weight, self.eps)
 
 
 def layer_norm_no_affine(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return layer_norm_no_affine_f32(x, eps).to(x.dtype)
-
-
-def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """LN(x) * (1 + scale) + shift, in float32, cast to x's dtype.
-
-    shift/scale are [B, dim] and broadcast over the token axis.
-    """
-    normed = layer_norm_no_affine_f32(x)
-    out = normed * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
-    return out.to(x.dtype)
 
 
 class AdaLayerNormZero(nn.Module):

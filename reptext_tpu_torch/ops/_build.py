@@ -145,5 +145,11 @@ def load() -> ctypes.CDLL:
             fn = lib.reptext_ring_attention_step
             fn.argtypes = [c_p] * 7 + [c_i] * 5 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_i, c_p]
             fn.restype = c_i
+            fn = lib.reptext_modulate
+            fn.argtypes = [c_p] * 4 + [c_ll] * 6 + [c_i] * 4 + [ctypes.c_float] * 2 + [c_p]
+            fn.restype = c_i
+            fn = lib.reptext_rms_norm
+            fn.argtypes = [c_p] * 3 + [c_ll] + [c_i] * 4 + [ctypes.c_float] * 2 + [c_p]
+            fn.restype = c_i
             _lib = lib
         return _lib

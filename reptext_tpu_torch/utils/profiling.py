@@ -30,6 +30,10 @@ that run as threads each get their own) and the request's spans form a tree:
   ns of the kernel's launch call (:func:`time_launch`), where the host waits
   whenever the device's launch queue is full.
 
+Beside the spans, one counter without a span: the calls of each norm entry
+(``ops/norms.py``'s ``modulate`` and ``rms_norm``, :func:`count_norm_call`),
+a dict increment a call and no CUDA event, since a step makes hundreds.
+
 Each span holds its parent's index, its host start and end in ns on
 ``time.time_ns()``'s clock, which is the clock of ``torch.profiler``'s events
 (Unix-epoch ns), and its device ms: CUDA events at its two ends on the
@@ -210,6 +214,7 @@ class SpanRecorder:
         self.profiled = bool(torch.autograd.profiler._is_profiler_enabled)
         self.spans: List[_Span] = []
         self.open: List[int] = []
+        self.norm_calls: Dict[str, int] = {}
 
     def event(self):
         ev = torch.cuda.Event(enable_timing=True)
@@ -231,9 +236,10 @@ class SpanRecorder:
         ``end_ns``, ``device_ms`` and its attributes (``entry``). Counters:
         ``steps``, ``controlnet_steps`` (steps that ran the RepText net),
         ``velocity_cache_skips`` (steps that ran no FLUX: both samplers run
-        it on every step they compute) and per attention entry its ``calls``,
+        it on every step they compute), per attention entry its ``calls``,
         ``host_ns`` (entering the entry to its return) and ``launch_ns`` (the
-        part spent in kernel launch calls; 0 on the CPU)."""
+        part spent in kernel launch calls; 0 on the CPU), and ``norm``: the
+        calls of each norm entry, by its name."""
         children: Dict[int, List[_Span]] = {}
         for s in self.spans:
             children.setdefault(s.parent, []).append(s)
@@ -251,7 +257,8 @@ class SpanRecorder:
                 c["launch_ns"] += s.get("launch_ns", 0)
         counters = {"steps": len(steps),
                     "controlnet_steps": sum(s["name"] == "controlnet" for s in spans),
-                    "velocity_cache_skips": len(set(steps) - ran), "attention": attention}
+                    "velocity_cache_skips": len(set(steps) - ran), "attention": attention,
+                    "norm": dict(self.norm_calls)}
         return {"profiled": self.profiled, "spans": spans, "counters": counters}
 
 
@@ -308,6 +315,14 @@ def span_calls(name: str) -> Callable[[Callable], Callable]:
         return call
 
     return wrap
+
+
+def count_norm_call(entry: str) -> None:
+    """One call of the norm entry ``entry`` under the thread's recorder
+    (its ``norm`` counter); nothing when tracing is off."""
+    rec = getattr(_local, "recorder", None)
+    if rec is not None:
+        rec.norm_calls[entry] = rec.norm_calls.get(entry, 0) + 1
 
 
 def time_launch(launch: Callable, *args):
