@@ -34,7 +34,7 @@ inpaint ControlNet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +55,7 @@ from reptext_tpu_torch.sampling.sampler_inpaint import (
     make_inpaint_sampler,
     make_sp_inpaint_sampler,
 )
-from reptext_tpu_torch.utils.profiling import request_trace, stage
+from reptext_tpu_torch.utils.profiling import active_recorder, request_trace, span, stage
 
 # the reference's default negative prompt (reptext_tpu/pipelines/inpaint.py)
 DEFAULT_NEGATIVE_PROMPT = (
@@ -127,20 +127,23 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
     @torch.inference_mode()
     def prepare_inpaint_cond(self, image: np.ndarray, mask: np.ndarray,
                              generator: Optional[torch.Generator]) -> torch.Tensor:
-        """(image uint8 [H, W, 3], mask uint8/float [H, W]) -> packed [1, S, 68]."""
+        """(image uint8 [H, W, 3], mask uint8/float [H, W]) -> packed [1, S, 68],
+        inside an ``inpaint_cond`` span under the request's recorder."""
         cfg = self.pipe_cfg
-        img = preprocess_images(image)                        # [1, H, W, 3] in [-1, 1]
-        m = np.asarray(mask, np.float32)
-        if m.max() > 1.0:
-            m = m / 255.0
-        m = (m > 0.5).astype(np.float32)                      # binarize
-        masked = np.where(m[None, :, :, None] > 0.5, np.float32(-1.0), img)
-        lat = self._encode_scaled(torch.from_numpy(masked).to(self.device).permute(0, 3, 1, 2),
-                                  generator)                  # [1, 16, h, w]
-        mlat = 1.0 - resize_nearest(torch.from_numpy(m).to(self.device),
-                                    cfg.latent_height, cfg.latent_width)
-        cond = torch.cat([lat, mlat.to(lat.dtype).expand(1, 1, *mlat.shape)], dim=1)
-        return pack_latents(cond)                             # 17 channels -> 68
+        with span(active_recorder(), "inpaint_cond"):
+            img = preprocess_images(image)                    # [1, H, W, 3] in [-1, 1]
+            m = np.asarray(mask, np.float32)
+            if m.max() > 1.0:
+                m = m / 255.0
+            m = (m > 0.5).astype(np.float32)                  # binarize
+            masked = np.where(m[None, :, :, None] > 0.5, np.float32(-1.0), img)
+            lat = self._encode_scaled(
+                torch.from_numpy(masked).to(self.device).permute(0, 3, 1, 2),
+                generator)                                    # [1, 16, h, w]
+            mlat = 1.0 - resize_nearest(torch.from_numpy(m).to(self.device),
+                                        cfg.latent_height, cfg.latent_width)
+            cond = torch.cat([lat, mlat.to(lat.dtype).expand(1, 1, *mlat.shape)], dim=1)
+            return pack_latents(cond)                         # 17 channels -> 68
 
     # --------------------------------------------------------------- call
 
@@ -205,16 +208,18 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                     latents = self.prepare_latents(g_lat, num_images, conditions.glyph_canvas,
                                                    g_glyph)
             with stage(rec, "sample"):
-                latents = self._sample_inpaint(latents, cond_tokens, token_masks, inpaint_cond,
-                                               ctx_cfg, pooled_cfg, self.schedule(steps, custom),
-                                               gscale, tscale)
+                latents = self._inpaint_sampler(self.schedule(steps, custom), cond_tokens,
+                                                token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
+                                                gscale, tscale)(latents)
             return self.finish(latents, output_type, rec, return_dict)
 
-    def _sample_inpaint(self, latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg,
-                        pooled_cfg, schedule: FlowMatchSchedule, gscale: float,
-                        tscale: float) -> torch.Tensor:
-        """The dual-ControlNet true-CFG loop over ``schedule`` (sequence-parallel
-        after ``shard_for_sp``)."""
+    def _inpaint_sampler(self, schedule: FlowMatchSchedule, cond_tokens: torch.Tensor,
+                         token_masks: torch.Tensor, inpaint_cond: torch.Tensor,
+                         ctx_cfg: torch.Tensor, pooled_cfg: torch.Tensor, gscale: float,
+                         tscale: float) -> Callable:
+        """``sample(latents)``: the dual-ControlNet true-CFG loop over
+        ``schedule`` with these conditions and [negative; positive] embeds
+        (sequence-parallel after ``shard_for_sp``)."""
         cfg = dataclasses.replace(self.pipe_cfg, true_guidance_scale=tscale)
         models = (self.flux, self.controlnet, self.inpaint_controlnet, schedule, cfg)
         if self.sp_group is None:
@@ -229,11 +234,15 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                                               self.compute_dtype)
         img_ids = prepare_latent_image_ids(cfg.latent_height, cfg.latent_width, self.device)
         txt_ids = torch.zeros((ctx_cfg.shape[1], 3), device=self.device)
-        guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
-                               device=self.device)
-                    if self.flux.config.guidance_embeds else None)
-        return sampler(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
-                       txt_ids, img_ids, guidance)
+
+        def sample(latents: torch.Tensor) -> torch.Tensor:
+            guidance = (torch.full((latents.shape[0],), gscale, dtype=torch.float32,
+                                   device=self.device)
+                        if self.flux.config.guidance_embeds else None)
+            return sampler(latents, cond_tokens, token_masks, inpaint_cond, ctx_cfg, pooled_cfg,
+                           txt_ids, img_ids, guidance)
+
+        return sample
 
     # ------------------------------------------------------- batched serving
 
@@ -283,7 +292,7 @@ class FluxRepTextInpaintPipeline(FluxRepTextPipeline):
                     inp_l.append(self.prepare_inpaint_cond(image, mask, g_inp))
                     lat_l.append(self.prepare_latents(g_lat, 1, conds.glyph_canvas, g_glyph))
             with stage(rec, "sample"):
-                latents = self._sample_inpaint(
-                    torch.cat(lat_l), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
-                    torch.cat(inp_l), ctx_cfg, pooled_cfg, self.schedule(steps), gscale, tscale)
+                latents = self._inpaint_sampler(
+                    self.schedule(steps), torch.stack(cond_l, dim=1), torch.stack(mask_l, dim=1),
+                    torch.cat(inp_l), ctx_cfg, pooled_cfg, gscale, tscale)(torch.cat(lat_l))
             return self.finish(latents, output_type, rec)

@@ -20,7 +20,8 @@ that run as threads each get their own) and the request's spans form a tree:
 - the stages ``encode_prompt``, ``prepare``, ``sample`` and ``decode``, each
   ending in a device synchronisation, whose host seconds, on
   ``time.perf_counter``'s clock, go into ``timings`` under their names (what
-  ``timings`` held before the spans);
+  ``timings`` held before the spans); inside the inpaint pipeline's
+  ``prepare``, ``inpaint_cond``, the masked-image encode;
 - ``step``, one per sampler step; inside it ``controlnet`` (the RepText
   net), ``controlnet_inpaint`` (the inpaint sampler's second net) and
   ``flux``; the mask-and-sum, the Euler update and the casts are the step's
@@ -235,7 +236,8 @@ class SpanRecorder:
         ``name``, ``parent`` (an index, -1 for the root), ``start_ns``,
         ``end_ns``, ``device_ms`` and its attributes (``entry``). Counters:
         ``steps``, ``controlnet_steps`` (steps that ran the RepText net),
-        ``velocity_cache_skips`` (steps that ran no FLUX: both samplers run
+        ``controlnet_inpaint_steps`` (steps that ran the inpaint sampler's
+        second net), ``velocity_cache_skips`` (steps that ran no FLUX: both samplers run
         it on every step they compute), per attention entry its ``calls``,
         ``host_ns`` (entering the entry to its return) and ``launch_ns`` (the
         part spent in kernel launch calls; 0 on the CPU), and ``norm``: the
@@ -257,6 +259,8 @@ class SpanRecorder:
                 c["launch_ns"] += s.get("launch_ns", 0)
         counters = {"steps": len(steps),
                     "controlnet_steps": sum(s["name"] == "controlnet" for s in spans),
+                    "controlnet_inpaint_steps": sum(s["name"] == "controlnet_inpaint"
+                                                    for s in spans),
                     "velocity_cache_skips": len(set(steps) - ran), "attention": attention,
                     "norm": dict(self.norm_calls)}
         return {"profiled": self.profiled, "spans": spans, "counters": counters}

@@ -190,7 +190,8 @@ def test_inpaint_pipeline_end_to_end_matches_jax(pipes):
     assert np.abs(timg.astype(int) - jimg.astype(int)).max() <= 2
     assert set(timings) == {"encode_prompt", "prepare", "sample", "trace"}
     names = [s["name"] for s in timings["trace"]["spans"]]
-    assert names[:4] == ["request", "encode_prompt", "prepare", "sample"]
+    # the masked-image encode is a span inside ``prepare``
+    assert names[:5] == ["request", "encode_prompt", "prepare", "inpaint_cond", "sample"]
     assert {"step", "controlnet", "controlnet_inpaint", "flux", "attention"} <= set(names)
     assert names.count("step") == names.count("controlnet_inpaint") == PIPE_CFG.num_inference_steps
     assert names.count("controlnet") == PIPE_CFG.controlnet_conditioning_step

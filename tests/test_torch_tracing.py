@@ -147,6 +147,10 @@ def test_a_traced_request_has_the_span_tree(pipes, monkeypatch, kind):
     assert counters["velocity_cache_skips"] == 0
     inpainting = kind.startswith("inpaint")
     assert under_steps("controlnet_inpaint") == (list(range(STEPS)) if inpainting else [])
+    assert counters["controlnet_inpaint_steps"] == (STEPS if inpainting else 0)
+    # the masked-image encode of each request, inside ``prepare``
+    encodes = [names[s["parent"]] for s in spans if s["name"] == "inpaint_cond"]
+    assert encodes == ["prepare"] * {"inpaint": 1, "inpaint_batch": 2}.get(kind, 0)
 
     attn = [s for s in spans if s["name"] == "attention"]
     assert sum(calls.values()) == len(attn) > 0
