@@ -87,6 +87,16 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    yardstick, which the port never calls); every path below counts their
    launches beside the attention kernels' and checks them against its blocks
    (norm_launches);
+4b. joins: the blocks' copy-free joins at the main path's two shapes (1, 24,
+   4608, 128) and (2, 24, 5312, 128), 512 text tokens, bf16: K1 on the
+   (text, image) segments and K1 written through out= into a single block's
+   [B, S, 15360] proj_out input, both bit-equal to K1 on the joint q, k and v;
+   the GELU kernel (csrc/gelu.cu) into that buffer's MLP columns against
+   F.gelu(approximate="tanh") (at least 99.99 % bit-equal, every element
+   within one bf16 ulp); times of K1 joint and on segments, and of the GELU
+   kernel beside its bytes bound and F.gelu; every path below counts the GELU
+   kernel's launches with the norms' (norm_launches: once a single block on
+   the K1 paths, none on K3, SP and training, whose blocks join by copies);
 5. reference: a small FLUX + ControlNet forward, and one ControlNet train
    step (loss and every ControlNet gradient), on the card (bf16, kernels)
    against the same weights on the CPU (float32, plain attention);
@@ -267,13 +277,14 @@ non-zero without one. Phases, one line each, and any failure ends the run:
    (K1, K3 at 1536^2) on every rank; the meshes share one copy of each tp rank's
    slices.
 
-Then a JSON line of the ten kernels' results (launches per path, each
+Then a JSON line of the eleven kernels' results (launches per path, each
 path's counts set to 0 just before it and read just after: the surface
 phase's runs, the SP inpaint and batch runs and the four train paths of 9c-9e
 and the demo and gates paths among them; times, the bound, SDPA's time;
 K5 also at CFG batch 2 in its by_shape; K1-K4 at head dim 64 under "d64", K5's
 under its "d64"; K1-K5 at head dim 32 under "d32"; K1, K3 and K4 at a tp rank's
-heads under "tp_heads"; the tiny phase's paths, every launch at head dim 32),
+heads under "tp_heads"; K1's segment route by shape under "segments"; the
+tiny phase's paths, every launch at head dim 32),
 the nvidia-smi line, and as the last line {"ok": true,
 "device": {...}}. The text lines come from
 tests/fixtures/conditions_1024.npz and conditions_large.npz, whose condition
@@ -371,10 +382,20 @@ TRAIN_K1 = FWD_CALLS + TRAIN_K4
 def norm_launches(flux=0, cn=0, flux_depth=FLUX_DEPTH, cn_depth=CN_DEPTH):
     """The norm kernels' launches of ``flux`` FLUX and ``cn`` ControlNet
     forwards: a double block calls modulate and rms_norm 4 times each, a
-    single block once and twice, FLUX's norm_out modulate once."""
+    single block once and twice, FLUX's norm_out modulate once; and the GELU
+    kernel's (``gelu``), once a single block of each forward whose blocks join
+    in place (``ops/attention.py::joins_in_place``): all of them on the K1
+    paths, which these are, and none where none does (K3, SP: :func:`copied`)."""
     (fd, fs), (cd, cs) = flux_depth, cn_depth
     return {"modulate": flux * (4 * fd + fs + 1) + cn * (4 * cd + cs),
-            "rms_norm": flux * (4 * fd + 2 * fs) + cn * (4 * cd + 2 * cs)}
+            "rms_norm": flux * (4 * fd + 2 * fs) + cn * (4 * cd + 2 * cs),
+            "gelu": flux * fs + cn * cs}
+
+
+def copied(expect):
+    """``expect`` on a path whose blocks all join by copies (K3 past 6144
+    joint tokens, the SP backends, training): no GELU kernel launch."""
+    return dict(expect, gelu=0)
 
 
 def train_norm_launches(flux_depth=FLUX_DEPTH, cn_depth=CN_DEPTH, base_trained=False):
@@ -385,7 +406,9 @@ def train_norm_launches(flux_depth=FLUX_DEPTH, cn_depth=CN_DEPTH, base_trained=F
     the blocks, runs once."""
     fwd = norm_launches(1, int(cn_depth is not None), flux_depth, cn_depth or (0, 0))
     skip = 0 if base_trained else 4
-    return {"modulate": 2 * fwd["modulate"] - 1 - skip, "rms_norm": 2 * fwd["rms_norm"] - skip}
+    # the single blocks take gradients, so they join by copies: no GELU launch
+    return {"modulate": 2 * fwd["modulate"] - 1 - skip, "rms_norm": 2 * fwd["rms_norm"] - skip,
+            "gelu": 0}
 
 
 def scaled(expect, n):
@@ -471,12 +494,13 @@ def phase(name, msg):
 
 def forward_counters():
     from reptext_tpu_torch.ops import flash_attention as fa
-    from reptext_tpu_torch.ops import norms
+    from reptext_tpu_torch.ops import gelu, norms
     from reptext_tpu_torch.ops import ring_attention as ra
 
     return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
             "K3": fa.flash_attention_streaming, "K5": ra.ring_step,
-            "modulate": norms.modulate, "rms_norm": norms.rms_norm}
+            "modulate": norms.modulate, "rms_norm": norms.rms_norm,
+            "gelu": gelu.gelu_tanh_into}
 
 
 def check_attention_backend():
@@ -1547,7 +1571,7 @@ def norms_phase(dev):
                                 ("bit_equal", equal)):
                 res[f"{name}_by_shape"][label] = value
             phase("norms", f"{key} {label}: kernel {k_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                           f"({100 * bound_ms / k_ms:.1f} % of it, {nbytes / k_ms / 1e9:.0f} "
+                           f"({100 * bound_ms / k_ms:.1f} % of it, {nbytes / k_ms / 1e6:.0f} "
                            f"GB/s), plain {p_ms:.4f} ms, library "
                            + (f"{lib_ms:.4f} ms" if lib_ms is not None else "not in this torch")
                            + f" (device time a call, medians of 5 x {NORM_CALLS} queued calls); "
@@ -1564,6 +1588,122 @@ def norms_phase(dev):
     return results
 
 
+# The joins phase: the main path's two shapes (txt2img 1024^2: batch 1, a
+# 64 x 64 token grid; the inpainting cell's CFG batch 2 at 1280x960: 60 x 80),
+# 512 text tokens; (batch, grid rows, grid columns) by K1's shape.
+JOIN_SHAPES = {"(1,24,4608,128)": (1, 64, 64), "(2,24,5312,128)": (2, 60, 80)}
+JOIN_CALLS = {"K1": 5, "gelu": 20}
+GELU_BIT_EQUAL = 0.9999
+
+
+def joins_phase(dev):
+    """The blocks' copy-free joins (``ops/attention.py::joins_in_place``) at
+    JOIN_SHAPES, bf16: K1 on (text, image) segments as the projections leave
+    them, each stream's output dense, and K1 written through ``out=`` into the
+    attention columns of a single block's [B, S, 15360] ``proj_out`` input,
+    out and lse bit-equal to K1 on the joint q, k and v, which holds to its
+    plain version (:func:`compare`); the GELU kernel (csrc/gelu.cu) writing
+    the MLP columns of that buffer, one launch, against F.gelu(approximate=
+    "tanh") on the same x: at least GELU_BIT_EQUAL of the elements bit-equal
+    and every one within one bf16 ulp, the attention columns left as K1 wrote
+    them. Device times a call (JOIN_CALLS calls queued behind a device sleep,
+    medians of 5): K1 on the joint tensors and on the segments, beside K1's
+    bound; the GELU kernel, its bytes bound at 3.35 TB/s (x read and the
+    columns written once) and F.gelu on a dense output, the library
+    yardstick. Returns {"gelu": the kernels line's results, "K1": the segment
+    route's by shape}."""
+    import torch.nn.functional as F
+
+    from reptext_tpu_torch.nn.blocks import split_heads
+    from reptext_tpu_torch.ops import flash_attention as fa
+    from reptext_tpu_torch.ops.gelu import gelu_tanh_into
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    heads, inner, width = 24, 24 * 128, 4 * 24 * 128
+    tiny = torch.finfo(torch.bfloat16).tiny
+
+    def per_call_ms(key, fn):
+        n = JOIN_CALLS[key]
+        return cuda_time_ms(lambda: [fn() for _ in range(n)], repeats=5, warmup=1,
+                            queue_behind=40_000_000)[0] / n
+
+    gelu = {f"{name}_by_shape": {} for name in (
+        "card_ms", "bound_ms", "library_ms", "bit_equal", "of_ulp")}
+    k1 = {}
+    for label, (b, gh, gw) in JOIN_SHAPES.items():
+        s = 512 + gh * gw
+        cos, sin = rope_tables(512, gh, gw, dev)
+
+        def stream(n):   # a projection's [B, n, H * D] output seen as [B, H, n, D]
+            return split_heads((torch.randn(b, n, inner, generator=gen, device=dev) * 1.5)
+                               .to(torch.bfloat16), heads)
+
+        q, k, v = ((stream(512), stream(s - 512)) for _ in range(3))
+        joint = [torch.cat(x, dim=2) for x in (q, k, v)]
+        want, want_lse = fa.flash_attention_rope(*joint, cos, sin)
+        compare(f"K1 joint {label}", (want, want_lse),
+                fa.flash_attention_rope_plain(*joint, cos, sin))
+        flat = want.transpose(1, 2).reshape(b, s, inner)
+        got, lse = fa.flash_attention_rope(q, k, v, cos, sin)
+        seg_ok = torch.equal(torch.cat(got, dim=2), want) and torch.equal(lse, want_lse)
+        dense = all(g.transpose(1, 2).is_contiguous() for g in got)
+        del got, lse
+        buf = torch.full((b, s, inner + width), 7.0, dtype=torch.bfloat16, device=dev)
+        _, out_lse = fa.flash_attention_rope(*joint, cos, sin,
+                                             out=split_heads(buf[..., :inner], heads))
+        out_ok = (torch.equal(buf[..., :inner], flat) and torch.equal(out_lse, want_lse)
+                  and bool((buf[..., inner:] == 7.0).all()))
+
+        x = (torch.randn(b, s, width, generator=gen, device=dev) * 3.0).to(torch.bfloat16)
+        x[..., ::101] *= 40.0
+        launches = gelu_tanh_into.launches
+        gelu_tanh_into(x, buf[..., inner:])
+        launched = gelu_tanh_into.launches - launches
+        ref = F.gelu(x, approximate="tanh").float()
+        got = buf[..., inner:].float()
+        m = torch.maximum(got.abs(), ref.abs()).clamp_min(tiny)
+        of_ulp = ((got - ref).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)).max().item()
+        equal = (got == ref).float().mean().item()
+        kept = torch.equal(buf[..., :inner], flat)
+        del got, ref, m
+
+        joint_ms = per_call_ms("K1", lambda: fa.flash_attention_rope(*joint, cos, sin))
+        seg_ms = per_call_ms("K1", lambda: fa.flash_attention_rope(q, k, v, cos, sin))
+        k1_bound = forward_bound(b, heads, s, tables=True)[0]
+        k1[label] = {"joint_ms": joint_ms, "segments_ms": seg_ms, "bound_ms": k1_bound,
+                     "bit_equal": seg_ok and out_ok}
+        nbytes = 2 * x.numel() * x.element_size()
+        g_bound = 1e3 * nbytes / PEAK_BYTES_PER_S
+        g_ms = per_call_ms("gelu", lambda: gelu_tanh_into(x, buf[..., inner:]))
+        lib_ms = per_call_ms("gelu", lambda: F.gelu(x, approximate="tanh"))
+        for name, value in (("card_ms", g_ms), ("bound_ms", g_bound), ("library_ms", lib_ms),
+                            ("bit_equal", equal), ("of_ulp", of_ulp)):
+            gelu[f"{name}_by_shape"][label] = value
+        phase("joins", f"K1 {label}, 512 text tokens: segments and out= bit-equal to the joint "
+                       f"route {seg_ok} / {out_ok}, each stream's output dense {dense}; "
+                       f"joint {joint_ms:.4f} ms, segments "
+                       f"{seg_ms:.4f} ms, bound {k1_bound:.4f} ms (device time a call, "
+                       f"medians of 5 x {JOIN_CALLS['K1']} queued calls)")
+        phase("joins", f"GELU [{b},{s},{width}] into [{b},{s},{inner + width}]: {launched} launch, "
+                       f"bit-equal to F.gelu {equal:.6f} (at least {GELU_BIT_EQUAL}), the "
+                       f"largest departure {of_ulp:.3f} bf16 ulp (at most 1), attention columns "
+                       f"kept {kept}; kernel {g_ms:.4f} ms, bound {g_bound:.4f} ms "
+                       f"({100 * g_bound / g_ms:.1f} % of it, {nbytes / g_ms / 1e6:.0f} GB/s), "
+                       f"F.gelu {lib_ms:.4f} ms (medians of 5 x {JOIN_CALLS['gelu']} queued "
+                       f"calls)")
+        if not (seg_ok and out_ok and dense and kept and launched == 1 and equal >= GELU_BIT_EQUAL
+                and of_ulp <= 1.0):
+            raise SystemExit(f"joins {label}: K1's segments or out= not the joint route's, or "
+                             f"the GELU kernel off F.gelu ({equal:.6f} bit-equal, {of_ulp:.3f} "
+                             f"ulp, {launched} launches)")
+        del q, k, v, joint, want, want_lse, flat, buf, x
+        torch.cuda.empty_cache()
+    first = next(iter(JOIN_SHAPES))
+    for name in ("card_ms", "bound_ms", "library_ms"):
+        gelu[name] = gelu[f"{name}_by_shape"][first]
+    return {"gelu": gelu, "K1": k1}
+
+
 # The trained-weights demo at cut step counts (the protocol's full run is
 # ``python -m reptext_tpu_torch.examples.overfit_e2e --holdout``): full demo
 # width, fp32, the holdout set. Per model call FLUX 2 + 4 and the ControlNet
@@ -1573,7 +1713,7 @@ def norms_phase(dev):
 # on every step).
 DEMO_STEPS = {"vae": 200, "flux": 300, "sample": 4}
 DEMO_BLOCKS = 2 + 4 + 1 + 2
-DEMO_NORMS = norm_launches(1, 1, (2, 4), (1, 2))
+DEMO_NORMS = copied(norm_launches(1, 1, (2, 4), (1, 2)))   # short text, K2: copies
 GATES_STEPS = 8
 
 
@@ -2000,7 +2140,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
             f"txt2img {width}x{height} (S = {s}, conditions: {source})",
             lambda timings: cli.generate(largs, big, lcond, timings=timings,
                                          output_type="latent"),
-            big, dict(zero, K3=steps * flux_n + gate * cn_n, **norm_launches(steps, gate, **depth)),
+            big, dict(zero, K3=steps * flux_n + gate * cn_n,
+                      **copied(norm_launches(steps, gate, **depth))),
             (1, height, width, 3))
         del big
 
@@ -2021,6 +2162,8 @@ def tiny_phase(dev, steps, cn_steps, seed):
         # FLUX and the RepText net as txt2img's, the inpaint ControlNet every step
         icn_norms = norm_launches(0, steps, cn_depth=(icn.num_layers, icn.num_single_layers))
         inorms = {k: v + icn_norms[k] for k, v in norm_launches(steps, gate, **depth).items()}
+        if kernel == "K3":
+            inorms = copied(inorms)
         launches["tiny_inpaint_1280x960"] = fp32_request(
             f"inpaint {width}x{height} (S = {s}, CFG batch 2, cli.build_pipeline(--mode inpaint "
             f"--tiny), conditions: {source})",
@@ -2217,7 +2360,7 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
     big = pipe.with_config(cli.pipeline_config(args, height, width))
     s = big.pipe_cfg.image_seq_len + big.pipe_cfg.max_sequence_length
     expect = {"K1": 0, "K2": 0, "K3": steps * DOUBLE_CALLS + gate * SINGLE_CALLS, "K5": 0,
-              **norm_launches(steps, gate)}
+              **copied(norm_launches(steps, gate))}
     launches[name] = run_request(
         f"txt2img {width}x{height} (S = {s}, conditions: {source})",
         lambda timings: cli.generate(args, big, cond, timings=timings, output_type="latent"),
@@ -2243,6 +2386,8 @@ def large_phase(dev, pipe, steps, cn_steps, seed, profile=False):
         kernel = "K3" if fa.streams(s) else "K1"
         expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **norm_launches(steps, steps + gate)}
         expect[kernel] = steps * (DOUBLE_CALLS + SINGLE_CALLS) + gate * SINGLE_CALLS
+        if kernel == "K3":
+            expect = copied(expect)
         launches[name] = run_request(
             f"inpaint {width}x{height} (S = {s}, CFG batch 2, true-CFG {TRUE_GUIDANCE}, "
             f"mask {int((mask > 0).sum())} px, conditions: {source})",
@@ -2674,7 +2819,7 @@ def serve_phase(dev, pipe, inp, steps, cn_steps, seed):
 
         text, pos, w, h = lines["txt2img_1536"]
         scenario("1536", [payload(0, ("txt2img_1536", text, pos), width=w, height=h)], 4, 1,
-                 dict(zero, K3=per_batch, **batch_norms), (h, w, 3))
+                 dict(zero, K3=per_batch, **copied(batch_norms)), (h, w, 3))
         scenario("mismatched", [payload(0, reqs[0]), payload(1, reqs[1], guidance_scale=4.0)],
                  4, 2, scaled(one, 2), square)
         text, pos, w, h = lines["inpaint_1280x960"]
@@ -2782,11 +2927,12 @@ def train_phase(dev, pipe, seed, profile=False):
 
 def train_launches():
     from reptext_tpu_torch.ops import flash_attention as fa
-    from reptext_tpu_torch.ops import norms
+    from reptext_tpu_torch.ops import gelu, norms
 
     return {"K1": fa.flash_attention_rope, "K2": fa.flash_attention,
             "K3": fa.flash_attention_streaming, "K4": fa.flash_attention_backward,
-            "modulate": norms.modulate, "rms_norm": norms.rms_norm}
+            "modulate": norms.modulate, "rms_norm": norms.rms_norm,
+            "gelu": gelu.gelu_tanh_into}
 
 
 def reset_train_launches():
@@ -3499,7 +3645,8 @@ def multi_phase(dev, pipe, union, seed):
     multi = MultiControlNet([ControlNetEntry(pipe.controlnet, 1.0),
                              ControlNetEntry(union, 0.8, uses_mode=True, guidance_start=0.5,
                                              guidance_end=1.0)], *layers)
-    expect = {"K1": 2 * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0, **norm_launches(cn=2)}
+    expect = {"K1": 2 * SINGLE_CALLS, "K2": 0, "K3": 0, "K5": 0,
+              **norm_launches(cn=2)}
     launches, ok = dict.fromkeys(expect, 0), True
     for step in (1, 3):
         reset_launches()
@@ -3773,7 +3920,7 @@ def ip_phase(dev, pipe, steps, cn_steps, seed):
         launches["ip_txt2img_1536"] = run_request(
             f"txt2img {lw}x{lh}, image prompt at {IP_SCALE}",
             lambda timings: cli.generate(largs, big, lcond, timings=timings, output_type="latent"),
-            big, dict(expect, K1=0, K3=per_request), (1, lh, lw, 3), steps, tag="ip")
+            big, dict(copied(expect), K1=0, K3=per_request), (1, lh, lw, 3), steps, tag="ip")
         del big
 
         server = GenerationServer(ipipe, host="127.0.0.1", port=0, max_batch=2,
@@ -4245,7 +4392,8 @@ def dist_sp_run(dev, group, seed=0, steps=2):
         lat = run(cond, timings=timings, **kw)
         torch.cuda.synchronize()
         got = read_launches()
-        expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0, **norm_launches(steps, steps)}
+        expect = {"K1": 0, "K2": 0, "K3": steps * calls, "K5": 0,
+                  **copied(norm_launches(steps, steps))}
         if backend == "ring":
             expect.update(K3=0, K5=(n + 1) * steps * calls)
         ref = lat if backend is None else ref
@@ -4286,7 +4434,7 @@ def dist_sp_inpaint_run(dev, group, pipe, seed, steps):
         torch.cuda.synchronize()
         got = read_launches()
         expect = {"K1": 0, "K2": 0, "K3": steps * INPAINT_CALLS, "K5": 0,
-                  **norm_launches(steps, 2 * steps)}
+                  **copied(norm_launches(steps, 2 * steps))}
         if backend == "ring":
             expect.update(K3=0, K5=(n + 1) * steps * INPAINT_CALLS)
         ref = lat if backend is None else ref
@@ -4478,8 +4626,11 @@ def sp_expect(backend, kernel, calls, norms):
     """Launches of a run of ``calls`` attention calls and ``norms`` norm
     kernel launches per rank: ``kernel`` on one device, or on each Ulysses
     rank (exact local softmax; K3 past 6144 joint tokens); the ring's n + 1 K5
-    steps per call on each rank; every rank's norms."""
+    steps per call on each rank; every rank's norms (no GELU launch but with
+    K1 on one device)."""
     n = 1 if backend is None else SP_RANKS
+    if backend is not None or kernel != "K1":
+        norms = copied(norms)
     expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **scaled(norms, n)}
     if backend == "ring":
         expect["K5"] = n * (n + 1) * calls
@@ -4748,7 +4899,7 @@ def heads_seen():
     seen, real = set(), blocks.attention
 
     def recorded(q, *a, **kw):
-        seen.add(q.shape[1])
+        seen.add((q[0] if isinstance(q, tuple) else q).shape[1])   # the segment route's pair
         return real(q, *a, **kw)
 
     blocks.attention = recorded
@@ -4809,7 +4960,8 @@ def tp_run(dev, label, grid, call, expect, ref, steps, shape, slices, heads=None
 
 def tp_expect(kernel, calls, norms, ranks=1):
     """``calls`` attention calls of ``kernel`` and ``norms`` norm kernel
-    launches on each of ``ranks`` ranks."""
+    launches on each of ``ranks`` ranks (no GELU launch but with K1)."""
+    norms = norms if kernel == "K1" else copied(norms)
     expect = {"K1": 0, "K2": 0, "K3": 0, "K5": 0, **scaled(norms, ranks)}
     expect[kernel] = ranks * calls
     return expect
@@ -5144,7 +5296,7 @@ def tp_phase(dev, steps, cn_steps, seed):
         dev, pipe, conds, reqs, emb, pooled, seed, steps, (1, 2), None,
         tp_expect("K1", calls, norms, 2), ref, slices)
     sp_exp = {"K1": 0, "K2": 0, "K3": 0, "K5": SP_RANKS * (SP_RANKS + 1) * calls,
-              **scaled(norms, SP_RANKS)}
+              **scaled(copied(norms), SP_RANKS)}
     _, launches["tp_serve_sp2"] = tp_serve_pair(
         dev, pipe, conds, reqs, emb, pooled, seed, steps, None, SP_RANKS, sp_exp, ref, slices)
     return launches
@@ -5653,6 +5805,7 @@ def main(argv=None):
     variants, study_launches = variants_phase(dev, sass)
     library = library_yardsticks(dev)
     results.update(norms_phase(dev))
+    joins = joins_phase(dev)
     reference_phase(dev)
     by_path, demo_cache = demo_phase(dev)
     by_path.update(gates_phase(dev, demo_cache))
@@ -5749,6 +5902,11 @@ def main(argv=None):
                          "replaces": "none: XLA fused reptext_tpu/nn/layers.py::modulate"}
     entry["rms_norm"] = {"name": "rms_norm", "route": "cuda", "source": norm_src,
                          "replaces": "none: XLA fused reptext_tpu/nn/layers.py::RMSNorm"}
+    entry["gelu"] = {"name": "gelu_tanh_into", "route": "cuda",
+                     "source": "reptext_tpu_torch/csrc/gelu.cu",
+                     "replaces": "none: XLA fused reptext_tpu/nn/layers.py::gelu_tanh"}
+    results["gelu"] = joins["gelu"]
+    results["K1"]["segments"] = joins["K1"]
     for key in entry:
         paths = {path: counts.get(key, 0) for path, counts in by_path.items()}
         entry[key].update({"launches": sum(paths.values()), "launches_by_path": paths})

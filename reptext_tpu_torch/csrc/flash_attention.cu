@@ -100,6 +100,18 @@
 // RoPE: k is rotated once per call by rope_rotate_kernel into a bf16 scratch
 // copy (k' as above), which a tensor map then streams like an unrotated k;
 // rotating k inside every CTA would re-read the fp32 tables per query tile.
+//
+// K1's segment route: a double block's joint sequence [text; image] arrives
+// as two segments, each of q, k and v a [B, H, rows, D] view with its own
+// strides (the projections' outputs, never concatenated), and out leaves as
+// two (each stream's dense [B, rows, H * D] output). A q row, a k row read by
+// the rotation kernel and an out row pick their segment by whether the joint
+// row is below the split; V takes a tensor map per segment, and since the
+// split is a multiple of kBlockK each 128-key tile comes wholly from one. The
+// rotated k is still one joint scratch. Nothing of the arithmetic changes, so
+// the segment route's out and lse equal the joint route's bit for bit; the
+// other kernels see one segment.
+//
 // The TPU tiling (block_q caps, _pick_chunks, _SINGLE_PASS_MAX_SEQ, K3's
 // 256 x 512 blocks and VMEM scratch) followed from VMEM limits and is not
 // carried over: K3 is this template with the scale on the logits, and the
@@ -226,7 +238,34 @@ struct Params {
   float* l_state;           // [B, H, seq]
   int first;
   int last;
+  // K1's segment route: the joint rows from `split` on are row - split of a
+  // second segment of q, k, v and out, each with its own strides (k read by
+  // the rotation kernel only, v through a second tensor map). split is a
+  // multiple of kBlockK, so a key tile lies in one segment. One segment
+  // (every other call): split beyond every row and key.
+  int split;
+  const __nv_bfloat16* q2;
+  const __nv_bfloat16* k2;
+  const __nv_bfloat16* v2;
+  void* out2;
+  long long q2_sb, q2_sh, q2_ss;
+  long long k2_sb, k2_sh, k2_ss;
+  long long v2_sb, v2_sh, v2_ss;
+  long long o2_sb, o2_sh, o2_ss;
 };
+
+// Row `row` of head h, batch b of q (Q) or of k, in the segment that holds it.
+template <bool Q>
+__device__ __forceinline__ const __nv_bfloat16* operand_row(const Params& p, int b, int h,
+                                                            int row) {
+  if (row < p.split) {
+    return Q ? p.q + b * p.q_sb + h * p.q_sh + (long long)row * p.q_ss
+             : p.k + b * p.k_sb + h * p.k_sh + (long long)row * p.k_ss;
+  }
+  const long long r = row - p.split;
+  return Q ? p.q2 + b * p.q2_sb + h * p.q2_sh + r * p.q2_ss
+           : p.k2 + b * p.k2_sb + h * p.k2_sh + r * p.k2_ss;
+}
 
 __device__ __forceinline__ void load8_rounded(const float* p, float (&f)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -264,16 +303,19 @@ __device__ __forceinline__ void rotate_chunk(float (&lo)[8], float (&hi)[8], con
 }
 
 // k' = bf16(rot(k)) for every row, into a contiguous [B, H, S, D] scratch;
-// one thread per 8-channel chunk pair (d0, d0 + D/2).
+// one thread per 8-channel chunk pair (d0, d0 + D/2). The heads are the
+// grid's fastest axis, so the CTAs in flight read the same rows of every
+// head: whole stretches of memory when k comes as the projections leave it
+// ([B, S, H, D], the segment route), where a head's rows lie H * D apart.
 template <int D>
 __global__ void __launch_bounds__(256) rope_rotate_kernel(const Params p, __nv_bfloat16* k_rot) {
   constexpr int kPairs = D / 16;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int idx = blockIdx.y * blockDim.x + threadIdx.x;
   const int row = idx / kPairs;
   const int d0 = (idx % kPairs) * 8;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.z;
   if (row >= p.seq) return;
-  const __nv_bfloat16* src = p.k + b * p.k_sb + h * p.k_sh + (long long)row * p.k_ss;
+  const __nv_bfloat16* src = operand_row<false>(p, b, h, row);
   float lo[8], hi[8];
   unpack8(*reinterpret_cast<const uint4*>(src + d0), lo);
   unpack8(*reinterpret_cast<const uint4*>(src + d0 + D / 2), hi);
@@ -353,7 +395,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m_run)[2],
 template <int D, bool ROPE, bool ONLINE, int EXP, bool CARRY, bool PIPELINED, bool OUT_F32>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
-                const __grid_constant__ CUtensorMap map_v) {
+                const __grid_constant__ CUtensorMap map_v,
+                const __grid_constant__ CUtensorMap map_v2) {
   using Shape = FwdShape<D>;
   constexpr int kBlocks = Shape::kBlocks;
   constexpr int kChannels = Shape::kChannels;
@@ -416,10 +459,12 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
           tma_load_4d(kt + blk * kBlockBytes, &map_k, full_k(it), blk * kChannels, k0, h, b);
         }
         const uint32_t vt = sm_v + slot(it) * kTileBytes;
+        const bool v_first = k0 < p.split;  // the tile's segment
         mbar_wait(empty_v(it), round(it) ^ 1);
         mbar_arrive_expect_tx(full_v(it), kTileBytes);
         for (int blk = 0; blk < kBlocks; ++blk) {
-          tma_load_4d(vt + blk * kBlockBytes, &map_v, full_v(it), blk * kChannels, k0, h, b);
+          tma_load_4d(vt + blk * kBlockBytes, v_first ? &map_v : &map_v2, full_v(it),
+                      blk * kChannels, v_first ? k0 : k0 - p.split, h, b);
         }
       }
     }
@@ -441,7 +486,6 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
     // ch / kChannels at 16-byte chunk (ch % kChannels) / 8, swizzled
     {
       constexpr int kPairs = D / 16;
-      const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
       uint8_t* q_tile = sm + cw * kWgRows * kRowBytes;
       const auto store = [&](int r, int ch, const float (&f)[8]) {
         const int off = (ch / kChannels) * kQBlockBytes +
@@ -454,7 +498,7 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
         const int row = q0 + r;
         float lo[8], hi[8];
         if (row < seq) {
-          const __nv_bfloat16* src = qb + (long long)row * p.q_ss;
+          const __nv_bfloat16* src = operand_row<true>(p, b, h, row);
           unpack8(*reinterpret_cast<const uint4*>(src + c * 8), lo);
           unpack8(*reinterpret_cast<const uint4*>(src + c * 8 + D / 2), hi);
           rotate_chunk<ROPE, D>(lo, hi, p.cos, p.sin, row, c * 8, p.q_mul);
@@ -659,16 +703,21 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + warp * 16 + g + 8 * r;
       if (row >= seq) continue;
-      const long long orow = b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss + 2 * t;
+      // the row's segment of out
+      const bool first_seg = row < p.split;
+      void* out = first_seg ? p.out : p.out2;
+      const long long orow =
+          first_seg ? b * p.o_sb + h * p.o_sh + (long long)row * p.o_ss + 2 * t
+                    : b * p.o2_sb + h * p.o2_sh + (long long)(row - p.split) * p.o2_ss + 2 * t;
       const float inv = __frcp_rn(l_part[r]);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const float x0 = o[4 * n + 2 * r] * inv, x1 = o[4 * n + 2 * r + 1] * inv;
         if constexpr (OUT_F32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + orow + n * 8) =
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + orow + n * 8) =
               make_float2(x0, x1);
         } else {
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + orow + n * 8) =
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + orow + n * 8) =
               pack_bf16(x0, x1);
         }
       }
@@ -683,13 +732,19 @@ attn_fwd_kernel(const Params p, const __grid_constant__ CUtensorMap map_k,
 template <int D, bool ROPE, bool ONLINE, int EXP = kExp2, bool CARRY = false,
           bool OUT_F32 = false>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  CUtensorMap map_k, map_v;
+  CUtensorMap map_k, map_v, map_v2;
   // a layout no tensor map takes (a stride that is not a positive multiple of
-  // 16 bytes, a misaligned base) is refused here
+  // 16 bytes, a misaligned base) is refused here; V in two segments takes a
+  // map each, bounded by its own rows
+  const bool two = p.split < p.seq_k;
   if (!make_map(&map_k, p.k, batch, p.heads, p.seq_k, p.k_sb, p.k_sh, p.k_ss, D, kBlockK) ||
-      !make_map(&map_v, p.v, batch, p.heads, p.seq_k, p.v_sb, p.v_sh, p.v_ss, D, kBlockK)) {
+      !make_map(&map_v, p.v, batch, p.heads, two ? p.split : p.seq_k, p.v_sb, p.v_sh, p.v_ss, D,
+                kBlockK) ||
+      (two && !make_map(&map_v2, p.v2, batch, p.heads, p.seq_k - p.split, p.v2_sb, p.v2_sh,
+                        p.v2_ss, D, kBlockK))) {
     return cudaErrorInvalidValue;
   }
+  if (!two) map_v2 = map_v;
   // the packed bf16 exponential keeps its pairs in the logits' registers, which
   // leaves ptxas too few registers to overlap the two products: it runs them
   // one after the other either way, so this form takes the loop that says so
@@ -699,7 +754,7 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((p.seq + kBlockQ - 1) / kBlockQ, p.heads, batch);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p, map_k, map_v);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p, map_k, map_v, map_v2);
   return cudaGetLastError();
 }
 
@@ -748,6 +803,15 @@ Params make_params(const void* q, const void* k, const void* v, void* out, void*
   p.l_state = nullptr;
   p.first = 1;
   p.last = 1;
+  p.split = 0x7fffffff;  // one segment
+  p.q2 = nullptr;
+  p.k2 = nullptr;
+  p.v2 = nullptr;
+  p.out2 = nullptr;
+  p.q2_sb = p.q2_sh = p.q2_ss = 0;
+  p.k2_sb = p.k2_sh = p.k2_ss = 0;
+  p.v2_sb = p.v2_sh = p.v2_ss = 0;
+  p.o2_sb = p.o2_sh = p.o2_ss = 0;
   return p;
 }
 
@@ -774,8 +838,11 @@ bool attention_head_dim(int head_dim) {
 // takes). q, k and v are bf16; out is bf16, or fp32 when out_f32 (the fp32
 // entries: the wrapper rounds their inputs to bf16, the kernel writes its fp32
 // accumulator divided by the row sum). With rope, k_rot is a contiguous
-// [B, H, S, D] bf16 scratch the caller allocates. Returns the cudaError_t of
-// the launches (0 on success).
+// [B, H, S, D] bf16 scratch the caller allocates. With rope, split in (0, seq)
+// and a multiple of 128 gives the joint sequence as two segments: rows below
+// split at q, k, v and out, the rest at q2, k2, v2 and out2 (strides *2_*),
+// each [B, H, rows, D]; split == seq is one segment (q2 ... unused). Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int reptext_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* cos_t, const void* sin_t,
     void* k_rot, void* out, void* lse, int batch, int heads, int seq, int head_dim,
@@ -783,20 +850,39 @@ extern "C" int reptext_flash_attention_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    float scale, int rope, int online, int out_f32, void* stream) {
+    float scale, int rope, int online, int out_f32,
+    int split, const void* q2, const void* k2, const void* v2, void* out2,
+    long long q2_sb, long long q2_sh, long long q2_ss,
+    long long k2_sb, long long k2_sh, long long k2_ss,
+    long long v2_sb, long long v2_sh, long long v2_ss,
+    long long o2_sb, long long o2_sh, long long o2_ss, void* stream) {
+  const bool two = split != seq;
   if (seq < 1 || batch < 1 || heads < 1 || !attention_head_dim(head_dim) ||
-      (rope && k_rot == nullptr)) {
+      (rope && k_rot == nullptr) ||
+      (two && (!rope || split < 1 || split > seq || split % kBlockK != 0 || q2 == nullptr ||
+               k2 == nullptr || v2 == nullptr || out2 == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p = make_params(q, k, v, out, lse, heads, seq, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                          v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale);
   fold_scale(p);
+  if (two) {
+    p.split = split;
+    p.q2 = static_cast<const __nv_bfloat16*>(q2);
+    p.k2 = static_cast<const __nv_bfloat16*>(k2);
+    p.v2 = static_cast<const __nv_bfloat16*>(v2);
+    p.out2 = out2;
+    p.q2_sb = q2_sb; p.q2_sh = q2_sh; p.q2_ss = q2_ss;
+    p.k2_sb = k2_sb; p.k2_sh = k2_sh; p.k2_ss = k2_ss;
+    p.v2_sb = v2_sb; p.v2_sh = v2_sh; p.v2_ss = v2_ss;
+    p.o2_sb = o2_sb; p.o2_sh = o2_sh; p.o2_ss = o2_ss;
+  }
   p.cos = static_cast<const float*>(cos_t);
   p.sin = static_cast<const float*>(sin_t);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rope) {
-    dim3 grid((seq * (head_dim / 16) + 255) / 256, heads, batch);
+    dim3 grid(heads, (seq * (head_dim / 16) + 255) / 256, batch);
     __nv_bfloat16* k_out = static_cast<__nv_bfloat16*>(k_rot);
     if (head_dim == 32) {
       rope_rotate_kernel<32><<<grid, 256, 0, s>>>(p, k_out);

@@ -21,6 +21,16 @@ Under SP the queries are the rank's own image tokens and the ip tokens are
 whole on every rank. Given no ``ip_tokens`` such a block skips the path, so
 pipelines that share the module and pass none run as before.
 
+Both blocks join their streams ([text; image]) and, in the single block,
+their branches ([attention; MLP] for ``proj_out``) in place where
+``ops/attention.py::joins_in_place`` says so (K1 runs, no SP backend, no
+gradient recorded, and for the double block's text and image segments a text
+of whole 128-token tiles): the double block hands K1 the
+text and image q, k and v as they are and gets each stream's output dense;
+the single block allocates ``proj_out``'s input once, K1 writes the attention
+columns and ``ops/gelu.py`` the MLP's. Elsewhere they concatenate, as the JAX
+blocks do.
+
 Under tensor parallelism (``parallel/partition.py::shard_module``) a block
 is a rank's copy: ``num_heads`` is its share of the heads, its q/k/v, MLP
 and FF in-projections are column-parallel and its out-projections
@@ -49,7 +59,8 @@ from reptext_tpu_torch.nn.layers import (
     gelu_tanh,
     modulate,
 )
-from reptext_tpu_torch.ops.attention import attention
+from reptext_tpu_torch.ops.attention import attention, joins_in_place
+from reptext_tpu_torch.ops.gelu import gelu_tanh_into
 from reptext_tpu_torch.ops.rope import apply_rope_half
 from reptext_tpu_torch.parallel.partition import copy_to_tp, gather_from_tp
 from reptext_tpu_torch.parallel.sequence import JOINT_SP_ATTENTION
@@ -190,15 +201,21 @@ class JointTransformerBlock(TensorParallelBlock):
             ip_attn = scale.to(ip_attn.dtype) * ip_attn
 
         # joint sequence [text; image]; RoPE is applied inside attention
-        q = torch.cat([q_t, q_i], dim=2)
-        k = torch.cat([k_t, k_i], dim=2)
-        v = torch.cat([v_t, v_i], dim=2)
-        if attention_backend is None:
-            attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
-            txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
+        if joins_in_place(s_txt + hidden_states.shape[1], attention_backend,
+                          q_t, q_i, k_t, k_i, v_t, v_i, s_txt=s_txt):
+            # the segments as they are; each stream's output comes back dense
+            txt_attn, img_attn = (merge_heads(x) for x in attention(
+                (q_t, q_i), (k_t, k_i), (v_t, v_i), rope_cos, rope_sin))
         else:
-            txt_attn, img_attn = sp_joint_attention(attention_backend, q, k, v, rope_cos,
-                                                    rope_sin, s_txt)
+            q = torch.cat([q_t, q_i], dim=2)
+            k = torch.cat([k_t, k_i], dim=2)
+            v = torch.cat([v_t, v_i], dim=2)
+            if attention_backend is None:
+                attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
+                txt_attn, img_attn = attn[:, :s_txt], attn[:, s_txt:]
+            else:
+                txt_attn, img_attn = sp_joint_attention(attention_backend, q, k, v, rope_cos,
+                                                        rope_sin, s_txt)
 
         hidden_states = hidden_states + gate_msa[:, None, :] * self.to_out(img_attn)
         ff_out = self.ff(self.tp_enter(modulate(hidden_states, shift_mlp, scale_mlp)))
@@ -242,10 +259,20 @@ class SingleTransformerBlock(TensorParallelBlock):
         self.check_backend(attention_backend)
         normed, gate = self.norm(hidden_states, temb)
         normed = self.tp_enter(normed)
-        mlp = gelu_tanh(self.proj_mlp(normed))
+        mlp = self.proj_mlp(normed)
         q = self.head_norm(self.norm_q, split_heads(self.to_q(normed), h))
         k = self.head_norm(self.norm_k, split_heads(self.to_k(normed), h))
         v = split_heads(self.to_v(normed), h)
+        if joins_in_place(q.shape[2], attention_backend, q, k, v, mlp):
+            # proj_out's input, [attention; MLP], filled by its two producers
+            inner = h * q.shape[3]
+            buf = mlp.new_empty((*mlp.shape[:2], inner + mlp.shape[2]))
+            gelu_tanh_into(mlp, buf[..., inner:])
+            del mlp
+            attention(q, k, v, rope_cos, rope_sin, out=split_heads(buf[..., :inner], h))
+            out = self.proj_out(buf)
+            return hidden_states + gate[:, None, :] * out
+        mlp = gelu_tanh(mlp)
         if attention_backend is None:
             attn = merge_heads(attention(q, k, v, rope_cos, rope_sin))
         else:

@@ -128,7 +128,8 @@ def load() -> ctypes.CDLL:
             c_p, c_i, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fn = lib.reptext_flash_attention_fwd
             fn.argtypes = ([c_p] * 8 + [c_i] * 4 + [c_ll] * 12
-                           + [ctypes.c_float, c_i, c_i, c_i, c_p])
+                           + [ctypes.c_float, c_i, c_i, c_i]
+                           + [c_i] + [c_p] * 4 + [c_ll] * 12 + [c_p])
             fn.restype = c_i
             fn = lib.reptext_flash_attention_streaming_fwd
             fn.argtypes = [c_p] * 5 + [c_i] * 4 + [c_ll] * 12 + [ctypes.c_float, c_i, c_i, c_p]
@@ -150,6 +151,9 @@ def load() -> ctypes.CDLL:
             fn.restype = c_i
             fn = lib.reptext_rms_norm
             fn.argtypes = [c_p] * 3 + [c_ll] + [c_i] * 4 + [ctypes.c_float] * 2 + [c_p]
+            fn.restype = c_i
+            fn = lib.reptext_gelu_tanh
+            fn.argtypes = [c_p] * 2 + [c_ll] + [c_i] + [c_ll] * 2 + [c_i, c_p]
             fn.restype = c_i
             _lib = lib
         return _lib

@@ -44,6 +44,13 @@ the call returns its input's dtype as the JAX kernels do. This is the port's
 precision for an fp32 call; what Mosaic does with fp32 dots on the TPU is not
 claimed either way. fp16 is refused (exp(+/-43) overflows it).
 
+K1's segment route (:func:`flash_attention_rope` with (text, image) pairs,
+or with ``out=``): a double block's joint sequence read as two segments and
+each stream's output written dense, or a single block's output written into
+the attention columns of its ``proj_out`` input (``ops/attention.py``'s join
+rule decides when). It changes no arithmetic: out and lse are the joint
+route's bit for bit. It takes no gradient.
+
 A CUDA tensor goes to the kernels or the call raises. Only a CPU tensor takes
 the plain PyTorch versions beside them, which compute the same things with
 the same rounding points; ``chip_smoke.py`` holds the kernels against them on
@@ -62,7 +69,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -81,6 +88,13 @@ _SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # Above this joint length the JAX package takes its streaming kernel (K3).
 _SINGLE_PASS_MAX_SEQ = 6144
+# K1's key tile: a joint sequence given to K1 as two segments changes segment
+# on a tile's edge, so the first segment is a whole number of them.
+SEGMENT_ALIGN = 128
+
+
+# A joint operand: one [B, H, S, D] tensor, or its (text, image) segments.
+Operand = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -258,20 +272,56 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
 
 
-def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 (tables given), K2, or K3 (``streaming``) on CUDA tensors."""
+def segments(x: Operand) -> Tuple[torch.Tensor, ...]:
+    """A joint operand as its segments along the sequence: a tensor is one, a
+    (text, image) pair two."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def joint_operand(x: Operand) -> torch.Tensor:
+    """The joint [B, H, S, D] tensor of an operand: its segments concatenated."""
+    return torch.cat(x, dim=2) if isinstance(x, (tuple, list)) else x
+
+
+def like_segments(joint: torch.Tensor, like: Operand) -> Operand:
+    """``joint`` [B, H, S, D] cut as ``like`` is: itself, or views of the
+    segments ``like`` has."""
+    if not isinstance(like, (tuple, list)):
+        return joint
+    return tuple(joint.split([x.shape[2] for x in like], dim=2))
+
+
+def _launch(q: Operand, k: Operand, v: Operand, rope_cos, rope_sin, online: bool,
+            streaming: bool = False, out: Optional[torch.Tensor] = None
+            ) -> Tuple[Operand, torch.Tensor]:
+    """K1 (tables given), K2, or K3 (``streaming``) on CUDA tensors. K1 takes
+    q, k and v as one segment or two (text, image) whose first is a whole
+    number of key tiles, and writes out as new [B, S_seg, H, D] memory seen as
+    [B, H, S_seg, D], one tensor or a pair; one segment's may be ``out``
+    instead, any [B, H, S, D] view the kernel takes."""
     from reptext_tpu_torch.ops import _build
 
-    b, h, s, d = q.shape
+    qs, ks, vs = segments(q), segments(k), segments(v)
+    lens = [x.shape[2] for x in qs]
+    b, h, _, d = qs[0].shape
+    s = sum(lens)
     check_head_dim(d)
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check(name, x, (b, h, s, d))
-        if x.device != q.device or x.dtype != q.dtype:
-            raise ValueError(f"{name} is {x.dtype} on {x.device}, q {q.dtype} on {q.device}")
+    if not (len(ks) == len(vs) == len(qs) <= 2):
+        raise ValueError("q, k and v come as one segment each or as two each")
+    for name, parts in (("q", qs), ("k", ks), ("v", vs)):
+        for x, n in zip(parts, lens):
+            _check(name, x, (b, h, n, d))
+            if x.device != qs[0].device or x.dtype != qs[0].dtype:
+                raise ValueError(f"{name} is {x.dtype} on {x.device}, q {qs[0].dtype} on "
+                                 f"{qs[0].device}")
     rope = rope_cos is not None
     if rope and streaming:
         raise ValueError("the streaming kernel takes q and k already rotated")
+    if len(qs) == 2 and not (rope and lens[0] % SEGMENT_ALIGN == 0 and out is None):
+        raise ValueError(f"two segments take K1, a first segment of whole {SEGMENT_ALIGN}-key "
+                         f"tiles and no out (got {lens[0]} rows, tables given: {rope}, out "
+                         f"given: {out is not None})")
+    q = qs[0]
     if rope:
         for name, t in (("rope_cos", rope_cos), ("rope_sin", rope_sin)):
             if (t.device != q.device or t.dtype != torch.float32
@@ -280,29 +330,43 @@ def _launch(q, k, v, rope_cos, rope_sin, online: bool, streaming: bool = False
                                  f"[{s}, {d}] tensor on {q.device}")
     lib = _build.load()
     out_dtype = q.dtype
-    q, k, v = _bf16(q), _bf16(k), _bf16(v)
+    qs, ks, vs = (tuple(_bf16(x) for x in parts) for parts in (qs, ks, vs))
     # the kernel rotates k once per call into this scratch (see the source note)
-    k_rot = torch.empty((b, h, s, d), dtype=k.dtype, device=k.device) if rope else None
-    # out is laid out [B, S, H, D] and returned as a [B, H, S, D] view, so the
-    # caller's head merge is a free reshape.
-    out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
+    k_rot = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device) if rope else None
+    if out is None:
+        # out is laid out [B, S, H, D] and returned as a [B, H, S, D] view, so
+        # the caller's head merge is a free reshape.
+        outs = tuple(torch.empty((b, n, h, d), dtype=out_dtype, device=q.device).transpose(1, 2)
+                     for n in lens)
+        out = outs if len(outs) == 2 else outs[0]
+    else:
+        _check("out", out, (b, h, s, d), (out_dtype,))
+        if out.device != q.device:
+            raise ValueError(f"out is on {out.device}, q on {q.device}")
+        outs = (out,)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    strides = tuple(st for x in (qs[0], ks[0], vs[0], outs[0]) for st in x.stride()[:3])
     if streaming:
         err = time_launch(
             lib.reptext_flash_attention_streaming_fwd,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, d,
-            *strides, 1.0 / math.sqrt(d), int(online), int(out_dtype == torch.float32), stream)
+            qs[0].data_ptr(), ks[0].data_ptr(), vs[0].data_ptr(), outs[0].data_ptr(),
+            lse.data_ptr(), b, h, s, d, *strides, 1.0 / math.sqrt(d), int(online),
+            int(out_dtype == torch.float32), stream)
     else:
+        # the second segment (K1's segment route), or nothing at split == s
+        second = [x[1] if len(x) == 2 else None for x in (qs, ks, vs, outs)]
         err = time_launch(
             lib.reptext_flash_attention_fwd,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            qs[0].data_ptr(), ks[0].data_ptr(), vs[0].data_ptr(),
             rope_cos.data_ptr() if rope else None, rope_sin.data_ptr() if rope else None,
-            k_rot.data_ptr() if rope else None, out.data_ptr(), lse.data_ptr(), b, h, s, d,
+            k_rot.data_ptr() if rope else None, outs[0].data_ptr(), lse.data_ptr(), b, h, s, d,
             *strides, 1.0 / math.sqrt(d), int(rope), int(online),
-            int(out_dtype == torch.float32), stream)
+            int(out_dtype == torch.float32), lens[0],
+            *(None if x is None else x.data_ptr() for x in second),
+            *(st for x in second for st in (x.stride()[:3] if x is not None else (0, 0, 0))),
+            stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
     return out, lse
@@ -440,6 +504,29 @@ class _FlashAttention(torch.autograd.Function):
         return (*flash_attention_backward(q, k, v, out, lse, g, ctx.online), None, None)
 
 
+def _rope_forward(q: Operand, k: Operand, v: Operand, rope_cos, rope_sin, online: bool,
+                  out: Optional[torch.Tensor] = None) -> Tuple[Operand, torch.Tensor]:
+    """The RoPE entry's forward (see :func:`flash_attention_rope`): K1 on
+    CUDA tensors, in segments or into ``out`` as given; elsewhere, or where
+    K1 does not run, the segments joined first, the result cut as q is or
+    copied into ``out``."""
+    like = q
+    s = sum(x.shape[2] for x in segments(q))
+    if rope_fused(s) and segments(q)[0].device.type == "cuda":
+        result = _launch(q, k, v, rope_cos, rope_sin, online, out=out)
+        count_launch(flash_attention_rope)
+        return result
+    q, k, v = (joint_operand(x) for x in (q, k, v))
+    if rope_fused(s):
+        joint, lse = flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
+    else:
+        joint, lse = _forward(apply_rope_half(q, rope_cos, rope_sin),
+                              apply_rope_half(k, rope_cos, rope_sin), v, online, streams(s))
+    if out is not None:
+        return out.copy_(joint), lse
+    return like_segments(joint, like), lse
+
+
 class _FlashAttentionRope(torch.autograd.Function):
     """K1 forward, or (past ``_SINGLE_PASS_MAX_SEQ`` or at one chunk) the fp32
     rotation then K3 or K2; backward as ``_rope_bwd``: rotate q and k with the
@@ -449,15 +536,7 @@ class _FlashAttentionRope(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rope_cos, rope_sin, online: bool):
-        s = q.shape[2]
-        if not rope_fused(s):
-            out, lse = _forward(apply_rope_half(q, rope_cos, rope_sin),
-                                apply_rope_half(k, rope_cos, rope_sin), v, online, streams(s))
-        elif q.device.type == "cpu":
-            out, lse = flash_attention_rope_plain(q, k, v, rope_cos, rope_sin, online)
-        else:
-            out, lse = _launch(q, k, v, rope_cos, rope_sin, online)
-            count_launch(flash_attention_rope)
+        out, lse = _rope_forward(q, k, v, rope_cos, rope_sin, online)
         ctx.online = online
         ctx.save_for_backward(q, k, v, rope_cos, rope_sin, out, lse)
         ctx.mark_non_differentiable(lse)
@@ -474,13 +553,30 @@ class _FlashAttentionRope(torch.autograd.Function):
 
 
 @span_calls("attention")
-def flash_attention_rope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+def flash_attention_rope(q: Operand, k: Operand, v: Operand,
                          rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                         online: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                         online: Optional[bool] = None, out: Optional[torch.Tensor] = None
+                         ) -> Tuple[Operand, torch.Tensor]:
     """RoPE attention, q/k unrotated (half-split): K1, or the rotation then K3
     or K2 (see the module note). Returns (out, lse); gradients flow to q, k
-    and v through K4. ``.launches`` counts K1's launches."""
-    return _FlashAttentionRope.apply(q, k, v, rope_cos, rope_sin, _online(online))
+    and v through K4. ``.launches`` counts K1's launches.
+
+    K1's segment route: q, k and v may each be a (text, image) pair of
+    [B, H, S_seg, D] tensors, the joint sequence never concatenated; out is
+    then the pair of each segment's output, new [B, S_seg, H, D] memory seen
+    as [B, H, S_seg, D]. Or, given one sequence, ``out`` ([B, H, S, D], any
+    strides the kernel takes) is written and returned. On the card K1 takes
+    the segments where it runs (the first a whole number of ``SEGMENT_ALIGN``
+    keys, else it raises); where it does not, and on the CPU, they are joined
+    first. Neither takes a gradient: such a call where autograd records
+    raises."""
+    if out is None and not isinstance(q, (tuple, list)):
+        return _FlashAttentionRope.apply(q, k, v, rope_cos, rope_sin, _online(online))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (
+            *segments(q), *segments(k), *segments(v))):
+        raise ValueError("segments and out= take no gradient: call them where autograd "
+                         "records nothing")
+    return _rope_forward(q, k, v, rope_cos, rope_sin, _online(online), out)
 
 
 @span_calls("attention")

@@ -31,9 +31,12 @@ that run as threads each get their own) and the request's spans form a tree:
   ns of the kernel's launch call (:func:`time_launch`), where the host waits
   whenever the device's launch queue is full.
 
-Beside the spans, one counter without a span: the calls of each norm entry
+Beside the spans, two counters without a span, a dict increment a call and
+no CUDA event, since a step makes hundreds: the calls of each norm entry
 (``ops/norms.py``'s ``modulate`` and ``rms_norm``, :func:`count_norm_call`),
-a dict increment a call and no CUDA event, since a step makes hundreds.
+and the blocks' joins (:func:`count_join`): each double and single block
+that joined its streams and branches in place or by copies
+(``ops/attention.py::joins_in_place``).
 
 Each span holds its parent's index, its host start and end in ns on
 ``time.time_ns()``'s clock, which is the clock of ``torch.profiler``'s events
@@ -216,6 +219,7 @@ class SpanRecorder:
         self.spans: List[_Span] = []
         self.open: List[int] = []
         self.norm_calls: Dict[str, int] = {}
+        self.joins: Dict[str, int] = {"inplace": 0, "copied": 0}
 
     def event(self):
         ev = torch.cuda.Event(enable_timing=True)
@@ -240,8 +244,9 @@ class SpanRecorder:
         second net), ``velocity_cache_skips`` (steps that ran no FLUX: both samplers run
         it on every step they compute), per attention entry its ``calls``,
         ``host_ns`` (entering the entry to its return) and ``launch_ns`` (the
-        part spent in kernel launch calls; 0 on the CPU), and ``norm``: the
-        calls of each norm entry, by its name."""
+        part spent in kernel launch calls; 0 on the CPU), ``norm``: the
+        calls of each norm entry, by its name, and ``joins``: the blocks that
+        joined in place (``inplace``) and by copies (``copied``)."""
         children: Dict[int, List[_Span]] = {}
         for s in self.spans:
             children.setdefault(s.parent, []).append(s)
@@ -262,7 +267,7 @@ class SpanRecorder:
                     "controlnet_inpaint_steps": sum(s["name"] == "controlnet_inpaint"
                                                     for s in spans),
                     "velocity_cache_skips": len(set(steps) - ran), "attention": attention,
-                    "norm": dict(self.norm_calls)}
+                    "norm": dict(self.norm_calls), "joins": dict(self.joins)}
         return {"profiled": self.profiled, "spans": spans, "counters": counters}
 
 
@@ -327,6 +332,14 @@ def count_norm_call(entry: str) -> None:
     rec = getattr(_local, "recorder", None)
     if rec is not None:
         rec.norm_calls[entry] = rec.norm_calls.get(entry, 0) + 1
+
+
+def count_join(in_place: bool) -> None:
+    """One block's joins, in place or by copies, under the thread's recorder
+    (its ``joins`` counter); nothing when tracing is off."""
+    rec = getattr(_local, "recorder", None)
+    if rec is not None:
+        rec.joins["inplace" if in_place else "copied"] += 1
 
 
 def time_launch(launch: Callable, *args):
